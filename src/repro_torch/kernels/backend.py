@@ -1,0 +1,52 @@
+"""Device resolution and the one kernel-routing rule.
+
+* Every public entry point of the port takes ``device=None``, and
+  ``None`` means ``"cuda"``.  On a machine without a card that raises:
+  the port never moves to the CPU on its own.  Tests pass
+  ``device="cpu"``.
+* A kernel wrapper launches its CUDA kernel for tensors on a CUDA device
+  and runs the kernel's plain PyTorch version for tensors on the CPU.
+  Nothing else selects between the two: there is no fallback from the
+  kernel to the plain version and no switch that forces the plain
+  version on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch route")
+    return dev
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on a CUDA device (launch the kernel),
+    False when they lie on the CPU (run the plain version).  Mixed or
+    other devices raise."""
+    types = {t.device.type for t in tensors}
+    if types == {"cuda"}:
+        return True
+    if types == {"cpu"}:
+        return False
+    raise ValueError(f"kernel inputs must all lie on one CUDA device or "
+                     f"all on the CPU, got {sorted(types)}")
+
+
+def check_inputs(shapes: dict) -> None:
+    """Raise unless every ``label: (tensor, shape)`` entry is an int32,
+    contiguous tensor of that shape: what a kernel's pointers assume."""
+    for label, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{label} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{label} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{label} must be contiguous")

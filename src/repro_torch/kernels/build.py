@@ -1,0 +1,108 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Each source under ``csrc/`` is compiled on its own into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), for ``sm_90a``.  Libraries land in ``build/repro_torch_kernels/``
+at the root of the checkout, named by a digest of their source and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported: :func:`kernel` builds at
+first use, and :func:`build` builds ahead of time, every source at
+once.  A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Iterable
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: kernel name -> (source file, C entry, argument types); every entry
+#: takes its tensors' data pointers, then its int sizes and options,
+#: then the CUDA stream, and returns ``cudaGetLastError()``.
+KERNELS = {
+    "mesi_tick": ("mesi_tick.cu", "mesi_tick_launch",
+                  [_P] * 9 + [_I] * 7 + [_P]),
+    "chunk_tick": ("chunk_tick.cu", "chunk_tick_launch",
+                   [_P] * 9 + [_I] * 8 + [_P]),
+}
+
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "on a machine with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> pathlib.Path:
+    source = _CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build(names: Iterable[str] = tuple(KERNELS),
+          ptxas_verbose: bool = False) -> dict:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    per source, all started together.  Returns ``{name: compiler
+    output}`` for the kernels it compiled (with ``ptxas_verbose`` the
+    output lists each kernel's registers, shared memory and spills)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS,
+               *(("-Xptxas", "-v") if ptxas_verbose else ()),
+               "-o", str(tmp), str(_CSRC / KERNELS[name][0])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out)
+    logs = {}
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        try:
+            log, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            failed.append(f"{name}: nvcc timed out\n{log}")
+            continue
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        logs[name] = log
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def kernel(name: str):
+    """The ctypes entry of one kernel, built and loaded at first use."""
+    entry = _LOADED.get(name)
+    if entry is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _, symbol, argtypes = KERNELS[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        entry = _LOADED[name] = (lib, fn)   # the library outlives fn
+    return entry[1]

@@ -1,0 +1,544 @@
+"""Tick-based discrete-event simulation engine (paper SS8) on one device.
+
+Every public function runs a whole evaluation grid - variant x cell x
+run, where a cell is one scenario or one workload - as batches of
+independent episodes on one device, eagerly.  Cells that share a
+static configuration (everything but volatility, activity, rates,
+locality and seed) and a run count form one batch of ``cells x runs``
+simulations; the broadcast baseline and the coherent variant run one
+after the other over the same cells.
+
+Per-tick work takes one of two routes (``resolve_tick_backend``):
+
+* ``kernel`` - the hand-written CUDA kernels: per step one
+  ``mesi_tick_`` launch and, with the content plane, one
+  ``chunk_tick_`` launch fed that step's ``miss`` output.  It covers
+  lazy, eager and access_count without K-staleness enforcement, and is
+  the default for them.  Staleness diagnostics are not tracked there
+  and report the ``-1`` sentinel.  On CPU tensors the same route runs
+  the kernels' plain versions.
+* ``scan`` - the batched ACS state machine of ``repro_torch.core.acs``.
+  Broadcast (always, including every baseline), TTL and K-staleness
+  take it; ``tick_backend="scan"`` or ``REPRO_SIM_TICK=scan`` forces
+  it for the others.
+
+Random numbers: each cell draws from its own ``torch.Generator``
+seeded with the cell's seed, and its runs are the rows of that
+generator's batched draws, so both routes consume the same stream and
+a cell's results do not depend on the other cells of its grid.  A
+run's draws do depend on the number of runs beside it: the JAX
+reference keys run ``r`` by ``fold_in(seed, r)``, which makes every
+run independent of the grid around it, and the threefry port restores
+that.  Until then the port matches the reference statistically, and
+exactly when it is handed the reference's action tensors through the
+``actions=`` argument of ``run_scenario`` / ``run_workload``.
+
+Population statistics (mean, population std) are reported exactly as
+the paper does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.content.chunks import BYTES_PER_TOKEN
+from repro_torch.core import acs
+from repro_torch.core.states import MESIState
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.chunk_diff import N_CHUNK_COUNTERS, chunk_tick_
+from repro_torch.kernels.mesi_transition import N_COUNTERS, mesi_tick_
+from repro_torch.sim.scenarios import ScenarioConfig
+
+_KERNEL_STRATEGIES = (acs.LAZY, acs.EAGER, acs.ACCESS_COUNT)
+_I = int(MESIState.I)
+_I32 = torch.int32
+
+
+def _kernel_tick_supported(cfg: acs.ACSConfig) -> bool:
+    """The kernels implement the invalidation strategies (lazy / eager /
+    access-count) without K-staleness enforcement; broadcast and TTL
+    are bulk-inject paths with no per-agent kernel."""
+    return cfg.strategy in _KERNEL_STRATEGIES and cfg.max_stale_steps == 0
+
+
+def resolve_tick_backend(cfg: acs.ACSConfig,
+                         tick_backend: Optional[str] = None) -> str:
+    """'kernel' | 'scan' for episodes of ``cfg``.  An explicit
+    ``tick_backend`` wins over ``REPRO_SIM_TICK``; either may force
+    ``scan``, and a request for ``kernel`` on a configuration the
+    kernels do not cover gives ``scan``."""
+    requested = tick_backend or os.environ.get("REPRO_SIM_TICK", "auto")
+    if requested not in ("auto", "kernel", "scan"):
+        raise ValueError(f"tick backend must be auto|kernel|scan, got "
+                         f"{requested!r}")
+    if requested == "scan" or not _kernel_tick_supported(cfg):
+        return "scan"
+    return "kernel"
+
+
+# ---------------------------------------------------------------------------
+# Result containers.
+
+
+@dataclasses.dataclass(frozen=True)
+class RunStats:
+    """Per-configuration population statistics over n_runs.
+
+    ``max_staleness_max`` / ``max_version_lag_max`` are ``-1`` when the
+    episodes ran on the kernel route, which does not track staleness
+    diagnostics (use ``tick_backend="scan"`` to audit them).
+    """
+
+    name: str
+    strategy: str
+    n_runs: int
+    total_tokens_mean: float
+    total_tokens_std: float
+    sync_tokens_mean: float
+    sync_tokens_std: float
+    fetch_tokens_mean: float
+    signal_tokens_mean: float
+    push_tokens_mean: float
+    broadcast_tokens_mean: float
+    cache_hit_rate_mean: float
+    cache_hit_rate_std: float
+    n_fetches_mean: float
+    n_writes_mean: float
+    n_reads_mean: float
+    max_staleness_max: int
+    max_version_lag_max: int
+    #: worst staleness a served cache hit carried (post-revalidation);
+    #: ``-1`` on the kernel route (not tracked there).
+    max_consumed_staleness_max: int = -1
+    #: content-plane bytes-on-wire (``-1`` when ``chunk_tokens == 0``):
+    #: delta = what chunk coherence shipped, full = what whole-artifact
+    #: lazy would ship for the same miss sequence.
+    delta_bytes_mean: float = -1.0
+    full_bytes_mean: float = -1.0
+    n_chunks_fetched_mean: float = -1.0
+
+    def savings_vs(self, baseline: "RunStats") -> float:
+        return 1.0 - self.total_tokens_mean / baseline.total_tokens_mean
+
+    def savings_std_vs(self, baseline: "RunStats",
+                       per_run_tokens: np.ndarray,
+                       baseline_mean: Optional[float] = None) -> float:
+        b = baseline.total_tokens_mean if baseline_mean is None \
+            else baseline_mean
+        return float(np.std(1.0 - per_run_tokens / b))
+
+
+@dataclasses.dataclass(frozen=True)
+class RunResult:
+    stats: RunStats
+    per_run_total_tokens: np.ndarray  # (n_runs,)
+    per_run_chr: np.ndarray
+
+
+@dataclasses.dataclass(frozen=True)
+class Comparison:
+    """Coherent strategy vs broadcast baseline for one scenario."""
+
+    scenario: str
+    volatility: float
+    strategy: str
+    broadcast: RunStats
+    coherent: RunStats
+    savings_mean: float
+    savings_std: float
+    crr: float           # Coherence Reduction Ratio (SS8.2)
+    chr_mean: float
+    chr_std: float
+
+
+# ---------------------------------------------------------------------------
+# Episode batches.
+
+
+class _Cell(NamedTuple):
+    """One scenario or workload of a grid batch."""
+
+    seed: int
+    volatility: float
+    p_act: float
+    locality: float
+    rates: Optional[acs.RateMatrices] = None  # one workload's (n,)/(n, m)
+
+
+def _scenario_cell(scn: ScenarioConfig) -> _Cell:
+    return _Cell(scn.seed, scn.acs.volatility, scn.acs.p_act,
+                 scn.acs.write_locality)
+
+
+def _workload_cell(w, device) -> _Cell:
+    return _Cell(w.seed, w.acs.volatility, w.acs.p_act, w.write_locality,
+                 w.rates(device))
+
+
+def _step_source(cfg: acs.ACSConfig, cells: Sequence[_Cell], n_runs: int,
+                 device, actions=None):
+    """``step -> (acts, arts, writes, write_chunks)`` for the batch of
+    ``len(cells) * n_runs`` simulations: fresh per-cell generators, or
+    the given (S, B, n[, C]) ``actions``."""
+    if actions is not None:
+        given = [None if x is None else torch.as_tensor(x, device=device)
+                 for x in actions]
+        return lambda step: tuple(None if x is None else x[step]
+                                  for x in given)
+    gens = [torch.Generator(device=device).manual_seed(c.seed)
+            for c in cells]
+
+    def source(step):
+        parts = [acs.draw_step(cfg, g, n_runs, c.volatility, c.p_act,
+                               c.rates, c.locality)
+                 for g, c in zip(gens, cells)]
+        return tuple(None if parts[0][i] is None
+                     else torch.cat([p[i] for p in parts])
+                     for i in range(4))
+
+    return source
+
+
+def _episodes_scan(cfg: acs.ACSConfig, source, cells: Sequence[_Cell],
+                   n_runs: int, device) -> dict:
+    """The batch through the ACS state machine; metrics dict of (B,)."""
+    B = len(cells) * n_runs
+    p_acts = torch.tensor([c.p_act for c in cells], dtype=torch.float32,
+                          device=device).repeat_interleave(n_runs)
+    rates = None
+    if cells[0].rates is not None:
+        rates = acs.RateMatrices(*(
+            torch.cat([leaf.expand((n_runs,) + tuple(leaf.shape))
+                       for leaf in leaves])
+            for leaves in zip(*(c.rates for c in cells))))
+    arrays = acs.init_arrays(cfg, B, device)
+    met = acs.init_metrics(B, device)
+    for step in range(cfg.n_steps):
+        arrays, met = acs.tick_(cfg, arrays, met, step, source(step),
+                                p_act=p_acts, rates=rates)
+    out = {
+        "total_tokens": met.total_tokens,
+        "sync_tokens": met.sync_tokens,
+        "fetch_tokens": met.fetch_tokens,
+        "signal_tokens": met.signal_tokens,
+        "push_tokens": met.push_tokens,
+        "broadcast_tokens": met.broadcast_tokens,
+        "cache_hit_rate": met.cache_hit_rate,
+        "n_fetches": met.n_fetches,
+        "n_writes": met.n_writes,
+        "n_reads": met.n_reads,
+        "max_staleness": met.max_staleness,
+        "max_version_lag": met.max_version_lag,
+        "max_consumed_staleness": met.max_consumed_staleness,
+    }
+    if acs.content_enabled(cfg):
+        out["delta_bytes"] = met.delta_bytes
+        out["full_bytes"] = met.full_bytes
+        out["n_chunks_fetched"] = met.n_chunks_fetched
+    return out
+
+
+def _episodes_kernel(cfg: acs.ACSConfig, source, B: int, device) -> dict:
+    """The batch through the MESI tick kernel and, with the content
+    plane, the chunk tick kernel fed the same step's ``miss``; metrics
+    dict of (B,).  The kernels update the state buffers in place, so
+    they are allocated once for the episode."""
+    n, m = cfg.n_agents, cfg.n_artifacts
+    content = acs.content_enabled(cfg)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=_I32, device=device)
+
+    state = torch.full((B, n, m), _I, dtype=_I32, device=device)
+    version = torch.ones((B, m), dtype=_I32, device=device)
+    sync, reads = zeros(B, n, m), zeros(B, n, m)
+    counters, n_reads, n_writes = zeros(B, N_COUNTERS), zeros(B), zeros(B)
+    if content:
+        C = acs.content_chunks(cfg)
+        cv = torch.ones((B, m, C), dtype=_I32, device=device)
+        cs, dirty = zeros(B, n, m, C), zeros(B, m, C)
+        ccounters = zeros(B, N_CHUNK_COUNTERS)
+    access_k = cfg.access_k if cfg.strategy == acs.ACCESS_COUNT else 0
+    for step in range(cfg.n_steps):
+        acts, arts, writes, wchunks = source(step)
+        a = acts.to(_I32).contiguous()
+        d = arts.to(_I32).contiguous()
+        w = writes.to(_I32).contiguous()
+        cnt, miss = mesi_tick_(state, version, sync, reads, a, d, w,
+                               artifact_tokens=cfg.artifact_tokens,
+                               eager=cfg.strategy == acs.EAGER,
+                               access_k=access_k,
+                               signal_tokens=acs.SIGNAL_TOKENS)
+        counters += cnt
+        aw = a * w
+        n_reads += torch.sum(a - aw, dim=1, dtype=_I32)
+        n_writes += torch.sum(aw, dim=1, dtype=_I32)
+        if content:
+            _, ccnt = chunk_tick_(cv, cs, dirty, miss, aw, d,
+                                  wchunks.to(_I32).contiguous(),
+                                  artifact_tokens=cfg.artifact_tokens,
+                                  chunk_tokens=cfg.chunk_tokens,
+                                  signal_tokens=acs.SIGNAL_TOKENS)
+            ccounters += ccnt
+
+    fetch, signal, push = counters[:, 0], counters[:, 1], counters[:, 2]
+    n_fetches, n_hits = counters[:, 3], counters[:, 4]
+    untracked = torch.full((B,), -1, dtype=_I32, device=device)
+    out = {
+        "total_tokens": fetch + signal + push,
+        "sync_tokens": fetch + signal,
+        "fetch_tokens": fetch,
+        "signal_tokens": signal,
+        "push_tokens": push,
+        "broadcast_tokens": zeros(B),
+        "cache_hit_rate": n_hits.to(torch.float32)
+        / torch.clamp(n_hits + n_fetches, min=1),
+        "n_fetches": n_fetches,
+        "n_writes": n_writes,
+        "n_reads": n_reads,
+        "max_staleness": untracked,
+        "max_version_lag": untracked,
+        "max_consumed_staleness": untracked,
+    }
+    if content:
+        out["delta_bytes"] = ccounters[:, 0]
+        out["full_bytes"] = ccounters[:, 1]
+        out["n_chunks_fetched"] = ccounters[:, 2]
+    return out
+
+
+def _broadcast_content_fill(cfg: acs.ACSConfig, out: dict) -> dict:
+    """Analytic bytes-on-wire of the broadcast baseline (content-plane
+    grids only): every step injects every artifact into every agent,
+    so delta and whole-artifact accounting coincide - ``n_steps * n *
+    m * (|d| + signal)`` bytes, mirroring ``broadcast_tokens``."""
+    per_ep = (cfg.n_steps * cfg.n_agents * cfg.n_artifacts
+              * (cfg.artifact_tokens + acs.SIGNAL_TOKENS)
+              * BYTES_PER_TOKEN)
+    like = out["total_tokens"]
+    out = dict(out)
+    out["delta_bytes"] = torch.full_like(like, per_ep)
+    out["full_bytes"] = torch.full_like(like, per_ep)
+    out["n_chunks_fetched"] = torch.full_like(
+        like, cfg.n_steps * cfg.n_agents * cfg.n_artifacts
+        * acs.content_chunks(cfg))
+    return out
+
+
+def _run_grid(cfg: acs.ACSConfig, cells: Sequence[_Cell], n_runs: int,
+              include_broadcast: bool, tick_backend: Optional[str], device,
+              actions=None) -> list:
+    """Per variant (``[broadcast, coherent]`` or ``[coherent]``), a dict
+    of (len(cells), n_runs) numpy arrays."""
+    B = len(cells) * n_runs
+    outs = []
+    if include_broadcast:
+        # Broadcast has no content plane (bulk injection ships
+        # everything) and no per-agent kernel: it always takes the scan
+        # route, and its byte columns are filled analytically.
+        bc_cfg = dataclasses.replace(cfg, strategy=acs.BROADCAST,
+                                     chunk_tokens=0)
+        bc = _episodes_scan(bc_cfg, _step_source(bc_cfg, cells, n_runs,
+                                                 device),
+                            cells, n_runs, device)
+        if acs.content_enabled(cfg):
+            bc = _broadcast_content_fill(cfg, bc)
+        outs.append(bc)
+    source = _step_source(cfg, cells, n_runs, device, actions)
+    if resolve_tick_backend(cfg, tick_backend) == "kernel":
+        outs.append(_episodes_kernel(cfg, source, B, device))
+    else:
+        outs.append(_episodes_scan(cfg, source, cells, n_runs, device))
+    return [{k: v.cpu().numpy().reshape(len(cells), n_runs)
+             for k, v in out.items()} for out in outs]
+
+
+# ---------------------------------------------------------------------------
+# Host-side aggregation.
+
+
+def _result_from(cell: dict, name: str, strategy_name: str,
+                 n_runs: int) -> RunResult:
+    total = np.asarray(cell["total_tokens"], dtype=np.float64)
+    chr_ = np.asarray(cell["cache_hit_rate"], dtype=np.float64)
+    stats = RunStats(
+        name=name,
+        strategy=strategy_name,
+        n_runs=n_runs,
+        total_tokens_mean=float(total.mean()),
+        total_tokens_std=float(total.std()),
+        sync_tokens_mean=float(np.mean(cell["sync_tokens"])),
+        sync_tokens_std=float(np.std(np.asarray(
+            cell["sync_tokens"], dtype=np.float64))),
+        fetch_tokens_mean=float(np.mean(cell["fetch_tokens"])),
+        signal_tokens_mean=float(np.mean(cell["signal_tokens"])),
+        push_tokens_mean=float(np.mean(cell["push_tokens"])),
+        broadcast_tokens_mean=float(np.mean(cell["broadcast_tokens"])),
+        cache_hit_rate_mean=float(chr_.mean()),
+        cache_hit_rate_std=float(chr_.std()),
+        n_fetches_mean=float(np.mean(cell["n_fetches"])),
+        n_writes_mean=float(np.mean(cell["n_writes"])),
+        n_reads_mean=float(np.mean(cell["n_reads"])),
+        max_staleness_max=int(np.max(cell["max_staleness"])),
+        max_version_lag_max=int(np.max(cell["max_version_lag"])),
+        max_consumed_staleness_max=int(
+            np.max(cell["max_consumed_staleness"])),
+        delta_bytes_mean=float(np.mean(cell["delta_bytes"]))
+        if "delta_bytes" in cell else -1.0,
+        full_bytes_mean=float(np.mean(cell["full_bytes"]))
+        if "full_bytes" in cell else -1.0,
+        n_chunks_fetched_mean=float(np.mean(cell["n_chunks_fetched"]))
+        if "n_chunks_fetched" in cell else -1.0,
+    )
+    return RunResult(stats=stats, per_run_total_tokens=total,
+                     per_run_chr=chr_)
+
+
+def _cell(out: dict, v: int) -> dict:
+    return {k: a[v] for k, a in out.items()}
+
+
+def _comparison_of(name: str, volatility: float, bc: RunResult,
+                   co: RunResult) -> Comparison:
+    savings_runs = (1.0 - co.per_run_total_tokens
+                    / bc.stats.total_tokens_mean)
+    return Comparison(
+        scenario=name,
+        volatility=volatility,
+        strategy=co.stats.strategy,
+        broadcast=bc.stats,
+        coherent=co.stats,
+        savings_mean=float(savings_runs.mean()),
+        savings_std=float(savings_runs.std()),
+        crr=co.stats.total_tokens_mean / bc.stats.total_tokens_mean,
+        chr_mean=co.stats.cache_hit_rate_mean,
+        chr_std=co.stats.cache_hit_rate_std,
+    )
+
+
+def _static_key(cfg: acs.ACSConfig) -> acs.ACSConfig:
+    """A config with its per-simulation inputs (volatility, activity,
+    locality) blanked: configs with equal keys share one batch."""
+    return dataclasses.replace(cfg, volatility=0.0, p_act=0.0,
+                               write_locality=0.0)
+
+
+def _grouped(items, n_runs_of, cfg_of) -> dict:
+    groups: dict = {}
+    for i, item in enumerate(items):
+        groups.setdefault((_static_key(cfg_of(item)), n_runs_of(item)),
+                          []).append(i)
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# Public API.
+
+
+def run_scenario(scn: ScenarioConfig, tick_backend: Optional[str] = None,
+                 device=None, actions=None) -> RunResult:
+    """Run ``scn.n_runs`` seeded episodes as one batch.  ``actions``,
+    when given, is ``(acts, arts, writes, write_chunks)`` of shape
+    (S, n_runs, n[, C]) and replaces the generator's draws."""
+    dev = resolve_device(device)
+    out = _run_grid(scn.acs, [_scenario_cell(scn)], scn.n_runs, False,
+                    tick_backend, dev, actions)
+    return _result_from(_cell(out[0], 0), scn.name,
+                        acs.STRATEGY_NAMES[scn.acs.strategy], scn.n_runs)
+
+
+def compare_grid(scns: Sequence[ScenarioConfig],
+                 tick_backend: Optional[str] = None,
+                 device=None) -> list[Comparison]:
+    """Broadcast-vs-coherent for many scenarios.  Scenarios sharing a
+    static configuration and a run count run as one batch per
+    variant."""
+    dev = resolve_device(device)
+    results: list = [None] * len(scns)
+    groups = _grouped(scns, lambda s: s.n_runs, lambda s: s.acs)
+    for (_, n_runs), idxs in groups.items():
+        sub = [scns[i] for i in idxs]
+        cfg = sub[0].acs
+        bc_out, co_out = _run_grid(cfg, [_scenario_cell(s) for s in sub],
+                                   n_runs, True, tick_backend, dev)
+        for j, i in enumerate(idxs):
+            bc = _result_from(_cell(bc_out, j), sub[j].name,
+                              acs.STRATEGY_NAMES[acs.BROADCAST], n_runs)
+            co = _result_from(_cell(co_out, j), sub[j].name,
+                              acs.STRATEGY_NAMES[cfg.strategy], n_runs)
+            results[i] = _comparison_of(sub[j].name, sub[j].acs.volatility,
+                                        bc, co)
+    return results
+
+
+def compare(scn: ScenarioConfig, strategy_code: Optional[int] = None,
+            tick_backend: Optional[str] = None,
+            device=None) -> Comparison:
+    """Run broadcast + coherent variants of one scenario."""
+    coh_scn = scn if strategy_code is None else scn.with_strategy(
+        strategy_code)
+    return compare_grid([coh_scn], tick_backend=tick_backend,
+                        device=device)[0]
+
+
+def sweep_cells(base_scn: ScenarioConfig, volatilities,
+                n_runs: Optional[int] = None) -> list[ScenarioConfig]:
+    """The per-volatility scenario cells of a V-sweep (deterministic
+    per-cell seeds derived from the base seed)."""
+    runs = n_runs or base_scn.n_runs
+    return [dataclasses.replace(
+        base_scn,
+        acs=dataclasses.replace(base_scn.acs, volatility=float(v)),
+        n_runs=runs,
+        seed=base_scn.seed + int(round(float(v) * 1000)))
+        for v in volatilities]
+
+
+def compare_workloads(workloads, tick_backend: Optional[str] = None,
+                      device=None) -> list[Comparison]:
+    """Broadcast-vs-coherent for heterogeneous workloads
+    (``repro_torch.sim.workloads.Workload`` instances).  Workloads
+    sharing a static configuration and a run count run as one batch per
+    variant - a whole zoo of families is one batch."""
+    dev = resolve_device(device)
+    results: list = [None] * len(workloads)
+    groups = _grouped(workloads, lambda w: w.n_runs, lambda w: w.acs)
+    for (_, n_runs), idxs in groups.items():
+        sub = [workloads[i] for i in idxs]
+        cfg = sub[0].acs
+        bc_out, co_out = _run_grid(cfg, [_workload_cell(w, dev)
+                                         for w in sub],
+                                   n_runs, True, tick_backend, dev)
+        for j, i in enumerate(idxs):
+            bc = _result_from(_cell(bc_out, j), sub[j].name,
+                              acs.STRATEGY_NAMES[acs.BROADCAST], n_runs)
+            co = _result_from(_cell(co_out, j), sub[j].name,
+                              acs.STRATEGY_NAMES[cfg.strategy], n_runs)
+            results[i] = _comparison_of(
+                sub[j].name, sub[j].effective_volatility(), bc, co)
+    return results
+
+
+def run_workload(w, tick_backend: Optional[str] = None, device=None,
+                 actions=None) -> RunResult:
+    """Run one heterogeneous workload (no baseline).  ``actions`` as in
+    :func:`run_scenario`."""
+    dev = resolve_device(device)
+    out = _run_grid(w.acs, [_workload_cell(w, dev)], w.n_runs, False,
+                    tick_backend, dev, actions)
+    return _result_from(_cell(out[0], 0), w.name,
+                        acs.STRATEGY_NAMES[w.acs.strategy], w.n_runs)
+
+
+def sweep_volatility(base_scn: ScenarioConfig, volatilities,
+                     n_runs: Optional[int] = None,
+                     tick_backend: Optional[str] = None,
+                     device=None) -> list[Comparison]:
+    """V-sweep: every volatility cell of the sweep in one batch."""
+    return compare_grid(sweep_cells(base_scn, volatilities, n_runs),
+                        tick_backend=tick_backend, device=device)

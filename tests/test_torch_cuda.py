@@ -1,0 +1,91 @@
+"""The port's CUDA kernels on a card: each kernel against its plain
+PyTorch version on the same CUDA tensors, and the engine's kernel route
+against its scan route.  Needs a CUDA device and nvcc; elsewhere every
+test skips.  Imports no JAX, so it runs where only the port is
+installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import chunk_diff, mesi_transition  # noqa: E402
+from repro_torch.core.acs import draw_write_chunks  # noqa: E402
+from repro_torch.sim import SCENARIOS, run_workload, run_scenario, zoo  # noqa: E402
+
+pytestmark = [pytest.mark.torch, pytest.mark.cuda]
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _ints(gen, lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _mesi_inputs(gen, B, n, m):
+    state = _ints(gen, 0, 2, B, n, m)
+    version = _ints(gen, 1, 5, B, m)
+    sync = torch.where(state > 0, version[:, None, :], 0).to(torch.int32)
+    return (state, version, sync, _ints(gen, 0, 6, B, n, m),
+            _ints(gen, 0, 2, B, n), _ints(gen, 0, m, B, n),
+            _ints(gen, 0, 2, B, n))
+
+
+@pytest.mark.parametrize("B,n,m", [(1, 1, 1), (33, 4, 3), (300, 16, 16)])
+@pytest.mark.parametrize("eager,access_k", [(False, 0), (True, 0),
+                                            (False, 3)])
+def test_mesi_kernel_equals_plain(gen, B, n, m, eager, access_k):
+    inputs = _mesi_inputs(gen, B, n, m)
+    opts = dict(artifact_tokens=64, eager=eager, access_k=access_k)
+    launches = mesi_transition.mesi_tick_.launches
+    out = mesi_transition.mesi_tick(*inputs, **opts)
+    torch.cuda.synchronize()
+    assert mesi_transition.mesi_tick_.launches == launches + 1
+    plain = [t.clone() for t in inputs[:4]]
+    plain += list(mesi_transition.mesi_tick_plain_(*plain, *inputs[4:],
+                                                   **opts))
+    for got, exp in zip(out, plain):
+        assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("B,n,m,C", [(1, 1, 1, 1), (37, 4, 3, 5),
+                                     (100, 16, 16, 70)])
+def test_chunk_kernel_equals_plain(gen, B, n, m, C):
+    opts = dict(artifact_tokens=16 * C - 5, chunk_tokens=16)  # ragged
+    *_, acts, arts, writes = _mesi_inputs(gen, B, n, m)
+    miss = mesi_transition.mesi_tick(*_mesi_inputs(gen, B, n, m)[:4], acts,
+                                     arts, writes, artifact_tokens=64)[5]
+    cv = _ints(gen, 1, 4, B, m, C)
+    cs = torch.clamp(cv[:, None] - _ints(gen, 0, 2, B, n, m, C), min=0)
+    inputs = (cv, cs, (cv > 1).to(torch.int32), miss,
+              (acts * writes).contiguous(), arts,
+              draw_write_chunks(gen, B, n, C, 0.3).to(torch.int32))
+    out = chunk_diff.chunk_tick(*inputs, **opts)
+    torch.cuda.synchronize()
+    plain = [t.clone() for t in inputs[:3]]
+    plain += list(chunk_diff.chunk_tick_plain_(*plain, *inputs[3:], **opts))
+    for got, exp in zip(out, plain):
+        assert torch.equal(got, exp)
+
+
+def test_engine_routes_agree_on_the_card(gen):
+    scn = dataclasses.replace(SCENARIOS["C"], n_runs=64)
+    kern = run_scenario(scn, tick_backend="kernel")
+    scan = run_scenario(scn, tick_backend="scan")
+    assert (kern.per_run_total_tokens == scan.per_run_total_tokens).all()
+    assert (kern.per_run_chr == scan.per_run_chr).all()
+    w = zoo(n_agents=8, n_artifacts=6, n_runs=32, chunk_tokens=256)[0]
+    kern = run_workload(w, tick_backend="kernel")
+    scan = run_workload(w, tick_backend="scan")
+    assert kern.stats.delta_bytes_mean == scan.stats.delta_bytes_mean
+    assert (kern.per_run_total_tokens == scan.per_run_total_tokens).all()

@@ -1,0 +1,85 @@
+"""Package rules of the PyTorch/CUDA port: it imports neither JAX nor the
+JAX package, and its entry points run on CUDA unless told otherwise."""
+
+import ast
+import dataclasses
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch.core import acs  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels import mesi_transition  # noqa: E402
+from repro_torch.sim import SCENARIOS, compare, run_scenario, zoo  # noqa: E402
+
+pytestmark = pytest.mark.torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(pathlib.Path(repro_torch.__file__).parent.rglob("*.py"))
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_neither_jax_nor_the_jax_package(path):
+    for module in _imported_modules(path):
+        top = module.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, module)
+
+
+def test_every_port_module_is_checked():
+    names = {p.relative_to(PORT_FILES[0].parents[0]).as_posix()
+             for p in PORT_FILES}
+    for module in ("core/acs.py", "kernels/mesi_transition.py",
+                   "kernels/chunk_diff.py", "kernels/build.py",
+                   "sim/engine.py", "sim/workloads.py"):
+        assert any(n.endswith(module) for n in names), module
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """The host as one without a CUDA device, whatever it has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: run_scenario(dataclasses.replace(SCENARIOS["A"], n_runs=2)),
+    lambda: compare(dataclasses.replace(SCENARIOS["A"], n_runs=2)),
+    lambda: zoo(n_agents=2, n_artifacts=2, n_runs=1)[0].rates(),
+    lambda: acs.init_arrays(SCENARIOS["A"].acs, 2),
+    lambda: acs.init_metrics(2),
+], ids=["run_scenario", "compare", "rates", "init_arrays", "init_metrics"])
+def test_entry_points_default_to_cuda(no_card, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def test_device_resolution(no_card):
+    assert backend.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        backend.resolve_device(None)
+
+
+def test_routing_rule():
+    cpu = torch.zeros(2)
+    assert backend.use_kernel(cpu, cpu) is False
+    with pytest.raises(ValueError, match="one CUDA device"):
+        backend.use_kernel(cpu, torch.zeros(2, device="meta"))
+
+
+def test_cpu_route_never_counts_a_launch():
+    before = mesi_transition.mesi_tick_.launches
+    run_scenario(dataclasses.replace(SCENARIOS["A"], n_runs=2).with_overrides(
+        n_steps=3, artifact_tokens=16), device="cpu")
+    assert mesi_transition.mesi_tick_.launches == before
