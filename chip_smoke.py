@@ -5,30 +5,56 @@
 
 Phases, each printing JSON lines:
 
-1. build   - compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-             with nvcc for sm_90a into ``build/repro_torch_kernels/``.
+1. build   - compiles the five CUDA kernels from
+             ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a into
+             ``build/repro_torch_kernels/``, one nvcc per source, all at
+             once.
 2. kernels - holds each kernel against its plain PyTorch version on the
-             card (exact equality of every output) at a mid-size shape
-             and at every shape the main path gives it, and times the
-             wrapper call and the kernel alone (CUDA events),
-             the plain version and the memory bound.
-3. scenarios - the paper's scenarios A-D (n=4, m=3, |d|=4096, S=40) with
-             4096 runs each: savings must clear the Token Coherence
-             Theorem's bound and sit within 2.5 pp of the published table;
-             the kernel and scan routes must agree on every statistic
-             of the whole grid.
+             card at a mid-size shape and at every shape the main paths
+             give it: the coherence ticks exactly (int32); RMSNorm within
+             one bf16 ulp; flash attention and flash decode within 1e-2
+             max-abs in bf16 and 1e-5 in fp32 on unit-scale inputs, and in
+             bf16 also element by element within one bf16 ulp of the plain
+             value plus 2**-10 of its row's rms (flash decode at the
+             batched request's shape on every kv_len its 32 steps give
+             it, P + 1 .. P + 32).  Times
+             the wrapper call (CUDA events), the kernel alone, the plain
+             version and, for the model kernels, the one PyTorch call that
+             computes the same function (a yardstick the port never
+             calls), beside the bound.
+3. scenarios - first the committed goldens on the threefry stream in
+             legacy mode: ``tests/golden/scenarios.json`` exactly, then the
+             zoo and content goldens with a count of the runs that differ
+             (by family).  Then the paper's scenarios A-D (n=4, m=3,
+             |d|=4096, S=40) with 4096 runs each: savings must clear the
+             Token Coherence Theorem's bound and sit within 2.5 pp of the
+             published table; the kernel and scan routes must agree on
+             every statistic of the whole grid.
 4. fleet   - the six-family workload zoo at n=16 agents, m=16 artifacts,
              4096 runs per family with 64-token chunks (24,576 episodes
              per variant): delta bytes never exceed whole-artifact bytes,
              and each kernel launches once per step; then eager and
              access_count at 1024 runs per family without content.
-5. the ``kernels`` line, the card's name and power limit, and the final
+5. serve   - coherent serving on gemma-2b at its registered width (18
+             layers, d 2048, MQA, head dim 256, vocab 256000, bf16) with
+             random weights from ``SEED``: 4 agents, 3 artifacts of 2048
+             tokens, 40 steps at V = 0.10, lazy; every agent's context
+             prefilled (cache 8192), then one batched request (the
+             contexts cut to their common length P, prefilled at B = 4
+             into a cache of P + 32, then 32 greedy decode steps).  Checks
+             finite logits, the launch counts (37 rmsnorm per forward, 18
+             flash_attention per prefill, 18 decode_attention per step)
+             and the same request on the plain versions: relative L2 error
+             of the prefill's last-position logits <= 2e-2 and of every
+             decode step's <= 2.5e-2.
+6. the ``kernels`` line, the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
 
-Phases 3 and 4 are the main path; the kernels' launch counts are set to
-0 just before them and read just after.  Any failed check raises, and
-the script then exits non-zero.  Without a CUDA device, or without the
-repository's ``src/`` beside it, it exits non-zero and prints no result.
+Phases 3-4 (the sweep engine) and phase 5 (serving) are the main paths;
+each path's kernels' launch counts are set to 0 just before it and read
+just after.  Any failed check raises, and the script then exits
+non-zero.  Without a CUDA device, or without the repository's ``src/``
+beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -50,6 +76,8 @@ PUBLISHED_TOLERANCE = 0.025
 
 #: device-memory rate by H100 variant, bytes/s, from NVIDIA's data sheets.
 H100_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
+#: dense bf16 tensor-core rate by H100 variant, flop/s (data sheets)
+H100_BF16_FLOPS = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
 
 #: mid-size, then every shape the main path gives the kernel: the four
 #: scenarios' batch, the eager/access_count fleets, the content fleet
@@ -58,6 +86,10 @@ MESI_SHAPES = ((8192, 16, 16), (16384, 4, 3), (6144, 16, 16),
                (24576, 16, 16))
 CHUNK_SHAPES = ((4096, 16, 16, 64), (24576, 16, 16, 64))
 FLEET_RUNS = 4096
+#: runs per family of the eager / access_count fleets, per scenario of
+#: the A-D grid
+STRATEGY_FLEET_RUNS = 1024
+SCENARIO_RUNS = 4096
 #: GPU clock cycles a spin kernel holds the stream for (about 1 ms)
 SPIN_CYCLES = 2_000_000
 REPLACES = {
@@ -65,7 +97,31 @@ REPLACES = {
                   "src/repro/kernels/mesi_transition.py:151"),
     "chunk_tick": ("src/repro_torch/kernels/csrc/chunk_tick.cu",
                    "src/repro/kernels/chunk_diff.py:131"),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:29"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:81"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:71"),
 }
+#: the serving workload of phase 5
+SERVE = dict(arch="gemma-2b", agents=4, artifacts=3, artifact_tokens=2048,
+             steps=40, volatility=0.10, strategy="lazy", max_len=8192,
+             decode_steps=32)
+#: tolerances of the model kernels against their plain versions (max-abs)
+ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+#: bf16 attention is also held element by element to one bf16 ulp of the
+#: plain value plus this share of the rms of its row: both round nearly the
+#: same fp32 result, so they differ in the last bit at most, while a key
+#: block lost or masked wrongly moves a row by about a tenth of its rms
+#: (unit-normal inputs at L = 6144 give rows of rms ~0.02, so the max-abs
+#: limit alone would not see it)
+ROW_RMS_FLOOR = 2.0 ** -10
+#: relative L2 error allowed between the kernel and plain routes' logits:
+#: the prefill's last position, then every decode step's (set from the
+#: H100 readings recorded in PERF.md, 0.0167 and at most 0.0191)
+LOGITS_REL_L2 = 2e-2
+STEP_LOGITS_REL_L2 = 2.5e-2
 
 
 def emit(obj: dict) -> None:
@@ -84,13 +140,21 @@ def card_line() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def memory_rate(name: str) -> float:
+def _variant_rate(name: str, table: dict, what: str) -> float:
     if "H100" not in name:
-        raise RuntimeError(f"no memory rate on record for {name!r}")
-    for variant, rate in H100_BYTES_PER_S.items():
+        raise RuntimeError(f"no {what} on record for {name!r}")
+    for variant, rate in table.items():
         if variant in name:
             return rate
-    return H100_BYTES_PER_S["SXM"]   # "H100 80GB HBM3" is the SXM part
+    return table["SXM"]   # "H100 80GB HBM3" is the SXM part
+
+
+def memory_rate(name: str) -> float:
+    return _variant_rate(name, H100_BYTES_PER_S, "memory rate")
+
+
+def bf16_rate(name: str) -> float:
+    return _variant_rate(name, H100_BF16_FLOPS, "bf16 rate")
 
 
 def median_ms(fn, make_args, reps: int) -> float:
@@ -226,7 +290,7 @@ def phase_kernels(card: str, rate: float) -> dict:
     """Kernel against plain version on the card; returns, per kernel,
     the measurements at the fleet shape (the last shape listed)."""
     import torch
-    from repro_torch.core import invariants
+    from repro_torch.core import invariants, prng
     from repro_torch.core.acs import draw_write_chunks
     from repro_torch.kernels import chunk_diff, mesi_transition as mt
 
@@ -284,7 +348,8 @@ def phase_kernels(card: str, rate: float) -> dict:
                             device="cuda", dtype=torch.int32)
         cs = torch.clamp(cv[:, None] - lag, min=0)
         dirty = (cv > 1).to(torch.int32)
-        wmask = draw_write_chunks(gen, B, n, C, 0.25).to(torch.int32)
+        keys = prng.split(prng.prng_key(SEED, "cuda"), B)
+        wmask = draw_write_chunks(keys, n, C, 0.25).to(torch.int32)
         inputs = (cv, cs, dirty, miss, (acts * writes).contiguous(), arts,
                   wmask)
         opts = dict(artifact_tokens=tokens, chunk_tokens=chunk,
@@ -320,13 +385,287 @@ def phase_kernels(card: str, rate: float) -> dict:
     return results
 
 
+def serving_system():
+    """The serving workload of phase 5, driven through its coherence
+    decisions (no model yet): the system and its stats."""
+    from repro_torch.configs import ARCHS, get, n_active_params
+    from repro_torch.launch.serve import build_artifacts
+    from repro_torch.runtime.coherent_serving import (CoherentServingSystem,
+                                                      run_workload)
+    system = CoherentServingSystem(
+        get(SERVE["arch"]), SERVE["agents"],
+        build_artifacts(SERVE["artifacts"], SERVE["artifact_tokens"]),
+        strategy=SERVE["strategy"],
+        n_active_params=n_active_params(ARCHS[SERVE["arch"]]))
+    stats = run_workload(system, SERVE["steps"], SERVE["volatility"])
+    return system, stats
+
+
+def bf16_ulps(got, exp) -> float:
+    """Largest difference of ``got`` from ``exp`` in units of the bf16
+    ulp of ``exp`` (x = m * 2**e, m in [0.5, 1), has ulp 2**(e - 8))."""
+    import torch
+    exp32 = exp.float()
+    ulp = torch.ldexp(torch.ones_like(exp32), torch.frexp(exp32).exponent
+                      - 8)
+    return float(((got.float() - exp32).abs() / ulp).max())
+
+
+def bf16_row_err(got, exp) -> float:
+    """Largest ``|got - exp|`` over its allowance: one bf16 ulp of ``exp``
+    plus ``ROW_RMS_FLOOR`` times the rms of ``exp``'s row (last axis).
+    At most 1 when the two round nearly equal fp32 results."""
+    import torch
+    exp32 = exp.float()
+    ulp = torch.where(exp32 == 0, 0.0, torch.ldexp(
+        torch.ones_like(exp32), torch.frexp(exp32).exponent - 8))
+    rms = exp32.square().mean(dim=-1, keepdim=True).sqrt()
+    return float(((got.float() - exp32).abs()
+                  / (ulp + ROW_RMS_FLOOR * rms)).max())
+
+
+def check_attention(got, exp, dtype, what: str) -> tuple:
+    """Holds an attention kernel's output to its plain version: max-abs
+    within ``ATTN_TOL`` and, in bf16, :func:`bf16_row_err` <= 1.
+    Returns (max-abs error, row error or None)."""
+    err = float((got.float() - exp.float()).abs().max())
+    tol = ATTN_TOL[str(dtype).split(".")[-1]]
+    check(err <= tol, f"{what} within {tol} max-abs ({err})")
+    row_err = None
+    if str(dtype).endswith("bfloat16"):
+        row_err = bf16_row_err(got, exp)
+        check(row_err <= 1.0, f"{what} within one bf16 ulp plus "
+              f"{ROW_RMS_FLOOR} of the row rms ({row_err})")
+    return err, row_err
+
+
+def attention_pairs(lq: int, lk: int, causal: bool) -> int:
+    """Query-key pairs a causal (rows aligned to the last lq keys) or
+    full attention computes for one (batch, head)."""
+    if not causal:
+        return lq * lk
+    off = lk - lq
+    return sum(min(lk, r + off + 1) for r in range(lq))
+
+
+def phase_model_kernels(card: str, rate: float, flops: float,
+                        contexts: list) -> dict:
+    """The three model kernels against their plain versions at the
+    serving path's shapes (gemma-2b: the agents' prefills, the batched
+    prefill and decode) and at a mid shape; returns, per kernel, the
+    row of the batched request's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import (attention_plain,
+                                         decode_attention_plain,
+                                         rmsnorm_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    cfg = get(SERVE["arch"])
+    d, hq, hkv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.kv_head_dim())
+    P = min(contexts)
+    L1 = min(max(contexts), SERVE["max_len"])
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def size(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    results = {}
+    # --- rmsnorm: the batched prefill's rows, one agent's, decode's, mid
+    for label, rows, dtype in (("batched prefill", SERVE["agents"] * P, bf16),
+                               ("agent prefill", L1, bf16),
+                               ("decode", SERVE["agents"], bf16),
+                               ("mid fp32", 4096, torch.float32)):
+        x, w = normal(rows, d, dtype=dtype), normal(d, dtype=dtype)
+        out = rmsnorm(x, w)
+        torch.cuda.synchronize()
+        exp = rmsnorm_plain(x, w)
+        err = float((out.float() - exp.float()).abs().max())
+        if dtype == bf16:
+            ulps = bf16_ulps(out, exp)
+            check(ulps <= 1.0, f"rmsnorm within one bf16 ulp ({label})")
+        else:
+            ulps = None
+            check(err <= 1e-5 * max(1.0, float(exp.abs().max())),
+                  f"rmsnorm fp32 within 1e-5 ({label})")
+        args = lambda: (x, w)   # noqa: E731
+        row = {"phase": "kernels", "kernel": "rmsnorm", "case": label,
+               "shape": [rows, d], "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": err, "max_bf16_ulps": ulps,
+               "ms": median_ms(rmsnorm, args, 10),
+               "device_ms": device_ms(rmsnorm, args, 10),
+               "plain_ms": median_ms(rmsnorm_plain, args, 3),
+               "library_ms": median_ms(
+                   lambda a, b: F.rms_norm(a, (d,), b, 1e-6), args, 10),
+               "bound_ms": size(x, w, out) / rate * 1e3,
+               "bound_by": "bytes", "card": card}
+        emit(row)
+        if label == "batched prefill":
+            results["rmsnorm"] = row
+
+    # --- flash attention: the batched prefill, one agent's, a mid shape
+    for label, b, h, g, lq, dim, dtype in (
+            ("batched prefill", SERVE["agents"], hq, hkv, P, hd, bf16),
+            ("agent prefill", 1, hq, hkv, L1, hd, bf16),
+            ("mid bf16", 2, 16, 8, 2048, 128, bf16),
+            ("mid fp32", 1, 8, 2, 1000, 64, torch.float32)):
+        q = normal(b, h, lq, dim, dtype=dtype)
+        k, v = (normal(b, g, lq, dim, dtype=dtype) for _ in range(2))
+        out = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, row_err = check_attention(out, attention_plain(q, k, v), dtype,
+                                       f"flash_attention ({label})")
+        args = lambda: (q, k, v)   # noqa: E731
+        work = 4 * b * h * dim * attention_pairs(lq, lq, True)
+        bound = max(size(q, k, v, out) / rate, work / flops) * 1e3
+        row = {"phase": "kernels", "kernel": "flash_attention",
+               "case": label, "shape": [b, h, g, lq, dim],
+               "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+               "max_row_err": row_err,
+               "ms": median_ms(flash_attention, args, 5),
+               "device_ms": device_ms(flash_attention, args, 5),
+               "plain_ms": median_ms(attention_plain, args, 3),
+               "library_ms": median_ms(
+                   lambda a, b_, c: F.scaled_dot_product_attention(
+                       a, b_, c, is_causal=True, enable_gqa=True), args, 5),
+               "bound_ms": bound, "bound_by": "operations", "card": card}
+        row["tflops"] = work / (row["device_ms"] * 1e-3) / 1e12
+        emit(row)
+        if label == "batched prefill":
+            results["flash_attention"] = row
+
+    # --- decode: the batched request's steps (kv_len P + 1 .. P + 32 over
+    # a cache of P + 32, as the path gives them), a ragged mid shape
+    steps = SERVE["decode_steps"]
+    for label, b, h, g, L, dim, dtype, ragged in (
+            ("batched decode", SERVE["agents"], hq, hkv, P + steps, hd, bf16,
+             False),
+            ("mid bf16", 8, 16, 8, 2048, 128, bf16, True),
+            ("mid fp32", 4, 8, 2, 777, 64, torch.float32, True)):
+        q = normal(b, h, dim, dtype=dtype)
+        kc, vc = (normal(b, g, L, dim, dtype=dtype) for _ in range(2))
+        cases = ([torch.randint(1, L + 1, (b,), generator=gen, device="cuda",
+                                dtype=torch.int32)] if ragged else
+                 [torch.full((b,), P + t, dtype=torch.int32, device="cuda")
+                  for t in range(1, steps + 1)])
+        err, row_err = 0.0, None
+        for lens in cases:
+            out = decode_attention(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            e, r = check_attention(
+                out, decode_attention_plain(q, kc, vc, lens), dtype,
+                f"decode_attention ({label}, kv_len {lens.tolist()})")
+            err = max(err, e)
+            row_err = r if row_err is None else max(row_err, r)
+        args = lambda: (q, kc, vc, lens)   # noqa: E731
+        mask = (torch.arange(L, device="cuda")[None, None, None, :]
+                < lens[:, None, None, None])
+        valid = int(lens.sum())
+        moved = (2 * valid * g * dim * kc.element_size() + size(q, out)
+                 + lens.numel() * 4)
+        row = {"phase": "kernels", "kernel": "decode_attention",
+               "case": label, "shape": [b, h, g, L, dim],
+               "dtype": str(dtype).split(".")[-1], "kv_lens_checked":
+               len(cases), "max_abs_err": err, "max_row_err": row_err,
+               "ms": median_ms(decode_attention, args, 10),
+               "device_ms": device_ms(decode_attention, args, 10),
+               "plain_ms": median_ms(decode_attention_plain, args, 3),
+               "library_ms": median_ms(
+                   lambda a, b_, c, n: F.scaled_dot_product_attention(
+                       a[:, :, None], b_, c, attn_mask=mask,
+                       enable_gqa=True), args, 10),
+               "bound_ms": max(moved / rate, 4 * h * dim * valid / flops)
+               * 1e3, "bound_by": "bytes", "card": card}
+        emit(row)
+        if label == "batched decode":
+            results["decode_attention"] = row
+    return results
+
+
+def phase_goldens(card: str) -> None:
+    """The committed golden ledgers on the card, on the port's own
+    threefry draws in legacy mode: the scenarios exactly; the zoo and
+    content cells with the runs that differ counted by family (the
+    Gumbel sampler's ``log`` may round apart from XLA's on the card)."""
+    import torch
+    from repro_torch.core import acs, prng
+    from repro_torch.sim import (SCENARIOS, compare_grid, make, run_workload,
+                                 zoo)
+
+    golden_dir = REPO / "tests" / "golden"
+
+    def golden(name):
+        return json.loads((golden_dir / f"{name}.json").read_text())
+
+    def roundtrip(payload):
+        return json.loads(json.dumps(payload, sort_keys=True, default=float))
+
+    t0 = time.perf_counter()
+    cmps = compare_grid(list(SCENARIOS.values()), partitionable=False)
+    payload = {key: {
+        "scenario": c.scenario, "volatility": c.volatility,
+        "broadcast_total_mean": c.broadcast.total_tokens_mean,
+        "coherent_total_mean": c.coherent.total_tokens_mean,
+        "savings_mean": c.savings_mean, "savings_std": c.savings_std,
+        "crr": c.crr, "cache_hit_rate_mean": c.chr_mean}
+        for key, c in zip(SCENARIOS, cmps)}
+    check(roundtrip(payload) == golden("scenarios"),
+          "tests/golden/scenarios.json reproduced exactly (legacy mode)")
+
+    zoo_golden = golden("workloads")
+    grid = zoo_golden["_grid"]
+    differ = {}
+    for w in zoo(**grid):
+        bc = run_workload(w.with_strategy(acs.BROADCAST),
+                          partitionable=False)
+        co = run_workload(w, partitionable=False)
+        want = zoo_golden[w.family]
+        differ[w.family] = sum(
+            int(a != b) for a, b in zip(
+                [int(x) for x in co.per_run_total_tokens]
+                + [int(x) for x in bc.per_run_total_tokens],
+                want["coherent_per_run"] + want["broadcast_per_run"]))
+    content_golden = golden("content")
+    small = dict(n_agents=4, n_artifacts=3, n_runs=2, artifact_tokens=96,
+                 n_steps=8)
+    for family in ("bursty", "ping_pong"):
+        for ct in (16, 40):
+            w = make(family, **small, chunk_tokens=ct)
+            keys = acs.run_keys(prng.prng_key(w.seed, "cuda"), [0])
+            met = acs.run_episode(w.acs, keys, rates=w.rates(),
+                                  locality=w.write_locality,
+                                  partitionable=False)
+            got = {"delta_bytes": int(met.delta_bytes[0]),
+                   "full_bytes": int(met.full_bytes[0]),
+                   "n_chunks_fetched": int(met.n_chunks_fetched[0]),
+                   "n_fills": int(met.n_fetches[0])}
+            cell = f"{family}/ct{ct}"
+            differ[f"content {cell}"] = int(got != content_golden[cell])
+    torch.cuda.synchronize()
+    emit({"phase": "scenarios", "goldens": "legacy threefry",
+          "scenarios_exact": True, "runs_differing": differ,
+          "runs_differing_total": sum(differ.values()),
+          "seconds": time.perf_counter() - t0, "card": card})
+
+
 def phase_scenarios(card: str) -> None:
     import torch
     from repro_torch.core import acs, theorem
     from repro_torch.kernels import mesi_transition as mt
     from repro_torch.sim import SCENARIOS, compare_grid
 
-    scns = [dataclasses.replace(SCENARIOS[k], n_runs=4096) for k in "ABCD"]
+    phase_goldens(card)
+
+    scns = [dataclasses.replace(SCENARIOS[k], n_runs=SCENARIO_RUNS)
+            for k in "ABCD"]
     launches = mt.mesi_tick_.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -344,8 +683,9 @@ def phase_scenarios(card: str) -> None:
               "n_runs": scn.n_runs, "savings_mean": c.savings_mean,
               "savings_std": c.savings_std, "theorem_bound": bound,
               "published": PUBLISHED[key], "chr_mean": c.chr_mean})
-    emit({"phase": "scenarios", "episodes": 2 * 4 * 4096,
-          "seconds": seconds, "episodes_per_s": 2 * 4 * 4096 / seconds,
+    emit({"phase": "scenarios", "episodes": 2 * 4 * SCENARIO_RUNS,
+          "seconds": seconds,
+          "episodes_per_s": 2 * 4 * SCENARIO_RUNS / seconds,
           "card": card})
 
     # The kernel and scan routes draw the same stream, so on the whole
@@ -361,7 +701,7 @@ def phase_scenarios(card: str) -> None:
               == (scan.savings_mean, scan.savings_std, scan.chr_std),
               f"{key}: kernel route == scan route on the card")
     emit({"phase": "scenarios", "routes_equal": True,
-          "episodes": 4 * 4096,
+          "episodes": 4 * SCENARIO_RUNS,
           "strategy": acs.STRATEGY_NAMES[scns[0].acs.strategy]})
 
 
@@ -402,7 +742,8 @@ def phase_fleet(card: str) -> float:
 
     for code in (acs.EAGER, acs.ACCESS_COUNT):
         ws = [w.with_strategy(code)
-              for w in zoo(n_agents=16, n_artifacts=16, n_runs=1024)]
+              for w in zoo(n_agents=16, n_artifacts=16,
+                           n_runs=STRATEGY_FLEET_RUNS)]
         before = (mt.mesi_tick_.launches, chunk_diff.chunk_tick_.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -414,30 +755,27 @@ def phase_fleet(card: str) -> float:
         check(all(0.0 < c.chr_mean <= 1.0 and c.crr > 0.0 for c in res),
               f"{acs.STRATEGY_NAMES[code]}: finite ledgers")
         emit({"phase": "fleet", "strategy": acs.STRATEGY_NAMES[code],
-              "episodes_per_variant": len(ws) * 1024, "seconds": seconds,
-              "episodes_per_s": 2 * len(ws) * 1024 / seconds,
+              "episodes_per_variant": len(ws) * STRATEGY_FLEET_RUNS,
+              "seconds": seconds,
+              "episodes_per_s": 2 * len(ws) * STRATEGY_FLEET_RUNS / seconds,
               "savings_mean": {c.scenario: c.savings_mean for c in res},
               "card": card})
     return fleet_seconds
 
 
-def phase_profile(card: str, fleet_seconds: float) -> None:
-    """Where the time goes in the content-plane fleet run: device time
-    by kernel name over one repeat of it, and the device's busy share
-    of the wall time, both of the profiled repeat and of the unprofiled
-    run that took ``fleet_seconds``."""
+def device_profile(fn):
+    """Run ``fn()`` under the torch profiler; returns the wall seconds,
+    the device's busy seconds (the union of the kernels' spans) and the
+    top ten ``{name, device_ms, calls}`` rows by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.sim import compare_workloads, zoo
 
-    workloads = zoo(n_agents=16, n_artifacts=16, n_runs=FLEET_RUNS,
-                    chunk_tokens=64)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        compare_workloads(workloads)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -456,17 +794,177 @@ def phase_profile(card: str, fleet_seconds: float) -> None:
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
-    busy = busy_us / 1e6
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
                    if on_device(ev) and ev.self_device_time_total > 0),
                   reverse=True)
-    emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy,
-          "device_idle_share": 1.0 - busy / wall,
+    return wall, busy_us / 1e6, [
+        {"name": k[:60], "device_ms": us / 1e3, "calls": c}
+        for us, k, c in rows[:10]]
+
+
+def phase_profile(card: str, fleet_seconds: float) -> None:
+    """Where the time goes in the content-plane fleet run: device time
+    by kernel name over one repeat of it, and the device's busy share
+    of the wall time, both of the profiled repeat and of the unprofiled
+    run that took ``fleet_seconds``."""
+    from repro_torch.sim import compare_workloads, zoo
+
+    workloads = zoo(n_agents=16, n_artifacts=16, n_runs=FLEET_RUNS,
+                    chunk_tokens=64)
+    wall, busy, top = device_profile(lambda: compare_workloads(workloads))
+    emit({"phase": "profile", "what": "fleet", "wall_s": wall,
+          "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
           "unprofiled_wall_s": fleet_seconds,
           "unprofiled_device_idle_share": 1.0 - busy / fleet_seconds,
-          "top": [{"name": k[:60], "device_ms": us / 1e3, "calls": c}
-                  for us, k, c in rows[:10]], "card": card})
+          "top": top, "card": card})
+
+
+def serve_profile(card: str, system, params, steps: int = 8) -> None:
+    """Where the time goes in decode: ``steps`` greedy decode steps of
+    the batched request under the profiler (the prefill before them is
+    not profiled)."""
+    import torch
+    from repro_torch import models
+
+    cfg, n = system.cfg, len(system.agents)
+    contexts = [system.context_tokens(i) for i in range(n)]
+    p = min(len(c) for c in contexts)
+    tokens = torch.tensor([c[:p] for c in contexts], dtype=torch.int64,
+                          device="cuda")
+    cache = models.init_cache(cfg, n, p + steps)
+    logits, cache = models.prefill(params, cfg, tokens, cache)
+
+    def decode():
+        nonlocal logits, cache
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = models.decode_step(params, cfg, tok, cache)
+
+    wall, busy, top = device_profile(decode)
+    emit({"phase": "profile", "what": "decode", "steps": steps,
+          "batch": n, "wall_s": wall, "ms_per_step": wall / steps * 1e3,
+          "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+          "top": top, "card": card})
+
+
+class plain_route:
+    """Inside ``with plain_route():`` the model kernels' public entry
+    points (``repro_torch.kernels.ops``) run their plain versions, on
+    CUDA tensors too - the reference the serve phase holds the kernel
+    route to.  The port itself has no such switch."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.saved = (ops.rmsnorm, ops.flash_attention, ops.decode_attention)
+        ops.rmsnorm = lambda x, w, eps=1e-6, block_rows=128: \
+            ref.rmsnorm_plain(x, w, eps)
+        ops.flash_attention = lambda q, k, v, causal=True, scale=None, \
+            block_q=128, block_k=128: ref.attention_plain(q, k, v, causal,
+                                                          scale)
+        ops.decode_attention = lambda q, kc, vc, kv_len=None, scale=None, \
+            block_k=256: ref.decode_attention_plain(q, kc, vc, kv_len, scale)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.rmsnorm, ops.flash_attention, ops.decode_attention = self.saved
+        return False
+
+
+def phase_serve(card: str) -> dict:
+    """Coherent serving on full-width gemma-2b; returns the launch
+    counts of the run."""
+    import torch
+    from repro_torch import models
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.launch.serve import batched_request
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    (system, stats), _ = sync_time(serving_system)
+    cfg = system.cfg
+    params, init_s = sync_time(lambda: models.init_params(cfg, seed=SEED))
+    n_params = models.params_count(params)
+    n = len(system.agents)
+    contexts = [len(system.context_tokens(i)) for i in range(n)]
+    for i in range(n):
+        logits, secs = sync_time(lambda: system.materialize_prefill(
+            params, i, max_len=SERVE["max_len"]))
+        tokens = min(contexts[i], SERVE["max_len"])
+        check(bool(torch.isfinite(logits).all()),
+              f"agent {i}: finite prefill logits")
+        emit({"phase": "serve", "agent": i, "prefill_tokens": tokens,
+              "seconds": secs, "prefill_tokens_per_s": tokens / secs,
+              "card": card})
+    steps = SERVE["decode_steps"]
+    pre, pre_s = sync_time(lambda: batched_request(system, params, 0))
+    out, full_s = sync_time(lambda: batched_request(system, params, steps))
+    P = out["prompt_len"]
+    check(bool(torch.isfinite(out["logits"]).all()),
+          "finite logits of the batched request")
+    launches = {"rmsnorm": rmsnorm.launches,
+                "flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    forwards = n + 2 + steps
+    prefills = n + 2
+    expected = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards,
+                "flash_attention": cfg.n_layers * prefills,
+                "decode_attention": cfg.n_layers * steps}
+    check(launches == expected,
+          f"launch counts {launches} == {expected} (37 rmsnorm per "
+          f"forward, 18 flash per prefill, 18 decode per step)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with plain_route():
+        plain, plain_s = sync_time(lambda: batched_request(
+            system, params, steps, forced=out["tokens"]))
+    k_last = out["logits"][:, 0].float()
+    p_last = plain["logits"][:, 0].float()
+    rel = float(torch.linalg.vector_norm(k_last - p_last)
+                / torch.linalg.vector_norm(p_last))
+    check(rel <= LOGITS_REL_L2,
+          f"prefill logits: kernel vs plain relative L2 {rel} <= "
+          f"{LOGITS_REL_L2}")
+    rel_steps = (torch.linalg.vector_norm(
+        (out["logits"] - plain["logits"]).float(), dim=-1)
+        / torch.linalg.vector_norm(plain["logits"].float(), dim=-1))
+    worst = None
+    if steps:
+        worst = float(rel_steps[:, 1:].max())
+        check(worst <= STEP_LOGITS_REL_L2,
+              f"decode-step logits: kernel vs plain relative L2 {worst} <= "
+              f"{STEP_LOGITS_REL_L2}")
+    agree = float((torch.argmax(plain["logits"][:, :-1], dim=-1)
+                   == out["tokens"]).float().mean()) if steps else 1.0
+    decode_s = full_s - pre_s
+    emit({"phase": "serve", "arch": cfg.name, "params": n_params,
+          "dtype": cfg.dtype, "init_seconds": init_s, "agents": n,
+          "context_tokens": contexts, "prompt_len": P,
+          "batched_prefill_tokens_per_s": n * P / pre_s,
+          "batched_prefill_seconds": pre_s,
+          "decode_tokens_per_s": n * steps / decode_s if steps else None,
+          "decode_seconds": decode_s, "plain_route_seconds": plain_s,
+          "logits_rel_l2": rel,
+          "logits_rel_l2_max_step": float(rel_steps.max()),
+          "logits_rel_l2_max_decode_step": worst,
+          "greedy_agreement": agree, "launches": launches,
+          "peak_gib": peak, "token_savings": stats.token_savings,
+          "flops_savings": stats.flops_savings,
+          "prefill_tokens": stats.prefill_tokens,
+          "broadcast_tokens": stats.broadcast_tokens,
+          "fetches": stats.fetches, "cache_hits": stats.cache_hits,
+          "card": card})
+    serve_profile(card, system, params)
+    return launches
 
 
 def main() -> int:
@@ -476,14 +974,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.kernels import chunk_diff, mesi_transition as mt
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
 
     card = card_line()
-    rate = memory_rate(card)
+    rate, flops = memory_rate(card), bf16_rate(card)
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card,
-          "memory_bytes_per_s": rate})
+          "memory_bytes_per_s": rate, "bf16_flops_per_s": flops})
     phase_build(card)
     kernels = phase_kernels(card, rate)
+    system, _ = serving_system()
+    contexts = [len(system.context_tokens(i))
+                for i in range(len(system.agents))]
+    kernels.update(phase_model_kernels(card, rate, flops, contexts))
 
     mt.mesi_tick_.launches = 0
     chunk_diff.chunk_tick_.launches = 0
@@ -491,8 +996,13 @@ def main() -> int:
     fleet_seconds = phase_fleet(card)
     launches = {"mesi_tick": mt.mesi_tick_.launches,
                 "chunk_tick": chunk_diff.chunk_tick_.launches}
+
+    rmsnorm.launches = 0
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+    launches.update(phase_serve(card))
     check(all(v > 0 for v in launches.values()),
-          "the main path launched every kernel")
+          "the main paths launched every kernel")
 
     phase_profile(card, fleet_seconds)
     emit({"kernels": [{
@@ -500,7 +1010,8 @@ def main() -> int:
         "replaces": REPLACES[name][1], "launches": launches[name],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": "bytes", "library_ms": None, "shape": row["shape"],
+        "bound_by": row.get("bound_by", "bytes"),
+        "library_ms": row.get("library_ms"), "shape": row["shape"],
         "device_ms": row["device_ms"],
         "max_abs_diff": row["max_abs_err"], "kernel_ms": row["ms"]}
         for name, row in kernels.items()], "card": card})

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.content.chunks import BYTES_PER_TOKEN, chunk_sizes, n_chunks
+from repro_torch.core import prng
 from repro_torch.core.states import MESIState
 from repro_torch.kernels.backend import resolve_device
 
@@ -132,47 +133,55 @@ def uniform_rates(cfg: ACSConfig, device=None) -> RateMatrices:
 
 def _per_sim(x) -> torch.Tensor | float:
     """A scalar stays a float; a (B,) tensor becomes a (B, 1) float32
-    column that broadcasts against (B, n)."""
+    column that broadcasts against (..., B, n)."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32).reshape(-1, 1)
     return float(x)
 
 
-def draw_actions(gen: torch.Generator, n_sims: int, n_agents: int,
-                 n_artifacts: int, volatility, p_act,
-                 rates: RateMatrices | None = None):
-    """Sample one step's (acts, arts, writes) for every agent of
-    ``n_sims`` simulations from the explicit generator ``gen`` (the
-    tensors lie on ``gen.device``).
+def run_keys(base_key: torch.Tensor, run_ids) -> torch.Tensor:
+    """Per-run episode keys: ``fold_in(base_key, run_ids[i])``, (R, 2).
 
-    Scalar path (``rates is None``): Bernoulli(p_act) activity, uniform
-    artifact choice, Bernoulli(volatility) writes; ``volatility`` and
-    ``p_act`` are floats or (B,) tensors.  Heterogeneous path:
-    per-agent Bernoulli activity, per-agent categorical artifact choice
-    (Gumbel-max over ``log_pick``), and a write probability looked up
-    at the chosen (agent, artifact) cell.
+    The sweep engine's per-run key schedule, as in the reference:
+    ``run_ids`` carries global run indices, so run ``r`` of a cell
+    draws the same stream whatever the grid around it."""
+    return prng.fold_in(base_key, torch.as_tensor(run_ids,
+                                                  device=base_key.device))
 
-    Returns ``acts`` (B, n) bool, ``arts`` (B, n) int32 and ``writes``
-    (B, n) bool.  The draws are not JAX's threefry stream: the tests
-    hold the port to the reference by feeding both the same actions.
+
+def draw_actions(keys: torch.Tensor, n_agents: int, n_artifacts: int,
+                 volatility, p_act, rates: RateMatrices | None = None, *,
+                 partitionable: bool = prng.PARTITIONABLE_DEFAULT):
+    """Sample one step's (acts, arts, writes) for every agent, from each
+    step key of ``keys`` (..., 2): the reference's ``draw_actions``
+    batched over the keys' leading axes, bit for bit.
+
+    The key splits three ways (activity, artifact, write).  Scalar path
+    (``rates is None``): Bernoulli(p_act) activity, uniform artifact
+    choice, Bernoulli(volatility) writes; ``volatility`` and ``p_act``
+    are floats or (B,) tensors, one per simulation of the last key
+    axis.  Heterogeneous path: per-agent Bernoulli activity, per-agent
+    categorical artifact choice (Gumbel-max over ``log_pick``), and a
+    write probability looked up at the chosen (agent, artifact) cell.
+
+    Returns ``acts`` (..., n) bool, ``arts`` (..., n) int32 and
+    ``writes`` (..., n) bool, on the keys' device.
     """
-    dev = gen.device
-    shape = (n_sims, n_agents)
-    u_act = torch.rand(shape, generator=gen, device=dev)
+    sub = prng.split(keys, 3, partitionable)
+    k_act, k_art, k_wr = sub[..., 0, :], sub[..., 1, :], sub[..., 2, :]
+    shape = (n_agents,)
     if rates is None:
-        acts = u_act < _per_sim(p_act)
-        arts = torch.randint(0, n_artifacts, shape, generator=gen,
-                             device=dev, dtype=_I32)
-        writes = torch.rand(shape, generator=gen,
-                            device=dev) < _per_sim(volatility)
-        return acts, arts, writes
-    acts = u_act < rates.p_act
-    u = torch.rand(shape + (n_artifacts,), generator=gen, device=dev)
-    gumbel = -torch.log(-torch.log(u))
-    arts = torch.argmax(rates.log_pick + gumbel, dim=-1)
-    w_p = torch.gather(rates.write_rate.expand(shape + (n_artifacts,)),
+        acts = prng.bernoulli(k_act, _per_sim(p_act), shape, partitionable)
+        arts = prng.randint(k_art, shape, 0, n_artifacts, partitionable)
+        writes = prng.bernoulli(k_wr, _per_sim(volatility), shape,
+                                partitionable)
+        return acts, arts.to(_I32), writes
+    acts = prng.bernoulli(k_act, rates.p_act, shape, partitionable)
+    arts = prng.categorical(k_art, rates.log_pick,
+                            (n_agents, n_artifacts), partitionable)
+    w_p = torch.gather(rates.write_rate.expand(arts.shape + (n_artifacts,)),
                        -1, arts[..., None])[..., 0]
-    writes = torch.rand(shape, generator=gen, device=dev) < w_p
+    writes = prng.bernoulli(k_wr, w_p, shape, partitionable)
     return acts, arts.to(_I32), writes
 
 
@@ -180,6 +189,11 @@ def draw_actions(gen: torch.Generator, n_sims: int, n_agents: int,
 #: fetch-on-demand.  Eager push and TTL/broadcast bulk injection ship
 #: whole artifacts by construction.
 CONTENT_STRATEGIES = (LAZY, ACCESS_COUNT)
+
+#: ``fold_in`` constant deriving the write-span key from a step key, as
+#: in the reference: the act/artifact/write streams of a step key stay
+#: those of the sampler without the content plane.
+_SPAN_FOLD = 0x5EED
 
 
 def content_enabled(cfg: ACSConfig) -> bool:
@@ -191,19 +205,24 @@ def content_chunks(cfg: ACSConfig) -> int:
     return n_chunks(cfg.artifact_tokens, cfg.chunk_tokens)
 
 
-def draw_write_chunks(gen: torch.Generator, n_sims: int, n_agents: int,
-                      n_chunks_: int, locality) -> torch.Tensor:
-    """Sample one step's per-agent write span as a (B, n, C) bool mask.
+def write_span_start(keys: torch.Tensor, n_agents: int, n_chunks_: int,
+                     partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                     ) -> torch.Tensor:
+    """First chunk of each agent's write span, (..., n) int32: uniform
+    on [0, C) from ``fold_in(key, 0x5EED)``."""
+    k = prng.fold_in(keys, _SPAN_FOLD)
+    return prng.randint(k, (n_agents,), 0, n_chunks_,
+                        partitionable).to(_I32)
 
-    A span is *circular* - chunk ``i`` is dirtied iff ``(i - start) mod
-    C < L`` with ``start ~ U[0, C)`` and ``L = clip(round(locality * C),
-    1, C)`` (rounded half to even, in float32, as the reference does) -
-    so locality is a pure span-length knob with no edge effects.
-    ``locality`` is a float or a (B,) tensor.
-    """
-    dev = gen.device
-    start = torch.randint(0, n_chunks_, (n_sims, n_agents), generator=gen,
-                          device=dev, dtype=_I32)
+
+def write_span_mask(start: torch.Tensor, n_chunks_: int,
+                    locality) -> torch.Tensor:
+    """(..., n, C) bool: chunk ``i`` is dirtied iff ``(i - start) mod C
+    < L`` with ``L = clip(round(locality * C), 1, C)`` (rounded half to
+    even, in float32, as the reference does).  ``locality`` is a float
+    or a (B,) tensor, one per simulation of ``start``'s second-to-last
+    axis."""
+    dev = start.device
     loc = torch.as_tensor(locality, dtype=torch.float32, device=dev)
     span = torch.clamp(torch.round(loc * n_chunks_).to(_I32), 1, n_chunks_)
     span = span.reshape(-1, 1, 1) if span.ndim else span
@@ -211,23 +230,39 @@ def draw_write_chunks(gen: torch.Generator, n_sims: int, n_agents: int,
     return ((idx - start[..., None]) % n_chunks_) < span
 
 
-def draw_step(cfg: ACSConfig, gen: torch.Generator, n_sims: int,
-              volatility=None, p_act=None,
-              rates: RateMatrices | None = None, locality=None):
-    """One step's ``(acts, arts, writes, write_chunks)`` - the single
-    sampling source of both engine routes, so the scan route and the
-    kernel route consume the same stream from the same generator.
+def draw_write_chunks(keys: torch.Tensor, n_agents: int, n_chunks_: int,
+                      locality, *,
+                      partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                      ) -> torch.Tensor:
+    """Sample one step's per-agent write span as a (..., n, C) bool mask,
+    from each step key of ``keys`` (..., 2), as the reference does.
+
+    A span is *circular* (:func:`write_span_mask`), so locality is a
+    pure span-length knob with no edge effects.  The key is
+    ``fold_in(key, 0x5EED)``, which leaves the step's action streams
+    untouched.
+    """
+    start = write_span_start(keys, n_agents, n_chunks_, partitionable)
+    return write_span_mask(start, n_chunks_, locality)
+
+
+def draw_step(cfg: ACSConfig, keys: torch.Tensor, volatility=None,
+              p_act=None, rates: RateMatrices | None = None,
+              locality=None, *,
+              partitionable: bool = prng.PARTITIONABLE_DEFAULT):
+    """One step's ``(acts, arts, writes, write_chunks)`` from step keys
+    (..., 2) - the draws the reference's ``tick`` makes from its key.
     ``write_chunks`` is ``None`` without the content plane."""
     volatility = cfg.volatility if volatility is None else volatility
     p_act = cfg.p_act if p_act is None else p_act
-    acts, arts, writes = draw_actions(gen, n_sims, cfg.n_agents,
-                                      cfg.n_artifacts, volatility, p_act,
-                                      rates)
+    acts, arts, writes = draw_actions(keys, cfg.n_agents, cfg.n_artifacts,
+                                      volatility, p_act, rates,
+                                      partitionable=partitionable)
     wchunks = None
     if content_enabled(cfg):
         locality = cfg.write_locality if locality is None else locality
-        wchunks = draw_write_chunks(gen, n_sims, cfg.n_agents,
-                                    content_chunks(cfg), locality)
+        wchunks = draw_write_chunks(keys, cfg.n_agents, content_chunks(cfg),
+                                    locality, partitionable=partitionable)
     return acts, arts, writes, wchunks
 
 
@@ -656,48 +691,46 @@ def tick_(cfg: ACSConfig, arrays: ACSArrays, met: ACSMetrics, step: int,
 
 
 def tick(cfg: ACSConfig, arrays: ACSArrays, met: ACSMetrics,
-         gen: torch.Generator | None, step: int,
+         keys: torch.Tensor | None, step: int,
          volatility=None, p_act=None, rates: RateMatrices | None = None,
-         locality=None, actions=None):
+         locality=None, actions=None, *,
+         partitionable: bool = prng.PARTITIONABLE_DEFAULT):
     """One orchestration step for every agent of every simulation.
 
+    ``keys`` (B, 2) holds each simulation's step key.
     ``volatility`` / ``p_act`` / ``locality`` default to the config
     values and may be (B,) tensors; ``rates`` generalizes the first two
     to per-agent x per-artifact matrices and takes precedence.
     ``actions`` - a ``(acts, arts, writes, write_chunks)`` tuple of
-    (B, n[, C]) tensors - replaces the draw from ``gen``.
+    (B, n[, C]) tensors - replaces the draw from ``keys`` (a test hook).
 
     Functional: ``arrays`` is left as it was.  Returns ``(arrays',
     metrics')``.
     """
     if actions is None:
-        actions = draw_step(cfg, gen, arrays.state.shape[0], volatility,
-                            p_act, rates, locality)
+        actions = draw_step(cfg, keys, volatility, p_act, rates, locality,
+                            partitionable=partitionable)
     return tick_(cfg, _clone(arrays), met, step, actions, p_act=p_act,
                   rates=rates)
 
 
-def run_episode(cfg: ACSConfig, gen: torch.Generator | None, n_sims: int,
-                volatility=None, p_act=None,
-                rates: RateMatrices | None = None, locality=None,
-                actions=None, device=None) -> ACSMetrics:
-    """Run ``n_sims`` full S-step episodes; returns the final metrics.
-
-    ``actions``, when given, is a tuple ``(acts, arts, writes,
-    write_chunks)`` of (S, B, n[, C]) tensors that replaces the draws
-    from ``gen`` (``write_chunks`` may be ``None`` without the content
-    plane) - the seam the tests feed the reference's action stream
-    through.
-    """
-    dev = resolve_device(device)
+def run_episode(cfg: ACSConfig, keys: torch.Tensor, volatility=None,
+                p_act=None, rates: RateMatrices | None = None,
+                locality=None, *,
+                partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                ) -> ACSMetrics:
+    """Run one full S-step episode per key of ``keys`` (B, 2), on the
+    keys' device; returns the final metrics.  Episode ``b`` draws step
+    ``s`` from ``split(keys[b], S)[s]``, as the reference's
+    ``run_episode`` does."""
+    dev = keys.device
+    n_sims = keys.shape[0]
     arrays = init_arrays(cfg, n_sims, dev)
     met = init_metrics(n_sims, dev)
+    step_keys = prng.split(keys, cfg.n_steps, partitionable)
     for step in range(cfg.n_steps):
-        if actions is None:
-            act = draw_step(cfg, gen, n_sims, volatility, p_act, rates,
-                            locality)
-        else:
-            act = tuple(None if x is None else x[step] for x in actions)
+        act = draw_step(cfg, step_keys[:, step], volatility, p_act, rates,
+                        locality, partitionable=partitionable)
         arrays, met = tick_(cfg, arrays, met, step, act, p_act=p_act,
                              rates=rates)
     return met

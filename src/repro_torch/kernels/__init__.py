@@ -5,6 +5,9 @@ held to):
   * ``mesi_tick``  - batched MESI coherence tick (fleet-scale DES)
   * ``chunk_tick`` - batched chunk-diff / delta-coherence tick (content
                      plane; consumes mesi_tick's per-agent miss output)
+  * ``rmsnorm``, ``flash_attention``, ``decode_attention`` - the model
+                     kernels of the serving path, public through
+                     ``kernels.ops`` with the JAX package's signatures
 
 Sources live in ``csrc/``; ``build`` compiles them with nvcc at first
 use.

@@ -50,3 +50,21 @@ def check_inputs(shapes: dict) -> None:
             raise TypeError(f"{label} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{label} must be contiguous")
+
+
+#: the float types the model kernels read, by their C-side code
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def float_code(*tensors: torch.Tensor) -> int:
+    """The C-side type code of a model kernel's float inputs, which must
+    share one type of :data:`FLOAT_CODES` and be contiguous; raises
+    otherwise."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in FLOAT_CODES:
+        raise TypeError(f"kernel inputs must share one type of float32 or "
+                        f"bfloat16, got {sorted(map(str, dtypes))}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    return FLOAT_CODES[tensors[0].dtype]

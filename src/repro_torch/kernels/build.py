@@ -26,15 +26,22 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: kernel name -> (source file, C entry, argument types); every entry
-#: takes its tensors' data pointers, then its int sizes and options,
-#: then the CUDA stream, and returns ``cudaGetLastError()``.
+#: takes its tensors' data pointers, then its sizes and options (ints,
+#: and a float for a norm's eps or an attention scale), then the CUDA
+#: stream, and returns ``cudaGetLastError()``.
 KERNELS = {
     "mesi_tick": ("mesi_tick.cu", "mesi_tick_launch",
                   [_P] * 9 + [_I] * 7 + [_P]),
     "chunk_tick": ("chunk_tick.cu", "chunk_tick_launch",
                    [_P] * 9 + [_I] * 8 + [_P]),
+    "rmsnorm": ("rmsnorm.cu", "rmsnorm_launch",
+                [_P] * 3 + [_I, _I, _F, _I, _P]),
+    "flash_attention": ("flash_attention.cu", "flash_attention_launch",
+                        [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
+    "decode_attention": ("decode_attention.cu", "decode_attention_launch",
+                         [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
 }
 
 _LOADED: dict = {}

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.states import MESIState
 from repro_torch.kernels import build
 from repro_torch.kernels.backend import check_inputs, use_kernel
@@ -27,6 +28,16 @@ from repro_torch.kernels.backend import check_inputs, use_kernel
 _I, _S = int(MESIState.I), int(MESIState.S)
 _I32 = torch.int32
 N_COUNTERS = 8
+
+
+def episode_step_keys(keys: torch.Tensor, n_steps: int,
+                      partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                      ) -> torch.Tensor:
+    """Per-step keys for a (B, 2) batch of episode keys, step-major:
+    (n_steps, B, 2), where step ``s`` holds ``split(key, n_steps)[s]``
+    - the schedule ``acs.run_episode`` uses, so kernel-routed episodes
+    consume the same action stream as the scan route."""
+    return prng.split(keys, n_steps, partitionable).transpose(0, 1)
 
 
 def mesi_tick_plain_(state, version, last_sync, reads_since_fetch,

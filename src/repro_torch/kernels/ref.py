@@ -1,0 +1,77 @@
+"""Plain PyTorch versions of the model kernels: RMSNorm, flash attention
+(prefill) and flash decode.
+
+Each is the function its CUDA kernel computes, in fp32 whatever the
+input type, written for clarity: the kernel wrappers run them for
+tensors on the CPU, and the tests and ``chip_smoke.py`` hold the
+kernels to them.  They follow the JAX package's ``repro.kernels.ref``
+oracles, with one deliberate difference: :func:`rmsnorm_plain`
+multiplies by the weight in fp32 and then casts, as the TPU kernel
+(``rmsnorm_pallas``) does, where ``ref.rmsnorm_ref`` casts first.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x**2) + eps) * weight`` over the last axis, in
+    fp32, cast to ``x.dtype`` at the end."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)
+            * weight.to(torch.float32)).to(x.dtype)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """GQA softmax attention in fp32.
+
+    q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D) with Hq % Hkv == 0; query
+    head ``h`` reads kv head ``h // (Hq // Hkv)``.  Causal rows are the
+    last Lq positions of the Lk-long sequence (Lq <= Lk).  Returns
+    (B, Hq, Lq, D) in q's dtype."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    q32 = q.to(torch.float32) * scale
+    kg = torch.repeat_interleave(k.to(torch.float32), group, dim=1)
+    vg = torch.repeat_interleave(v.to(torch.float32), group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q32, kg)
+    if causal:
+        qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        kpos = torch.arange(lk, device=q.device)[None, :]
+        logits = logits.masked_fill(kpos > qpos, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vg).to(q.dtype)
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           kv_len: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """One-token GQA decode in fp32.
+
+    q: (B, Hq, D); caches: (B, Hkv, L, D); kv_len: (B,) valid lengths,
+    each at least 1 (None: all L).  Returns (B, Hq, D) in q's dtype."""
+    b, hq, d = q.shape
+    hkv, lmax = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    q32 = q.to(torch.float32) * scale
+    kg = torch.repeat_interleave(k_cache.to(torch.float32), group, dim=1)
+    vg = torch.repeat_interleave(v_cache.to(torch.float32), group, dim=1)
+    logits = torch.einsum("bhd,bhkd->bhk", q32, kg)
+    if kv_len is not None:
+        kpos = torch.arange(lmax, device=q.device)[None, None, :]
+        logits = logits.masked_fill(kpos >= kv_len.to(q.device)[:, None,
+                                                                 None],
+                                    float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", probs, vg).to(q.dtype)

@@ -1,0 +1,123 @@
+"""GQA / MQA self-attention with qk-norm, for prefill and cached decode,
+with the JAX package's names (``repro.models.attention``).
+
+Attention runs through the hand-written kernels (``kernels.ops``):
+
+* prefill from an empty cache (``s > 1`` at offset 0, what
+  ``transformer.prefill`` passes) and the cache-free forward: causal
+  ``flash_attention`` over the fresh q/k/v, whose k/v are then written
+  into the cache;
+* decode (``s == 1``): the new k/v are written at each row's
+  ``cache_len``, then ``decode_attention`` reads the cache with
+  ``kv_len = cache_len + 1``.
+
+The cache is head-major, ``(B, Hkv, Lmax, D)`` per layer (the JAX
+package keeps ``(B, Lmax, Hkv, D)``), so the decode kernel reads it
+without a copy, and it is updated in place.  A cached prefill at a
+non-zero offset is not on this path and raises.  Cross-attention and
+MLA wait for their model slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.common import (dense_init, norm_apply, norm_init,
+                                       rope_angles, rope_apply)
+
+
+# --------------------------- GQA attention ---------------------------
+
+def gqa_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.kv_head_dim()
+    p = {
+        "wq": dense_init(gen, d, hq * hd, dtype, device),
+        "wk": dense_init(gen, d, hkv * hd, dtype, device),
+        "wv": dense_init(gen, d, hkv * hd, dtype, device),
+        "wo": dense_init(gen, hq * hd, d, dtype, device),
+    }
+    if cfg.use_qk_norm:
+        p["q_norm"] = norm_init(hd, "rmsnorm", dtype, device)
+        p["k_norm"] = norm_init(hd, "rmsnorm", dtype, device)
+    if cfg.use_bias:
+        for name, n in (("bq", hq * hd), ("bk", hkv * hd),
+                        ("bv", hkv * hd), ("bo", d)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(p, cfg: ModelConfig, x):
+    """(B, s, H, D) q, k, v, qk-normed where the config says so."""
+    b, s, _ = x.shape
+    hd = cfg.kv_head_dim()
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.use_qk_norm:
+        q = norm_apply(p["q_norm"], q)
+        k = norm_apply(p["k_norm"], k)
+    return q, k, v
+
+
+def _head_major(x):
+    """(B, s, H, D) -> contiguous (B, H, s, D)."""
+    return x.transpose(1, 2).contiguous()
+
+
+def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
+              cache_len=None):
+    """Self-attention of x (B, s, d) at ``positions`` (1 or B, s).
+
+    * ``cache_kv is None``: causal attention over x alone; returns
+      ``(y, (k, v))`` with k, v head-major.
+    * ``cache_kv = (k, v)``, each (B, Hkv, Lmax, D), written in place:
+      with ``s > 1`` a prefill, which needs ``cache_len == 0`` (the int);
+      with ``s == 1`` a decode step at the (B,) positions ``cache_len``.
+      Returns ``(y, (k, v))`` with the same cache tensors.
+    """
+    b, s, _ = x.shape
+    if (cache_kv is not None and s > 1
+            and not (isinstance(cache_len, int) and cache_len == 0)):
+        raise NotImplementedError(
+            "a cached prefill at a non-zero offset is not ported "
+            "(ROADMAP.md queue 1, item 12)")
+    hd = cfg.kv_head_dim()
+    q, k, v = _project_qkv(p, cfg, x)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = rope_apply(q, cos, sin)
+    k = rope_apply(k, cos, sin)
+
+    if cache_kv is None or s > 1:
+        k_hm, v_hm = _head_major(k), _head_major(v)
+        out = ops.flash_attention(_head_major(q), k_hm, v_hm, causal=True)
+        out = out.transpose(1, 2)                       # (B, s, Hq, D)
+        if cache_kv is None:
+            new_cache = (k_hm, v_hm)
+        else:
+            ck, cv = cache_kv
+            ck[:, :, :s] = k_hm
+            cv[:, :, :s] = v_hm
+            new_cache = (ck, cv)
+    else:
+        ck, cv = cache_kv
+        if isinstance(cache_len, int):     # a one-token prompt
+            cache_len = torch.full((b,), cache_len, dtype=torch.int32,
+                                   device=x.device)
+        rows = torch.arange(b, device=x.device)
+        ck[rows, :, cache_len] = k[:, 0]
+        cv[rows, :, cache_len] = v[:, 0]
+        out = ops.decode_attention(q[:, 0].contiguous(), ck, cv,
+                                   kv_len=cache_len + 1)[:, None]
+        new_cache = (ck, cv)
+    y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    if "bo" in p:
+        y = y + p["bo"]
+    return y, new_cache

@@ -1,0 +1,263 @@
+"""Config-driven model assembly in PyTorch, with the JAX package's names
+(``repro.models.transformer``), for the dense family: GQA / MQA
+attention with a GLU feed-forward (gemma, qwen3, yi, command-r's layer
+kind).
+
+The layer sequence is an optional unstacked prefix followed by a
+repeating superblock whose params are stacked on a leading axis, as in
+the JAX package, so a JAX parameter tree carries across leaf for leaf.
+Superblocks run as a Python loop.  Modes:
+
+  prefill  full causal forward over a prompt -> last-token logits, and
+           the KV cache filled
+  decode   one token per row against the cache
+
+The cache is head-major, ``(n_super, B, Hkv, Lmax, D)`` per stacked
+layer, and prefill and decode update it in place.  Other mixers (MLA,
+mamba, rwkv, cross-attention), MoE layers, the encoder and training
+(``forward_train``) wait for their slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (dtype_of, embed_init, glu_mlp_apply,
+                                       glu_mlp_init, norm_apply, norm_init,
+                                       stack_layers, tree_leaves, tree_map)
+
+_TODO = "is not ported yet (ROADMAP.md queue 1, item 12)"
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str          # attn | mla | mamba | rwkv | cross
+    moe: bool
+    cross: bool         # additional cross-attn sublayer (whisper dec)
+
+
+def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
+    specs = []
+    for i in range(cfg.n_layers):
+        if cfg.is_cross_layer(i):
+            mixer = "cross"
+        elif cfg.mla is not None:
+            mixer = "mla"
+        else:
+            mixer = cfg.layer_kind(i)
+        specs.append(LayerSpec(mixer=mixer, moe=cfg.is_moe_layer(i),
+                               cross=(cfg.encoder_layers > 0)))
+    return specs
+
+
+def split_pattern(specs: list[LayerSpec]) -> tuple[int, int]:
+    """Return (prefix_len, period) minimizing the unstacked size
+    (prefix + period), as the JAX package does."""
+    n = len(specs)
+    best: tuple[int, int] | None = None
+    for prefix in range(0, n):
+        rest = specs[prefix:]
+        m = len(rest)
+        for period in range(1, m + 1):
+            if m % period:
+                continue
+            if all(rest[i] == rest[i % period] for i in range(m)):
+                cand = (prefix, period)
+                if best is None or (cand[0] + cand[1], cand[1]) < (
+                        best[0] + best[1], best[1]):
+                    best = cand
+                break  # larger periods at this prefix are never better
+    return best if best is not None else (n, 1)
+
+
+def _check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
+    if spec.mixer != "attn":
+        raise NotImplementedError(f"the {spec.mixer!r} mixer {_TODO}")
+    if spec.moe:
+        raise NotImplementedError(f"the MoE feed-forward {_TODO}")
+    if spec.cross or cfg.family == "audio":
+        raise NotImplementedError(f"encoder-decoder layers {_TODO}")
+
+
+# ----------------------------- layer ---------------------------------
+
+def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
+               device) -> dict:
+    _check_spec(cfg, spec)
+    return {
+        "norm1": norm_init(cfg.d_model, cfg.norm, dtype, device,
+                           cfg.use_bias),
+        "mixer": attn.gqa_init(gen, cfg, dtype, device),
+        "norm2": norm_init(cfg.d_model, cfg.norm, dtype, device,
+                           cfg.use_bias),
+        "ffn": glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                            cfg.use_bias),
+    }
+
+
+def cache_init_layer(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_len: int, ctx_len: int, dtype, device) -> dict:
+    """Empty head-major cache entry for one layer."""
+    _check_spec(cfg, spec)
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.kv_head_dim())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
+                context=None, cache=None, cache_len=None):
+    """Returns (x, new_cache, aux_loss); the cache is updated in
+    place."""
+    _check_spec(cfg, spec)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache: dict[str, Any] = {}
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    kv = (cache["k"], cache["v"]) if cache is not None else None
+    y, kv_out = attn.gqa_apply(p["mixer"], cfg, h, positions, cache_kv=kv,
+                               cache_len=cache_len)
+    if cache is not None:
+        new_cache["k"], new_cache["v"] = kv_out
+    x = x + y
+    h = norm_apply(p["norm2"], x, cfg.norm)
+    x = x + glu_mlp_apply(p["ffn"], h, cfg.hidden_act)
+    return x, new_cache, aux
+
+
+# --------------------------- whole model ------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random weights drawn from ``seed`` on ``device`` (``None``:
+    CUDA; ``"meta"``: shapes only), with the JAX package's tree."""
+    dev = torch.device("meta") if device == "meta" else \
+        resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    specs = layer_specs(cfg)
+    prefix, period = split_pattern(specs)
+    n_super = (cfg.n_layers - prefix) // period
+    params: dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev,
+                                cfg.use_bias),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                       dtype, dev)
+    for i in range(prefix):
+        params[f"prefix_{i}"] = layer_init(gen, cfg, specs[i], dtype, dev)
+
+    def superblock_init(g):
+        return {f"sub{j}": layer_init(g, cfg, specs[prefix + j], dtype, dev)
+                for j in range(period)}
+
+    params["blocks"] = stack_layers(gen, n_super, superblock_init)
+    if cfg.encoder_layers:
+        raise NotImplementedError(f"the encoder {_TODO}")
+    return params
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens):
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        # sqrt(d_model) cast to the model type first, as in the JAX
+        # package (45.25 in bf16 for d = 2048)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _logits(params, cfg: ModelConfig, x):
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.T
+
+
+def _run_layers(params, cfg: ModelConfig, x, *, positions, context=None,
+                cache=None, cache_len=None):
+    """Prefix layers, then the superblocks in a Python loop.  ``cache``
+    (None without one) is updated in place and returned."""
+    specs = layer_specs(cfg)
+    prefix, period = split_pattern(specs)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(prefix):
+        c = cache[f"prefix_{i}"] if cache is not None else None
+        x, _, aux = layer_apply(params[f"prefix_{i}"], cfg, specs[i], x,
+                                positions=positions, context=context,
+                                cache=c, cache_len=cache_len)
+        aux_total = aux_total + aux
+    n_super = (cfg.n_layers - prefix) // period
+    for i in range(n_super):
+        block_p = tree_map(lambda a: a[i], params["blocks"])
+        block_c = (tree_map(lambda a: a[i], cache["blocks"])
+                   if cache is not None else None)
+        for j in range(period):
+            c = block_c[f"sub{j}"] if block_c is not None else None
+            x, _, aux = layer_apply(block_p[f"sub{j}"], cfg,
+                                    specs[prefix + j], x,
+                                    positions=positions, context=context,
+                                    cache=c, cache_len=cache_len)
+            aux_total = aux_total + aux
+    return x, cache, aux_total
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               ctx_len: int = 0, device=None) -> dict:
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    specs = layer_specs(cfg)
+    prefix, period = split_pattern(specs)
+    n_super = (cfg.n_layers - prefix) // period
+    cache: dict[str, Any] = {}
+    for i in range(prefix):
+        cache[f"prefix_{i}"] = cache_init_layer(cfg, specs[i], batch,
+                                                max_len, ctx_len, dtype, dev)
+    one = {f"sub{j}": cache_init_layer(cfg, specs[prefix + j], batch,
+                                       max_len, ctx_len, dtype, dev)
+           for j in range(period)}
+    cache["blocks"] = tree_map(
+        lambda x: x[None].expand((n_super,) + tuple(x.shape)).contiguous(),
+        one)
+    cache["length"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return cache
+
+
+def forward_train(params, cfg: ModelConfig, batch):
+    raise NotImplementedError(f"training (forward_train) {_TODO}")
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache, context=None):
+    """Fill the cache from a full prompt ``tokens`` (B, S), on the
+    cache's device; returns (last-token logits (B, 1, V), cache)."""
+    if context is not None:
+        raise NotImplementedError(f"prefill with a context {_TODO}")
+    x = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    x, cache, _ = _run_layers(params, cfg, x, positions=positions,
+                              cache=cache, cache_len=0)
+    cache["length"] = torch.full_like(cache["length"], tokens.shape[1])
+    x = norm_apply(params["final_norm"], x[:, -1:].contiguous(), cfg.norm)
+    return _logits(params, cfg, x), cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache):
+    """token: (B, 1) -> (logits (B, 1, V), cache)."""
+    x = _embed_tokens(params, cfg, token)
+    length = cache["length"]
+    x, cache, _ = _run_layers(params, cfg, x, positions=length[:, None],
+                              cache=cache, cache_len=length)
+    cache["length"] = length + 1
+    x = norm_apply(params["final_norm"], x, cfg.norm)
+    return _logits(params, cfg, x), cache
+
+
+__all__ = ["LayerSpec", "layer_specs", "split_pattern", "layer_init",
+           "cache_init_layer", "layer_apply", "init_params", "init_cache",
+           "forward_train", "prefill", "decode_step", "tree_leaves"]

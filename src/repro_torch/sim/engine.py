@@ -22,16 +22,16 @@ Per-tick work takes one of two routes (``resolve_tick_backend``):
   take it; ``tick_backend="scan"`` or ``REPRO_SIM_TICK=scan`` forces
   it for the others.
 
-Random numbers: each cell draws from its own ``torch.Generator``
-seeded with the cell's seed, and its runs are the rows of that
-generator's batched draws, so both routes consume the same stream and
-a cell's results do not depend on the other cells of its grid.  A
-run's draws do depend on the number of runs beside it: the JAX
-reference keys run ``r`` by ``fold_in(seed, r)``, which makes every
-run independent of the grid around it, and the threefry port restores
-that.  Until then the port matches the reference statistically, and
-exactly when it is handed the reference's action tensors through the
-``actions=`` argument of ``run_scenario`` / ``run_workload``.
+Random numbers: the reference's threefry stream (``core/prng.py``).
+Run ``r`` of a cell is keyed by ``fold_in(PRNGKey(seed), r)`` on the
+global run index, split once per step, and each step draws as the
+reference's ``draw_actions`` / ``draw_write_chunks`` do, so every
+per-run ledger equals ``repro.sim``'s and a run's draws do not depend
+on the grid around it.  ``partitionable`` selects the
+``jax_threefry_partitionable`` mode the draws follow (the committed
+golden ledgers need ``False``).  All steps' draws of a batch are made
+before the step loop, in a few large batched calls, and both variants
+of a comparison consume the same draws.
 
 Population statistics (mean, population std) are reported exactly as
 the paper does.
@@ -47,11 +47,13 @@ import numpy as np
 import torch
 
 from repro_torch.content.chunks import BYTES_PER_TOKEN
-from repro_torch.core import acs
+from repro_torch.core import acs, prng
 from repro_torch.core.states import MESIState
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.chunk_diff import N_CHUNK_COUNTERS, chunk_tick_
-from repro_torch.kernels.mesi_transition import N_COUNTERS, mesi_tick_
+from repro_torch.kernels.mesi_transition import (N_COUNTERS,
+                                                 episode_step_keys,
+                                                 mesi_tick_)
 from repro_torch.sim.scenarios import ScenarioConfig
 
 _KERNEL_STRATEGIES = (acs.LAZY, acs.EAGER, acs.ACCESS_COUNT)
@@ -180,26 +182,79 @@ def _workload_cell(w, device) -> _Cell:
                  w.rates(device))
 
 
-def _step_source(cfg: acs.ACSConfig, cells: Sequence[_Cell], n_runs: int,
-                 device, actions=None):
-    """``step -> (acts, arts, writes, write_chunks)`` for the batch of
-    ``len(cells) * n_runs`` simulations: fresh per-cell generators, or
-    the given (S, B, n[, C]) ``actions``."""
-    if actions is not None:
-        given = [None if x is None else torch.as_tensor(x, device=device)
-                 for x in actions]
-        return lambda step: tuple(None if x is None else x[step]
-                                  for x in given)
-    gens = [torch.Generator(device=device).manual_seed(c.seed)
-            for c in cells]
+#: element budget of one batched draw call: a batch's steps are drawn
+#: in as few calls as keep each call's int64 temporaries near 256 MB
+_DRAW_ELEMENTS = 1 << 25
+
+
+def _batched_rates(cells: Sequence[_Cell], n_runs: int):
+    """The cells' rate matrices with one row per simulation, or None."""
+    if cells[0].rates is None:
+        return None
+    return acs.RateMatrices(*(
+        torch.cat([leaf.expand((n_runs,) + tuple(leaf.shape))
+                   for leaf in leaves])
+        for leaves in zip(*(c.rates for c in cells))))
+
+
+def _per_cell(cells: Sequence[_Cell], field: str, n_runs: int, device):
+    return torch.tensor([getattr(c, field) for c in cells],
+                        dtype=torch.float32,
+                        device=device).repeat_interleave(n_runs)
+
+
+class _Draws(NamedTuple):
+    """Every step's draws of a batch: (S, B, n) tensors."""
+
+    acts: torch.Tensor
+    arts: torch.Tensor
+    writes: torch.Tensor
+    span_start: Optional[torch.Tensor]   # content plane only
+    locality: torch.Tensor               # (B,)
+
+
+def _draw_grid(cfg: acs.ACSConfig, cells: Sequence[_Cell], n_runs: int,
+               device, partitionable: bool) -> _Draws:
+    """The reference's draws for the ``len(cells) * n_runs`` episodes
+    of a batch: episode keys by global run index, every step key in one
+    call, then the steps' draws in a few batched calls."""
+    S, n, m = cfg.n_steps, cfg.n_agents, cfg.n_artifacts
+    runs = torch.arange(n_runs, device=device)
+    keys = torch.cat([acs.run_keys(prng.prng_key(c.seed, device), runs)
+                      for c in cells])
+    step_keys = episode_step_keys(keys, S, partitionable)   # (S, B, 2)
+    rates = _batched_rates(cells, n_runs)
+    vols = _per_cell(cells, "volatility", n_runs, device)
+    p_acts = _per_cell(cells, "p_act", n_runs, device)
+    per_step = keys.shape[0] * n * (m if rates is not None else 1)
+    chunk = max(1, _DRAW_ELEMENTS // per_step)
+    parts, starts = [], []
+    content = acs.content_enabled(cfg)
+    for s0 in range(0, S, chunk):
+        ks = step_keys[s0:s0 + chunk]
+        parts.append(acs.draw_actions(ks, n, m, vols, p_acts, rates,
+                                      partitionable=partitionable))
+        if content:
+            starts.append(acs.write_span_start(
+                ks, n, acs.content_chunks(cfg), partitionable))
+    acts, arts, writes = (torch.cat(x) for x in zip(*parts))
+    return _Draws(acts, arts, writes,
+                  torch.cat(starts) if content else None,
+                  _per_cell(cells, "locality", n_runs, device))
+
+
+def _step_source(cfg: acs.ACSConfig, draws: _Draws):
+    """``step -> (acts, arts, writes, write_chunks)`` over ``draws``;
+    ``write_chunks`` only when ``cfg`` has the content plane."""
+    content = acs.content_enabled(cfg)
+    C = acs.content_chunks(cfg) if content else 0
 
     def source(step):
-        parts = [acs.draw_step(cfg, g, n_runs, c.volatility, c.p_act,
-                               c.rates, c.locality)
-                 for g, c in zip(gens, cells)]
-        return tuple(None if parts[0][i] is None
-                     else torch.cat([p[i] for p in parts])
-                     for i in range(4))
+        wchunks = (acs.write_span_mask(draws.span_start[step], C,
+                                       draws.locality)
+                   if content else None)
+        return draws.acts[step], draws.arts[step], draws.writes[step], \
+            wchunks
 
     return source
 
@@ -208,14 +263,8 @@ def _episodes_scan(cfg: acs.ACSConfig, source, cells: Sequence[_Cell],
                    n_runs: int, device) -> dict:
     """The batch through the ACS state machine; metrics dict of (B,)."""
     B = len(cells) * n_runs
-    p_acts = torch.tensor([c.p_act for c in cells], dtype=torch.float32,
-                          device=device).repeat_interleave(n_runs)
-    rates = None
-    if cells[0].rates is not None:
-        rates = acs.RateMatrices(*(
-            torch.cat([leaf.expand((n_runs,) + tuple(leaf.shape))
-                       for leaf in leaves])
-            for leaves in zip(*(c.rates for c in cells))))
+    p_acts = _per_cell(cells, "p_act", n_runs, device)
+    rates = _batched_rates(cells, n_runs)
     arrays = acs.init_arrays(cfg, B, device)
     met = acs.init_metrics(B, device)
     for step in range(cfg.n_steps):
@@ -332,10 +381,12 @@ def _broadcast_content_fill(cfg: acs.ACSConfig, out: dict) -> dict:
 
 def _run_grid(cfg: acs.ACSConfig, cells: Sequence[_Cell], n_runs: int,
               include_broadcast: bool, tick_backend: Optional[str], device,
-              actions=None) -> list:
+              partitionable: bool) -> list:
     """Per variant (``[broadcast, coherent]`` or ``[coherent]``), a dict
-    of (len(cells), n_runs) numpy arrays."""
+    of (len(cells), n_runs) numpy arrays.  Both variants consume the
+    same draws, as both of the reference's do."""
     B = len(cells) * n_runs
+    draws = _draw_grid(cfg, cells, n_runs, device, partitionable)
     outs = []
     if include_broadcast:
         # Broadcast has no content plane (bulk injection ships
@@ -343,13 +394,12 @@ def _run_grid(cfg: acs.ACSConfig, cells: Sequence[_Cell], n_runs: int,
         # route, and its byte columns are filled analytically.
         bc_cfg = dataclasses.replace(cfg, strategy=acs.BROADCAST,
                                      chunk_tokens=0)
-        bc = _episodes_scan(bc_cfg, _step_source(bc_cfg, cells, n_runs,
-                                                 device),
-                            cells, n_runs, device)
+        bc = _episodes_scan(bc_cfg, _step_source(bc_cfg, draws), cells,
+                            n_runs, device)
         if acs.content_enabled(cfg):
             bc = _broadcast_content_fill(cfg, bc)
         outs.append(bc)
-    source = _step_source(cfg, cells, n_runs, device, actions)
+    source = _step_source(cfg, draws)
     if resolve_tick_backend(cfg, tick_backend) == "kernel":
         outs.append(_episodes_kernel(cfg, source, B, device))
     else:
@@ -441,20 +491,22 @@ def _grouped(items, n_runs_of, cfg_of) -> dict:
 
 
 def run_scenario(scn: ScenarioConfig, tick_backend: Optional[str] = None,
-                 device=None, actions=None) -> RunResult:
-    """Run ``scn.n_runs`` seeded episodes as one batch.  ``actions``,
-    when given, is ``(acts, arts, writes, write_chunks)`` of shape
-    (S, n_runs, n[, C]) and replaces the generator's draws."""
+                 device=None,
+                 partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                 ) -> RunResult:
+    """Run ``scn.n_runs`` seeded episodes as one batch."""
     dev = resolve_device(device)
     out = _run_grid(scn.acs, [_scenario_cell(scn)], scn.n_runs, False,
-                    tick_backend, dev, actions)
+                    tick_backend, dev, partitionable)
     return _result_from(_cell(out[0], 0), scn.name,
                         acs.STRATEGY_NAMES[scn.acs.strategy], scn.n_runs)
 
 
 def compare_grid(scns: Sequence[ScenarioConfig],
                  tick_backend: Optional[str] = None,
-                 device=None) -> list[Comparison]:
+                 device=None,
+                 partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                 ) -> list[Comparison]:
     """Broadcast-vs-coherent for many scenarios.  Scenarios sharing a
     static configuration and a run count run as one batch per
     variant."""
@@ -465,7 +517,8 @@ def compare_grid(scns: Sequence[ScenarioConfig],
         sub = [scns[i] for i in idxs]
         cfg = sub[0].acs
         bc_out, co_out = _run_grid(cfg, [_scenario_cell(s) for s in sub],
-                                   n_runs, True, tick_backend, dev)
+                                   n_runs, True, tick_backend, dev,
+                                   partitionable)
         for j, i in enumerate(idxs):
             bc = _result_from(_cell(bc_out, j), sub[j].name,
                               acs.STRATEGY_NAMES[acs.BROADCAST], n_runs)
@@ -478,12 +531,13 @@ def compare_grid(scns: Sequence[ScenarioConfig],
 
 def compare(scn: ScenarioConfig, strategy_code: Optional[int] = None,
             tick_backend: Optional[str] = None,
-            device=None) -> Comparison:
+            device=None,
+            partitionable: bool = prng.PARTITIONABLE_DEFAULT) -> Comparison:
     """Run broadcast + coherent variants of one scenario."""
     coh_scn = scn if strategy_code is None else scn.with_strategy(
         strategy_code)
     return compare_grid([coh_scn], tick_backend=tick_backend,
-                        device=device)[0]
+                        device=device, partitionable=partitionable)[0]
 
 
 def sweep_cells(base_scn: ScenarioConfig, volatilities,
@@ -500,7 +554,9 @@ def sweep_cells(base_scn: ScenarioConfig, volatilities,
 
 
 def compare_workloads(workloads, tick_backend: Optional[str] = None,
-                      device=None) -> list[Comparison]:
+                      device=None,
+                      partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                      ) -> list[Comparison]:
     """Broadcast-vs-coherent for heterogeneous workloads
     (``repro_torch.sim.workloads.Workload`` instances).  Workloads
     sharing a static configuration and a run count run as one batch per
@@ -513,7 +569,8 @@ def compare_workloads(workloads, tick_backend: Optional[str] = None,
         cfg = sub[0].acs
         bc_out, co_out = _run_grid(cfg, [_workload_cell(w, dev)
                                          for w in sub],
-                                   n_runs, True, tick_backend, dev)
+                                   n_runs, True, tick_backend, dev,
+                                   partitionable)
         for j, i in enumerate(idxs):
             bc = _result_from(_cell(bc_out, j), sub[j].name,
                               acs.STRATEGY_NAMES[acs.BROADCAST], n_runs)
@@ -525,12 +582,12 @@ def compare_workloads(workloads, tick_backend: Optional[str] = None,
 
 
 def run_workload(w, tick_backend: Optional[str] = None, device=None,
-                 actions=None) -> RunResult:
-    """Run one heterogeneous workload (no baseline).  ``actions`` as in
-    :func:`run_scenario`."""
+                 partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                 ) -> RunResult:
+    """Run one heterogeneous workload (no baseline)."""
     dev = resolve_device(device)
     out = _run_grid(w.acs, [_workload_cell(w, dev)], w.n_runs, False,
-                    tick_backend, dev, actions)
+                    tick_backend, dev, partitionable)
     return _result_from(_cell(out[0], 0), w.name,
                         acs.STRATEGY_NAMES[w.acs.strategy], w.n_runs)
 
@@ -538,7 +595,10 @@ def run_workload(w, tick_backend: Optional[str] = None, device=None,
 def sweep_volatility(base_scn: ScenarioConfig, volatilities,
                      n_runs: Optional[int] = None,
                      tick_backend: Optional[str] = None,
-                     device=None) -> list[Comparison]:
+                     device=None,
+                     partitionable: bool = prng.PARTITIONABLE_DEFAULT
+                     ) -> list[Comparison]:
     """V-sweep: every volatility cell of the sweep in one batch."""
     return compare_grid(sweep_cells(base_scn, volatilities, n_runs),
-                        tick_backend=tick_backend, device=device)
+                        tick_backend=tick_backend, device=device,
+                        partitionable=partitionable)

@@ -3,8 +3,8 @@
 Canonical parameters (all configurations): n = 4 agents, m = 3 artifacts,
 |d_i| = 4,096 tokens, S = 40 steps, action probability 0.75, 10 runs per
 configuration with scenario-specific deterministic seeds (A-D use
-20260305-20260308; each scenario's runs draw from one generator
-seeded with its seed - see ``repro_torch.sim.engine``).
+20260305-20260308; run ``r`` of a scenario is keyed by ``fold_in(
+PRNGKey(seed), r)`` - see ``repro_torch.sim.engine``).
 """
 
 from __future__ import annotations

@@ -14,6 +14,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import chunk_diff, mesi_transition  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.ref import (attention_plain,  # noqa: E402
+                                     decode_attention_plain, rmsnorm_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.acs import draw_write_chunks  # noqa: E402
 from repro_torch.sim import SCENARIOS, run_workload, run_scenario, zoo  # noqa: E402
 
@@ -69,7 +75,8 @@ def test_chunk_kernel_equals_plain(gen, B, n, m, C):
     cs = torch.clamp(cv[:, None] - _ints(gen, 0, 2, B, n, m, C), min=0)
     inputs = (cv, cs, (cv > 1).to(torch.int32), miss,
               (acts * writes).contiguous(), arts,
-              draw_write_chunks(gen, B, n, C, 0.3).to(torch.int32))
+              draw_write_chunks(prng.split(prng.prng_key(5, "cuda"), B), n,
+                                C, 0.3).to(torch.int32))
     out = chunk_diff.chunk_tick(*inputs, **opts)
     torch.cuda.synchronize()
     plain = [t.clone() for t in inputs[:3]]
@@ -89,3 +96,80 @@ def test_engine_routes_agree_on_the_card(gen):
     scan = run_workload(w, tick_backend="scan")
     assert kern.stats.delta_bytes_mean == scan.stats.delta_bytes_mean
     assert (kern.per_run_total_tokens == scan.per_run_total_tokens).all()
+
+
+# --- model kernels: fp32 within 1e-5 on unit-scale inputs, bf16 within
+# --- one bf16 ulp (rmsnorm) or 1e-2 (attention) of the plain version
+
+def _normal(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _close(got, exp, dtype, atol):
+    assert got.dtype == exp.dtype and got.shape == exp.shape
+    err = (got.float() - exp.float()).abs().max().item()
+    assert err <= (1e-5 if dtype == torch.float32 else atol), err
+
+
+@pytest.mark.parametrize("shape", [(1, 32), (7, 128), (300, 2048),
+                                   (2, 3, 5, 256), (4, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_equals_plain(gen, shape, dtype):
+    x = _normal(gen, *shape, dtype=dtype)
+    w = _normal(gen, shape[-1], dtype=dtype)
+    launches = rmsnorm.launches
+    got = rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == launches + 1
+    exp = rmsnorm_plain(x, w)
+    if dtype == torch.bfloat16:
+        # one bf16 ulp of the plain value: x = m * 2**e with m in
+        # [0.5, 1) has 8 significant bits, so its ulp is 2**(e - 8)
+        ulp = torch.ldexp(torch.ones_like(exp, dtype=torch.float32),
+                          torch.frexp(exp.float()).exponent - 8)
+        assert bool(((got.float() - exp.float()).abs() <= ulp).all())
+    else:
+        torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,lq,lk", [
+    (1, 2, 2, 1, 1),          # one row, one key
+    (2, 8, 1, 70, 70),        # ragged tails, MQA (group 8)
+    (1, 4, 2, 33, 130),       # Lq < Lk causal, group 2
+    (2, 2, 2, 128, 128),      # whole tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_equals_plain(gen, d, b, hq, hkv, lq, lk,
+                                             dtype):
+    q = _normal(gen, b, hq, lq, d, dtype=dtype)
+    k = _normal(gen, b, hkv, lk, d, dtype=dtype)
+    v = _normal(gen, b, hkv, lk, d, dtype=dtype)
+    for causal in (True, False):
+        launches = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == launches + 1
+        _close(got, attention_plain(q, k, v, causal=causal), dtype, 1e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,L", [
+    (4, 8, 1, 6176),          # gemma-2b's serving shape
+    (3, 2, 1, 100),           # group 2, ragged cache
+    (2, 4, 4, 1),             # group 1, one key
+    (1, 8, 2, 257),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_equals_plain(gen, d, b, hq, hkv, L, dtype):
+    q = _normal(gen, b, hq, d, dtype=dtype)
+    kc = _normal(gen, b, hkv, L, d, dtype=dtype)
+    vc = _normal(gen, b, hkv, L, d, dtype=dtype)
+    lens = torch.randint(1, L + 1, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    for kv_len in (None, lens):
+        launches = decode_attention.launches
+        got = decode_attention(q, kc, vc, kv_len)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == launches + 1
+        _close(got, decode_attention_plain(q, kc, vc, kv_len), dtype, 1e-2)

@@ -14,6 +14,10 @@ from repro_torch.core import acs  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels import mesi_transition  # noqa: E402
 from repro_torch.sim import SCENARIOS, compare, run_scenario, zoo  # noqa: E402
+from repro_torch import models  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.runtime import CoherentServingSystem  # noqa: E402
 
 pytestmark = pytest.mark.torch
 
@@ -41,8 +45,16 @@ def test_imports_neither_jax_nor_the_jax_package(path):
 def test_every_port_module_is_checked():
     names = {p.relative_to(PORT_FILES[0].parents[0]).as_posix()
              for p in PORT_FILES}
-    for module in ("core/acs.py", "kernels/mesi_transition.py",
-                   "kernels/chunk_diff.py", "kernels/build.py",
+    for module in ("core/acs.py", "core/prng.py", "core/protocol.py",
+                   "core/clock.py", "core/lease.py",
+                   "kernels/mesi_transition.py", "kernels/chunk_diff.py",
+                   "kernels/build.py", "kernels/ref.py",
+                   "kernels/rmsnorm.py", "kernels/flash_attention.py",
+                   "kernels/decode_attention.py", "kernels/ops.py",
+                   "configs/base.py", "configs/registry.py",
+                   "models/common.py", "models/attention.py",
+                   "models/transformer.py", "models/convert.py",
+                   "runtime/coherent_serving.py", "launch/serve.py",
                    "sim/engine.py", "sim/workloads.py"):
         assert any(n.endswith(module) for n in names), module
 
@@ -59,7 +71,15 @@ def no_card(monkeypatch):
     lambda: zoo(n_agents=2, n_artifacts=2, n_runs=1)[0].rates(),
     lambda: acs.init_arrays(SCENARIOS["A"].acs, 2),
     lambda: acs.init_metrics(2),
-], ids=["run_scenario", "compare", "rates", "init_arrays", "init_metrics"])
+    lambda: models.init_params(smoke_config("gemma-2b")),
+    lambda: models.init_cache(smoke_config("gemma-2b"), 1, 8),
+    lambda: models.params_from_numpy({}, smoke_config("gemma-2b")),
+    lambda: CoherentServingSystem(smoke_config("gemma-2b"), 2,
+                                  {"a": [1, 2]}),
+    lambda: serve.main(["--smoke", "--steps", "1"]),
+], ids=["run_scenario", "compare", "rates", "init_arrays", "init_metrics",
+        "init_params", "init_cache", "params_from_numpy",
+        "serving_system", "serve_cli"])
 def test_entry_points_default_to_cuda(no_card, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
