@@ -5,7 +5,7 @@
 
 Phases, each printing JSON lines:
 
-1. build   - compiles the five CUDA kernels from
+1. build   - compiles the six CUDA kernels from
              ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a into
              ``build/repro_torch_kernels/``, one nvcc per source, all at
              once.
@@ -21,7 +21,14 @@ Phases, each printing JSON lines:
              the wrapper call (CUDA events), the kernel alone, the plain
              version and, for the model kernels, the one PyTorch call that
              computes the same function (a yardstick the port never
-             calls), beside the bound.
+             calls), beside the bound.  The RWKV6 WKV scan at the rwkv
+             serving path's shapes (the batched and the agents' 6144-step
+             prefills, a decode step from a random state) and a ragged
+             bf16 mid shape: the final state bit for bit, y in fp32
+             within 1e-5 of the rms of its head's output and in bf16
+             within one bf16 ulp plus 2**-10 of its row's rms; no
+             PyTorch call computes the recurrence, so it has no library
+             time.
 3. scenarios - first the committed goldens on the threefry stream in
              legacy mode: ``tests/golden/scenarios.json`` exactly, then the
              zoo and content goldens with a count of the runs that differ
@@ -46,11 +53,21 @@ Phases, each printing JSON lines:
              flash_attention per prefill, 18 decode_attention per step)
              and the same request on the plain versions: relative L2 error
              of the prefill's last-position logits <= 2e-2 and of every
-             decode step's <= 2.5e-2.
-6. the ``kernels`` line, the card's name and power limit, and the final
+             decode step's <= 2.5e-2; then the prompt through the layers
+             one at a time on both routes, each layer's own share of
+             their distance <= 1e-2.
+6. serve_rwkv - the same serving workload on rwkv6-1.6b at its
+             registered width (24 layers, d 2048, 32 heads of 64,
+             channel-mix 7168, vocab 65536, bf16) with random weights from
+             ``SEED``: finite logits, exactly 73 rmsnorm and 24 rwkv6_scan
+             launches per forward and no attention launch; the plain route
+             within relative L2 4.5e-2 (prefill) and 5e-2 (every decode
+             step), set from the per-layer readings in PERF.md, and each
+             layer's own share <= 1e-2.
+7. the ``kernels`` line, the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
 
-Phases 3-4 (the sweep engine) and phase 5 (serving) are the main paths;
+Phases 3-4 (the sweep engine), 5 and 6 (serving) are the main paths;
 each path's kernels' launch counts are set to 0 just before it and read
 just after.  Any failed check raises, and the script then exits
 non-zero.  Without a CUDA device, or without the repository's ``src/``
@@ -78,6 +95,9 @@ PUBLISHED_TOLERANCE = 0.025
 H100_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 #: dense bf16 tensor-core rate by H100 variant, flop/s (data sheets)
 H100_BF16_FLOPS = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
+#: fp32 rate of the CUDA cores (outside the tensor cores) by H100
+#: variant, flop/s (data sheets)
+H100_FP32_FLOPS = {"PCIe": 51e12, "NVL": 60e12, "SXM": 67e12}
 
 #: mid-size, then every shape the main path gives the kernel: the four
 #: scenarios' batch, the eager/access_count fleets, the content fleet
@@ -103,11 +123,15 @@ REPLACES = {
                         "src/repro/kernels/flash_attention.py:81"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:71"),
+    "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:63"),
 }
 #: the serving workload of phase 5
 SERVE = dict(arch="gemma-2b", agents=4, artifacts=3, artifact_tokens=2048,
              steps=40, volatility=0.10, strategy="lazy", max_len=8192,
              decode_steps=32)
+#: the serving workload of phase 6: the same on rwkv6-1.6b
+SERVE_RWKV = dict(SERVE, arch="rwkv6-1.6b")
 #: tolerances of the model kernels against their plain versions (max-abs)
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 #: bf16 attention is also held element by element to one bf16 ulp of the
@@ -117,11 +141,21 @@ ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 #: (unit-normal inputs at L = 6144 give rows of rms ~0.02, so the max-abs
 #: limit alone would not see it)
 ROW_RMS_FLOOR = 2.0 ** -10
-#: relative L2 error allowed between the kernel and plain routes' logits:
-#: the prefill's last position, then every decode step's (set from the
-#: H100 readings recorded in PERF.md, 0.0167 and at most 0.0191)
-LOGITS_REL_L2 = 2e-2
-STEP_LOGITS_REL_L2 = 2.5e-2
+#: fp32 WKV outputs are held to this share of the rms of their head's
+#: output over the sequence (not of their row's: early rows are sums that
+#: cancel, and there even the plain version lies ~1e-4 of the row's rms
+#: from the same sum in fp64)
+WKV_FP32_TOL = 1e-5
+#: relative L2 error allowed between the kernel and plain routes' logits,
+#: by arch: (the prefill's last position, every decode step's), set from
+#: the H100 readings recorded in PERF.md: gemma-2b 0.0167 and at most
+#: 0.0191; rwkv6-1.6b 0.0378 and at most 0.0399, where the per-layer
+#: readings show no layer parting the routes (each adds at most 0.0037)
+LOGITS_REL_L2 = {"gemma-2b": (2e-2, 2.5e-2), "rwkv6-1.6b": (4.5e-2, 5e-2)}
+#: relative L2 error allowed for one layer's own share of the routes'
+#: distance (``layer_divergence``'s ``local``; readings at most 0.0015 on
+#: gemma-2b and 0.0037 on rwkv6-1.6b)
+LAYER_REL_L2 = 1e-2
 
 
 def emit(obj: dict) -> None:
@@ -155,6 +189,10 @@ def memory_rate(name: str) -> float:
 
 def bf16_rate(name: str) -> float:
     return _variant_rate(name, H100_BF16_FLOPS, "bf16 rate")
+
+
+def fp32_rate(name: str) -> float:
+    return _variant_rate(name, H100_FP32_FLOPS, "fp32 rate")
 
 
 def median_ms(fn, make_args, reps: int) -> float:
@@ -265,7 +303,8 @@ def phase_build(card: str) -> None:
                     if "registers" in line or "spill" in line]
              for name, log in logs.items()}
     emit({"phase": "build", "seconds": seconds, "arch": "sm_90a",
-          "compiled": sorted(logs), "ptxas": usage, "card": card})
+          "kernels": len(build.KERNELS), "compiled": sorted(logs),
+          "ptxas": usage, "card": card})
 
 
 def random_mesi_inputs(gen, B: int, n: int, m: int):
@@ -385,19 +424,19 @@ def phase_kernels(card: str, rate: float) -> dict:
     return results
 
 
-def serving_system():
-    """The serving workload of phase 5, driven through its coherence
-    decisions (no model yet): the system and its stats."""
+def serving_system(serve=SERVE):
+    """A serving workload (phase 5's by default), driven through its
+    coherence decisions (no model yet): the system and its stats."""
     from repro_torch.configs import ARCHS, get, n_active_params
     from repro_torch.launch.serve import build_artifacts
     from repro_torch.runtime.coherent_serving import (CoherentServingSystem,
                                                       run_workload)
     system = CoherentServingSystem(
-        get(SERVE["arch"]), SERVE["agents"],
-        build_artifacts(SERVE["artifacts"], SERVE["artifact_tokens"]),
-        strategy=SERVE["strategy"],
-        n_active_params=n_active_params(ARCHS[SERVE["arch"]]))
-    stats = run_workload(system, SERVE["steps"], SERVE["volatility"])
+        get(serve["arch"]), serve["agents"],
+        build_artifacts(serve["artifacts"], serve["artifact_tokens"]),
+        strategy=serve["strategy"],
+        n_active_params=n_active_params(ARCHS[serve["arch"]]))
+    stats = run_workload(system, serve["steps"], serve["volatility"])
     return system, stats
 
 
@@ -449,11 +488,11 @@ def attention_pairs(lq: int, lk: int, causal: bool) -> int:
 
 
 def phase_model_kernels(card: str, rate: float, flops: float,
-                        contexts: list) -> dict:
-    """The three model kernels against their plain versions at the
-    serving path's shapes (gemma-2b: the agents' prefills, the batched
-    prefill and decode) and at a mid shape; returns, per kernel, the
-    row of the batched request's shape."""
+                        fp32_flops: float, contexts: list) -> dict:
+    """The four model kernels against their plain versions at the
+    serving paths' shapes (gemma-2b and rwkv6-1.6b: the agents'
+    prefills, the batched prefill and decode) and at a mid shape;
+    returns, per kernel, the row of the batched request's shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get
@@ -587,7 +626,82 @@ def phase_model_kernels(card: str, rate: float, flops: float,
         emit(row)
         if label == "batched decode":
             results["decode_attention"] = row
+    results["rwkv6_scan"] = check_rwkv6_scan(card, rate, fp32_flops, gen, P,
+                                             L1)
     return results
+
+
+def check_rwkv6_scan(card: str, rate: float, fp32_flops: float, gen,
+                     P: int, L1: int) -> dict:
+    """The WKV kernel against its plain version at the rwkv serving
+    path's shapes (rwkv6-1.6b: the batched prefill of P steps, one
+    agent's prefill of L1, a decode step from a random state) and a
+    ragged bf16 mid shape; returns the batched prefill's row."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.ref import rwkv6_scan_plain
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    cfg = get(SERVE_RWKV["arch"])
+    h, dh = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+    n = SERVE_RWKV["agents"]
+    f32 = torch.float32
+    result = None
+    for label, b, t, heads, dtype, state in (
+            ("batched prefill", n, P, h, f32, False),
+            ("agent prefill", 1, L1, h, f32, False),
+            ("decode", n, 1, h, f32, True),
+            ("mid bf16", 2, 1000, 8, torch.bfloat16, False)):
+        r, k, v = (torch.randn((b, t, heads, dh), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        # the model's decay range: exp(-exp(U(-8, -5)))
+        w = torch.exp(-torch.exp(torch.rand(
+            (b, t, heads, dh), generator=gen, device="cuda") * 3 - 8)
+        ).to(dtype)
+        bonus = torch.randn((heads, dh), generator=gen, device="cuda") * 0.1
+        s0 = (torch.randn((b, heads, dh, dh), generator=gen, device="cuda")
+              if state else None)
+        args = (r, k, v, w, bonus, s0)
+        y, s = rwkv6_scan(*args)
+        torch.cuda.synchronize()
+        ey, es = rwkv6_scan_plain(*args)
+        check(torch.equal(s, es),
+              f"rwkv6_scan final state == plain bit for bit ({label})")
+        err = float((y.float() - ey.float()).abs().max())
+        row_rms = ey.float().square().mean(dim=-1, keepdim=True).sqrt()
+        row_rel = float(((y.float() - ey.float()).abs() / row_rms).max())
+        if dtype == f32:
+            head_rms = ey.square().mean(dim=(1, 3), keepdim=True).sqrt()
+            wkv_err = float(((y - ey).abs() / (WKV_FP32_TOL * head_rms))
+                            .max())
+            check(wkv_err <= 1.0, f"rwkv6_scan y within {WKV_FP32_TOL} of "
+                  f"its head's rms ({label}: {wkv_err})")
+        else:
+            wkv_err = bf16_row_err(y, ey)
+            check(wkv_err <= 1.0, f"rwkv6_scan y within one bf16 ulp plus "
+                  f"{ROW_RMS_FLOOR} of the row rms ({label}: {wkv_err})")
+        moved = (sum(x.numel() * x.element_size()
+                     for x in args + (y, s) if x is not None))
+        work = 5 * b * t * heads * dh * dh
+        bytes_ms, ops_ms = moved / rate * 1e3, work / fp32_flops * 1e3
+        make = lambda: args   # noqa: E731
+        row = {"phase": "kernels", "kernel": "rwkv6_scan", "case": label,
+               "shape": [b, t, heads, dh], "dtype": str(dtype).split(".")[-1],
+               "initial_state": state, "state_equal": True,
+               "max_abs_err": err, "max_wkv_err": wkv_err,
+               "max_err_over_row_rms": row_rel,
+               "ms": median_ms(rwkv6_scan, make, 5),
+               "device_ms": device_ms(rwkv6_scan, make, 5),
+               # one call of the plain loop is itself thousands of steps
+               "plain_ms": median_ms(rwkv6_scan_plain, make, 1),
+               "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+               "card": card}
+        emit(row)
+        if label == "batched prefill":
+            result = row
+    return result
 
 
 def phase_goldens(card: str) -> None:
@@ -842,7 +956,8 @@ def serve_profile(card: str, system, params, steps: int = 8) -> None:
             logits, cache = models.decode_step(params, cfg, tok, cache)
 
     wall, busy, top = device_profile(decode)
-    emit({"phase": "profile", "what": "decode", "steps": steps,
+    emit({"phase": "profile", "what": "decode", "arch": cfg.name,
+          "steps": steps,
           "batch": n, "wall_s": wall, "ms_per_step": wall / steps * 1e3,
           "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
           "top": top, "card": card})
@@ -856,7 +971,8 @@ class plain_route:
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
-        self.saved = (ops.rmsnorm, ops.flash_attention, ops.decode_attention)
+        self.saved = (ops.rmsnorm, ops.flash_attention, ops.decode_attention,
+                      ops.rwkv6_scan)
         ops.rmsnorm = lambda x, w, eps=1e-6, block_rows=128: \
             ref.rmsnorm_plain(x, w, eps)
         ops.flash_attention = lambda q, k, v, causal=True, scale=None, \
@@ -864,22 +980,48 @@ class plain_route:
                                                           scale)
         ops.decode_attention = lambda q, kc, vc, kv_len=None, scale=None, \
             block_k=256: ref.decode_attention_plain(q, kc, vc, kv_len, scale)
+        ops.rwkv6_scan = ref.rwkv6_scan_plain
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.rmsnorm, ops.flash_attention, ops.decode_attention = self.saved
+        (ops.rmsnorm, ops.flash_attention, ops.decode_attention,
+         ops.rwkv6_scan) = self.saved
         return False
 
 
-def phase_serve(card: str) -> dict:
-    """Coherent serving on full-width gemma-2b; returns the launch
-    counts of the run."""
-    import torch
-    from repro_torch import models
+def model_kernels():
+    """The wrappers of the serving paths' kernels, by kernel name."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "decode_attention": decode_attention, "rwkv6_scan": rwkv6_scan}
+
+
+def expected_launches(cfg, prefills: int, steps: int) -> dict:
+    """Launches of each model kernel over ``prefills`` prefills and
+    ``steps`` decode steps: per forward one rmsnorm per norm (norm1 and
+    norm2 of each layer, rwkv's ln_x, the final norm) and one mixer
+    kernel per layer - flash attention per prefill and decode attention
+    per step, or the WKV scan in both."""
+    from repro_torch.models.transformer import layer_specs
+    mixers = [spec.mixer for spec in layer_specs(cfg)]
+    forwards = prefills + steps
+    n_attn, n_rwkv = mixers.count("attn"), mixers.count("rwkv")
+    return {"rmsnorm": (2 * cfg.n_layers + n_rwkv + 1) * forwards,
+            "flash_attention": n_attn * prefills,
+            "decode_attention": n_attn * steps,
+            "rwkv6_scan": n_rwkv * forwards}
+
+
+def phase_serve(card: str, serve=SERVE) -> dict:
+    """Coherent serving of ``serve``'s workload at its model's registered
+    width, with the model kernels' launch counts set to 0 before it;
+    returns the counts of the kernels it launched."""
+    import torch
+    from repro_torch import models
     from repro_torch.launch.serve import batched_request
 
     def sync_time(fn):
@@ -890,63 +1032,46 @@ def phase_serve(card: str) -> dict:
         return out, time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    (system, stats), _ = sync_time(serving_system)
+    (system, stats), _ = sync_time(lambda: serving_system(serve))
     cfg = system.cfg
+    phase = "serve" if serve is SERVE else "serve_rwkv"
     params, init_s = sync_time(lambda: models.init_params(cfg, seed=SEED))
     n_params = models.params_count(params)
     n = len(system.agents)
     contexts = [len(system.context_tokens(i)) for i in range(n)]
     for i in range(n):
         logits, secs = sync_time(lambda: system.materialize_prefill(
-            params, i, max_len=SERVE["max_len"]))
-        tokens = min(contexts[i], SERVE["max_len"])
+            params, i, max_len=serve["max_len"]))
+        tokens = min(contexts[i], serve["max_len"])
         check(bool(torch.isfinite(logits).all()),
               f"agent {i}: finite prefill logits")
-        emit({"phase": "serve", "agent": i, "prefill_tokens": tokens,
+        emit({"phase": phase, "agent": i, "prefill_tokens": tokens,
               "seconds": secs, "prefill_tokens_per_s": tokens / secs,
               "card": card})
-    steps = SERVE["decode_steps"]
+    steps = serve["decode_steps"]
     pre, pre_s = sync_time(lambda: batched_request(system, params, 0))
     out, full_s = sync_time(lambda: batched_request(system, params, steps))
     P = out["prompt_len"]
     check(bool(torch.isfinite(out["logits"]).all()),
           "finite logits of the batched request")
-    launches = {"rmsnorm": rmsnorm.launches,
-                "flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
-    forwards = n + 2 + steps
-    prefills = n + 2
-    expected = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards,
-                "flash_attention": cfg.n_layers * prefills,
-                "decode_attention": cfg.n_layers * steps}
+    launches = {name: fn.launches for name, fn in model_kernels().items()}
+    expected = expected_launches(cfg, n + 2, steps)
     check(launches == expected,
-          f"launch counts {launches} == {expected} (37 rmsnorm per "
-          f"forward, 18 flash per prefill, 18 decode per step)")
+          f"{cfg.name}: launch counts {launches} == {expected}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     with plain_route():
         plain, plain_s = sync_time(lambda: batched_request(
             system, params, steps, forced=out["tokens"]))
-    k_last = out["logits"][:, 0].float()
-    p_last = plain["logits"][:, 0].float()
-    rel = float(torch.linalg.vector_norm(k_last - p_last)
-                / torch.linalg.vector_norm(p_last))
-    check(rel <= LOGITS_REL_L2,
-          f"prefill logits: kernel vs plain relative L2 {rel} <= "
-          f"{LOGITS_REL_L2}")
     rel_steps = (torch.linalg.vector_norm(
         (out["logits"] - plain["logits"]).float(), dim=-1)
         / torch.linalg.vector_norm(plain["logits"].float(), dim=-1))
-    worst = None
-    if steps:
-        worst = float(rel_steps[:, 1:].max())
-        check(worst <= STEP_LOGITS_REL_L2,
-              f"decode-step logits: kernel vs plain relative L2 {worst} <= "
-              f"{STEP_LOGITS_REL_L2}")
+    rel = float(rel_steps[:, 0].max())
+    worst = float(rel_steps[:, 1:].max()) if steps else None
     agree = float((torch.argmax(plain["logits"][:, :-1], dim=-1)
                    == out["tokens"]).float().mean()) if steps else 1.0
     decode_s = full_s - pre_s
-    emit({"phase": "serve", "arch": cfg.name, "params": n_params,
+    emit({"phase": phase, "arch": cfg.name, "params": n_params,
           "dtype": cfg.dtype, "init_seconds": init_s, "agents": n,
           "context_tokens": contexts, "prompt_len": P,
           "batched_prefill_tokens_per_s": n * P / pre_s,
@@ -956,6 +1081,7 @@ def phase_serve(card: str) -> dict:
           "logits_rel_l2": rel,
           "logits_rel_l2_max_step": float(rel_steps.max()),
           "logits_rel_l2_max_decode_step": worst,
+          "logits_rel_l2_by_step": rel_steps.max(dim=0).values.tolist(),
           "greedy_agreement": agree, "launches": launches,
           "peak_gib": peak, "token_savings": stats.token_savings,
           "flops_savings": stats.flops_savings,
@@ -963,8 +1089,70 @@ def phase_serve(card: str) -> dict:
           "broadcast_tokens": stats.broadcast_tokens,
           "fetches": stats.fetches, "cache_hits": stats.cache_hits,
           "card": card})
+    layers = layer_divergence(card, system, params, phase)
+    worst_layer = max(row["local"] for row in layers)
+    check(worst_layer <= LAYER_REL_L2,
+          f"{cfg.name}: every layer's own share of the routes' distance "
+          f"{worst_layer} <= {LAYER_REL_L2}")
+    last_limit, step_limit = LOGITS_REL_L2[serve["arch"]]
+    check(rel <= last_limit,
+          f"{cfg.name} prefill logits: kernel vs plain relative L2 {rel} "
+          f"<= {last_limit}")
+    if steps:
+        check(worst <= step_limit,
+              f"{cfg.name} decode-step logits: kernel vs plain relative L2 "
+              f"{worst} <= {step_limit}")
     serve_profile(card, system, params)
-    return launches
+    return {name: count for name, count in launches.items() if count}
+
+
+def layer_divergence(card: str, system, params, phase: str) -> list:
+    """Where the kernel and plain routes part: the batched request's
+    prompt through the layers one at a time, on both routes.  Per layer,
+    the relative L2 distance of the residual stream after it (whole, and
+    at the last position, the one the logits read): ``chained``, each
+    route fed its own previous output; ``local``, the kernel route fed
+    the plain route's input, so the layer's own share.  Returns the
+    rows."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map
+
+    cfg, n = system.cfg, len(system.agents)
+    contexts = [system.context_tokens(i) for i in range(n)]
+    p = min(len(c) for c in contexts)
+    tokens = torch.tensor([c[:p] for c in contexts], dtype=torch.int64,
+                          device="cuda")
+    positions = torch.arange(p, device="cuda")[None, :]
+    specs = tf.layer_specs(cfg)
+    prefix, period = tf.split_pattern(specs)
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    def layer(i, x):
+        blk = tree_map(lambda a: a[(i - prefix) // period], params["blocks"])
+        return tf.layer_apply(blk[f"sub{(i - prefix) % period}"], cfg,
+                              specs[i], x, positions=positions)[0]
+
+    check(prefix == 0, "layer_divergence walks stacked layers only")
+    xk = xp = tf._embed_tokens(params, cfg, tokens)
+    rows = []
+    for i in range(cfg.n_layers):
+        local = layer(i, xp)
+        xk = layer(i, xk)
+        with plain_route():
+            xp = layer(i, xp)
+        rows.append({"layer": i, "chained": rel(xk, xp),
+                     "chained_last": rel(xk[:, -1], xp[:, -1]),
+                     "local": rel(local, xp),
+                     "local_last": rel(local[:, -1], xp[:, -1])})
+    torch.cuda.synchronize()
+    emit({"phase": phase, "what": "layer_divergence", "arch": cfg.name,
+          "prompt": [n, p], "layers": rows, "card": card})
+    return rows
 
 
 def main() -> int:
@@ -973,22 +1161,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO / "src"))
-    from repro_torch.kernels import chunk_diff, mesi_transition as mt
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels import build, chunk_diff, mesi_transition as mt
 
     card = card_line()
     rate, flops = memory_rate(card), bf16_rate(card)
+    fp32_flops = fp32_rate(card)
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card,
-          "memory_bytes_per_s": rate, "bf16_flops_per_s": flops})
+          "memory_bytes_per_s": rate, "bf16_flops_per_s": flops,
+          "fp32_flops_per_s": fp32_flops})
     phase_build(card)
     kernels = phase_kernels(card, rate)
     system, _ = serving_system()
     contexts = [len(system.context_tokens(i))
                 for i in range(len(system.agents))]
-    kernels.update(phase_model_kernels(card, rate, flops, contexts))
+    kernels.update(phase_model_kernels(card, rate, flops, fp32_flops,
+                                       contexts))
 
     mt.mesi_tick_.launches = 0
     chunk_diff.chunk_tick_.launches = 0
@@ -997,11 +1185,13 @@ def main() -> int:
     launches = {"mesi_tick": mt.mesi_tick_.launches,
                 "chunk_tick": chunk_diff.chunk_tick_.launches}
 
-    rmsnorm.launches = 0
-    flash_attention.launches = 0
-    decode_attention.launches = 0
-    launches.update(phase_serve(card))
-    check(all(v > 0 for v in launches.values()),
+    for serve in (SERVE, SERVE_RWKV):
+        for fn in model_kernels().values():
+            fn.launches = 0
+        for name, count in phase_serve(card, serve).items():
+            launches[name] = launches.get(name, 0) + count
+    check(set(kernels) == set(launches) == set(REPLACES)
+          == set(build.KERNELS) and all(v > 0 for v in launches.values()),
           "the main paths launched every kernel")
 
     phase_profile(card, fleet_seconds)

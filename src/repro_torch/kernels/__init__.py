@@ -5,9 +5,10 @@ held to):
   * ``mesi_tick``  - batched MESI coherence tick (fleet-scale DES)
   * ``chunk_tick`` - batched chunk-diff / delta-coherence tick (content
                      plane; consumes mesi_tick's per-agent miss output)
-  * ``rmsnorm``, ``flash_attention``, ``decode_attention`` - the model
-                     kernels of the serving path, public through
-                     ``kernels.ops`` with the JAX package's signatures
+  * ``rmsnorm``, ``flash_attention``, ``decode_attention``,
+    ``rwkv6_scan``   - the model kernels of the serving path, public
+                     through ``kernels.ops`` with the JAX package's
+                     signatures
 
 Sources live in ``csrc/``; ``build`` compiles them with nvcc at first
 use.
@@ -21,8 +22,9 @@ from repro_torch.kernels.mesi_transition import (N_COUNTERS,
                                                  mesi_decision_batch,
                                                  mesi_tick, mesi_tick_,
                                                  mesi_tick_plain_)
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 
 __all__ = ["N_CHUNK_COUNTERS", "N_COUNTERS", "chunk_tick", "chunk_tick_",
            "chunk_tick_plain_", "mesi_decision_batch", "mesi_tick",
            "mesi_tick_", "mesi_tick_plain_", "resolve_chunk_route",
-           "resolve_device", "use_kernel"]
+           "resolve_device", "rwkv6_scan", "rwkv6_scan_plain", "use_kernel"]

@@ -42,6 +42,8 @@ KERNELS = {
                         [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
+    "rwkv6_scan": ("rwkv6_scan.cu", "rwkv6_scan_launch",
+                   [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 _LOADED: dict = {}

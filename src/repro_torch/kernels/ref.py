@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the model kernels: RMSNorm, flash attention
-(prefill) and flash decode.
+(prefill), flash decode and the RWKV6 WKV recurrence.
 
 Each is the function its CUDA kernel computes, in fp32 whatever the
 input type, written for clarity: the kernel wrappers run them for
@@ -75,3 +75,34 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                     float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", probs, vg).to(q.dtype)
+
+
+def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, bonus: torch.Tensor,
+                     initial_state: Optional[torch.Tensor] = None):
+    """The RWKV6 WKV recurrence, one step at a time.
+
+    r/k/v/w: (B, T, H, dh); bonus (H, dh); initial_state (B, H, dh, dh)
+    fp32 or None (zeros).  Per step, in the JAX oracle's order
+    (``repro.kernels.ref.rwkv6_scan_ref``), each a torch op of its own::
+
+        kv = k_t (x) v_t
+        y_t = sum_k r_t * (S + u * kv)
+        S = w_t * S
+        S = S + kv
+
+    so the state rounds after every product and sum, where the kernel
+    rounds.  Returns (y (B, T, H, dh) in r's type, final state fp32)."""
+    b, t, h, dh = r.shape
+    r32, k32, v32, w32 = (x.to(torch.float32) for x in (r, k, v, w))
+    u = bonus.to(torch.float32)[..., None]                 # (H, dh, 1)
+    state = (torch.zeros((b, h, dh, dh), dtype=torch.float32,
+                         device=r.device)
+             if initial_state is None else initial_state.to(torch.float32))
+    ys = []
+    for i in range(t):
+        kv = k32[:, i, :, :, None] * v32[:, i, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r32[:, i], state + u * kv))
+        state = w32[:, i, :, :, None] * state
+        state = state + kv
+    return torch.stack(ys, dim=1).to(r.dtype), state

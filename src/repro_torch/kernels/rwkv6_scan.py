@@ -1,0 +1,82 @@
+"""The RWKV6 WKV recurrence: the CUDA kernel and its plain version.
+
+:func:`rwkv6_scan` launches the kernel of ``csrc/rwkv6_scan.cu`` (one
+block per (batch, head) walking the whole sequence, the state in
+registers, steps staged through shared memory) for CUDA tensors, which
+replaces the TPU kernel of the JAX package (``rwkv6_scan_pallas``), and
+runs :func:`rwkv6_scan_plain` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.backend import float_code, use_kernel
+from repro_torch.kernels.ref import rwkv6_scan_plain
+
+#: head sizes the kernel is built for: the smoke configs' and
+#: rwkv6-1.6b's
+HEAD_SIZES = (32, 64)
+
+__all__ = ["rwkv6_scan", "rwkv6_scan_plain", "HEAD_SIZES"]
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, bonus: torch.Tensor,
+               initial_state: Optional[torch.Tensor] = None):
+    """The WKV recurrence over r/k/v/w (B, T, H, dh), T >= 1, with bonus
+    (H, dh) and an fp32 initial state (B, H, dh, dh) (None: zeros).
+    Returns (y (B, T, H, dh) in r's type, final state (B, H, dh, dh)
+    fp32).  CUDA tensors (r/k/v/w contiguous, 16-byte aligned, of one
+    type of fp32 / bf16; dh in :data:`HEAD_SIZES`) launch the kernel and
+    add one to ``rwkv6_scan.launches``; CPU tensors run
+    :func:`rwkv6_scan_plain`."""
+    on = (r, k, v, w, bonus) + (() if initial_state is None
+                                else (initial_state,))
+    if not use_kernel(*on):
+        return rwkv6_scan_plain(r, k, v, w, bonus, initial_state)
+    if r.ndim != 4 or not r.shape == k.shape == v.shape == w.shape:
+        raise ValueError("r, k, v and w must share one (B, T, H, dh) shape")
+    b, t, h, dh = r.shape
+    if t < 1 or b < 1 or h < 1:
+        raise ValueError(f"empty sequence batch {tuple(r.shape)}")
+    if dh not in HEAD_SIZES:
+        raise ValueError(f"head size {dh}; the kernel is built for "
+                         f"{HEAD_SIZES}")
+    if tuple(bonus.shape) != (h, dh):
+        raise ValueError(f"bonus has shape {tuple(bonus.shape)}, "
+                         f"expected ({h}, {dh})")
+    code = float_code(r, k, v, w)
+    if any(x.data_ptr() % 16 for x in (r, k, v, w)):
+        raise ValueError("r, k, v and w must be 16-byte aligned")
+    if initial_state is not None:
+        if tuple(initial_state.shape) != (b, h, dh, dh):
+            raise ValueError(f"initial_state has shape "
+                             f"{tuple(initial_state.shape)}, expected "
+                             f"({b}, {h}, {dh}, {dh})")
+        if (initial_state.dtype != torch.float32
+                or not initial_state.is_contiguous()):
+            raise TypeError("initial_state must be contiguous float32")
+    u = bonus.to(torch.float32).contiguous()
+    y = torch.empty_like(r)
+    state = torch.empty((b, h, dh, dh), dtype=torch.float32,
+                        device=r.device)
+    with torch.cuda.device(r.device):
+        err = build.kernel("rwkv6_scan")(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
+            y.data_ptr(), state.data_ptr(), b, t, h, dh, code,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
+                           f"{err}")
+    rwkv6_scan.launches += 1
+    return y, state
+
+
+#: kernel launches since the count was last set to 0
+rwkv6_scan.launches = 0

@@ -14,20 +14,28 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models.common import dtype_of
+from repro_torch.models.common import DTYPES, dtype_of
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
-    """A nested dict of numpy arrays (any float type, bfloat16 from
-    ``ml_dtypes`` included) as the port's params: tensors of
-    ``cfg.dtype`` on ``device`` (``None``: CUDA)."""
+    """A nested dict of numpy arrays as the port's params on ``device``
+    (``None``: CUDA).  Each leaf keeps its own float type, as the JAX
+    tree does: ``cfg.dtype`` for most, fp32 for the leaves a model keeps
+    in fp32 inside a bf16 model (rwkv6's decay, bonus and mixing
+    coefficients); ``ml_dtypes.bfloat16`` becomes ``torch.bfloat16``.
+    A leaf of another type than those two raises ``TypeError``."""
     dev = resolve_device(device)
-    dtype = dtype_of(cfg.dtype)
+    allowed = {torch.float32, dtype_of(cfg.dtype)}
 
     def leaf(x):
         if isinstance(x, dict):
             return {k: leaf(v) for k, v in x.items()}
-        arr = np.array(x, dtype=np.float32)
-        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+        arr = np.asarray(x)
+        dtype = DTYPES.get(arr.dtype.name)
+        if dtype not in allowed:
+            raise TypeError(f"a {arr.dtype.name} leaf in a {cfg.dtype} "
+                            f"model")
+        return torch.from_numpy(arr.astype(np.float32)).to(device=dev,
+                                                          dtype=dtype)
 
     return leaf(tree)

@@ -1,7 +1,7 @@
 """Config-driven model assembly in PyTorch, with the JAX package's names
-(``repro.models.transformer``), for the dense family: GQA / MQA
+(``repro.models.transformer``), for the dense family - GQA / MQA
 attention with a GLU feed-forward (gemma, qwen3, yi, command-r's layer
-kind).
+kind) - and RWKV6 (an rwkv time-mix with a channel-mix, rwkv6-1.6b).
 
 The layer sequence is an optional unstacked prefix followed by a
 repeating superblock whose params are stacked on a leading axis, as in
@@ -12,10 +12,12 @@ Superblocks run as a Python loop.  Modes:
            the KV cache filled
   decode   one token per row against the cache
 
-The cache is head-major, ``(n_super, B, Hkv, Lmax, D)`` per stacked
-layer, and prefill and decode update it in place.  Other mixers (MLA,
-mamba, rwkv, cross-attention), MoE layers, the encoder and training
-(``forward_train``) wait for their slices of the port.
+The attention cache is head-major, ``(n_super, B, Hkv, Lmax, D)`` per
+stacked layer; an rwkv layer caches its two token-shift vectors ``tm``
+and ``cm`` (B, d) and its fp32 WKV state ``wkv`` (B, H, dh, dh), whatever
+``max_len``.  Prefill and decode update the cache in place.  Other
+mixers (MLA, mamba, cross-attention), MoE layers, the encoder and
+training (``forward_train``) wait for their slices of the port.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (dtype_of, embed_init, glu_mlp_apply,
                                        glu_mlp_init, norm_apply, norm_init,
                                        stack_layers, tree_leaves, tree_map)
@@ -78,7 +81,7 @@ def split_pattern(specs: list[LayerSpec]) -> tuple[int, int]:
 
 
 def _check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "rwkv"):
         raise NotImplementedError(f"the {spec.mixer!r} mixer {_TODO}")
     if spec.moe:
         raise NotImplementedError(f"the MoE feed-forward {_TODO}")
@@ -91,21 +94,28 @@ def _check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
 def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
                device) -> dict:
     _check_spec(cfg, spec)
+    rwkv = spec.mixer == "rwkv"
     return {
         "norm1": norm_init(cfg.d_model, cfg.norm, dtype, device,
                            cfg.use_bias),
-        "mixer": attn.gqa_init(gen, cfg, dtype, device),
+        "mixer": (rwkv_mod.rwkv_time_mix_init(gen, cfg, dtype, device)
+                  if rwkv else attn.gqa_init(gen, cfg, dtype, device)),
         "norm2": norm_init(cfg.d_model, cfg.norm, dtype, device,
                            cfg.use_bias),
-        "ffn": glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                            cfg.use_bias),
+        "ffn": (rwkv_mod.rwkv_channel_mix_init(gen, cfg, dtype, device)
+                if rwkv else glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                          device, cfg.use_bias)),
     }
 
 
 def cache_init_layer(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, ctx_len: int, dtype, device) -> dict:
-    """Empty head-major cache entry for one layer."""
+    """Empty cache entry for one layer: head-major k/v for attention,
+    the token shifts and WKV state for rwkv."""
     _check_spec(cfg, spec)
+    if spec.mixer == "rwkv":
+        st = rwkv_mod.rwkv_state_init(cfg, batch, dtype, device)
+        return {"tm": st.tm_shift, "cm": st.cm_shift, "wkv": st.wkv}
     shape = (batch, cfg.n_kv_heads, max_len, cfg.kv_head_dim())
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -118,15 +128,31 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
     _check_spec(cfg, spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict[str, Any] = {}
+    build = cache is not None
     h = norm_apply(p["norm1"], x, cfg.norm)
-    kv = (cache["k"], cache["v"]) if cache is not None else None
-    y, kv_out = attn.gqa_apply(p["mixer"], cfg, h, positions, cache_kv=kv,
-                               cache_len=cache_len)
-    if cache is not None:
-        new_cache["k"], new_cache["v"] = kv_out
+    if spec.mixer == "rwkv":
+        y, tm_out, wkv_out = rwkv_mod.rwkv_time_mix_apply(
+            p["mixer"], cfg, h, cache["tm"] if build else None,
+            cache["wkv"] if build else None)
+        if build:
+            new_cache["tm"] = cache["tm"].copy_(tm_out)
+            new_cache["wkv"] = cache["wkv"].copy_(wkv_out)
+    else:
+        kv = (cache["k"], cache["v"]) if build else None
+        y, kv_out = attn.gqa_apply(p["mixer"], cfg, h, positions,
+                                   cache_kv=kv, cache_len=cache_len)
+        if build:
+            new_cache["k"], new_cache["v"] = kv_out
     x = x + y
     h = norm_apply(p["norm2"], x, cfg.norm)
-    x = x + glu_mlp_apply(p["ffn"], h, cfg.hidden_act)
+    if spec.mixer == "rwkv":
+        y, cm_out = rwkv_mod.rwkv_channel_mix_apply(
+            p["ffn"], cfg, h, cache["cm"] if build else None)
+        if build:
+            new_cache["cm"] = cache["cm"].copy_(cm_out)
+    else:
+        y = glu_mlp_apply(p["ffn"], h, cfg.hidden_act)
+    x = x + y
     return x, new_cache, aux
 
 

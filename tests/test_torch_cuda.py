@@ -19,6 +19,8 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (attention_plain,  # noqa: E402
                                      decode_attention_plain, rmsnorm_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,  # noqa: E402
+                                            rwkv6_scan_plain)
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.acs import draw_write_chunks  # noqa: E402
 from repro_torch.sim import SCENARIOS, run_workload, run_scenario, zoo  # noqa: E402
@@ -173,3 +175,68 @@ def test_decode_attention_kernel_equals_plain(gen, d, b, hq, hkv, L, dtype):
         torch.cuda.synchronize()
         assert decode_attention.launches == launches + 1
         _close(got, decode_attention_plain(q, kc, vc, kv_len), dtype, 1e-2)
+
+
+# --- rwkv6_scan: the final state bit for bit (the kernel rounds where the
+# --- plain version's ops do); y in fp32 within 1e-5 of the rms of its
+# --- head's output over the sequence, and in bf16 within one bf16 ulp of
+# --- the plain value plus 2**-10 of its row's rms.  Not 1e-5 of the row's
+# --- own rms in fp32: early in a sequence the state has low rank and a
+# --- row of y is a sum that cancels, so even the plain version lies up to
+# --- 1e-4 of such a row's rms from the same sum taken in fp64.
+
+def _wkv_inputs(gen, b, t, h, dh, dtype, state):
+    r, k, v = (_normal(gen, b, t, h, dh, dtype=dtype) for _ in range(3))
+    # the model's decay range: exp(-exp(U(-8, -5)))
+    w = torch.exp(-torch.exp(torch.rand((b, t, h, dh), generator=gen,
+                                        device="cuda") * 3 - 8)).to(dtype)
+    bonus = _normal(gen, h, dh) * 0.1
+    s0 = _normal(gen, b, h, dh, dh) if state else None
+    return r, k, v, w, bonus, s0
+
+
+def _wkv_err(got, exp):
+    """max |got - exp| over each element's allowance, y (B, T, H, dh):
+    in fp32 1e-5 of the rms of its (b, h) head over T and dh; in bf16 one
+    bf16 ulp of exp plus 2**-10 of its row's rms."""
+    exp32 = exp.float()
+    if exp.dtype == torch.float32:
+        allow = 1e-5 * exp32.square().mean(dim=(1, 3), keepdim=True).sqrt()
+    else:
+        ulp = torch.where(exp32 == 0, 0.0, torch.ldexp(
+            torch.ones_like(exp32), torch.frexp(exp32).exponent - 8))
+        allow = ulp + 2.0 ** -10 * exp32.square().mean(
+            dim=-1, keepdim=True).sqrt()
+    return float(((got.float() - exp32).abs() / allow).max())
+
+
+@pytest.mark.parametrize("b,t,h,dh,state", [
+    (1, 1, 1, 64, False),       # one step
+    (4, 1, 32, 64, True),       # a decode step of rwkv6-1.6b
+    (2, 37, 3, 32, True),       # ragged T (not a multiple of the stage)
+    (1, 200, 2, 32, False),     # the smoke configs' head size
+    (2, 1000, 8, 64, False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_kernel_equals_plain(gen, b, t, h, dh, state, dtype):
+    args = _wkv_inputs(gen, b, t, h, dh, dtype, state)
+    launches = rwkv6_scan.launches
+    y, s = rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == launches + 1
+    ey, es = rwkv6_scan_plain(*args)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert y.shape == ey.shape and s.shape == es.shape
+    assert torch.equal(s, es)
+    assert _wkv_err(y, ey) <= 1.0
+
+
+def test_rwkv6_scan_cpu_tensors_never_reach_the_kernel(gen):
+    args = [None if a is None else a.cpu()
+            for a in _wkv_inputs(gen, 1, 5, 2, 64, torch.float32, True)]
+    launches = rwkv6_scan.launches
+    y, s = rwkv6_scan(*args)
+    assert rwkv6_scan.launches == launches
+    assert y.device.type == "cpu" and s.device.type == "cpu"
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rwkv6_scan(args[0].cuda(), *args[1:])

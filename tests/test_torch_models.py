@@ -1,10 +1,14 @@
-"""The port's dense models against ``repro.models`` on smoke configs
-(fp32): the JAX params carried across by ``params_from_numpy``, then
-prefill logits and 8 greedy decode steps.  Tolerance: atol and rtol
-1e-4 on the logits (fp32; the sums run in other orders, through
-another attention algorithm), and the greedy tokens must be equal.
-qwen3's smoke config adds qk-norm, which runs through the rmsnorm
-route."""
+"""The port's models (dense and rwkv6) against ``repro.models`` on smoke
+configs (fp32): the JAX params carried across by ``params_from_numpy``,
+then prefill logits and 8 greedy decode steps.  Tolerance: atol and
+rtol 1e-4 on the logits (fp32; the sums run in other orders, through
+another attention algorithm or the WKV route), and the greedy tokens
+must be equal.  qwen3's smoke config adds qk-norm, which runs through
+the rmsnorm route.  rwkv6 prompts are a multiple of its smoke chunk
+(16), as the JAX model's chunked scan requires.  In bf16 every leaf
+keeps the JAX tree's float type (rwkv6 keeps five in fp32)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ from repro_torch import models as tm  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.kernels import (decode_attention as tda,  # noqa: E402
                                  flash_attention as tfa, rmsnorm as trms)
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as twkv  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -29,6 +34,9 @@ pytestmark = pytest.mark.torch
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["gemma-2b", "qwen3-1.7b"]
+RWKV = "rwkv6-1.6b"
+#: the rwkv6 leaves the JAX tree keeps in fp32 inside a bf16 model
+RWKV_FP32_LEAVES = ("mix_base", "decay_base", "bonus", "mix_k", "mix_r")
 
 
 def _pair(arch):
@@ -38,9 +46,28 @@ def _pair(arch):
     return jc, tc, jp, tp
 
 
+def _flat(tree, prefix=""):
+    """{path: leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("b,s", [(2, 37), (1, 64)])
 def test_prefill_and_decode_match_reference(arch, b, s):
+    _prefill_and_decode(arch, b, s)
+
+
+@pytest.mark.parametrize("b,s", [(2, 32), (1, 64)])
+def test_rwkv6_prefill_and_decode_match_reference(b, s):
+    _prefill_and_decode(RWKV, b, s)
+
+
+def _prefill_and_decode(arch, b, s):
     jc, tc, jp, tp = _pair(arch)
     toks = np.random.default_rng(s).integers(
         0, jc.vocab_size, (b, s)).astype(np.int32)
@@ -62,7 +89,7 @@ def test_prefill_and_decode_match_reference(arch, b, s):
     assert tcache["length"].tolist() == [s + steps] * b
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [RWKV])
 def test_param_tree_matches_reference(arch):
     """Same key names and leaf shapes; the meta device allocates
     nothing."""
@@ -71,17 +98,84 @@ def test_param_tree_matches_reference(arch):
                              jax.random.PRNGKey(0))
     tp = ttf.init_params(tc, device="meta")
 
-    def flat(tree, prefix=""):
-        if isinstance(tree, dict):
-            out = {}
-            for k, v in tree.items():
-                out.update(flat(v, f"{prefix}/{k}"))
-            return out
-        return {prefix: tuple(tree.shape)}
+    def shapes(tree):
+        return {k: tuple(v.shape) for k, v in _flat(tree).items()}
 
-    assert flat(tp) == flat(jshapes)
+    assert shapes(tp) == shapes(jshapes)
     assert tcommon.params_count(tp) == sum(
         int(np.prod(x.shape)) for x in jax.tree.leaves(jshapes))
+
+
+def test_bf16_rwkv6_leaves_keep_the_reference_float_types():
+    """A bf16 rwkv6 tree: the port's own init and a JAX tree carried by
+    ``params_from_numpy`` each give every leaf the JAX leaf's shape and
+    float type - the five mixing / decay / bonus leaves fp32, the rest
+    bf16."""
+    jc = dataclasses.replace(j_smoke(RWKV), dtype="bfloat16")
+    tc = dataclasses.replace(t_smoke(RWKV), dtype="bfloat16")
+    jp = jm.init_params(jc, jax.random.PRNGKey(0))
+    want = {k: (tuple(v.shape), str(v.dtype))
+            for k, v in _flat(jp).items()}
+    assert {v[1] for v in want.values()} == {"float32", "bfloat16"}
+    assert all((v[1] == "float32") == k.endswith(RWKV_FP32_LEAVES)
+               for k, v in want.items())
+    for tp in (tm.init_params(tc, seed=0, device="cpu"),
+               tm.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                    "cpu")):
+        got = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+               for k, v in _flat(tp).items()}
+        assert got == want
+
+
+def test_rwkv6_init_draws_the_reference_distributions():
+    """Uniform mix_base in (0, 1) and decay_base in (-8, -5); bonus
+    N(0, 0.1^2); mix_k and mix_r 0.5."""
+    tc = dataclasses.replace(t_smoke(RWKV), d_model=256, n_layers=1)
+    p = tm.init_params(tc, seed=3, device="cpu")["blocks"]["sub0"]
+    mix, decay = p["mixer"]["mix_base"], p["mixer"]["decay_base"]
+    assert 0.0 <= float(mix.min()) and float(mix.max()) < 1.0
+    assert -8.0 <= float(decay.min()) and float(decay.max()) < -5.0
+    assert abs(float(p["mixer"]["bonus"].std()) - 0.1) < 0.02
+    assert bool((p["ffn"]["mix_k"] == 0.5).all())
+    assert bool((p["ffn"]["mix_r"] == 0.5).all())
+
+
+def test_rwkv6_cache_is_state_and_updated_in_place():
+    """The rwkv cache holds the token shifts and the fp32 WKV state,
+    whatever max_len, and prefill and decode write it in place."""
+    tc = t_smoke(RWKV)
+    cache = tm.init_cache(tc, 2, 1, device="cpu")
+    blk = cache["blocks"]["sub0"]
+    n_h, dh = tc.d_model // tc.rwkv.head_size, tc.rwkv.head_size
+    assert tuple(blk["wkv"].shape) == (tc.n_layers, 2, n_h, dh, dh)
+    assert blk["wkv"].dtype == torch.float32
+    assert tuple(blk["tm"].shape) == tuple(blk["cm"].shape) == (
+        tc.n_layers, 2, tc.d_model)
+    params = tm.init_params(tc, seed=0, device="cpu")
+    wkv = blk["wkv"]
+    toks = torch.randint(0, tc.vocab_size, (2, 32))
+    _, out = tm.prefill(params, tc, toks, cache)
+    assert out["blocks"]["sub0"]["wkv"] is wkv
+    assert bool(wkv.abs().sum() > 0)
+    assert out["length"].tolist() == [32, 32]
+    before = wkv.clone()
+    _, out = tm.decode_step(params, tc, toks[:, :1], out)
+    assert out["blocks"]["sub0"]["wkv"] is wkv
+    assert not torch.equal(wkv, before)
+    assert out["length"].tolist() == [33, 33]
+
+
+def test_rwkv6_prompt_length_follows_the_reference_chunk():
+    """Prompts of at most ``chunk`` tokens, or a multiple of it, run;
+    others raise ValueError where the JAX model's assertion fires."""
+    tc = t_smoke(RWKV)
+    params = tm.init_params(tc, seed=0, device="cpu")
+    for s in (1, 5, 16, 48):
+        cache = tm.init_cache(tc, 1, s, device="cpu")
+        tm.prefill(params, tc, torch.ones((1, s), dtype=torch.long), cache)
+    cache = tm.init_cache(tc, 1, 20, device="cpu")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tm.prefill(params, tc, torch.ones((1, 20), dtype=torch.long), cache)
 
 
 def test_cache_is_head_major_and_updated_in_place():
@@ -101,16 +195,29 @@ def test_cache_is_head_major_and_updated_in_place():
 def test_launch_counts_stay_zero_on_the_cpu():
     """37 rmsnorms, 18 flash and 18 decode launches per forward are what
     the card counts for gemma-2b; the CPU route counts none."""
-    tc = t_smoke("gemma-2b")
+    _no_launches("gemma-2b")
+
+
+def test_rwkv6_launch_counts_stay_zero_on_the_cpu():
+    """73 rmsnorms and 24 rwkv6_scan launches per forward are what the
+    card counts for rwkv6-1.6b; the CPU route counts none."""
+    _no_launches(RWKV)
+
+
+def _no_launches(arch):
+    tc = t_smoke(arch)
     params = tm.init_params(tc, seed=0, device="cpu")
-    before = (trms.rmsnorm.launches, tfa.flash_attention.launches,
-              tda.decode_attention.launches)
+
+    def counts():
+        return (trms.rmsnorm.launches, tfa.flash_attention.launches,
+                tda.decode_attention.launches, twkv.launches)
+
+    before = counts()
     cache = tm.init_cache(tc, 1, 12, device="cpu")
     logits, cache = tm.prefill(params, tc, torch.ones((1, 8), dtype=torch.long),
                                cache)
     tm.decode_step(params, tc, torch.ones((1, 1), dtype=torch.long), cache)
-    assert before == (trms.rmsnorm.launches, tfa.flash_attention.launches,
-                      tda.decode_attention.launches)
+    assert before == counts()
 
 
 def test_gelu_is_the_tanh_approximation():

@@ -51,6 +51,7 @@ def test_every_port_module_is_checked():
                    "kernels/build.py", "kernels/ref.py",
                    "kernels/rmsnorm.py", "kernels/flash_attention.py",
                    "kernels/decode_attention.py", "kernels/ops.py",
+                   "kernels/rwkv6_scan.py", "models/rwkv6.py",
                    "configs/base.py", "configs/registry.py",
                    "models/common.py", "models/attention.py",
                    "models/transformer.py", "models/convert.py",
@@ -77,9 +78,13 @@ def no_card(monkeypatch):
     lambda: CoherentServingSystem(smoke_config("gemma-2b"), 2,
                                   {"a": [1, 2]}),
     lambda: serve.main(["--smoke", "--steps", "1"]),
+    lambda: models.init_params(smoke_config("rwkv6-1.6b")),
+    lambda: models.init_cache(smoke_config("rwkv6-1.6b"), 1, 8),
+    lambda: serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--steps", "1"]),
 ], ids=["run_scenario", "compare", "rates", "init_arrays", "init_metrics",
         "init_params", "init_cache", "params_from_numpy",
-        "serving_system", "serve_cli"])
+        "serving_system", "serve_cli", "rwkv6_init_params",
+        "rwkv6_init_cache", "rwkv6_serve_cli"])
 def test_entry_points_default_to_cuda(no_card, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()

@@ -1,9 +1,9 @@
 """The port's coherent serving runtime against ``repro.runtime``: the
 same numpy stream drives both, so every integer of ``ServingStats`` is
-equal; a materialized prefill's logits match on a smoke config (fp32,
-atol and rtol 1e-4); the active-parameter count of the registered
-gemma-2b equals the JAX package's; the launcher runs end to end on the
-CPU."""
+equal; a materialized prefill's logits match on the gemma-2b and
+rwkv6-1.6b smoke configs (fp32, atol and rtol 1e-4); the parameter
+counts of the registered gemma-2b, qwen3-1.7b and rwkv6-1.6b equal the
+JAX package's; the launcher runs end to end on the CPU."""
 
 import dataclasses
 
@@ -35,13 +35,13 @@ pytestmark = pytest.mark.torch
 INTS = ("prefill_tokens", "broadcast_tokens", "fetches", "cache_hits")
 
 
-def _systems(strategy, sorted_, n=4, m=3, tokens=64):
+def _systems(strategy, sorted_, n=4, m=3, tokens=64, arch="gemma-2b"):
     arts = build_artifacts(m, tokens)
-    j = jcs.CoherentServingSystem(j_smoke("gemma-2b"), n, dict(arts),
+    j = jcs.CoherentServingSystem(j_smoke(arch), n, dict(arts),
                                   strategy=strategy,
                                   volatility_sorted=sorted_,
                                   n_active_params=1000)
-    t = tcs.CoherentServingSystem(t_smoke("gemma-2b"), n, dict(arts),
+    t = tcs.CoherentServingSystem(t_smoke(arch), n, dict(arts),
                                   strategy=strategy,
                                   volatility_sorted=sorted_,
                                   n_active_params=1000, device="cpu")
@@ -68,8 +68,24 @@ def test_parameter_counts_equal_reference():
     assert t_total(T_ARCHS["qwen3-1.7b"]) == j_total(J_ARCHS["qwen3-1.7b"])
 
 
+def test_rwkv6_parameter_counts_equal_reference():
+    assert t_total(T_ARCHS["rwkv6-1.6b"]) == j_total(J_ARCHS["rwkv6-1.6b"])
+    assert t_active(T_ARCHS["rwkv6-1.6b"]) == j_active(
+        J_ARCHS["rwkv6-1.6b"])
+
+
 def test_materialized_prefill_matches_reference():
-    j, t = _systems("lazy", False)
+    _materialized_prefill("gemma-2b")
+
+
+def test_rwkv6_materialized_prefill_matches_reference():
+    """Contexts of 64-token artifacts cut to 96 tokens: multiples of the
+    smoke chunk (16), as the JAX model requires."""
+    _materialized_prefill("rwkv6-1.6b")
+
+
+def _materialized_prefill(arch):
+    j, t = _systems("lazy", False, arch=arch)
     jcs.run_workload(j, 12, 0.1, seed=1)
     tcs.run_workload(t, 12, 0.1, seed=1)
     jp = jm.init_params(j.cfg, jax.random.PRNGKey(2))
@@ -97,3 +113,12 @@ def test_serve_cli_on_the_cpu(capsys):
                  "--materialize", "--max-len", "64", "--decode-steps", "2"])
     out = capsys.readouterr().out
     assert "savings" in out and "finite=True" in out
+
+
+def test_rwkv6_serve_cli_on_the_cpu(capsys):
+    tserve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                 "--steps", "6", "--materialize", "--max-len", "64",
+                 "--decode-steps", "2"])
+    out = capsys.readouterr().out
+    assert "1.60B active params" in out
+    assert "finite=True" in out and "finite=False" not in out
