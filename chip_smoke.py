@@ -8,7 +8,11 @@ Phases, each printing JSON lines:
 1. build   - compiles the six CUDA kernels from
              ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a into
              ``build/repro_torch_kernels/``, one nvcc per source, all at
-             once.
+             once; for flash attention prints each entry's registers,
+             shared memory and spills (none allowed in the bf16 wgmma
+             kernel at any head dim) and, where ``cuobjdump`` is
+             installed, the tensor-core (HGMMA) instructions of its
+             machine code (at least one).
 2. kernels - holds each kernel against its plain PyTorch version on the
              card at a mid-size shape and at every shape the main paths
              give it: the coherence ticks exactly (int32); RMSNorm within
@@ -17,7 +21,9 @@ Phases, each printing JSON lines:
              bf16 also element by element within one bf16 ulp of the plain
              value plus 2**-10 of its row's rms (flash decode at the
              batched request's shape on every kv_len its 32 steps give
-             it, P + 1 .. P + 32).  Times
+             it, P + 1 .. P + 32); bf16 flash attention launched
+             ``FLASH_REPEATS`` more times at each shape after every
+             timing, each output equal to the first bit for bit.  Times
              the wrapper call (CUDA events), the kernel alone, the plain
              version and, for the model kernels, the one PyTorch call that
              computes the same function (a yardstick the port never
@@ -55,7 +61,9 @@ Phases, each printing JSON lines:
              of the prefill's last-position logits <= 2e-2 and of every
              decode step's <= 2.5e-2; then the prompt through the layers
              one at a time on both routes, each layer's own share of
-             their distance <= 1e-2.
+             their distance <= 1e-2.  Profiles one batched prefill
+             (top device operations, flash attention's share) and eight
+             decode steps.
 6. serve_rwkv - the same serving workload on rwkv6-1.6b at its
              registered width (24 layers, d 2048, 32 heads of 64,
              channel-mix 7168, vocab 65536, bf16) with random weights from
@@ -76,9 +84,12 @@ beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -110,8 +121,14 @@ FLEET_RUNS = 4096
 #: the A-D grid
 STRATEGY_FLEET_RUNS = 1024
 SCENARIO_RUNS = 4096
-#: GPU clock cycles a spin kernel holds the stream for (about 1 ms)
-SPIN_CYCLES = 2_000_000
+#: GPU clock cycles a spin kernel holds the stream for (about 5 ms at
+#: 1980 MHz): it must outlast the wrapper's host work, and on a busy host
+#: ``mesi_tick``'s wrapper can take more than 1 ms
+SPIN_CYCLES = 10_000_000
+#: launches of bf16 flash attention at each checked shape that must equal
+#: the first bit for bit (its K/V ring is shared by two warpgroups, so a
+#: stage overwritten too early shows in some launches and not others)
+FLASH_REPEATS = 50
 REPLACES = {
     "mesi_tick": ("src/repro_torch/kernels/csrc/mesi_tick.cu",
                   "src/repro/kernels/mesi_transition.py:151"),
@@ -292,8 +309,41 @@ def chunk_bound_bytes(inputs, outputs) -> int:
     return 4 * words
 
 
+def ptxas_entries(log: str) -> dict:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log (``name<D>`` for a
+    template on the head dim): registers, static shared memory, stack
+    frame and spill bytes."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"\d(flash_[a-z0-9]+)ILi(\d+)E", m.group(1))
+            name = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)
+            entries[name] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            entries[name].update(stack=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries[name].update(registers=int(m.group(1)),
+                                 static_smem=int(smem.group(1)) if smem
+                                 else 0)
+    return entries
+
+
 def phase_build(card: str) -> None:
+    """Builds every kernel; for flash attention (rebuilt, so its compiler
+    output is at hand) also each entry's registers, shared memory and
+    spills, which must be none for the bf16 kernel at every head dim,
+    and, where ``cuobjdump`` is installed, the count of tensor-core
+    (``HGMMA``) instructions in its machine code, which must not be 0."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    build.library_path("flash_attention").unlink(missing_ok=True)
     t0 = time.perf_counter()
     logs = build.build(ptxas_verbose=True)
     seconds = time.perf_counter() - t0
@@ -301,10 +351,29 @@ def phase_build(card: str) -> None:
           "every kernel library is built")
     usage = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
-             for name, log in logs.items()}
+             for name, log in logs.items() if name != "flash_attention"}
     emit({"phase": "build", "seconds": seconds, "arch": "sm_90a",
           "kernels": len(build.KERNELS), "compiled": sorted(logs),
           "ptxas": usage, "card": card})
+
+    lib_path = build.library_path("flash_attention")
+    entries = ptxas_entries(logs["flash_attention"])
+    for d in HEAD_DIMS:
+        row = entries.get(f"flash_wgmma<{d}>", {})
+        check(row.get("spill_stores") == 0 == row.get("spill_loads")
+              and row.get("stack") == 0,
+              f"flash_wgmma<{d}> compiled without register spills ({row})")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    hgmma = None
+    if pathlib.Path(tool).exists():
+        sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                              capture_output=True, text=True).stdout
+        hgmma = dict(collections.Counter(re.findall(r"HGMMA\.\w+\.\w+\.\w+",
+                                                    sass)))
+        check(sum(hgmma.values()) > 0,
+              "flash_attention's machine code holds HGMMA instructions")
+    emit({"phase": "build", "kernel": "flash_attention", "entries": entries,
+          "hgmma": hgmma, "card": card})
 
 
 def random_mesi_inputs(gen, B: int, n: int, m: int):
@@ -551,6 +620,7 @@ def phase_model_kernels(card: str, rate: float, flops: float,
             results["rmsnorm"] = row
 
     # --- flash attention: the batched prefill, one agent's, a mid shape
+    repeat_cases = []
     for label, b, h, g, lq, dim, dtype in (
             ("batched prefill", SERVE["agents"], hq, hkv, P, hd, bf16),
             ("agent prefill", 1, hq, hkv, L1, hd, bf16),
@@ -578,6 +648,8 @@ def phase_model_kernels(card: str, rate: float, flops: float,
                "bound_ms": bound, "bound_by": "operations", "card": card}
         row["tflops"] = work / (row["device_ms"] * 1e-3) / 1e12
         emit(row)
+        if dtype == bf16:
+            repeat_cases.append((label, q, k, v, out))
         if label == "batched prefill":
             results["flash_attention"] = row
 
@@ -628,6 +700,17 @@ def phase_model_kernels(card: str, rate: float, flops: float,
             results["decode_attention"] = row
     results["rwkv6_scan"] = check_rwkv6_scan(card, rate, fp32_flops, gen, P,
                                              L1)
+
+    # bf16 flash attention launched again at each shape, after every
+    # timing (a burst of launches slows the kernel timed right after it)
+    for label, q, k, v, out in repeat_cases:
+        same = sum(torch.equal(flash_attention(q, k, v, causal=True), out)
+                   for _ in range(FLASH_REPEATS))
+        check(same == FLASH_REPEATS, f"flash_attention ({label}): {same} "
+              f"of {FLASH_REPEATS} repeated launches equal the first")
+        emit({"phase": "kernels", "kernel": "flash_attention",
+              "case": label, "repeats": FLASH_REPEATS,
+              "repeats_equal": same, "card": card})
     return results
 
 
@@ -879,8 +962,9 @@ def phase_fleet(card: str) -> float:
 
 def device_profile(fn):
     """Run ``fn()`` under the torch profiler; returns the wall seconds,
-    the device's busy seconds (the union of the kernels' spans) and the
-    top ten ``{name, device_ms, calls}`` rows by device time."""
+    the device's busy seconds (the union of the kernels' spans) and
+    every ``{name, device_ms, calls}`` row by device time, largest
+    first (names cut to 60 characters)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -914,7 +998,7 @@ def device_profile(fn):
                   reverse=True)
     return wall, busy_us / 1e6, [
         {"name": k[:60], "device_ms": us / 1e3, "calls": c}
-        for us, k, c in rows[:10]]
+        for us, k, c in rows]
 
 
 def phase_profile(card: str, fleet_seconds: float) -> None:
@@ -931,13 +1015,13 @@ def phase_profile(card: str, fleet_seconds: float) -> None:
           "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
           "unprofiled_wall_s": fleet_seconds,
           "unprofiled_device_idle_share": 1.0 - busy / fleet_seconds,
-          "top": top, "card": card})
+          "top": top[:10], "card": card})
 
 
 def serve_profile(card: str, system, params, steps: int = 8) -> None:
-    """Where the time goes in decode: ``steps`` greedy decode steps of
-    the batched request under the profiler (the prefill before them is
-    not profiled)."""
+    """Where the time goes in the batched request: its prefill, then
+    ``steps`` greedy decode steps, each under the profiler.  The prefill's
+    line carries flash attention's share of the device's busy time."""
     import torch
     from repro_torch import models
 
@@ -947,7 +1031,22 @@ def serve_profile(card: str, system, params, steps: int = 8) -> None:
     tokens = torch.tensor([c[:p] for c in contexts], dtype=torch.int64,
                           device="cuda")
     cache = models.init_cache(cfg, n, p + steps)
-    logits, cache = models.prefill(params, cfg, tokens, cache)
+
+    def prefill():
+        nonlocal logits, cache
+        logits, cache = models.prefill(params, cfg, tokens, cache)
+
+    logits = None
+    wall, busy, top = device_profile(prefill)
+    flash_ms = sum(row["device_ms"] for row in top
+                   if re.search(r"\bflash_(wgmma|fp32)\b", row["name"]))
+    emit({"phase": "profile", "what": "prefill", "arch": cfg.name,
+          "batch": n, "prompt_len": p, "wall_s": wall,
+          "tokens_per_s": n * p / wall, "device_busy_s": busy,
+          "device_idle_share": 1.0 - busy / wall,
+          "flash_attention_ms": flash_ms,
+          "flash_attention_share": flash_ms / (busy * 1e3),
+          "top": top[:10], "card": card})
 
     def decode():
         nonlocal logits, cache
@@ -960,7 +1059,7 @@ def serve_profile(card: str, system, params, steps: int = 8) -> None:
           "steps": steps,
           "batch": n, "wall_s": wall, "ms_per_step": wall / steps * 1e3,
           "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
-          "top": top, "card": card})
+          "top": top[:10], "card": card})
 
 
 class plain_route:

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), for ``sm_90a``.  Libraries land in ``build/repro_torch_kernels/``
-at the root of the checkout, named by a digest of their source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+at the root of the checkout, named by a digest of their source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 Nothing is built when a module is imported: :func:`kernel` builds at
 first use, and :func:`build` builds ahead of time, every source at
 once.  A failed build raises.
@@ -58,10 +59,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    source = _CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """Where the kernel's library lives: named by a digest of its source,
+    every shared header of ``csrc/`` (a source may include any of them)
+    and the compiler flags."""
+    digest = hashlib.sha256((_CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = tuple(KERNELS),

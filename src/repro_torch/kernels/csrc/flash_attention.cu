@@ -1,4 +1,5 @@
-// FlashAttention-2 style forward attention with GQA, for sm_90a.
+// Forward attention with GQA for sm_90a: bf16 on the tensor cores
+// (wgmma, a TMA-fed K/V ring), fp32 on the CUDA cores.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_pallas.
@@ -8,63 +9,428 @@
 // kernel.  Online softmax in fp32; the (Lq x Lk) logits never reach
 // device memory.
 //
-// Bound: operations (about 4*D flops per query-key pair against 2*D*2
-// bytes per key row).  Design, simple and right first:
-//   * one block of 256 threads per (q tile of 64 rows, q head, batch);
-//   * K and V tiles of 64 keys staged through shared memory in fp32,
-//     Q and K transposed (d-major, one float of padding per row) so every
-//     thread's reads of a 4 x 4 register tile of logits are free of bank
-//     conflicts;
-//   * CUDA-core FMAs: each thread owns 4 query rows (ty + 16 i) and 4 key
-//     columns (tx + 16 j) of the logit tile, and 4 rows x D/16 columns
-//     (tx + 16 c) of the output accumulator, kept in registers;
-//   * row max and row sum are reduced across the 16 lanes that share a
-//     row with shuffles;
-//   * ragged Lq and Lk are masked at the tails (no divisibility needed),
-//     and under the causal mask the key tiles past the q tile's last row
-//     are skipped (the TPU kernel computes and masks them).
-// Shared memory: (2 * D * 65 + 64 * D + 64 * 65) floats, 215 KB at
-// D = 256, so one block per SM there.  Tensor-core MMA is later work.
+// Bound: operations, 4 * D flops per query-key pair kept (causal: the
+// pairs on or below the diagonal), against 2 * D * 2 bytes per key row.
+//
+// bf16 (flash_wgmma), the FlashAttention-3 schedule without its
+// intra-warpgroup overlap:
+//   * one block of three warpgroups per (128 q rows, q head, batch), the
+//     q tiles of causal attention heaviest first (the grid's slow axis
+//     counts q tiles down), so the long rows do not trail in the last
+//     wave; a kv head's K/V is re-read by its query group through L2;
+//   * warpgroup 2 is the producer: one thread loads the Q tile once and
+//     then K and V tiles of 64 keys into a ring of stages in shared
+//     memory by TMA, each stage's arrival counted on an mbarrier in
+//     bytes, its release signalled on another by every consumer warp;
+//     no block-wide barrier in the key loop.  It gives its registers
+//     up (setmaxnreg 24) to the two consumer warpgroups (240 each);
+//   * tiles sit in shared memory as bf16 in the swizzled layout wgmma
+//     reads (128-byte rows, or 64-byte at D = 32): a row of D values is
+//     D / 64 column chunks of one swizzle atom width, each chunk a tile
+//     of its own; a wgmma k-step of 16 moves the descriptor 32 bytes
+//     inside an atom, and every (atom width / 16)-th step to the next
+//     chunk;
+//   * each consumer warpgroup owns 64 rows: S = Q K^T by
+//     wgmma.m64n64k16 (bf16 in, fp32 out, both operands K-major from
+//     shared memory), scaled by scale * log2(e) in fp32, then the online
+//     softmax on the accumulator's registers (row max and sum over the
+//     four lanes of a row; masks only on tiles that cross Lk or the
+//     diagonal; key tiles past a warpgroup's last row are skipped);
+//   * O += P V by wgmma with A = P from registers (the S accumulator's
+//     layout is the A fragment's) and B = V from shared memory, MN-major
+//     (the transpose bit).  P enters as two bf16 terms, P_hi =
+//     bf16(P) and P_lo = bf16(P - P_hi), into the same fp32 O; l sums
+//     the fp32 P.  That is 1.5x the tensor-core work of a kernel that
+//     rounds P to bf16, and the reason for it: such a kernel misses the
+//     port's bf16 gate (one bf16 ulp plus 2^-10 of the row's rms of the
+//     fp32 result) by 7.26x at (1, 4, 2048, 256) causal MQA on the CPU,
+//     while the split P reads 0.958, as an fp32 P does on the card;
+//   * epilogue: O / l in fp32, cast to bf16, staged in the warpgroup's
+//     own rows of the Q tile and stored 16 bytes a thread.
+// Shared memory: Q 128 x D, then K and V rings of 64 x D each, bf16:
+// 192 KB at D = 256 (2 stages); 160, 80 and 40 KB at D = 128, 64 and 32
+// (4 stages).
+//
+// fp32 (flash_fp32) keeps the CUDA-core kernel: one block of 256 threads
+// per 64-row q tile, K and V tiles of 64 keys staged through shared
+// memory in fp32 (Q and K transposed, one float of padding per row), a
+// 4 x 4 register tile of logits per thread, 215 KB of shared memory at
+// D = 256.  The type code alone chooses it: an fp32 product on the tensor
+// cores is TF32 (10 mantissa bits), which the fp32 limit of 1e-5 against
+// the plain version refuses.
 //
 // C interface (ctypes): flash_attention_launch(q, k, v, out, B, Hq, Hkv,
 // Lq, Lk, D, causal, scale, dtype, stream) with dtype 0 = float32,
-// 1 = bfloat16 and D in {32, 64, 128, 256}.  Returns cudaGetLastError().
+// 1 = bfloat16 (16-byte aligned pointers) and D in {32, 64, 128, 256}.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it
+// does not take.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes
+                   // from cudaGetDriverEntryPoint, libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-constexpr int kPad = kBK + 1;  // row length of the transposed tiles
+// ============================ bf16: wgmma ================================
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kRows = 128;   // q rows per block
+constexpr int kWgRows = 64;  // q rows per consumer warpgroup
+constexpr int kBK = 64;      // keys per ring stage
+constexpr int kWgThreads = 128;
+constexpr int kThreadsWg = 3 * kWgThreads;
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int kSwizzle = D >= 64 ? 128 : 64;  // bytes a tile row
+  static constexpr int kChunkCols = kSwizzle / 2;      // bf16 a tile row
+  static constexpr int kChunks = D / kChunkCols;
+  static constexpr int kStepsPerChunk = kChunkCols / 16;
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  static constexpr uint32_t kDescSwizzle = kSwizzle == 128 ? 1 : 2;
+  static constexpr uint32_t kQChunk = kRows * kSwizzle;
+  static constexpr uint32_t kKVChunk = kBK * kSwizzle;
+  static constexpr uint32_t kQBytes = kChunks * kQChunk;
+  static constexpr uint32_t kKVBytes = kChunks * kKVChunk;
+  static constexpr uint32_t kKOff = kQBytes;
+  static constexpr uint32_t kVOff = kKOff + kStages * kKVBytes;
+  static constexpr uint32_t kBarOff = kVOff + kStages * kKVBytes;
+  // barriers: Q full, then per stage K full, V full, empty; plus 1 KB to
+  // align the base to the swizzle atom
+  static constexpr uint32_t kSmem = kBarOff + 8 * (1 + 3 * kStages) + 1024;
+};
+
+// byte offset of 16-byte unit `unit` of row `row` inside one swizzled
+// chunk: the TMA's 128-byte (Swizzle<3,4,3>) or 64-byte (Swizzle<2,4,3>)
+// pattern
+template <int kSwizzle>
+__device__ __forceinline__ uint32_t swizzled(int row, int unit) {
+  const int phase = kSwizzle == 128 ? (row & 7) : ((row >> 1) & 3);
+  return row * kSwizzle + ((unit ^ phase) << 4);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
+__global__ void __launch_bounds__(kThreadsWg, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap q_map,
+            const __grid_constant__ CUtensorMap k_map,
+            const __grid_constant__ CUtensorMap v_map,
+            __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Lq,
+            int Lk, int causal, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t q_s = base, k_s = base + C::kKOff, v_s = base + C::kVOff;
+  const uint32_t q_full = base + C::kBarOff;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + S + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * S + s); };
+
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kRows;
+  const int bh = blockIdx.x;  // b * Hq + h
+  const int bhk = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const int off = Lk - Lq;  // q row r sits at key position r + off
+  int n_tiles = (Lk + kBK - 1) / kBK;
+  if (causal)
+    n_tiles = min(n_tiles, (min(q0 + kRows, Lq) - 1 + off) / kBK + 1);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(k_full(s), 1);
+      hopper::mbar_init(v_full(s), 1);
+      hopper::mbar_init(empty(s), kConsumerWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 2) {
+    // ---- producer: one thread starts every copy
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 2 * kWgThreads) {
+      hopper::mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c)
+        hopper::tma_load_3d(q_s + c * C::kQChunk, &q_map, q_full,
+                            c * C::kChunkCols, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        hopper::mbar_wait(empty(s), ((t / S) & 1) ^ 1);
+        hopper::mbar_expect_tx(k_full(s), C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+          hopper::tma_load_3d(k_s + s * C::kKVBytes + c * C::kKVChunk,
+                              &k_map, k_full(s), c * C::kChunkCols, t * kBK,
+                              bhk);
+        hopper::mbar_expect_tx(v_full(s), C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+          hopper::tma_load_3d(v_s + s * C::kKVBytes + c * C::kKVChunk,
+                              &v_map, v_full(s), c * C::kChunkCols, t * kBK,
+                              bhk);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows q0 + 64 wg ...
+    hopper::setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % kWgThreads;
+    const int warp = tid / 32, lane = tid % 32;
+    const int wg_first = q0 + wg * kWgRows;
+    const int row0 = wg_first + warp * 16 + lane / 4;  // and row0 + 8
+    const uint32_t q_wg = q_s + wg * kWgRows * C::kSwizzle;
+
+    float o[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    hopper::mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % S;
+      const uint32_t phase = (t / S) & 1;
+      const int k0 = t * kBK;
+      if (causal && k0 > wg_first + kWgRows - 1 + off) {
+        // every key of the tile lies past this warpgroup's last row; it
+        // still waits for the tile to land before releasing the stage, or
+        // its arrivals would complete the stage's previous phase while the
+        // other warpgroup still reads that tile
+        hopper::mbar_wait(k_full(s), phase);
+        hopper::mbar_wait(v_full(s), phase);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(empty(s));
+        continue;
+      }
+
+      // S = Q K^T
+      float sc[32];
+      hopper::mbar_wait(k_full(s), phase);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / C::kStepsPerChunk;  // column chunk
+        const uint32_t at = (kk % C::kStepsPerChunk) * 32;
+        hopper::wgmma_ss_m64n64(
+            sc,
+            hopper::make_desc(q_wg + c * C::kQChunk + at, 16,
+                              8 * C::kSwizzle, C::kDescSwizzle),
+            hopper::make_desc(k_s + s * C::kKVBytes + c * C::kKVChunk + at,
+                              16, 8 * C::kSwizzle, C::kDescSwizzle),
+            kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(sc);
+
+      // online softmax on the accumulator's registers: element j is row
+      // row0 + 8 ((j >> 1) & 1), key k0 + 8 (j >> 2) + 2 (lane & 3) + (j & 1)
+      const bool masked = k0 + kBK > Lk ||
+                          (causal && k0 + kBK - 1 > wg_first + off);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        float x = sc[j] * scale_log2;
+        if (masked) {
+          const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+          const int row = row0 + 8 * ((j >> 1) & 1);
+          if (kpos >= Lk || (causal && kpos > row + off)) x = -INFINITY;
+        }
+        sc[j] = x;
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      float sub[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        sub[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+        alpha[i] = exp2f(m[i] - sub[i]);
+        m[i] = mx[i];
+      }
+      uint32_t p_hi[16], p_lo[16];
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int i = (j >> 1) & 1;
+        const float p0 = exp2f(sc[j] - sub[i]);
+        const float p1 = exp2f(sc[j + 1] - sub[i]);
+        rs[i] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 back = __bfloat1622float2(hi);
+        p_hi[j / 2] = *reinterpret_cast<const uint32_t*>(&hi);
+        p_lo[j / 2] = pack_bf16(p0 - back.x, p1 - back.y);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+
+      // O += P_hi V + P_lo V
+      hopper::mbar_wait(v_full(s), phase);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        const uint64_t desc_v = hopper::make_desc(
+            v_s + s * C::kKVBytes + ks * 16 * C::kSwizzle, C::kKVChunk,
+            8 * C::kSwizzle, C::kDescSwizzle);
+        const uint32_t a_hi[4] = {p_hi[4 * ks], p_hi[4 * ks + 1],
+                                  p_hi[4 * ks + 2], p_hi[4 * ks + 3]};
+        const uint32_t a_lo[4] = {p_lo[4 * ks], p_lo[4 * ks + 1],
+                                  p_lo[4 * ks + 2], p_lo[4 * ks + 3]};
+        hopper::WgmmaRS<D>::run(o, a_hi, desc_v);
+        hopper::WgmmaRS<D>::run(o, a_lo, desc_v);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(o);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty(s));
+    }
+
+    // epilogue: O / l, cast, staged in this warpgroup's rows of the Q tile
+    // (its products on Q are done), then 16-byte stores
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int i = (j >> 1) & 1;
+      const int r = wg * kWgRows + warp * 16 + lane / 4 + 8 * i;
+      const int col = 8 * (j >> 2) + 2 * (lane & 3);
+      const int cc = col % C::kChunkCols;
+      const uint32_t at = (col / C::kChunkCols) * C::kQChunk +
+                          swizzled<C::kSwizzle>(r, cc / 8) + (cc % 8) * 2;
+      *reinterpret_cast<uint32_t*>(smem + at) =
+          pack_bf16(o[j] * inv[i], o[j + 1] * inv[i]);
+    }
+    hopper::named_sync(1 + wg, kWgThreads);
+    constexpr int kUnits = D / 8;  // 16-byte units a row
+    constexpr int kChunkUnits = C::kChunkCols / 8;
+    __nv_bfloat16* ob = out + size_t(bh) * Lq * D;
+    for (int idx = tid; idx < kWgRows * kUnits; idx += kWgThreads) {
+      const int r = idx / kUnits, u = idx % kUnits;
+      const int q = wg_first + r;
+      if (q >= Lq) continue;
+      const uint32_t at =
+          (u / kChunkUnits) * C::kQChunk +
+          swizzled<C::kSwizzle>(wg * kWgRows + r, u % kChunkUnits);
+      *reinterpret_cast<uint4*>(ob + size_t(q) * D + u * 8) =
+          *reinterpret_cast<const uint4*>(smem + at);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D map over (D, L, heads) of bf16 whose box is one swizzle chunk
+// wide and `rows` rows tall; rows past L read as zeros
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int L, int heads,
+              int rows) {
+  using C = Cfg<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(L),
+                              cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(D) * 2,
+                                 cuuint64_t(L) * D * 2};
+  const cuuint32_t box[3] = {cuuint32_t(C::kChunkCols), cuuint32_t(rows),
+                             1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                C::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+                 float scale, cudaStream_t stream) {
+  const int n_qt = (Lq + kRows - 1) / kRows;
+  if (n_qt > 65535 || long(B) * Hq > 0x7fffffffL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map<D>(&q_map, q, Lq, B * Hq, kRows) ||
+      !make_map<D>(&k_map, k, Lk, B * Hkv, kBK) ||
+      !make_map<D>(&v_map, v, Lk, B * Hkv, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr uint32_t bytes = Cfg<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * Hq, n_qt), block(kThreadsWg);
+  flash_wgmma<D><<<grid, block, bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Hq, Hkv, Lq,
+      Lk, causal, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ======================== fp32: CUDA cores ===============================
+
+constexpr int kBQ = 64;
+constexpr int kThreads = 256;
+constexpr int kPad = kBK + 1;  // row length of the transposed tiles
+
+template <int D>
+constexpr size_t smem_bytes_fp32() {
   return sizeof(float) *
          (size_t(2) * D * kPad + size_t(kBK) * D + size_t(kBQ) * kPad);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
-             int Lq, int Lk, int causal, float scale) {
+flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ out, int Hq,
+           int Hkv, int Lq, int Lk, int causal, float scale) {
   constexpr int C = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qt = smem;                 // [D][kPad]: Qt[d][row]
@@ -77,15 +443,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const T* qb = q + ((long(b) * Hq + h) * Lq) * D;
-  const T* kb = k + ((long(b) * Hkv + hk) * Lk) * D;
-  const T* vb = v + ((long(b) * Hkv + hk) * Lk) * D;
+  const float* qb = q + ((long(b) * Hq + h) * Lq) * D;
+  const float* kb = k + ((long(b) * Hkv + hk) * Lk) * D;
+  const float* vb = v + ((long(b) * Hkv + hk) * Lk) * D;
   const int offset = Lk - Lq;  // q row r sits at key position r + offset
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, d = idx - r * D;
     const int qr = q0 + r;
-    Qt[d * kPad + r] = qr < Lq ? to_f32(qb[long(qr) * D + d]) * scale : 0.f;
+    Qt[d * kPad + r] = qr < Lq ? qb[long(qr) * D + d] * scale : 0.f;
   }
 
   float acc[4][C];
@@ -111,8 +477,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, d = idx - r * D;
       const int kr = k0 + r;
       const bool in = kr < Lk;
-      Kt[d * kPad + r] = in ? to_f32(kb[long(kr) * D + d]) : 0.f;
-      Vs[r * D + d] = in ? to_f32(vb[long(kr) * D + d]) : 0.f;
+      Kt[d * kPad + r] = in ? kb[long(kr) * D + d] : 0.f;
+      Vs[r * D + d] = in ? vb[long(kr) * D + d] : 0.f;
     }
     __syncthreads();
 
@@ -182,7 +548,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + ((long(b) * Hq + h) * Lq) * D;
+  float* ob = out + ((long(b) * Hq + h) * Lq) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qr = q0 + ty + 16 * i;
@@ -190,47 +556,36 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      ob[long(qr) * D + tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+      ob[long(qr) * D + tx + 16 * c] = acc[i][c] * inv;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Lq, int Lk, int causal, float scale,
-           cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* out,
+                int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+                float scale, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes_fp32<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + kBQ - 1) / kBQ, Hq, B), block(kThreads);
-  flash_kernel<T, D><<<grid, block, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Lq, Lk,
-      causal, scale);
+  flash_fp32<D><<<grid, block, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Lq,
+      Lk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out,
-               int B, int Hq, int Hkv, int Lq, int Lk, int D, int causal,
-               float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal,
-                            scale, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal,
-                            scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Hq, int Hkv, int Lq, int Lk, int causal, float scale,
+           int dtype, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_fp32<D>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
+                          stream);
+  return launch_wgmma<D>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
+                         stream);
 }
 
 }  // namespace
@@ -241,13 +596,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int D, int causal, float scale,
                                       int dtype, cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
-      (causal && Lq > Lk) || Hq > 65535 || B > 65535)
+      (causal && Lq > Lk) || Hq > 65535 || B > 65535 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, B, Hq, Hkv, Lq, Lk, D, causal,
-                             scale, stream);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Lq, Lk, D,
-                                     causal, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 32:
+      return launch<32>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
+                        dtype, stream);
+    case 64:
+      return launch<64>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
+                        dtype, stream);
+    case 128:
+      return launch<128>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
+                         dtype, stream);
+    case 256:
+      return launch<256>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
+                         dtype, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,11 +1,14 @@
-"""Flash attention (prefill, GQA): the CUDA kernel and its plain version.
+"""Flash attention (prefill, GQA): the CUDA kernels and their plain version.
 
-:func:`flash_attention` launches the kernel of ``csrc/flash_attention.cu``
-(FA-2 schedule: one block per 64-row q tile, K/V tiles through shared
-memory, online fp32 softmax, causal tiles past the diagonal skipped,
-ragged lengths masked) for CUDA tensors, which replaces the TPU kernel
-of the JAX package (``flash_attention_pallas``), and runs
-:func:`attention_plain` for CPU tensors.
+:func:`flash_attention` launches a kernel of ``csrc/flash_attention.cu``
+for CUDA tensors, which replaces the TPU kernel of the JAX package
+(``flash_attention_pallas``), and runs :func:`attention_plain` for CPU
+tensors.  The input type chooses the kernel: bf16 runs on the tensor
+cores (wgmma on 128-row q tiles, K/V fed by TMA through a ring in shared
+memory, online fp32 softmax, P fed as two bf16 terms so the product
+keeps fp32-grade P), fp32 on the CUDA cores (FA-2 schedule, 64-row q
+tiles), since a tensor-core fp32 product is TF32.  Both skip causal
+tiles past the diagonal and mask ragged lengths.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import float_code, use_kernel
+from repro_torch.kernels.backend import (FLOAT_CODES, float_code,
+                                         use_kernel)
 from repro_torch.kernels.ref import attention_plain
 
 #: head dims the kernel is built for
@@ -51,6 +55,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("causal attention needs Lq <= Lk")
     code = float_code(q, k, v)
     out = torch.empty_like(q)
+    if code == FLOAT_CODES[torch.bfloat16] and any(
+            t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("bf16 attention reads its inputs by TMA, which "
+                         "needs 16-byte aligned tensors")
     if out.numel() == 0:
         return out
     scale = d ** -0.5 if scale is None else float(scale)

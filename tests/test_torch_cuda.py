@@ -134,16 +134,34 @@ def test_rmsnorm_kernel_equals_plain(gen, shape, dtype):
         torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
 
 
+def _bf16_row_err(got, exp):
+    """max |got - exp| over one bf16 ulp of exp plus 2**-10 of the rms of
+    exp's row (last axis): at most 1 when both round nearly the same fp32
+    result, as chip_smoke.py's check_attention holds attention."""
+    exp32 = exp.float()
+    ulp = torch.where(exp32 == 0, 0.0, torch.ldexp(
+        torch.ones_like(exp32), torch.frexp(exp32).exponent - 8))
+    allow = ulp + 2.0 ** -10 * exp32.square().mean(dim=-1,
+                                                    keepdim=True).sqrt()
+    return float(((got.float() - exp32).abs() / allow).max())
+
+
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("b,hq,hkv,lq,lk", [
     (1, 2, 2, 1, 1),          # one row, one key
     (2, 8, 1, 70, 70),        # ragged tails, MQA (group 8)
     (1, 4, 2, 33, 130),       # Lq < Lk causal, group 2
     (2, 2, 2, 128, 128),      # whole tiles
+    (1, 8, 1, 1000, 1000),    # group 8 over 8 q blocks and 16 key tiles
+    (2, 4, 2, 200, 777),      # Lq < Lk, both ragged
+    (1, 2, 2, 2048, 2048),    # 16 q blocks, 32 key tiles round the ring
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_equals_plain(gen, d, b, hq, hkv, lq, lk,
                                              dtype):
+    """fp32 within 1e-5; bf16 within 1e-2 and, element by element, within
+    one bf16 ulp plus 2**-10 of its row's rms (a kernel that rounds P to
+    bf16 before P V fails that)."""
     q = _normal(gen, b, hq, lq, d, dtype=dtype)
     k = _normal(gen, b, hkv, lk, d, dtype=dtype)
     v = _normal(gen, b, hkv, lk, d, dtype=dtype)
@@ -152,7 +170,50 @@ def test_flash_attention_kernel_equals_plain(gen, d, b, hq, hkv, lq, lk,
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         assert flash_attention.launches == launches + 1
-        _close(got, attention_plain(q, k, v, causal=causal), dtype, 1e-2)
+        exp = attention_plain(q, k, v, causal=causal)
+        _close(got, exp, dtype, 1e-2)
+        if dtype == torch.bfloat16:
+            assert _bf16_row_err(got, exp) <= 1.0, (causal, d)
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
+    (1, 8, 1, 6144, 6144, 256),   # one agent's prefill: 2 ring stages
+    (2, 4, 2, 200, 777, 256),     # ragged, Lq < Lk
+    (2, 4, 2, 1000, 1000, 128),   # ragged, 4 ring stages
+])
+def test_flash_attention_repeated_launches_agree(gen, b, hq, hkv, lq, lk, d):
+    """Causal bf16 launched 60 times: every output passes the row gate
+    and equals the first bit for bit.  Each element is summed in a fixed
+    order, so a difference means a ring stage was overwritten while a
+    warpgroup still read it, which depends on timing and may spare any
+    single launch."""
+    q = _normal(gen, b, hq, lq, d, dtype=torch.bfloat16)
+    k, v = (_normal(gen, b, hkv, lk, d, dtype=torch.bfloat16)
+            for _ in range(2))
+    exp = attention_plain(q, k, v, causal=True)
+    first = flash_attention(q, k, v, causal=True)
+    for i in range(60):
+        got = flash_attention(q, k, v, causal=True) if i else first
+        assert _bf16_row_err(got, exp) <= 1.0, i
+        assert torch.equal(got, first), i
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "flash_wgmma"),
+                                         (torch.float32, "flash_fp32")])
+def test_flash_attention_type_chooses_the_kernel(gen, dtype, entry):
+    """bf16 runs the tensor-core kernel, fp32 the CUDA-core one (whose
+    products stay fp32, not TF32): one launch each, named by the
+    profiler, within the type's limit of the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = (_normal(gen, 1, 4, 300, 128, dtype=dtype) for _ in range(3))
+    launches = flash_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    names = [ev.key for ev in prof.key_averages() if "flash_" in ev.key]
+    assert len(names) == 1 and entry in names[0], names
+    _close(got, attention_plain(q, k, v), dtype, 1e-2)
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -199,14 +260,10 @@ def _wkv_err(got, exp):
     """max |got - exp| over each element's allowance, y (B, T, H, dh):
     in fp32 1e-5 of the rms of its (b, h) head over T and dh; in bf16 one
     bf16 ulp of exp plus 2**-10 of its row's rms."""
+    if exp.dtype != torch.float32:
+        return _bf16_row_err(got, exp)
     exp32 = exp.float()
-    if exp.dtype == torch.float32:
-        allow = 1e-5 * exp32.square().mean(dim=(1, 3), keepdim=True).sqrt()
-    else:
-        ulp = torch.where(exp32 == 0, 0.0, torch.ldexp(
-            torch.ones_like(exp32), torch.frexp(exp32).exponent - 8))
-        allow = ulp + 2.0 ** -10 * exp32.square().mean(
-            dim=-1, keepdim=True).sqrt()
+    allow = 1e-5 * exp32.square().mean(dim=(1, 3), keepdim=True).sqrt()
     return float(((got.float() - exp32).abs() / allow).max())
 
 

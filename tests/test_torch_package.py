@@ -11,7 +11,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro_torch.core import acs  # noqa: E402
-from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels import backend, build  # noqa: E402
 from repro_torch.kernels import mesi_transition  # noqa: E402
 from repro_torch.sim import SCENARIOS, compare, run_scenario, zoo  # noqa: E402
 from repro_torch import models  # noqa: E402
@@ -108,3 +108,23 @@ def test_cpu_route_never_counts_a_launch():
     run_scenario(dataclasses.replace(SCENARIOS["A"], n_runs=2).with_overrides(
         n_steps=3, artifact_tokens=16), device="cpu")
     assert mesi_transition.mesi_tick_.launches == before
+
+
+def test_library_path_follows_every_shared_header(tmp_path, monkeypatch):
+    """A kernel's library is named by its source, the flags and every
+    ``csrc/*.cuh``, so an edited or added header rebuilds it; reading
+    the files is all it takes, so this runs without nvcc."""
+    for src in build._CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "_CSRC", tmp_path)
+    names = []
+    for edit in (None, "hopper.cuh", "new.cuh", "flash_attention.cu"):
+        if edit:
+            path = tmp_path / edit
+            path.write_bytes((path.read_bytes() if path.exists() else b"")
+                             + b"\n// edited\n")
+        names.append(build.library_path("flash_attention").name)
+    assert len(set(names)) == len(names), names
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build.library_path("flash_attention").name != names[-1]
+
