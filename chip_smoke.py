@@ -16,25 +16,27 @@ Phases, each printing JSON lines:
 2. kernels - holds each kernel against its plain PyTorch version on the
              card at a mid-size shape and at every shape the main paths
              give it: the coherence ticks exactly (int32); RMSNorm within
-             one bf16 ulp; flash attention and flash decode within 1e-2
-             max-abs in bf16 and 1e-5 in fp32 on unit-scale inputs, and in
-             bf16 also element by element within one bf16 ulp of the plain
-             value plus 2**-10 of its row's rms (flash decode at the
-             batched request's shape on every kv_len its 32 steps give
-             it, P + 1 .. P + 32); bf16 flash attention launched
-             ``FLASH_REPEATS`` more times at each shape after every
-             timing, each output equal to the first bit for bit.  Times
-             the wrapper call (CUDA events), the kernel alone, the plain
-             version and, for the model kernels, the one PyTorch call that
-             computes the same function (a yardstick the port never
-             calls), beside the bound.  The RWKV6 WKV scan at the rwkv
-             serving path's shapes (the batched and the agents' 6144-step
-             prefills, a decode step from a random state) and a ragged
-             bf16 mid shape: the final state bit for bit, y in fp32
-             within 1e-5 of the rms of its head's output and in bf16
-             within one bf16 ulp plus 2**-10 of its row's rms; no
-             PyTorch call computes the recurrence, so it has no library
-             time.
+             one bf16 ulp (also on a view offset by one element, the
+             kernel's element-by-element path, and at a qk-norm width);
+             flash attention and flash decode within 1e-2 max-abs in bf16
+             and 1e-5 in fp32 on unit-scale inputs, and in bf16 also
+             element by element within one bf16 ulp of the plain value
+             plus 2**-10 of its row's rms (flash decode at the batched
+             request's shape on every kv_len its 32 steps give it, P + 1
+             .. P + 32); bf16 flash attention and flash decode launched
+             ``REPEATS`` more times at each shape after every timing,
+             each output equal to the first bit for bit.  Times the
+             wrapper call (CUDA events), the kernel alone, the wrapper's
+             host time, the plain version and, for the model kernels, the
+             one PyTorch call that computes the same function (a
+             yardstick the port never calls), beside the bound.  The
+             RWKV6 WKV scan at the rwkv serving path's shapes (the batched
+             and the agents' 6144-step prefills, a decode step from a
+             random state) and a ragged bf16 mid shape: the final state
+             bit for bit, y in fp32 within 1e-5 of the rms of its head's
+             output and in bf16 within one bf16 ulp plus 2**-10 of its
+             row's rms; no PyTorch call computes the recurrence, so it has
+             no library time.
 3. scenarios - first the committed goldens on the threefry stream in
              legacy mode: ``tests/golden/scenarios.json`` exactly, then the
              zoo and content goldens with a count of the runs that differ
@@ -86,6 +88,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import pathlib
 import re
@@ -125,10 +128,14 @@ SCENARIO_RUNS = 4096
 #: 1980 MHz): it must outlast the wrapper's host work, and on a busy host
 #: ``mesi_tick``'s wrapper can take more than 1 ms
 SPIN_CYCLES = 10_000_000
-#: launches of bf16 flash attention at each checked shape that must equal
-#: the first bit for bit (its K/V ring is shared by two warpgroups, so a
-#: stage overwritten too early shows in some launches and not others)
-FLASH_REPEATS = 50
+#: launches of bf16 flash attention and flash decode at each checked shape
+#: that must equal the first bit for bit (flash's K/V ring is shared by two
+#: warpgroups, so a stage overwritten too early shows in some launches and
+#: not others; decode merges its splits behind tickets that must return to
+#: 0 after every launch, in split order whichever block finishes last)
+REPEATS = 50
+#: a qk-norm width (the per-head norm of q and k at head dim 128)
+QK_NORM_WIDTH = 128
 REPLACES = {
     "mesi_tick": ("src/repro_torch/kernels/csrc/mesi_tick.cu",
                   "src/repro/kernels/mesi_transition.py:151"),
@@ -230,12 +237,15 @@ def median_ms(fn, make_args, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, make_args, reps: int) -> float:
+def device_ms(fn, make_args, reps: int) -> tuple:
     """Median device time of ``fn(*make_args())`` alone over ``reps``
-    calls: a spin kernel queued first holds the stream while the host
-    runs the wrapper, so the CUDA events bracket the kernel's device
-    work and none of the host's.  Checks that the spin outlasted the
-    host's work on every call."""
+    calls, and the host time of one call (the wrapper's work until its
+    launches are queued): a spin kernel queued first holds the stream
+    while the host runs the wrapper, so the CUDA events bracket the
+    kernel's device work and none of the host's.  The host time is the
+    mean over ``reps`` calls queued back to back behind one spin, as a
+    decode step queues them.  Checks that each spin outlasted the host's
+    work."""
     import torch
     times = []
     for _ in range(reps):
@@ -248,12 +258,26 @@ def device_ms(fn, make_args, reps: int) -> float:
         start.record()
         fn(*args)
         end.record()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        queued_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
-        check(held.elapsed_time(start) > host_ms,
+        check(held.elapsed_time(start) > queued_ms,
               "the spin kernel outlasted the wrapper's host work")
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    calls = [make_args() for _ in range(reps)]
+    held, released = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    held.record()
+    torch.cuda._sleep(SPIN_CYCLES * reps)
+    released.record()
+    t0 = time.perf_counter()
+    for args in calls:
+        fn(*args)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    released.synchronize()
+    check(held.elapsed_time(released) > host_ms,
+          "the spin kernel outlasted the wrappers' host work")
+    torch.cuda.synchronize()
+    return statistics.median(times), host_ms / reps
 
 
 def changed_words(before, after) -> int:
@@ -431,15 +455,16 @@ def phase_kernels(card: str, rate: float) -> dict:
                 return [t.clone() for t in inputs[:4]] + list(inputs[4:])
 
             ms = median_ms(lambda *a: mt.mesi_tick_(*a, **opts), fresh, 10)
-            dev_ms = device_ms(lambda *a: mt.mesi_tick_(*a, **opts), fresh,
-                               10)
+            dev_ms, host_ms = device_ms(
+                lambda *a: mt.mesi_tick_(*a, **opts), fresh, 10)
             plain_ms = median_ms(lambda *a: mt.mesi_tick_plain_(*a, **opts),
                                  fresh, 3)
             bound_ms = mesi_bound_bytes(inputs, out) / rate * 1e3
             row = {"phase": "kernels", "kernel": "mesi_tick",
                    "strategy": label, "shape": [B, n, m],
                    "equal": True, "max_abs_err": err, "ms": ms,
-                   "device_ms": dev_ms, "plain_ms": plain_ms,
+                   "device_ms": dev_ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "card": card}
             emit(row)
             if label == "lazy":
@@ -479,15 +504,15 @@ def phase_kernels(card: str, rate: float) -> dict:
 
         ms = median_ms(lambda *a: chunk_diff.chunk_tick_(*a, **opts),
                        fresh, 10)
-        dev_ms = device_ms(lambda *a: chunk_diff.chunk_tick_(*a, **opts),
-                           fresh, 10)
+        dev_ms, host_ms = device_ms(
+            lambda *a: chunk_diff.chunk_tick_(*a, **opts), fresh, 10)
         plain_ms = median_ms(lambda *a: chunk_diff.chunk_tick_plain_(
             *a, **opts), fresh, 3)
         bound_ms = chunk_bound_bytes(inputs, out) / rate * 1e3
         row = {"phase": "kernels", "kernel": "chunk_tick",
                "shape": [B, n, m, C], "equal": True, "max_abs_err": err,
-               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "card": card}
+               "ms": ms, "device_ms": dev_ms, "host_ms": host_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "card": card}
         emit(row)
         results["chunk_tick"] = row
     return results
@@ -587,12 +612,19 @@ def phase_model_kernels(card: str, rate: float, flops: float,
         return sum(t.numel() * t.element_size() for t in ts)
 
     results = {}
-    # --- rmsnorm: the batched prefill's rows, one agent's, decode's, mid
-    for label, rows, dtype in (("batched prefill", SERVE["agents"] * P, bf16),
-                               ("agent prefill", L1, bf16),
-                               ("decode", SERVE["agents"], bf16),
-                               ("mid fp32", 4096, torch.float32)):
-        x, w = normal(rows, d, dtype=dtype), normal(d, dtype=dtype)
+    # --- rmsnorm: the batched prefill's rows, one agent's, decode's, a
+    # view offset by one element (the kernel's element-by-element path),
+    # a qk-norm width (a row per token and head), mid fp32
+    for label, rows, width, dtype, offset in (
+            ("batched prefill", SERVE["agents"] * P, d, bf16, 0),
+            ("agent prefill", L1, d, bf16, 0),
+            ("decode", SERVE["agents"], d, bf16, 0),
+            ("scalar path", 4096, d, bf16, 1),
+            ("qk-norm", SERVE["agents"] * P * hq, QK_NORM_WIDTH, bf16, 0),
+            ("mid fp32", 4096, d, torch.float32, 0)):
+        x = normal(rows * width + offset, dtype=dtype)[offset:].view(rows,
+                                                                    width)
+        w = normal(width, dtype=dtype)
         out = rmsnorm(x, w)
         torch.cuda.synchronize()
         exp = rmsnorm_plain(x, w)
@@ -605,14 +637,16 @@ def phase_model_kernels(card: str, rate: float, flops: float,
             check(err <= 1e-5 * max(1.0, float(exp.abs().max())),
                   f"rmsnorm fp32 within 1e-5 ({label})")
         args = lambda: (x, w)   # noqa: E731
+        dev_ms, host_ms = device_ms(rmsnorm, args, 10)
         row = {"phase": "kernels", "kernel": "rmsnorm", "case": label,
-               "shape": [rows, d], "dtype": str(dtype).split(".")[-1],
+               "shape": [rows, width], "offset": offset,
+               "dtype": str(dtype).split(".")[-1],
                "max_abs_err": err, "max_bf16_ulps": ulps,
                "ms": median_ms(rmsnorm, args, 10),
-               "device_ms": device_ms(rmsnorm, args, 10),
+               "device_ms": dev_ms, "host_ms": host_ms,
                "plain_ms": median_ms(rmsnorm_plain, args, 3),
                "library_ms": median_ms(
-                   lambda a, b: F.rms_norm(a, (d,), b, 1e-6), args, 10),
+                   lambda a, b: F.rms_norm(a, (width,), b, 1e-6), args, 10),
                "bound_ms": size(x, w, out) / rate * 1e3,
                "bound_by": "bytes", "card": card}
         emit(row)
@@ -635,12 +669,13 @@ def phase_model_kernels(card: str, rate: float, flops: float,
         args = lambda: (q, k, v)   # noqa: E731
         work = 4 * b * h * dim * attention_pairs(lq, lq, True)
         bound = max(size(q, k, v, out) / rate, work / flops) * 1e3
+        dev_ms, host_ms = device_ms(flash_attention, args, 5)
         row = {"phase": "kernels", "kernel": "flash_attention",
                "case": label, "shape": [b, h, g, lq, dim],
                "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                "max_row_err": row_err,
                "ms": median_ms(flash_attention, args, 5),
-               "device_ms": device_ms(flash_attention, args, 5),
+               "device_ms": dev_ms, "host_ms": host_ms,
                "plain_ms": median_ms(attention_plain, args, 3),
                "library_ms": median_ms(
                    lambda a, b_, c: F.scaled_dot_product_attention(
@@ -649,7 +684,9 @@ def phase_model_kernels(card: str, rate: float, flops: float,
         row["tflops"] = work / (row["device_ms"] * 1e-3) / 1e12
         emit(row)
         if dtype == bf16:
-            repeat_cases.append((label, q, k, v, out))
+            repeat_cases.append(("flash_attention", label,
+                                 functools.partial(flash_attention, q, k, v,
+                                                   causal=True), out))
         if label == "batched prefill":
             results["flash_attention"] = row
 
@@ -682,12 +719,13 @@ def phase_model_kernels(card: str, rate: float, flops: float,
         valid = int(lens.sum())
         moved = (2 * valid * g * dim * kc.element_size() + size(q, out)
                  + lens.numel() * 4)
+        dev_ms, host_ms = device_ms(decode_attention, args, 10)
         row = {"phase": "kernels", "kernel": "decode_attention",
                "case": label, "shape": [b, h, g, L, dim],
                "dtype": str(dtype).split(".")[-1], "kv_lens_checked":
                len(cases), "max_abs_err": err, "max_row_err": row_err,
                "ms": median_ms(decode_attention, args, 10),
-               "device_ms": device_ms(decode_attention, args, 10),
+               "device_ms": dev_ms, "host_ms": host_ms,
                "plain_ms": median_ms(decode_attention_plain, args, 3),
                "library_ms": median_ms(
                    lambda a, b_, c, n: F.scaled_dot_product_attention(
@@ -696,21 +734,23 @@ def phase_model_kernels(card: str, rate: float, flops: float,
                "bound_ms": max(moved / rate, 4 * h * dim * valid / flops)
                * 1e3, "bound_by": "bytes", "card": card}
         emit(row)
+        if dtype == bf16:
+            repeat_cases.append(("decode_attention", label, functools.partial(
+                decode_attention, q, kc, vc, lens), out))
         if label == "batched decode":
             results["decode_attention"] = row
     results["rwkv6_scan"] = check_rwkv6_scan(card, rate, fp32_flops, gen, P,
                                              L1)
 
-    # bf16 flash attention launched again at each shape, after every
-    # timing (a burst of launches slows the kernel timed right after it)
-    for label, q, k, v, out in repeat_cases:
-        same = sum(torch.equal(flash_attention(q, k, v, causal=True), out)
-                   for _ in range(FLASH_REPEATS))
-        check(same == FLASH_REPEATS, f"flash_attention ({label}): {same} "
-              f"of {FLASH_REPEATS} repeated launches equal the first")
-        emit({"phase": "kernels", "kernel": "flash_attention",
-              "case": label, "repeats": FLASH_REPEATS,
-              "repeats_equal": same, "card": card})
+    # bf16 flash attention and flash decode launched again at each shape,
+    # after every timing (a burst of launches slows the kernel timed right
+    # after it), each output equal to the first of the same inputs
+    for kernel, label, call, out in repeat_cases:
+        same = sum(torch.equal(call(), out) for _ in range(REPEATS))
+        check(same == REPEATS, f"{kernel} ({label}): {same} of {REPEATS} "
+              f"repeated launches equal the first")
+        emit({"phase": "kernels", "kernel": kernel, "case": label,
+              "repeats": REPEATS, "repeats_equal": same, "card": card})
     return results
 
 
@@ -768,13 +808,14 @@ def check_rwkv6_scan(card: str, rate: float, fp32_flops: float, gen,
         work = 5 * b * t * heads * dh * dh
         bytes_ms, ops_ms = moved / rate * 1e3, work / fp32_flops * 1e3
         make = lambda: args   # noqa: E731
+        dev_ms, host_ms = device_ms(rwkv6_scan, make, 5)
         row = {"phase": "kernels", "kernel": "rwkv6_scan", "case": label,
                "shape": [b, t, heads, dh], "dtype": str(dtype).split(".")[-1],
                "initial_state": state, "state_equal": True,
                "max_abs_err": err, "max_wkv_err": wkv_err,
                "max_err_over_row_rms": row_rel,
                "ms": median_ms(rwkv6_scan, make, 5),
-               "device_ms": device_ms(rwkv6_scan, make, 5),
+               "device_ms": dev_ms, "host_ms": host_ms,
                # one call of the plain loop is itself thousands of steps
                "plain_ms": median_ms(rwkv6_scan_plain, make, 1),
                "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
@@ -1301,7 +1342,7 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row.get("bound_by", "bytes"),
         "library_ms": row.get("library_ms"), "shape": row["shape"],
-        "device_ms": row["device_ms"],
+        "device_ms": row["device_ms"], "host_ms": row["host_ms"],
         "max_abs_diff": row["max_abs_err"], "kernel_ms": row["ms"]}
         for name, row in kernels.items()], "card": card})
     print(card)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; a CUDA device without a card raises."""
@@ -29,14 +31,19 @@ def resolve_device(device=None) -> torch.device:
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when the tensors lie on a CUDA device (launch the kernel),
     False when they lie on the CPU (run the plain version).  Mixed or
-    other devices raise."""
-    types = {t.device.type for t in tensors}
-    if types == {"cuda"}:
+    other devices raise.  (Tensor flags, not ``device`` objects: the
+    wrappers' host time is part of every call.)"""
+    cuda = cpu = 0
+    for t in tensors:
+        cuda += t.is_cuda
+        cpu += t.is_cpu
+    if cuda == len(tensors):
         return True
-    if types == {"cpu"}:
+    if cpu == len(tensors):
         return False
     raise ValueError(f"kernel inputs must all lie on one CUDA device or "
-                     f"all on the CPU, got {sorted(types)}")
+                     f"all on the CPU, got "
+                     f"{sorted({t.device.type for t in tensors})}")
 
 
 def check_inputs(shapes: dict) -> None:
@@ -60,11 +67,27 @@ def float_code(*tensors: torch.Tensor) -> int:
     """The C-side type code of a model kernel's float inputs, which must
     share one type of :data:`FLOAT_CODES` and be contiguous; raises
     otherwise."""
-    dtypes = {t.dtype for t in tensors}
-    if len(dtypes) != 1 or next(iter(dtypes)) not in FLOAT_CODES:
-        raise TypeError(f"kernel inputs must share one type of float32 or "
-                        f"bfloat16, got {sorted(map(str, dtypes))}")
+    dtype = tensors[0].dtype
+    code = FLOAT_CODES.get(dtype)
     for t in tensors:
+        if code is None or t.dtype != dtype:
+            raise TypeError(f"kernel inputs must share one type of float32 "
+                            f"or bfloat16, got "
+                            f"{sorted({str(u.dtype) for u in tensors})}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
-    return FLOAT_CODES[tensors[0].dtype]
+    return code
+
+
+def launch(name: str, index: int, *args) -> None:
+    """Launches kernel ``name`` (its C entry in ``build.KERNELS``) with
+    ``args`` and the current stream of CUDA device ``index``, on that
+    device; raises if the launch failed.  Makes the device current only
+    when it is not already (the wrappers' host time is part of every
+    call)."""
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(name, index, *args)
+    err = build.kernel(name)(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -47,8 +47,8 @@ KERNELS = {
                    [_P] * 8 + [_I] * 5 + [_P]),
 }
 
-_LOADED: dict = {}
-
+_LIBS: dict = {}
+_ENTRIES: dict = {}
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -108,15 +108,23 @@ def build(names: Iterable[str] = tuple(KERNELS),
     return logs
 
 
-def kernel(name: str):
-    """The ctypes entry of one kernel, built and loaded at first use."""
-    entry = _LOADED.get(name)
-    if entry is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _, symbol, argtypes = KERNELS[name]
-        fn = getattr(lib, symbol)
+def entry(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """A C entry of kernel ``name``'s library, built and loaded at first
+    use, with its argument and result types set."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, symbol)   # the library outlives fn in _LIBS
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        entry = _LOADED[name] = (lib, fn)   # the library outlives fn
-    return entry[1]
+        fn.restype = restype
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def kernel(name: str):
+    """The ctypes entry that launches kernel ``name`` (``KERNELS``)."""
+    _, symbol, argtypes = KERNELS[name]
+    return entry(name, symbol, argtypes)

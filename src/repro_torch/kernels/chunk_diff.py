@@ -28,8 +28,7 @@ import os
 import torch
 
 from repro_torch.content.chunks import BYTES_PER_TOKEN
-from repro_torch.kernels import build
-from repro_torch.kernels.backend import check_inputs, use_kernel
+from repro_torch.kernels.backend import check_inputs, launch, use_kernel
 
 _I32 = torch.int32
 N_CHUNK_COUNTERS = 4
@@ -129,15 +128,10 @@ def chunk_tick_(chunk_version, chunk_sync, chunk_dirty,
     dev = chunk_sync.device
     fetched = torch.empty((B, n, C), dtype=_I32, device=dev)
     counters = torch.empty((B, N_CHUNK_COUNTERS), dtype=_I32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.kernel("chunk_tick")(
-            *(t.data_ptr() for t in args + (fetched, counters)),
-            B, n, m, C, chunk_tokens, artifact_tokens, signal_tokens,
-            BYTES_PER_TOKEN, stream)
-    if err != 0:
-        raise RuntimeError(f"chunk_tick kernel launch failed: CUDA error "
-                           f"{err}")
+    launch("chunk_tick", chunk_sync.get_device(),
+           *(t.data_ptr() for t in args + (fetched, counters)),
+           B, n, m, C, chunk_tokens, artifact_tokens, signal_tokens,
+           BYTES_PER_TOKEN)
     chunk_tick_.launches += 1
     return fetched, counters
 

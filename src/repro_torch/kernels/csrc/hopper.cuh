@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the kernels of this
-// directory (flash_attention.cu includes it): mbarriers, TMA tile loads,
-// warpgroup matrix multiply (wgmma) and its shared-memory descriptors,
-// register reallocation.
+// directory (flash_attention.cu and decode_attention.cu include it):
+// mbarriers, TMA tile loads, cp.async, warp-level mma.sync with its
+// ldmatrix loads, warpgroup matrix multiply (wgmma) and its shared-memory
+// descriptors, register reallocation.
 // Header only; a kernel includes it and stays a plain-C library.
 
 #pragma once
@@ -55,6 +56,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // --- TMA -------------------------------------------------------------------
 
+// --- cp.async (16 bytes a thread, through L2) counted on an mbarrier -------
+
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's cp.async copies so far have
+// landed (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
 // one box of a 3-D tensor map into shared memory; completion is counted
 // on `bar` in bytes
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
@@ -66,6 +83,46 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// --- warp-level tensor-core products (mma.sync) and their operand loads ----
+
+// four 8 x 8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and register i of lane l holds its row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed: register i of lane l holds rows
+// 2 (l % 4) and 2 (l % 4) + 1 of matrix i, column l / 4
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col): the
+// m16n8k16 fragments (a0, a2: row l / 4, a1, a3: row l / 4 + 8; b0, b1: the
+// k pairs 2 (l % 4) and 2 (l % 4) + 8 of column l / 4; d0, d1: row l / 4,
+// d2, d3: row l / 4 + 8, columns 2 (l % 4) and 2 (l % 4) + 1)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
+                                               uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // --- warpgroup-wide register reallocation and barriers ----------------------

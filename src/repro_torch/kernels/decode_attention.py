@@ -2,32 +2,87 @@
 plain version.
 
 :func:`decode_attention` launches the kernel of
-``csrc/decode_attention.cu`` (split-K flash-decoding: the cache length
-is split into 64-key blocks across the card, each writing a partial
-softmax, then a second pass merges them) for CUDA tensors, which
-replaces the TPU kernel of the JAX package (``decode_attention_pallas``),
-and runs :func:`decode_attention_plain` for CPU tensors.
+``csrc/decode_attention.cu`` for CUDA tensors, which replaces the TPU
+kernel of the JAX package (``decode_attention_pallas``): one launch that
+splits the cache across the card in clusters of 8, 4, 2 or 1 blocks
+(:func:`plan`), streams 32-key K/V tiles into padded shared-memory rows
+by 16-byte ``cp.async`` through a ring of stages, runs bf16 on the tensor
+cores (fp32 on the CUDA cores), and merges the splits' partial softmaxes
+inside the same launch, in a fixed order, behind ticket counters that
+this module keeps per stream.  CPU tensors run
+:func:`decode_attention_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import float_code, use_kernel
+from repro_torch.kernels.backend import (FLOAT_CODES, float_code, launch,
+                                        use_kernel)
 from repro_torch.kernels.ref import decode_attention_plain
 
 #: head dims the kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
 #: the largest query group (Hq / Hkv) one block keeps in registers
 MAX_GROUP = 8
-#: cache keys per block of the split pass
-SPLIT_KEYS = 64
+#: cache keys per shared-memory tile
+TILE_KEYS = 32
 
-__all__ = ["decode_attention", "decode_attention_plain", "HEAD_DIMS",
-           "MAX_GROUP", "SPLIT_KEYS"]
+__all__ = ["decode_attention", "decode_attention_plain", "plan",
+           "HEAD_DIMS", "MAX_GROUP", "TILE_KEYS"]
+
+_PLANS: dict = {}
+#: (device index, raw stream handle) -> zeroed int32 ticket counters
+_TICKETS: dict = {}
+
+
+def plan(b: int, hq: int, hkv: int, lmax: int, d: int, dtype: torch.dtype,
+         device) -> tuple:
+    """How a launch on CUDA ``device`` splits a (b, hkv, lmax, d) cache:
+    ``(split_keys, n_splits, scratch_floats, tickets)``, the keys of one
+    split, the splits of one (batch, kv head) (clusters of 8 the card
+    holds at once shared out over the pairs, or with many pairs one
+    cluster of 4, 2 or 1 a pair), the fp32 scratch the launch needs and
+    its merge's ticket counters.  Read once per shape and device from the
+    kernel's library."""
+    return _plan(b, hq, hkv, lmax, d, FLOAT_CODES[dtype],
+                 torch.device(device).index)
+
+
+def _plan(*key) -> tuple:
+    found = _PLANS.get(key)
+    if found is None:
+        fn = build.entry("decode_attention", "decode_attention_plan",
+                         [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
+                         ctypes.c_int64)
+        split_keys, n_splits, tickets = (ctypes.c_int() for _ in range(3))
+        with torch.cuda.device(key[-1]):
+            floats = fn(*key[:-1], ctypes.byref(split_keys),
+                        ctypes.byref(n_splits), ctypes.byref(tickets))
+        if floats < 0:
+            raise ValueError(f"the decode kernel refuses (B, Hq, Hkv, L, D, "
+                             f"type code) = {key[:-1]}")
+        found = _PLANS[key] = (split_keys.value, n_splits.value, floats,
+                               tickets.value)
+    return found
+
+
+def _tickets(index: int, n: int, device: torch.device) -> int:
+    """The address of at least ``n`` zeroed ticket counters for launches
+    on the current stream of CUDA device ``index``.  A launch leaves its
+    counters at 0, so launches in one stream's order share one buffer;
+    launches on another stream get their own, so two decode calls that
+    run at once never take each other's tickets."""
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(n, dtype=torch.int32,
+                                          device=device)
+    return buf.data_ptr()
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -36,10 +91,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      scale: Optional[float] = None) -> torch.Tensor:
     """One query token per batch row, q (B, Hq, D), over head-major
     caches (B, Hkv, L, D), keys at positions < ``kv_len[b]`` (B,) (each
-    at least 1; None: all L).  Returns (B, Hq, D) in q's type.  CUDA
-    tensors (contiguous, one type of fp32 / bf16, D in
-    :data:`HEAD_DIMS`, Hq / Hkv <= 8) launch the kernel and add one to
-    ``decode_attention.launches``; CPU tensors run
+    at least 1; a length above L masks nothing; None: all L).  Returns
+    (B, Hq, D) in q's type.  CUDA tensors (contiguous, q and the caches
+    16-byte aligned, one type of fp32 / bf16, D in :data:`HEAD_DIMS`,
+    Hq / Hkv <= 8, kv_len int32) launch the kernel, and nothing else, and
+    add one to ``decode_attention.launches``; CPU tensors run
     :func:`decode_attention_plain`."""
     on = (q, k_cache, v_cache) + (() if kv_len is None else (kv_len,))
     if not use_kernel(*on):
@@ -57,34 +113,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}; the kernel is built for "
                          f"{HEAD_DIMS}")
-    group = hq // hkv
-    if group > MAX_GROUP:
-        raise ValueError(f"query group {group}; the kernel takes up to "
-                         f"{MAX_GROUP}")
+    if hq // hkv > MAX_GROUP:
+        raise ValueError(f"query group {hq // hkv}; the kernel takes up "
+                         f"to {MAX_GROUP}")
     code = float_code(q, k_cache, v_cache)
-    if kv_len is None:
-        lens = torch.full((b,), lmax, dtype=torch.int32, device=q.device)
-    else:
-        if tuple(kv_len.shape) != (b,):
-            raise ValueError(f"kv_len has shape {tuple(kv_len.shape)}, "
-                             f"expected ({b},)")
-        # a length past the cache masks nothing, as in the plain version
-        lens = torch.clamp(kv_len.to(torch.int32), max=lmax).contiguous()
-    n_splits = -(-lmax // SPLIT_KEYS)
-    slots = b * hkv * n_splits * group
-    part_o = torch.empty(slots * d, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(slots * 2, dtype=torch.float32, device=q.device)
+    lens = 0
+    if kv_len is not None:
+        if (kv_len.dtype != torch.int32 or kv_len.shape != (b,)
+                or not kv_len.is_contiguous()):
+            raise ValueError(f"kv_len must be a contiguous int32 ({b},) "
+                             f"tensor, got {kv_len.dtype} "
+                             f"{tuple(kv_len.shape)}")
+        lens = kv_len.data_ptr()
+    index = q.get_device()
+    _, _, floats, tickets = _plan(b, hq, hkv, lmax, d, code, index)
+    scratch = q.new_empty(floats, dtype=torch.float32) if floats else None
     out = torch.empty_like(q)
-    scale = d ** -0.5 if scale is None else float(scale)
-    with torch.cuda.device(q.device):
-        err = build.kernel("decode_attention")(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), part_o.data_ptr(),
-            part_ml.data_ptr(), b, hq, hkv, lmax, d, scale, code,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    launch("decode_attention", index, q.data_ptr(),
+           k_cache.data_ptr(), v_cache.data_ptr(), lens, out.data_ptr(),
+           0 if scratch is None else scratch.data_ptr(),
+           _tickets(index, tickets, q.device) if tickets else 0, b, hq,
+           hkv, lmax, d, d ** -0.5 if scale is None else float(scale), code)
     decode_attention.launches += 1
     return out
 

@@ -17,8 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.backend import (FLOAT_CODES, float_code,
+from repro_torch.kernels.backend import (FLOAT_CODES, float_code, launch,
                                          use_kernel)
 from repro_torch.kernels.ref import attention_plain
 
@@ -62,14 +61,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     scale = d ** -0.5 if scale is None else float(scale)
-    with torch.cuda.device(q.device):
-        err = build.kernel("flash_attention")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, lq, lk, d, int(causal), scale, code,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    launch("flash_attention", q.get_device(), q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), out.data_ptr(), b, hq, hkv, lq, lk, d, int(causal),
+           scale, code)
     flash_attention.launches += 1
     return out
 

@@ -22,8 +22,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.states import MESIState
-from repro_torch.kernels import build
-from repro_torch.kernels.backend import check_inputs, use_kernel
+from repro_torch.kernels.backend import check_inputs, launch, use_kernel
 
 _I, _S = int(MESIState.I), int(MESIState.S)
 _I32 = torch.int32
@@ -135,15 +134,9 @@ def mesi_tick_(state, version, last_sync, reads_since_fetch,
     B, n, m = state.shape
     counters = torch.empty((B, N_COUNTERS), dtype=_I32, device=state.device)
     miss = torch.empty((B, n), dtype=_I32, device=state.device)
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.kernel("mesi_tick")(
-            *(t.data_ptr() for t in args + (counters, miss)),
-            B, n, m, artifact_tokens, int(eager), access_k, signal_tokens,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"mesi_tick kernel launch failed: CUDA error "
-                           f"{err}")
+    launch("mesi_tick", state.get_device(),
+           *(t.data_ptr() for t in args + (counters, miss)),
+           B, n, m, artifact_tokens, int(eager), access_k, signal_tokens)
     mesi_tick_.launches += 1
     return counters, miss
 

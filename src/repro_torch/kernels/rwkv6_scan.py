@@ -13,8 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.backend import float_code, use_kernel
+from repro_torch.kernels.backend import float_code, launch, use_kernel
 from repro_torch.kernels.ref import rwkv6_scan_plain
 
 #: head sizes the kernel is built for: the smoke configs' and
@@ -64,16 +63,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = torch.empty_like(r)
     state = torch.empty((b, h, dh, dh), dtype=torch.float32,
                         device=r.device)
-    with torch.cuda.device(r.device):
-        err = build.kernel("rwkv6_scan")(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(),
-            None if initial_state is None else initial_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, t, h, dh, code,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
-                           f"{err}")
+    launch("rwkv6_scan", r.get_device(), r.data_ptr(), k.data_ptr(),
+           v.data_ptr(), w.data_ptr(), u.data_ptr(),
+           None if initial_state is None else initial_state.data_ptr(),
+           y.data_ptr(), state.data_ptr(), b, t, h, dh, code)
     rwkv6_scan.launches += 1
     return y, state
 

@@ -8,13 +8,19 @@ installed:
 """
 
 import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import chunk_diff, mesi_transition  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, plan)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (attention_plain,  # noqa: E402
                                      decode_attention_plain, rmsnorm_plain)
@@ -113,18 +119,16 @@ def _close(got, exp, dtype, atol):
     assert err <= (1e-5 if dtype == torch.float32 else atol), err
 
 
-@pytest.mark.parametrize("shape", [(1, 32), (7, 128), (300, 2048),
-                                   (2, 3, 5, 256), (4, 8192)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rmsnorm_kernel_equals_plain(gen, shape, dtype):
-    x = _normal(gen, *shape, dtype=dtype)
-    w = _normal(gen, shape[-1], dtype=dtype)
+def _rmsnorm_checked(x, w):
+    """The kernel once (one launch) against the plain version: bf16
+    within one bf16 ulp of the plain value, fp32 within 1e-5."""
     launches = rmsnorm.launches
     got = rmsnorm(x, w)
     torch.cuda.synchronize()
     assert rmsnorm.launches == launches + 1
     exp = rmsnorm_plain(x, w)
-    if dtype == torch.bfloat16:
+    assert got.dtype == exp.dtype and got.shape == exp.shape
+    if x.dtype == torch.bfloat16:
         # one bf16 ulp of the plain value: x = m * 2**e with m in
         # [0.5, 1) has 8 significant bits, so its ulp is 2**(e - 8)
         ulp = torch.ldexp(torch.ones_like(exp, dtype=torch.float32),
@@ -132,6 +136,29 @@ def test_rmsnorm_kernel_equals_plain(gen, shape, dtype):
         assert bool(((got.float() - exp.float()).abs() <= ulp).all())
     else:
         torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 32), (7, 128), (300, 2048),
+                                   (2, 3, 5, 256), (4, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_equals_plain(gen, shape, dtype):
+    _rmsnorm_checked(_normal(gen, *shape, dtype=dtype),
+                     _normal(gen, shape[-1], dtype=dtype))
+
+
+@pytest.mark.parametrize("d", [64, 100, 128, 2048, 8192])
+@pytest.mark.parametrize("rows", [1, 4, 33, 2113])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_widths_rows_and_views(gen, d, rows, offset, dtype):
+    """Every team width (a warp a row up to 4 KB of row, 2-8 warps up to
+    d 8192), row counts that leave the persistent grid's teams uneven
+    (2113 is no multiple of a block's 8 one-warp teams), and x as a view
+    one element into its buffer (offset 1): no 16-byte aligned pointer,
+    so the kernel reads and writes element by element, as it does at
+    d = 100, a width that is no multiple of its vector."""
+    x = _normal(gen, rows * d + offset, dtype=dtype)[offset:].view(rows, d)
+    _rmsnorm_checked(x, _normal(gen, d, dtype=dtype))
 
 
 def _bf16_row_err(got, exp):
@@ -236,6 +263,152 @@ def test_decode_attention_kernel_equals_plain(gen, d, b, hq, hkv, L, dtype):
         torch.cuda.synchronize()
         assert decode_attention.launches == launches + 1
         _close(got, decode_attention_plain(q, kc, vc, kv_len), dtype, 1e-2)
+
+
+def _decode_checked(q, kc, vc, kv_len):
+    """The kernel once (one launch) against the plain version: fp32
+    within 1e-5, bf16 within 1e-2 and the row gate."""
+    launches = decode_attention.launches
+    got = decode_attention(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == launches + 1
+    exp = decode_attention_plain(q, kc, vc, kv_len)
+    _close(got, exp, q.dtype, 1e-2)
+    if q.dtype == torch.bfloat16:
+        assert _bf16_row_err(got, exp) <= 1.0
+    return got
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,L", [
+    (3, 8, 1, 1000),          # group 8 (MQA)
+    (2, 6, 2, 300),           # group 3
+    (3, 5, 5, 130),           # group 1 (MHA)
+    (2, 8, 2, 777),           # group 4
+    (1, 7, 1, 6176),          # group 7, gemma-2b's cache length
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kv_len_edges(gen, d, b, hq, hkv, L, dtype):
+    """kv_len 1, 63, 64, 65, on the launch's split boundary and one past
+    it, L, above L (masks nothing) and None, the other batch rows a few
+    keys shorter: the split that holds the last key, the tile that holds
+    it and the merge of the splits before it."""
+    q = _normal(gen, b, hq, d, dtype=dtype)
+    kc = _normal(gen, b, hkv, L, d, dtype=dtype)
+    vc = _normal(gen, b, hkv, L, d, dtype=dtype)
+    split_keys = plan(b, hq, hkv, L, d, dtype, q.device)[0]
+    for n in (1, 63, 64, 65, split_keys, split_keys + 1, L, L + 7, None):
+        lens = None if n is None else torch.tensor(
+            [n] + [max(1, n - 3 * i) for i in range(1, b)],
+            dtype=torch.int32, device="cuda")
+        _decode_checked(q, kc, vc, lens)
+
+
+@pytest.mark.parametrize("b,hq,hkv,L,d", [
+    (4, 8, 1, 6176, 256),     # gemma-2b's batched decode
+    (1, 8, 1, 6176, 256),     # one agent: 97 splits, two merge levels
+    (8, 16, 8, 2048, 128),
+])
+def test_decode_attention_repeated_launches_agree(gen, b, hq, hkv, L, d):
+    """bf16 launched 60 times over ragged lengths: every output passes
+    the gates and equals the first bit for bit.  The splits finish in
+    any order, so an output that changed would mean a merge that did not
+    run in split order or a ticket not back at 0."""
+    q = _normal(gen, b, hq, d, dtype=torch.bfloat16)
+    kc, vc = (_normal(gen, b, hkv, L, d, dtype=torch.bfloat16)
+              for _ in range(2))
+    lens = torch.randint(L // 2, L + 1, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    first = _decode_checked(q, kc, vc, lens)
+    for i in range(60):
+        assert torch.equal(decode_attention(q, kc, vc, lens), first), i
+
+
+def test_decode_attention_on_two_streams_at_once(gen):
+    """bf16 decode calls queued on two streams at once, 30 on each, over
+    different inputs, each launch merging its splits behind tickets:
+    every output equals its inputs' first output bit for bit, so the
+    streams' launches never take each other's tickets."""
+    b, hq, hkv, L, d = 4, 8, 1, 6176, 256
+    inputs = []
+    for _ in range(2):
+        q = _normal(gen, b, hq, d, dtype=torch.bfloat16)
+        kc, vc = (_normal(gen, b, hkv, L, d, dtype=torch.bfloat16)
+                  for _ in range(2))
+        lens = torch.randint(L // 2, L + 1, (b,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        inputs.append((q, kc, vc, lens))
+    assert plan(b, hq, hkv, L, d, torch.bfloat16, "cuda")[3] > 0
+    firsts = [_decode_checked(*args) for args in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    outs = [[], []]
+    torch.cuda.synchronize()
+    for _ in range(30):
+        for stream, args, got in zip(streams, inputs, outs):
+            with torch.cuda.stream(stream):
+                got.append(decode_attention(*args))
+    torch.cuda.synchronize()
+    for got, first in zip(outs, firsts):
+        for i, out in enumerate(got):
+            assert torch.equal(out, first), i
+
+
+#: one decode call per kv_len under the profiler, in a fresh process: in a
+#: process that had already run a device-only profiler session, a later
+#: session recorded no device kernel of the cluster launch
+_PROFILE_DECODE = """
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.decode_attention import decode_attention
+gen = torch.Generator(device="cuda").manual_seed(0)
+q = torch.randn((4, 8, 256), generator=gen, device="cuda").bfloat16()
+kc, vc = (torch.randn((4, 1, 3000, 256), generator=gen,
+                      device="cuda").bfloat16() for _ in range(2))
+lens = torch.tensor([2999, 3000, 3100, 17], dtype=torch.int32, device="cuda")
+decode_attention(q, kc, vc, lens)    # built, planned, attributes set
+torch.cuda.synchronize()
+found = []
+for kv_len in (lens, None):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_attention(q, kc, vc, kv_len)
+        torch.cuda.synchronize()
+    found.append([ev.name for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA
+                  and not ev.is_user_annotation])
+print(json.dumps(found))
+"""
+
+
+def test_decode_attention_launches_only_its_kernel(gen):
+    """A call is one launch of the port's kernel and nothing else: no
+    clamp, cast or fill of kv_len, no merge launch (the profiler sees one
+    device kernel), with and without kv_len."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(src), env.get("PYTHONPATH")) if p)
+    run = subprocess.run([sys.executable, "-c", _PROFILE_DECODE], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    for kernels in json.loads(run.stdout.strip().splitlines()[-1]):
+        assert len(kernels) == 1 and "decode_kernel" in kernels[0], kernels
+
+
+def test_decode_attention_refuses_what_it_does_not_take(gen):
+    q = _normal(gen, 2, 4, 64)
+    kc = _normal(gen, 2, 2, 50, 64)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q, kc, kc, torch.tensor([3, 50], device="cuda"))
+    with pytest.raises(ValueError, match="query group"):
+        decode_attention(_normal(gen, 2, 18, 64), kc, kc)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        # a cache 4 bytes into its buffer: the kernel's 16-byte copies
+        # refuse it
+        kc_off = _normal(gen, kc.numel() + 1)[1:].view(kc.shape)
+        decode_attention(q, kc_off, kc_off)
 
 
 # --- rwkv6_scan: the final state bit for bit (the kernel rounds where the

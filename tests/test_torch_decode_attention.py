@@ -79,6 +79,29 @@ def test_plain_equals_oracle(b, hq, hkv, L, d, dtype):
             jq, jk, jv, jl)), **TOLS[dtype])
 
 
+#: one kv_len per batch row: the edges of the CUDA kernel's 32-key tiles
+#: (a split is a run of whole tiles), the whole cache and past it
+EDGE_LENS = (1, 31, 32, 33, 63, 64, 65, 96, 97, 256, 265)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_on_tile_edges_and_groups(group, dtype):
+    """Every query group 1-8 over a 256-key cache with kv_len on the tile
+    edges and above L (which masks nothing): fp32 against the Pallas
+    kernel (64-key blocks), bf16 against the oracle."""
+    b, hkv, L, d = len(EDGE_LENS), 2, 256, 32
+    (jq, jk, jv), (tq, tk, tv), _ = _inputs(b, group * hkv, hkv, L, d, dtype,
+                                            group)
+    lens = np.asarray(EDGE_LENS, np.int32)
+    got = decode_attention_plain(tq, tk, tv, torch.from_numpy(lens))
+    if dtype == "float32":
+        exp = jops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_k=64)
+    else:
+        exp = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
+    assert_allclose(_f32(got), _f32(exp), **TOLS[dtype])
+
+
 def test_decode_equals_last_prefill_row():
     """A decode over kv_len keys is the causal prefill's row kv_len-1."""
     from repro_torch.kernels.ref import attention_plain

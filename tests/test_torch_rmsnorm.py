@@ -47,7 +47,12 @@ def _f32(a):
 
 
 @pytest.mark.parametrize("shape", [(8, 128), (33, 512), (1, 2048),
-                                   (4, 16, 256), (3, 5, 4, 32)])
+                                   (4, 16, 256), (3, 5, 4, 32),
+                                   # qk-norm widths, one row and a row per
+                                   # (token, head); a width that is no
+                                   # multiple of the kernel's 16-byte vector
+                                   (1, 64), (1, 128), (1, 256), (2, 8, 128),
+                                   (4, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_equals_pallas_and_oracle(shape, dtype):
     jx, jw, tx, tw = _inputs(shape, dtype, sum(shape))
