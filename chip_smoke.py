@@ -23,9 +23,16 @@ Phases, each printing JSON lines:
              element by element within one bf16 ulp of the plain value
              plus 2**-10 of its row's rms (flash decode at the batched
              request's shape on every kv_len its 32 steps give it, P + 1
-             .. P + 32); bf16 flash attention and flash decode launched
-             ``REPEATS`` more times at each shape after every timing,
-             each output equal to the first bit for bit.  Times the
+             .. P + 32); bf16 flash attention, flash decode, the WKV
+             scan (fp32 and bf16) and the MESI tick (every shape and
+             strategy) launched ``REPEATS`` more times at each shape after
+             every timing, each output equal to the first bit for bit.
+             The MESI rows add ``sector_bound_ms`` (the 32-byte sectors
+             the tick must touch) beside the word bound, the WKV rows
+             ``issue_floor_ms`` (four fp32 instructions per state element
+             per step over the card's fp32 lanes at its highest SM
+             clock), and two ``host_split_us`` lines split the host time
+             of a ``mesi_tick_`` and an ``rwkv6_scan`` call.  Times the
              wrapper call (CUDA events), the kernel alone, the wrapper's
              host time, the plain version and, for the model kernels, the
              one PyTorch call that computes the same function (a
@@ -128,12 +135,18 @@ SCENARIO_RUNS = 4096
 #: 1980 MHz): it must outlast the wrapper's host work, and on a busy host
 #: ``mesi_tick``'s wrapper can take more than 1 ms
 SPIN_CYCLES = 10_000_000
-#: launches of bf16 flash attention and flash decode at each checked shape
-#: that must equal the first bit for bit (flash's K/V ring is shared by two
-#: warpgroups, so a stage overwritten too early shows in some launches and
-#: not others; decode merges its splits behind tickets that must return to
-#: 0 after every launch, in split order whichever block finishes last)
+#: launches of bf16 flash attention, flash decode, the WKV scan and the
+#: MESI tick at each checked shape that must equal the first bit for bit
+#: (flash's K/V ring is shared by two warpgroups, so a stage overwritten
+#: too early shows in some launches and not others; decode merges its
+#: splits behind tickets that must return to 0 after every launch, in
+#: split order whichever block finishes last; the scan's stage ring and
+#: the tick's staged slabs are reused the same way)
 REPEATS = 50
+#: fp32 lanes of an SM on Hopper (the issue floor of the WKV scan)
+FP32_LANES_PER_SM = 128
+#: host-time samples of each piece of a wrapper call (``host_split``)
+HOST_SPLIT_CALLS = 50
 #: a qk-norm width (the per-head norm of q and k at head dim 128)
 QK_NORM_WIDTH = 128
 REPLACES = {
@@ -196,6 +209,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
 
 
 def _variant_rate(name: str, table: dict, what: str) -> float:
@@ -280,18 +302,39 @@ def device_ms(fn, make_args, reps: int) -> tuple:
     return statistics.median(times), host_ms / reps
 
 
+def check_repeats(card: str, cases) -> None:
+    """Each ``(kernel, label, call, first)`` case launched ``REPEATS``
+    times more; every output (a tensor or a sequence of them) must equal
+    the first bit for bit."""
+    import torch
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for kernel, label, call, first in cases:
+        equal = sum(same(call(), first) for _ in range(REPEATS))
+        check(equal == REPEATS, f"{kernel} ({label}): {equal} of {REPEATS} "
+              f"repeated launches equal the first")
+        emit({"phase": "kernels", "kernel": kernel, "case": label,
+              "repeats": REPEATS, "repeats_equal": equal, "card": card})
+
+
 def changed_words(before, after) -> int:
     return sum(int((b != a).sum()) for b, a in zip(before, after))
 
 
-def mesi_bound_bytes(inputs, outputs) -> int:
-    """Least bytes one MESI tick moves on these inputs: the action
-    vectors read in full; the state words the decisions read (the
-    addressed cell of every acting agent, the whole column of every
-    written artifact, the version of every addressed artifact, the
-    read counters of acting agents where the tick reads them); miss and
-    counters written in full; every state word whose value changed
-    written once."""
+def mesi_bound_bytes(inputs, outputs) -> tuple:
+    """Least bytes one MESI tick moves on these inputs, as words and as
+    the 32-byte sectors the card moves: the action vectors read in full;
+    the state words the decisions read (the addressed cell of every
+    acting agent, the whole column of every written artifact, the
+    version of every addressed artifact, the read counters of acting
+    agents where the tick reads them); miss and counters written in
+    full; every state word whose value changed written once.  Returns
+    (4 bytes a word, 32 bytes a sector holding any such word, read and
+    written sectors counted apart)."""
     import torch
     state, version, sync, reads, acts, arts, writes = inputs
     B, n, m = state.shape
@@ -303,12 +346,22 @@ def mesi_bound_bytes(inputs, outputs) -> int:
     written.scatter_add_(1, idx, (act & (writes != 0)).to(torch.int32))
     addressed = torch.zeros((B, m), dtype=torch.int32, device=state.device)
     addressed.scatter_add_(1, idx, act.to(torch.int32))
-    state_read = int((cell | (written > 0)[:, None, :]).sum())
-    reads_read = int(cell.sum())
-    words = (3 * B * n + state_read + int((addressed > 0).sum())
-             + reads_read + B * n + B * 8
-             + changed_words(inputs[:4], outputs[:4]))
-    return 4 * words
+    state_read = cell | (written > 0)[:, None, :]
+    changed = [b != a for b, a in zip(inputs[:4], outputs[:4])]
+    words = (3 * B * n + int(state_read.sum()) + int((addressed > 0).sum())
+             + int(cell.sum()) + B * n + B * 8 + sum(int(c.sum())
+                                                    for c in changed))
+
+    def sectors(mask):    # 8 words a sector; every buffer starts on one
+        flat = mask.reshape(-1)
+        pad = (-flat.numel()) % 8
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+        return int(flat.view(-1, 8).any(dim=1).sum())
+
+    full = 3 * -(-B * n // 8) + -(-B * n // 8) + -(-B * 8 // 8)
+    touched = (full + sectors(state_read) + sectors(addressed > 0)
+               + sectors(cell) + sum(sectors(c) for c in changed))
+    return 4 * words, 32 * touched
 
 
 def chunk_bound_bytes(inputs, outputs) -> int:
@@ -360,14 +413,16 @@ def ptxas_entries(log: str) -> dict:
 
 
 def phase_build(card: str) -> None:
-    """Builds every kernel; for flash attention (rebuilt, so its compiler
-    output is at hand) also each entry's registers, shared memory and
-    spills, which must be none for the bf16 kernel at every head dim,
-    and, where ``cuobjdump`` is installed, the count of tensor-core
-    (``HGMMA``) instructions in its machine code, which must not be 0."""
+    """Builds every kernel (each one anew, so its compiler output is at
+    hand); prints each entry's registers, shared memory and spills, which
+    must be none in the WKV scan's and the MESI tick's entries and in the
+    bf16 flash kernel at every head dim, and, where ``cuobjdump`` is
+    installed, the count of tensor-core (``HGMMA``) instructions in
+    flash's machine code, which must not be 0."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    build.library_path("flash_attention").unlink(missing_ok=True)
+    for name in build.KERNELS:
+        build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
     logs = build.build(ptxas_verbose=True)
     seconds = time.perf_counter() - t0
@@ -375,10 +430,20 @@ def phase_build(card: str) -> None:
           "every kernel library is built")
     usage = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
-             for name, log in logs.items() if name != "flash_attention"}
+             for name, log in logs.items()
+             if name not in ("flash_attention", "rwkv6_scan", "mesi_tick")}
     emit({"phase": "build", "seconds": seconds, "arch": "sm_90a",
           "kernels": len(build.KERNELS), "compiled": sorted(logs),
           "ptxas": usage, "card": card})
+
+    for name in ("rwkv6_scan", "mesi_tick"):
+        rows = ptxas_entries(logs[name])
+        check(bool(rows) and all(
+            row.get("spill_stores") == 0 == row.get("spill_loads")
+            and row.get("stack") == 0 for row in rows.values()),
+            f"{name} compiled without register spills ({rows})")
+        emit({"phase": "build", "kernel": name, "entries": rows,
+              "card": card})
 
     lib_path = build.library_path("flash_attention")
     entries = ptxas_entries(logs["flash_attention"])
@@ -428,6 +493,7 @@ def phase_kernels(card: str, rate: float) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
+    repeat_cases = []
     for B, n, m in MESI_SHAPES:
         for label, eager, access_k in (("lazy", False, 0),
                                        ("eager", True, 0),
@@ -459,16 +525,26 @@ def phase_kernels(card: str, rate: float) -> dict:
                 lambda *a: mt.mesi_tick_(*a, **opts), fresh, 10)
             plain_ms = median_ms(lambda *a: mt.mesi_tick_plain_(*a, **opts),
                                  fresh, 3)
-            bound_ms = mesi_bound_bytes(inputs, out) / rate * 1e3
+            word_bytes, sector_bytes = mesi_bound_bytes(inputs, out)
             row = {"phase": "kernels", "kernel": "mesi_tick",
                    "strategy": label, "shape": [B, n, m],
                    "equal": True, "max_abs_err": err, "ms": ms,
                    "device_ms": dev_ms, "host_ms": host_ms,
                    "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "card": card}
+                   "bound_ms": word_bytes / rate * 1e3,
+                   "sector_bound_ms": sector_bytes / rate * 1e3,
+                   "staged_sims": mt.plan(n, m), "card": card}
             emit(row)
             if label == "lazy":
                 results["mesi_tick"] = row
+
+            def again(inputs=inputs, opts=opts):
+                state = [t.clone() for t in inputs[:4]]
+                return state + list(mt.mesi_tick_(*state, *inputs[4:],
+                                                  **opts))
+            repeat_cases.append(("mesi_tick", f"{label}, B={B}", again, out))
+    # each shape and strategy launched again after every timing
+    check_repeats(card, repeat_cases)
 
     for B, n, m, C in CHUNK_SHAPES:
         tokens, chunk = C * 64, 64
@@ -739,27 +815,96 @@ def phase_model_kernels(card: str, rate: float, flops: float,
                 decode_attention, q, kc, vc, lens), out))
         if label == "batched decode":
             results["decode_attention"] = row
-    results["rwkv6_scan"] = check_rwkv6_scan(card, rate, fp32_flops, gen, P,
-                                             L1)
+    results["rwkv6_scan"], wkv_repeats = check_rwkv6_scan(
+        card, rate, fp32_flops, gen, P, L1)
+    host_split(card)
 
-    # bf16 flash attention and flash decode launched again at each shape,
-    # after every timing (a burst of launches slows the kernel timed right
-    # after it), each output equal to the first of the same inputs
-    for kernel, label, call, out in repeat_cases:
-        same = sum(torch.equal(call(), out) for _ in range(REPEATS))
-        check(same == REPEATS, f"{kernel} ({label}): {same} of {REPEATS} "
-              f"repeated launches equal the first")
-        emit({"phase": "kernels", "kernel": kernel, "case": label,
-              "repeats": REPEATS, "repeats_equal": same, "card": card})
+    # bf16 flash attention, flash decode and the WKV scan launched again
+    # at each shape, after every timing (a burst of launches slows the
+    # kernel timed right after it), each output equal to the first of the
+    # same inputs
+    check_repeats(card, repeat_cases + wkv_repeats)
     return results
 
 
+def host_split(card: str) -> None:
+    """How the host time of a call splits, for ``mesi_tick_`` at the
+    content fleet's shape (lazy) and ``rwkv6_scan`` at rwkv6-1.6b's decode
+    step (24 calls a step): the whole call, then each piece of it on its
+    own: the routing rule, the checks, the output allocations, the
+    bonus conversion the wrapper skips for an fp32 bonus, and
+    ``backend.launch`` with the pointers ready.  Each is the mean of ``HOST_SPLIT_CALLS`` calls back
+    to back behind one spin kernel, in microseconds."""
+    import torch
+    import importlib
+    from repro_torch.configs import get
+    from repro_torch.kernels import backend, mesi_transition as mt
+    wkv = importlib.import_module("repro_torch.kernels.rwkv6_scan")
+
+    def host_us(fn):
+        torch.cuda.synchronize()
+        held, released = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+        held.record()
+        torch.cuda._sleep(SPIN_CYCLES * 4)
+        released.record()
+        t0 = time.perf_counter()
+        for _ in range(HOST_SPLIT_CALLS):
+            fn()
+        us = (time.perf_counter() - t0) / HOST_SPLIT_CALLS * 1e6
+        released.synchronize()
+        check(held.elapsed_time(released) * 1e3 > us * HOST_SPLIT_CALLS,
+              "the spin kernel outlasted the host work")
+        torch.cuda.synchronize()
+        return us
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, n, m = MESI_SHAPES[-1]
+    args = random_mesi_inputs(gen, B, n, m)
+    opts = dict(artifact_tokens=4096, eager=False, access_k=0,
+                signal_tokens=12)
+    ptrs = [t.data_ptr() for t in args + mt._outputs(B, n, "cuda")]
+    emit({"phase": "kernels", "kernel": "mesi_tick", "host_split_us": {
+        "call": host_us(lambda: mt.mesi_tick_(*args, **opts)),
+        "route": host_us(lambda: backend.use_kernel(*args)),
+        "checks": host_us(lambda: mt._check(*args)),
+        "outputs": host_us(lambda: mt._outputs(B, n, "cuda")),
+        "launch": host_us(lambda: backend.launch(
+            "mesi_tick", 0, *ptrs, B, n, m, 4096, 0, 0, 12))},
+        "shape": [B, n, m], "card": card})
+
+    cfg = get(SERVE_RWKV["arch"])
+    h, dh = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+    b = SERVE_RWKV["agents"]
+    r, k, v, w = (torch.rand((b, 1, h, dh), generator=gen, device="cuda")
+                  for _ in range(4))
+    bonus = torch.randn((h, dh), generator=gen, device="cuda")
+    s0 = torch.randn((b, h, dh, dh), generator=gen, device="cuda")
+    y, state = wkv._outputs(r)
+    wptrs = [x.data_ptr() for x in (r, k, v, w, bonus, s0, y, state)]
+    emit({"phase": "kernels", "kernel": "rwkv6_scan", "host_split_us": {
+        "call": host_us(lambda: wkv.rwkv6_scan(r, k, v, w, bonus, s0)),
+        "route": host_us(lambda: backend.use_kernel(r, k, v, w, bonus,
+                                                     s0)),
+        "checks": host_us(lambda: wkv._check(r, k, v, w, bonus, s0)),
+        "bonus_conversion": host_us(
+            lambda: bonus.to(torch.float32).contiguous()),
+        "outputs": host_us(lambda: wkv._outputs(r)),
+        "launch": host_us(lambda: backend.launch(
+            "rwkv6_scan", 0, *wptrs, b, 1, h, dh, 0))},
+        "shape": [b, 1, h, dh], "card": card})
+
+
 def check_rwkv6_scan(card: str, rate: float, fp32_flops: float, gen,
-                     P: int, L1: int) -> dict:
+                     P: int, L1: int) -> tuple:
     """The WKV kernel against its plain version at the rwkv serving
     path's shapes (rwkv6-1.6b: the batched prefill of P steps, one
     agent's prefill of L1, a decode step from a random state) and a
-    ragged bf16 mid shape; returns the batched prefill's row."""
+    ragged bf16 mid shape; returns the batched prefill's row and the
+    shapes' cases for ``check_repeats``.  Each row's ``issue_floor_ms``
+    is the time of four fp32 instructions per state element per step
+    (the state update's rounded multiply, multiply and add, and y's FMA)
+    over the card's fp32 lanes at its highest SM clock."""
     import torch
     from repro_torch.configs import get
     from repro_torch.kernels.ref import rwkv6_scan_plain
@@ -769,7 +914,10 @@ def check_rwkv6_scan(card: str, rate: float, fp32_flops: float, gen,
     h, dh = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
     n = SERVE_RWKV["agents"]
     f32 = torch.float32
-    result = None
+    lanes = (torch.cuda.get_device_properties(0).multi_processor_count
+             * FP32_LANES_PER_SM)
+    clock_hz = max_sm_clock_hz()
+    result, repeats = None, []
     for label, b, t, heads, dtype, state in (
             ("batched prefill", n, P, h, f32, False),
             ("agent prefill", 1, L1, h, f32, False),
@@ -821,11 +969,15 @@ def check_rwkv6_scan(card: str, rate: float, fp32_flops: float, gen,
                "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+               "issue_floor_ms": 4 * b * t * heads * dh * dh
+               / (lanes * clock_hz) * 1e3,
                "card": card}
         emit(row)
+        repeats.append(("rwkv6_scan", label,
+                        functools.partial(rwkv6_scan, *args), (y, s)))
         if label == "batched prefill":
             result = row
-    return result
+    return result, repeats
 
 
 def phase_goldens(card: str) -> None:

@@ -85,7 +85,7 @@ def launch(name: str, index: int, *args) -> None:
     device; raises if the launch failed.  Makes the device current only
     when it is not already (the wrappers' host time is part of every
     call)."""
-    if index != torch.cuda.current_device():
+    if index != torch._C._cuda_getDevice():
         with torch.cuda.device(index):
             return launch(name, index, *args)
     err = build.kernel(name)(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -90,8 +90,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      kv_len: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
     """One query token per batch row, q (B, Hq, D), over head-major
-    caches (B, Hkv, L, D), keys at positions < ``kv_len[b]`` (B,) (each
-    at least 1; a length above L masks nothing; None: all L).  Returns
+    caches (B, Hkv, L, D), keys at positions < ``kv_len[b]`` (B,) (a
+    length above L masks nothing; a length of 0 masks every key and
+    gives that row NaN, as the reference's softmax over no key does;
+    None: all L).  Returns
     (B, Hq, D) in q's type.  CUDA tensors (contiguous, q and the caches
     16-byte aligned, one type of fp32 / bf16, D in :data:`HEAD_DIMS`,
     Hq / Hkv <= 8, kv_len int32) launch the kernel, and nothing else, and

@@ -3,10 +3,12 @@
 Per tick, every simulation of a fleet sweep runs a serialized-agent
 state transition over its (n_agents x n_artifacts) coherence matrix.
 :func:`mesi_tick_` does one tick of ``B`` simulations in one launch of
-the CUDA kernel in ``csrc/mesi_tick.cu`` (one thread per simulation,
-agents in ascending order inside the thread), which replaces the TPU
-kernel of the JAX package (``mesi_tick_pallas``).  Beside it,
-:func:`mesi_tick_plain_` computes the same function in plain PyTorch,
+the CUDA kernel in ``csrc/mesi_tick.cu`` (a group of lanes per
+simulation, one lane per agent, runs the agents in ascending order over
+the simulation's state slab staged in shared memory and writes back the
+words that changed; n or m above 32 takes a direct path), which
+replaces the TPU kernel of the JAX package (``mesi_tick_pallas``).
+Beside it, :func:`mesi_tick_plain_` computes the same function in plain PyTorch,
 batched over simulations and serial over agents; it runs for tensors
 on the CPU, and the tests and ``chip_smoke.py`` hold the kernel to it.
 
@@ -17,11 +19,14 @@ Counters layout (out[..., c]): 0 fetch_tokens, 1 signal_tokens,
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from repro_torch.core import prng
 from repro_torch.core.states import MESIState
+from repro_torch.kernels import build
 from repro_torch.kernels.backend import check_inputs, launch, use_kernel
 
 _I, _S = int(MESIState.I), int(MESIState.S)
@@ -102,12 +107,40 @@ def mesi_tick_plain_(state, version, last_sync, reads_since_fetch,
 
 def _check(state, version, last_sync, reads_since_fetch, acts, arts,
            writes):
+    """Raise unless the tick's buffers are int32, contiguous and shaped
+    for one (B, n, m) batch, as the kernel's pointers assume.  The common
+    case costs one chain of comparisons; a refusal names the buffer."""
     B, n, m = state.shape
+    if (state.shape == last_sync.shape == reads_since_fetch.shape
+            and version.shape == (B, m)
+            and acts.shape == arts.shape == writes.shape == (B, n)
+            and state.dtype == version.dtype == last_sync.dtype
+            == reads_since_fetch.dtype == acts.dtype == arts.dtype
+            == writes.dtype == _I32
+            and state.is_contiguous() and version.is_contiguous()
+            and last_sync.is_contiguous()
+            and reads_since_fetch.is_contiguous() and acts.is_contiguous()
+            and arts.is_contiguous() and writes.is_contiguous()):
+        return
     check_inputs({"state": (state, (B, n, m)), "version": (version, (B, m)),
                   "last_sync": (last_sync, (B, n, m)),
                   "reads_since_fetch": (reads_since_fetch, (B, n, m)),
                   "acts": (acts, (B, n)), "arts": (arts, (B, n)),
                   "writes": (writes, (B, n))})
+
+
+def _outputs(B: int, n: int, device):
+    """The kernel's outputs: counters (B, 8) and miss (B, n)."""
+    return (torch.empty((B, N_COUNTERS), dtype=_I32, device=device),
+            torch.empty((B, n), dtype=_I32, device=device))
+
+
+def plan(n: int, m: int) -> int:
+    """Simulations a block of the kernel's staged path runs for ticks of
+    n agents over m artifacts; 0 where n or m exceeds a warp's 32 lanes
+    and the kernel's direct path indexes the global buffers."""
+    return build.entry("mesi_tick", "mesi_tick_plan",
+                       [ctypes.c_int] * 2)(n, m)
 
 
 def mesi_tick_(state, version, last_sync, reads_since_fetch,
@@ -124,19 +157,21 @@ def mesi_tick_(state, version, last_sync, reads_since_fetch,
     launch the kernel (and add one to ``mesi_tick_.launches``); CPU
     tensors run :func:`mesi_tick_plain_`.
     """
-    args = (state, version, last_sync, reads_since_fetch, acts, arts,
-            writes)
-    _check(*args)
-    opts = dict(artifact_tokens=artifact_tokens, eager=eager,
-                access_k=access_k, signal_tokens=signal_tokens)
-    if not use_kernel(*args):
-        return mesi_tick_plain_(*args, **opts)
+    _check(state, version, last_sync, reads_since_fetch, acts, arts,
+           writes)
+    if not use_kernel(state, version, last_sync, reads_since_fetch, acts,
+                      arts, writes):
+        return mesi_tick_plain_(
+            state, version, last_sync, reads_since_fetch, acts, arts,
+            writes, artifact_tokens=artifact_tokens, eager=eager,
+            access_k=access_k, signal_tokens=signal_tokens)
     B, n, m = state.shape
-    counters = torch.empty((B, N_COUNTERS), dtype=_I32, device=state.device)
-    miss = torch.empty((B, n), dtype=_I32, device=state.device)
-    launch("mesi_tick", state.get_device(),
-           *(t.data_ptr() for t in args + (counters, miss)),
-           B, n, m, artifact_tokens, int(eager), access_k, signal_tokens)
+    counters, miss = _outputs(B, n, state.device)
+    launch("mesi_tick", state.get_device(), state.data_ptr(),
+           version.data_ptr(), last_sync.data_ptr(),
+           reads_since_fetch.data_ptr(), acts.data_ptr(), arts.data_ptr(),
+           writes.data_ptr(), counters.data_ptr(), miss.data_ptr(), B, n, m,
+           artifact_tokens, int(eager), access_k, signal_tokens)
     mesi_tick_.launches += 1
     return counters, miss
 

@@ -3,11 +3,18 @@
 
 Each routes by the one rule of ``kernels/backend.py``: CUDA tensors
 launch the hand-written kernel, CPU tensors run its plain version.  The
-block sizes are the TPU kernels' tiling; the CUDA kernels tile on their
-own (64-row q tiles, 64-key K/V tiles, 64-key decode splits), so the
-arguments are accepted for the signature and do not change the result.
-``rwkv6_scan`` drops the TPU kernel's ``chunk`` (the CUDA kernel walks
-the whole sequence in one block per head).
+block sizes and ``rwkv6_scan``'s ``chunk`` are the TPU kernels' tiling;
+the CUDA kernels tile on their own, so those arguments are accepted for
+the signature and do not change the result:
+
+* bf16 flash attention runs 128-row q tiles on ``wgmma`` (fp32 on the
+  CUDA cores);
+* decode streams 32-key K/V tiles, in splits sized to the card and
+  merged in the same launch;
+* ``rwkv6_scan`` walks the whole sequence in a block per (batch, head,
+  group of value columns), the columns split by shape so the heads fill
+  the SMs, each thread holding a tile of the state (8 x 2 values in a
+  whole head of 64, 4 x 2 in a split one).
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ def decode_attention(q, k_cache, v_cache, kv_len=None, scale=None,
     return _decode_attention(q, k_cache, v_cache, kv_len, scale=scale)
 
 
-def rwkv6_scan(r, k, v, w, bonus, initial_state=None):
+def rwkv6_scan(r, k, v, w, bonus, initial_state=None, chunk: int = 64):
     """The RWKV6 WKV recurrence; returns (y, final state)
     (``kernels/rwkv6_scan.py``)."""
     return _rwkv6_scan(r, k, v, w, bonus, initial_state)

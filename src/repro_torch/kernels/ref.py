@@ -58,8 +58,10 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """One-token GQA decode in fp32.
 
-    q: (B, Hq, D); caches: (B, Hkv, L, D); kv_len: (B,) valid lengths,
-    each at least 1 (None: all L).  Returns (B, Hq, D) in q's dtype."""
+    q: (B, Hq, D); caches: (B, Hkv, L, D); kv_len: (B,) valid lengths
+    (None: all L; a row of length 0 is NaN, the softmax of no key, as
+    in ``repro.kernels.ref.decode_attention_ref``).  Returns (B, Hq, D)
+    in q's dtype."""
     b, hq, d = q.shape
     hkv, lmax = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv

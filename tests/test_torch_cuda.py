@@ -55,10 +55,23 @@ def _mesi_inputs(gen, B, n, m):
             _ints(gen, 0, 2, B, n))
 
 
-@pytest.mark.parametrize("B,n,m", [(1, 1, 1), (33, 4, 3), (300, 16, 16)])
+@pytest.mark.parametrize("B,n,m", [
+    (1, 1, 1), (33, 4, 3), (300, 16, 16),
+    (24576, 16, 16),          # the content fleet
+    (16384, 4, 3),            # the four scenarios' batch
+    (1003, 16, 16),           # B not a multiple of a block's simulations
+    (77, 32, 32),             # the staged path's widest slab
+    (64, 40, 40),             # agents and artifacts past the staged budget
+    (50, 8, 33),              # artifacts past it: the direct path
+])
 @pytest.mark.parametrize("eager,access_k", [(False, 0), (True, 0),
                                             (False, 3)])
 def test_mesi_kernel_equals_plain(gen, B, n, m, eager, access_k):
+    """Every output of the tick equal to the plain version's, on the
+    staged path and, past its budget of a warp's lanes (n, m <= 32), on
+    the direct path: ``plan`` says which ran."""
+    staged = n <= 32 and m <= 32
+    assert (mesi_transition.plan(n, m) > 0) == staged
     inputs = _mesi_inputs(gen, B, n, m)
     opts = dict(artifact_tokens=64, eager=eager, access_k=access_k)
     launches = mesi_transition.mesi_tick_.launches
@@ -70,6 +83,25 @@ def test_mesi_kernel_equals_plain(gen, B, n, m, eager, access_k):
                                                    **opts))
     for got, exp in zip(out, plain):
         assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("B,n,m", [(24576, 16, 16), (16384, 4, 3),
+                                   (64, 40, 40)])
+@pytest.mark.parametrize("eager,access_k", [(False, 0), (True, 0),
+                                            (False, 3)])
+def test_mesi_repeated_launches_agree(gen, B, n, m, eager, access_k):
+    """50 launches of the in-place tick, each from the same inputs: every
+    output equal to the first bit for bit."""
+    inputs = _mesi_inputs(gen, B, n, m)
+    opts = dict(artifact_tokens=64, eager=eager, access_k=access_k)
+
+    def tick():
+        state = [t.clone() for t in inputs[:4]]
+        return state + list(mesi_transition.mesi_tick_(*state, *inputs[4:],
+                                                       **opts))
+    first = tick()
+    for i in range(50):
+        assert all(torch.equal(a, b) for a, b in zip(tick(), first)), i
 
 
 @pytest.mark.parametrize("B,n,m,C", [(1, 1, 1, 1), (37, 4, 3, 5),
@@ -304,6 +336,26 @@ def test_decode_attention_kv_len_edges(gen, d, b, hq, hkv, L, dtype):
         _decode_checked(q, kc, vc, lens)
 
 
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_zero_kv_len_is_nan_as_plain(gen, d, dtype):
+    """kv_len 0 masks every key, and the kernel writes NaN rows exactly
+    where the plain version's softmax over no key gives NaN (the
+    reference's 0/0); the other rows pass the usual gates."""
+    q = _normal(gen, 4, 4, d, dtype=dtype)
+    kc, vc = (_normal(gen, 4, 2, 300, d, dtype=dtype) for _ in range(2))
+    lens = torch.tensor([0, 17, 0, 300], dtype=torch.int32, device="cuda")
+    got = decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    exp = decode_attention_plain(q, kc, vc, lens)
+    assert bool(exp[[0, 2]].isnan().all()) and not bool(
+        exp[[1, 3]].isnan().any())
+    assert torch.equal(got.isnan(), exp.isnan())
+    _close(got[[1, 3]], exp[[1, 3]], dtype, 1e-2)
+    if dtype == torch.bfloat16:
+        assert _bf16_row_err(got[[1, 3]], exp[[1, 3]]) <= 1.0
+
+
 @pytest.mark.parametrize("b,hq,hkv,L,d", [
     (4, 8, 1, 6176, 256),     # gemma-2b's batched decode
     (1, 8, 1, 6176, 256),     # one agent: 97 splits, two merge levels
@@ -446,6 +498,10 @@ def _wkv_err(got, exp):
     (2, 37, 3, 32, True),       # ragged T (not a multiple of the stage)
     (1, 200, 2, 32, False),     # the smoke configs' head size
     (2, 1000, 8, 64, False),
+    (1, 6144, 32, 64, False),   # one agent's prefill of rwkv6-1.6b
+    (4, 6144, 32, 64, False),   # its batched prefill
+    (1, 77, 1, 64, True),       # B*H below the column split
+    (1, 45, 1, 32, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rwkv6_scan_kernel_equals_plain(gen, b, t, h, dh, state, dtype):
@@ -459,6 +515,20 @@ def test_rwkv6_scan_kernel_equals_plain(gen, b, t, h, dh, state, dtype):
     assert y.shape == ey.shape and s.shape == es.shape
     assert torch.equal(s, es)
     assert _wkv_err(y, ey) <= 1.0
+
+
+@pytest.mark.parametrize("b,t,h,dh", [(4, 6144, 32, 64), (1, 6144, 32, 64),
+                                     (4, 1, 32, 64), (3, 77, 5, 32)])
+def test_rwkv6_scan_repeated_launches_agree(gen, b, t, h, dh):
+    """fp32 launched 50 times more: y and the final state equal to the
+    first launch's bit for bit (a stage of the ring refilled too early, or
+    partial sums read before they are complete, would show in some
+    launches and not others)."""
+    args = _wkv_inputs(gen, b, t, h, dh, torch.float32, True)
+    y, s = rwkv6_scan(*args)
+    for i in range(50):
+        y2, s2 = rwkv6_scan(*args)
+        assert torch.equal(y2, y) and torch.equal(s2, s), i
 
 
 def test_rwkv6_scan_cpu_tensors_never_reach_the_kernel(gen):

@@ -124,3 +124,20 @@ def test_cpu_route_runs_the_plain_version():
         ops.decode_attention(tq, tk, tv, tl).numpy(),
         decode_attention_plain(tq, tk, tv, tl).numpy())
     assert tda.decode_attention.launches == before
+
+
+@pytest.mark.parametrize("entry", [decode_attention_plain,
+                                   tda.decode_attention, ops.decode_attention])
+def test_zero_kv_len_rows_are_nan_as_in_the_reference(entry):
+    """kv_len 0 masks every key: the reference's softmax over no key is
+    0/0, so those rows are NaN.  The port gives NaN exactly there (fp32,
+    a batch mixing 0 and non-zero lengths) and the reference's values,
+    within 1e-5, everywhere else."""
+    (jq, jk, jv), (tq, tk, tv), _ = _inputs(3, 4, 2, 40, 64, "float32", 7)
+    lens = np.array([0, 17, 0], np.int32)
+    exp = np.asarray(jref.decode_attention_ref(jq, jk, jv,
+                                               jnp.asarray(lens)))
+    got = entry(tq, tk, tv, torch.from_numpy(lens)).numpy()
+    assert np.isnan(exp[[0, 2]]).all() and not np.isnan(exp[1]).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
+    assert_allclose(got[1], exp[1], **TOLS["float32"])

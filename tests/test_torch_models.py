@@ -33,7 +33,7 @@ from repro_torch.models import transformer as ttf  # noqa: E402
 pytestmark = pytest.mark.torch
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["gemma-2b", "qwen3-1.7b"]
+ARCHS = ["gemma-2b", "qwen3-1.7b", "command-r-35b", "yi-9b"]
 RWKV = "rwkv6-1.6b"
 #: the rwkv6 leaves the JAX tree keeps in fp32 inside a bf16 model
 RWKV_FP32_LEAVES = ("mix_base", "decay_base", "bonus", "mix_k", "mix_r")

@@ -134,3 +134,19 @@ def test_cpu_tensors_take_the_plain_route():
         got = fn(*args)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert rwkv6_scan.launches == before
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ops_takes_the_references_chunk(chunk):
+    """``ops.rwkv6_scan`` has the reference's signature: ``chunk`` (the
+    TPU kernel's T tile) is accepted and changes nothing, and the result
+    matches ``repro.kernels.ops.rwkv6_scan`` at the same ``chunk``."""
+    from repro.kernels import ops as jops
+    arrays = _inputs(2, 64, 2, 32, seed=13, state=True)
+    args = _torch(arrays)
+    y, s = ops.rwkv6_scan(*args, chunk=chunk)
+    want = rwkv6_scan_plain(*args)
+    assert torch.equal(y, want[0]) and torch.equal(s, want[1])
+    jy, js = jops.rwkv6_scan(*_jax(arrays), chunk=chunk)
+    assert_allclose(_f32(y), _f32(jy), **TOL)
+    assert_allclose(_f32(s), _f32(js), **TOL)
