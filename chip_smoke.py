@@ -8,9 +8,10 @@ Phases, each printing JSON lines:
 1. build   - compiles the six CUDA kernels from
              ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a into
              ``build/repro_torch_kernels/``, one nvcc per source, all at
-             once; for flash attention prints each entry's registers,
-             shared memory and spills (none allowed in the bf16 wgmma
-             kernel at any head dim) and, where ``cuobjdump`` is
+             once; prints each entry's registers, shared memory and
+             spills (none allowed in the entries of ``NO_SPILL``, the WKV
+             scan and both ticks, or in the bf16 wgmma flash kernel at
+             any head dim) and, where ``cuobjdump`` is
              installed, the tensor-core (HGMMA) instructions of its
              machine code (at least one).
 2. kernels - holds each kernel against its plain PyTorch version on the
@@ -24,15 +25,19 @@ Phases, each printing JSON lines:
              plus 2**-10 of its row's rms (flash decode at the batched
              request's shape on every kv_len its 32 steps give it, P + 1
              .. P + 32); bf16 flash attention, flash decode, the WKV
-             scan (fp32 and bf16) and the MESI tick (every shape and
-             strategy) launched ``REPEATS`` more times at each shape after
-             every timing, each output equal to the first bit for bit.
+             scan (fp32 and bf16), the MESI tick (every shape and
+             strategy) and the chunk tick (both shapes) launched
+             ``REPEATS`` more times at each shape after every timing,
+             each output equal to the first bit for bit.  The tick rows
+             give ``staged_sims``, the simulations a block of the
+             kernel's staged path runs (0: its direct path).
              The MESI rows add ``sector_bound_ms`` (the 32-byte sectors
              the tick must touch) beside the word bound, the WKV rows
              ``issue_floor_ms`` (four fp32 instructions per state element
              per step over the card's fp32 lanes at its highest SM
-             clock), and two ``host_split_us`` lines split the host time
-             of a ``mesi_tick_`` and an ``rwkv6_scan`` call.  Times the
+             clock), and three ``host_split_us`` lines split the host
+             time of a ``mesi_tick_``, an ``rwkv6_scan`` and a
+             ``chunk_tick_`` call.  Times the
              wrapper call (CUDA events), the kernel alone, the wrapper's
              host time, the plain version and, for the model kernels, the
              one PyTorch call that computes the same function (a
@@ -143,6 +148,8 @@ SPIN_CYCLES = 10_000_000
 #: split order whichever block finishes last; the scan's stage ring and
 #: the tick's staged slabs are reused the same way)
 REPEATS = 50
+#: kernels none of whose entries may spill registers (the build phase)
+NO_SPILL = ("rwkv6_scan", "mesi_tick", "chunk_tick")
 #: fp32 lanes of an SM on Hopper (the issue floor of the WKV scan)
 FP32_LANES_PER_SM = 128
 #: host-time samples of each piece of a wrapper call (``host_split``)
@@ -415,7 +422,7 @@ def ptxas_entries(log: str) -> dict:
 def phase_build(card: str) -> None:
     """Builds every kernel (each one anew, so its compiler output is at
     hand); prints each entry's registers, shared memory and spills, which
-    must be none in the WKV scan's and the MESI tick's entries and in the
+    must be none in the entries of the kernels of ``NO_SPILL`` and in the
     bf16 flash kernel at every head dim, and, where ``cuobjdump`` is
     installed, the count of tensor-core (``HGMMA``) instructions in
     flash's machine code, which must not be 0."""
@@ -431,12 +438,12 @@ def phase_build(card: str) -> None:
     usage = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
              for name, log in logs.items()
-             if name not in ("flash_attention", "rwkv6_scan", "mesi_tick")}
+             if name not in ("flash_attention",) + NO_SPILL}
     emit({"phase": "build", "seconds": seconds, "arch": "sm_90a",
           "kernels": len(build.KERNELS), "compiled": sorted(logs),
           "ptxas": usage, "card": card})
 
-    for name in ("rwkv6_scan", "mesi_tick"):
+    for name in NO_SPILL:
         rows = ptxas_entries(logs[name])
         check(bool(rows) and all(
             row.get("spill_stores") == 0 == row.get("spill_loads")
@@ -483,12 +490,37 @@ def random_mesi_inputs(gen, B: int, n: int, m: int):
             ints(0, 2, B, n))
 
 
+def random_chunk_inputs(gen, B: int, n: int, m: int, C: int):
+    """One chunk tick's inputs in 64-token chunks: ``miss`` from a MESI
+    tick on random directories, chunk vectors lagging the authority by 0
+    or 1, write spans drawn as the engine draws them (locality 0.25);
+    returns ``(inputs, opts)``."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.acs import draw_write_chunks
+    from repro_torch.kernels import mesi_transition as mt
+    tokens, chunk = C * 64, 64
+    acts, arts, writes = random_mesi_inputs(gen, B, n, m)[4:]
+    mesi_in = random_mesi_inputs(gen, B, n, m)[:4] + (acts, arts, writes)
+    miss = mt.mesi_tick(*mesi_in, artifact_tokens=tokens)[5]
+    cv = torch.randint(1, 5, (B, m, C), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    lag = torch.randint(0, 2, (B, n, m, C), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    cs = torch.clamp(cv[:, None] - lag, min=0)
+    dirty = (cv > 1).to(torch.int32)
+    keys = prng.split(prng.prng_key(SEED, "cuda"), B)
+    wmask = draw_write_chunks(keys, n, C, 0.25).to(torch.int32)
+    inputs = (cv, cs, dirty, miss, (acts * writes).contiguous(), arts, wmask)
+    return inputs, dict(artifact_tokens=tokens, chunk_tokens=chunk,
+                        signal_tokens=12)
+
+
 def phase_kernels(card: str, rate: float) -> dict:
     """Kernel against plain version on the card; returns, per kernel,
     the measurements at the fleet shape (the last shape listed)."""
     import torch
-    from repro_torch.core import invariants, prng
-    from repro_torch.core.acs import draw_write_chunks
+    from repro_torch.core import invariants
     from repro_torch.kernels import chunk_diff, mesi_transition as mt
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -546,23 +578,10 @@ def phase_kernels(card: str, rate: float) -> dict:
     # each shape and strategy launched again after every timing
     check_repeats(card, repeat_cases)
 
+    repeat_cases = []
     for B, n, m, C in CHUNK_SHAPES:
-        tokens, chunk = C * 64, 64
-        acts, arts, writes = random_mesi_inputs(gen, B, n, m)[4:]
-        mesi_in = random_mesi_inputs(gen, B, n, m)[:4] + (acts, arts, writes)
-        miss = mt.mesi_tick(*mesi_in, artifact_tokens=tokens)[5]
-        cv = torch.randint(1, 5, (B, m, C), generator=gen, device="cuda",
-                           dtype=torch.int32)
-        lag = torch.randint(0, 2, (B, n, m, C), generator=gen,
-                            device="cuda", dtype=torch.int32)
-        cs = torch.clamp(cv[:, None] - lag, min=0)
-        dirty = (cv > 1).to(torch.int32)
-        keys = prng.split(prng.prng_key(SEED, "cuda"), B)
-        wmask = draw_write_chunks(keys, n, C, 0.25).to(torch.int32)
-        inputs = (cv, cs, dirty, miss, (acts * writes).contiguous(), arts,
-                  wmask)
-        opts = dict(artifact_tokens=tokens, chunk_tokens=chunk,
-                    signal_tokens=12)
+        inputs, opts = random_chunk_inputs(gen, B, n, m, C)
+        miss = inputs[3]
         out = chunk_diff.chunk_tick(*inputs, **opts)
         torch.cuda.synchronize()
         plain = [t.clone() for t in inputs[:3]]
@@ -588,9 +607,18 @@ def phase_kernels(card: str, rate: float) -> dict:
         row = {"phase": "kernels", "kernel": "chunk_tick",
                "shape": [B, n, m, C], "equal": True, "max_abs_err": err,
                "ms": ms, "device_ms": dev_ms, "host_ms": host_ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms, "card": card}
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "staged_sims": chunk_diff.plan(n, m, C), "card": card}
         emit(row)
         results["chunk_tick"] = row
+
+        def again(inputs=inputs, opts=opts):
+            state = [t.clone() for t in inputs[:3]]
+            return state + list(chunk_diff.chunk_tick_(*state, *inputs[3:],
+                                                       **opts))
+        repeat_cases.append(("chunk_tick", f"B={B}, C={C}", again, out))
+    # each shape launched again after every timing
+    check_repeats(card, repeat_cases)
     return results
 
 
@@ -827,36 +855,73 @@ def phase_model_kernels(card: str, rate: float, flops: float,
     return results
 
 
+def host_us(fn) -> float:
+    """Mean host time of ``fn()`` over ``HOST_SPLIT_CALLS`` calls back to
+    back behind one spin kernel, in microseconds."""
+    import torch
+    torch.cuda.synchronize()
+    held, released = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+    held.record()
+    torch.cuda._sleep(SPIN_CYCLES * 4)
+    released.record()
+    t0 = time.perf_counter()
+    for _ in range(HOST_SPLIT_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) / HOST_SPLIT_CALLS * 1e6
+    released.synchronize()
+    check(held.elapsed_time(released) * 1e3 > us * HOST_SPLIT_CALLS,
+          "the spin kernel outlasted the host work")
+    torch.cuda.synchronize()
+    return us
+
+
+def chunk_host_split(card: str) -> None:
+    """How the host time of a ``chunk_tick_`` call at the content fleet's
+    shape splits: the whole call, then the routing rule, the checks, the
+    two output allocations and ``backend.launch`` with the pointers
+    ready, each on its own (``host_us``).  It reads only names the
+    package has had since the kernel was first ported, so it times an
+    earlier tree's wrapper as well when that tree's ``src`` comes first
+    on ``sys.path``."""
+    import torch
+    from repro_torch.kernels import backend, chunk_diff
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, n, m, C = CHUNK_SHAPES[-1]
+    args, opts = random_chunk_inputs(gen, B, n, m, C)
+
+    def outputs():
+        return (torch.empty((B, n, C), dtype=torch.int32, device="cuda"),
+                torch.empty((B, chunk_diff.N_CHUNK_COUNTERS),
+                            dtype=torch.int32, device="cuda"))
+
+    ptrs = [t.data_ptr() for t in args + outputs()]
+    chunk_diff.chunk_tick_(*args, **opts)   # the library built and loaded
+    emit({"phase": "kernels", "kernel": "chunk_tick", "host_split_us": {
+        "call": host_us(lambda: chunk_diff.chunk_tick_(*args, **opts)),
+        "route": host_us(lambda: backend.use_kernel(*args)),
+        "checks": host_us(lambda: chunk_diff._check(*args)),
+        "outputs": host_us(outputs),
+        "launch": host_us(lambda: backend.launch(
+            "chunk_tick", 0, *ptrs, B, n, m, C, opts["chunk_tokens"],
+            opts["artifact_tokens"], opts["signal_tokens"], 4))},
+        "shape": [B, n, m, C], "card": card})
+
+
 def host_split(card: str) -> None:
     """How the host time of a call splits, for ``mesi_tick_`` at the
-    content fleet's shape (lazy) and ``rwkv6_scan`` at rwkv6-1.6b's decode
-    step (24 calls a step): the whole call, then each piece of it on its
-    own: the routing rule, the checks, the output allocations, the
-    bonus conversion the wrapper skips for an fp32 bonus, and
-    ``backend.launch`` with the pointers ready.  Each is the mean of ``HOST_SPLIT_CALLS`` calls back
-    to back behind one spin kernel, in microseconds."""
+    content fleet's shape (lazy), ``rwkv6_scan`` at rwkv6-1.6b's decode
+    step (24 calls a step) and ``chunk_tick_`` (``chunk_host_split``):
+    the whole call, then each piece of it on its own: the routing rule,
+    the checks, the output allocations, the bonus conversion the wrapper
+    skips for an fp32 bonus, and ``backend.launch`` with the pointers
+    ready.  Each is the mean of ``HOST_SPLIT_CALLS`` calls back to back
+    behind one spin kernel (``host_us``), in microseconds."""
     import torch
     import importlib
     from repro_torch.configs import get
     from repro_torch.kernels import backend, mesi_transition as mt
     wkv = importlib.import_module("repro_torch.kernels.rwkv6_scan")
-
-    def host_us(fn):
-        torch.cuda.synchronize()
-        held, released = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-        held.record()
-        torch.cuda._sleep(SPIN_CYCLES * 4)
-        released.record()
-        t0 = time.perf_counter()
-        for _ in range(HOST_SPLIT_CALLS):
-            fn()
-        us = (time.perf_counter() - t0) / HOST_SPLIT_CALLS * 1e6
-        released.synchronize()
-        check(held.elapsed_time(released) * 1e3 > us * HOST_SPLIT_CALLS,
-              "the spin kernel outlasted the host work")
-        torch.cuda.synchronize()
-        return us
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     B, n, m = MESI_SHAPES[-1]
@@ -893,6 +958,7 @@ def host_split(card: str) -> None:
         "launch": host_us(lambda: backend.launch(
             "rwkv6_scan", 0, *wptrs, b, 1, h, dh, 0))},
         "shape": [b, 1, h, dh], "card": card})
+    chunk_host_split(card)
 
 
 def check_rwkv6_scan(card: str, rate: float, fp32_flops: float, gen,
@@ -1494,6 +1560,7 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row.get("bound_by", "bytes"),
         "library_ms": row.get("library_ms"), "shape": row["shape"],
+        "staged_sims": row.get("staged_sims"),
         "device_ms": row["device_ms"], "host_ms": row["host_ms"],
         "max_abs_diff": row["max_abs_err"], "kernel_ms": row["ms"]}
         for name, row in kernels.items()], "card": card})

@@ -8,10 +8,13 @@ decided, compare the reader's chunk vector against the authority's
 chunk versions and count the stale chunks' bytes (delta fetch); for
 every commit, bump the dirtied span's versions.  :func:`chunk_tick_`
 does one tick of ``B`` simulations in one launch of the CUDA kernel in
-``csrc/chunk_tick.cu`` (one warp per simulation, lanes over chunks,
-agents in ascending order), which replaces the TPU kernel of the JAX
-package (``chunk_tick_pallas``); :func:`chunk_tick_plain_` computes the
-same function in plain PyTorch and runs for tensors on the CPU.
+``csrc/chunk_tick.cu`` (a group of lanes per simulation stages every
+row the tick reads in shared memory, then runs the agents in ascending
+order there, lanes over chunks; n or m above 32 or rows that are not
+16-byte aligned take a direct path, see :func:`plan`), which replaces
+the TPU kernel of the JAX package (``chunk_tick_pallas``);
+:func:`chunk_tick_plain_` computes the same function in plain PyTorch
+and runs for tensors on the CPU.
 
 The MESI decision is **not** recomputed here: the tick takes the
 per-agent ``miss`` indicator the MESI tick of the same step emits.
@@ -23,11 +26,13 @@ Counters layout (out[..., c]): 0 delta_bytes (shipped), 1 full_bytes
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
 
 from repro_torch.content.chunks import BYTES_PER_TOKEN
+from repro_torch.kernels import build
 from repro_torch.kernels.backend import check_inputs, launch, use_kernel
 
 _I32 = torch.int32
@@ -92,13 +97,38 @@ def chunk_tick_plain_(chunk_version, chunk_sync, chunk_dirty,
 
 def _check(chunk_version, chunk_sync, chunk_dirty, miss, write_acts, arts,
            write_chunks):
+    """Raise unless the tick's buffers are int32, contiguous and shaped
+    for one (B, n, m, C) batch, as the kernel's pointers assume.  The
+    common case costs one chain of comparisons; a refusal names the
+    buffer."""
     B, n, m, C = chunk_sync.shape
+    if (chunk_version.shape == chunk_dirty.shape == (B, m, C)
+            and miss.shape == write_acts.shape == arts.shape == (B, n)
+            and write_chunks.shape == (B, n, C)
+            and chunk_version.dtype == chunk_sync.dtype == chunk_dirty.dtype
+            == miss.dtype == write_acts.dtype == arts.dtype
+            == write_chunks.dtype == _I32
+            and chunk_version.is_contiguous() and chunk_sync.is_contiguous()
+            and chunk_dirty.is_contiguous() and miss.is_contiguous()
+            and write_acts.is_contiguous() and arts.is_contiguous()
+            and write_chunks.is_contiguous()):
+        return
     check_inputs({"chunk_version": (chunk_version, (B, m, C)),
                   "chunk_sync": (chunk_sync, (B, n, m, C)),
                   "chunk_dirty": (chunk_dirty, (B, m, C)),
                   "miss": (miss, (B, n)), "write_acts": (write_acts, (B, n)),
                   "arts": (arts, (B, n)),
                   "write_chunks": (write_chunks, (B, n, C))})
+
+
+def plan(n: int, m: int, C: int) -> int:
+    """Simulations a block of the kernel's staged path runs for ticks of
+    n agents over m artifacts of C chunks, with 16-byte aligned buffers;
+    0 where n or m exceeds 32 or C is no multiple of 4 and the kernel's
+    direct path indexes the global buffers (as it does for a buffer that
+    is not 16-byte aligned)."""
+    return build.entry("chunk_tick", "chunk_tick_plan",
+                       [ctypes.c_int] * 3)(n, m, C)
 
 
 def chunk_tick_(chunk_version, chunk_sync, chunk_dirty,
@@ -117,21 +147,23 @@ def chunk_tick_(chunk_version, chunk_sync, chunk_dirty,
     kernel (and add one to ``chunk_tick_.launches``); CPU tensors run
     :func:`chunk_tick_plain_`.
     """
-    args = (chunk_version, chunk_sync, chunk_dirty, miss, write_acts, arts,
-            write_chunks)
-    _check(*args)
-    opts = dict(artifact_tokens=artifact_tokens, chunk_tokens=chunk_tokens,
-                signal_tokens=signal_tokens)
-    if not use_kernel(*args):
-        return chunk_tick_plain_(*args, **opts)
+    _check(chunk_version, chunk_sync, chunk_dirty, miss, write_acts, arts,
+           write_chunks)
+    if not use_kernel(chunk_version, chunk_sync, chunk_dirty, miss,
+                      write_acts, arts, write_chunks):
+        return chunk_tick_plain_(
+            chunk_version, chunk_sync, chunk_dirty, miss, write_acts, arts,
+            write_chunks, artifact_tokens=artifact_tokens,
+            chunk_tokens=chunk_tokens, signal_tokens=signal_tokens)
     B, n, m, C = chunk_sync.shape
     dev = chunk_sync.device
     fetched = torch.empty((B, n, C), dtype=_I32, device=dev)
     counters = torch.empty((B, N_CHUNK_COUNTERS), dtype=_I32, device=dev)
-    launch("chunk_tick", chunk_sync.get_device(),
-           *(t.data_ptr() for t in args + (fetched, counters)),
-           B, n, m, C, chunk_tokens, artifact_tokens, signal_tokens,
-           BYTES_PER_TOKEN)
+    launch("chunk_tick", chunk_sync.get_device(), chunk_version.data_ptr(),
+           chunk_sync.data_ptr(), chunk_dirty.data_ptr(), miss.data_ptr(),
+           write_acts.data_ptr(), arts.data_ptr(), write_chunks.data_ptr(),
+           fetched.data_ptr(), counters.data_ptr(), B, n, m, C, chunk_tokens,
+           artifact_tokens, signal_tokens, BYTES_PER_TOKEN)
     chunk_tick_.launches += 1
     return fetched, counters
 

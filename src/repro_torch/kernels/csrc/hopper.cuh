@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the kernels of this
-// directory (flash_attention.cu and decode_attention.cu include it):
+// directory (flash_attention.cu, decode_attention.cu and chunk_tick.cu
+// include it):
 // mbarriers, TMA tile loads, cp.async, warp-level mma.sync with its
 // ldmatrix loads, warpgroup matrix multiply (wgmma) and its shared-memory
 // descriptors, register reallocation.

@@ -63,6 +63,60 @@ def test_matches_oracle_and_pallas(B, n, m, locality):
     assert int(out[4][:, 0].sum()) <= int(out[4][:, 1].sum())
 
 
+def _chain_inputs(chain, B=4, n=4, m=3, C=8):
+    """Inputs whose agents chain on one artifact's row, the orders the
+    kernel's staged rows must keep: every agent on artifact 0, random
+    fills and writes (``one_artifact``); every agent filling and writing
+    artifact 0 (``fill_and_write``: each fetches against the versions
+    before its own bump); agents 0 and 1 writing overlapping spans of
+    artifact 1, then agent 2 filling it (``writers_then_filler``: its
+    fetch sees both bumps)."""
+    rng = np.random.default_rng(len(chain))
+    cv = rng.integers(1, 4, (B, m, C)).astype(np.int32)
+    cs = np.clip(cv[:, None] - rng.integers(0, 2, (B, n, m, C)), 0,
+                 None).astype(np.int32)
+    dirty = (cv > 1).astype(np.int32)
+    miss = rng.integers(0, 2, (B, n)).astype(np.int32)
+    wact = rng.integers(0, 2, (B, n)).astype(np.int32)
+    arts = np.zeros((B, n), np.int32)
+    wmask = (rng.random((B, n, C)) < 0.5).astype(np.int32)
+    if chain == "fill_and_write":
+        miss[:], wact[:] = 1, 1
+    elif chain == "writers_then_filler":
+        arts[:, :3] = 1
+        miss[:, :2], wact[:, :2] = 0, 1
+        miss[:, 2], wact[:, 2] = 1, 0
+        cs[:, 2, 1] = cv[:, 1]              # the filler up to date before
+        wmask[:, 0], wmask[:, 1] = 0, 0
+        wmask[:, 0, :5], wmask[:, 1, 3:] = 1, 1   # overlap at 3, 4
+    return cv, cs, dirty, miss, wact, arts, wmask
+
+
+@pytest.mark.parametrize("chain", ["one_artifact", "fill_and_write",
+                                   "writers_then_filler"])
+def test_chains_on_one_artifact_match_oracle_and_pallas(chain):
+    # 120 tokens in 16-token chunks: a ragged 8-token last chunk
+    opts = dict(artifact_tokens=120, chunk_tokens=16)
+    inputs = _chain_inputs(chain)
+    out = tcd.chunk_tick(*[torch.as_tensor(x) for x in inputs], **opts)
+    for exp in (jcd.chunk_tick_ref(*inputs, **opts),
+                jcd.chunk_tick_pallas(*[jnp.asarray(x) for x in inputs],
+                                      block_sims=2, interpret=True,
+                                      **opts)):
+        for j, t in zip(exp, out):
+            assert t.dtype == torch.int32
+            np.testing.assert_array_equal(np.asarray(j), t.numpy())
+    fetched = out[3].numpy()
+    if chain == "fill_and_write":
+        # each later agent fetches every chunk the one before it bumped
+        assert (fetched[:, 1:] >= inputs[6][:, :-1]).all()
+    elif chain == "writers_then_filler":
+        # both bumps, and only they: the overlap bumped twice
+        np.testing.assert_array_equal(fetched[:, 2], np.ones((4, 8)))
+        np.testing.assert_array_equal(out[0].numpy()[:, 1] - inputs[0][:, 1],
+                                      [[1, 1, 1, 2, 2, 1, 1, 1]] * 4)
+
+
 def test_in_place_tick_touches_only_addressed_rows():
     rng = np.random.default_rng(3)
     inputs = [torch.as_tensor(x) for x in _inputs(rng, 5, 3, 4, 4, 0.5)]

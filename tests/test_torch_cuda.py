@@ -104,25 +104,67 @@ def test_mesi_repeated_launches_agree(gen, B, n, m, eager, access_k):
         assert all(torch.equal(a, b) for a, b in zip(tick(), first)), i
 
 
-@pytest.mark.parametrize("B,n,m,C", [(1, 1, 1, 1), (37, 4, 3, 5),
-                                     (100, 16, 16, 70)])
-def test_chunk_kernel_equals_plain(gen, B, n, m, C):
-    opts = dict(artifact_tokens=16 * C - 5, chunk_tokens=16)  # ragged
+def _chunk_inputs(gen, B, n, m, C, chain=False):
+    """A MESI tick's ``miss`` and random chunk vectors lagging the
+    authority by 0 or 1, write spans of 30 % of the chunks; with
+    ``chain`` every agent fills and writes artifact 0 instead."""
     *_, acts, arts, writes = _mesi_inputs(gen, B, n, m)
     miss = mesi_transition.mesi_tick(*_mesi_inputs(gen, B, n, m)[:4], acts,
                                      arts, writes, artifact_tokens=64)[5]
+    wact = (acts * writes).contiguous()
+    if chain:
+        miss, wact = torch.ones_like(miss), torch.ones_like(wact)
+        arts = torch.zeros_like(arts)
     cv = _ints(gen, 1, 4, B, m, C)
     cs = torch.clamp(cv[:, None] - _ints(gen, 0, 2, B, n, m, C), min=0)
-    inputs = (cv, cs, (cv > 1).to(torch.int32), miss,
-              (acts * writes).contiguous(), arts,
-              draw_write_chunks(prng.split(prng.prng_key(5, "cuda"), B), n,
-                                C, 0.3).to(torch.int32))
+    return (cv, cs, (cv > 1).to(torch.int32), miss, wact, arts,
+            draw_write_chunks(prng.split(prng.prng_key(5, "cuda"), B), n,
+                              C, 0.3).to(torch.int32))
+
+
+@pytest.mark.parametrize("B,n,m,C,chunk,tokens,chain", [
+    (1, 1, 1, 1, 16, 11, False), (37, 4, 3, 5, 16, 75, False),
+    (100, 16, 16, 70, 16, 1115, False),
+    (300, 16, 16, 64, 64, 4096, False),   # the fleet's rows
+    (64, 16, 16, 64, 64, 4090, True),     # one artifact, fill and write
+    (64, 40, 40, 64, 64, 4096, False),    # past the staged budget
+    (3, 16, 16, 4096, 1, 4096, False),    # 1-token chunks: rows in tiles
+    (1, 16, 16, 64, 64, 4096, False),     # B = 1
+    (50, 4, 3, 6, 16, 96, False),         # the content goldens' rows:
+    (50, 4, 3, 3, 40, 96, False),         # 96 tokens, 16- and 40-token
+])
+def test_chunk_kernel_equals_plain(gen, B, n, m, C, chunk, tokens, chain):
+    """Every output of the tick equal to the plain version's, on the
+    staged path and where it does not take the shape (n or m above 32,
+    C no multiple of 4) on the direct path: ``plan`` says which ran."""
+    staged = n <= 32 and m <= 32 and C % 4 == 0
+    assert (chunk_diff.plan(n, m, C) > 0) == staged
+    opts = dict(artifact_tokens=tokens, chunk_tokens=chunk)
+    inputs = _chunk_inputs(gen, B, n, m, C, chain)
+    launches = chunk_diff.chunk_tick_.launches
     out = chunk_diff.chunk_tick(*inputs, **opts)
     torch.cuda.synchronize()
+    assert chunk_diff.chunk_tick_.launches == launches + 1
     plain = [t.clone() for t in inputs[:3]]
     plain += list(chunk_diff.chunk_tick_plain_(*plain, *inputs[3:], **opts))
     for got, exp in zip(out, plain):
         assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("B,n,m,C", [(24576, 16, 16, 64), (1000, 16, 16, 70)])
+def test_chunk_tick_repeated_launches_agree(gen, B, n, m, C):
+    """50 launches of the in-place tick, each from the same inputs: every
+    output equal to the first bit for bit."""
+    inputs = _chunk_inputs(gen, B, n, m, C)
+    opts = dict(artifact_tokens=64 * C - 7, chunk_tokens=64)
+
+    def tick():
+        state = [t.clone() for t in inputs[:3]]
+        return state + list(chunk_diff.chunk_tick_(*state, *inputs[3:],
+                                                   **opts))
+    first = tick()
+    for i in range(50):
+        assert all(torch.equal(a, b) for a, b in zip(tick(), first)), i
 
 
 def test_engine_routes_agree_on_the_card(gen):
