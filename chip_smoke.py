@@ -35,9 +35,14 @@ Phases, each printing JSON lines:
              the tick must touch) beside the word bound, the WKV rows
              ``issue_floor_ms`` (four fp32 instructions per state element
              per step over the card's fp32 lanes at its highest SM
-             clock), and three ``host_split_us`` lines split the host
+             clock), and four ``host_split_us`` lines split the host
              time of a ``mesi_tick_``, an ``rwkv6_scan`` and a
-             ``chunk_tick_`` call.  Times the
+             ``chunk_tick_`` call and of a kernel-route ``decide`` of the
+             service's content broker (prefix batch, MESI tick launch,
+             chunk tick launch, read-back, bookkeeping).  The ticks are
+             also held at the service's shapes: (33, 32, 6) and
+             (49, 48, 6) for the MESI tick, (1, 32, 6, 64) for the chunk
+             tick.  Times the
              wrapper call (CUDA events), the kernel alone, the wrapper's
              host time, the plain version and, for the model kernels, the
              one PyTorch call that computes the same function (a
@@ -62,7 +67,27 @@ Phases, each printing JSON lines:
              per variant): delta bytes never exceed whole-artifact bytes,
              and each kernel launches once per step; then eager and
              access_count at 1024 runs per family without content.
-5. serve   - coherent serving on gemma-2b at its registered width (18
+5. service - the live coherence service on the card: the JAX package's
+             service bench grid (32 clients, 6 artifacts of 4096 tokens,
+             40 lockstep rounds, lazy) for each of the seven families
+             (``uniform`` = zipf with skew 0 at V = 0.10) through brokers
+             on both decision routes, with and without 64-token chunks,
+             plus eager and access_count (k = 3) on ``bursty`` (kernel
+             route) and K = 3 staleness on ``uniform`` (scan route).
+             Every broker's trace passes the port's oracle
+             (``verify_broker``, its kernel legs on the card; the K = 3
+             broker, outside the oracle's scope, its live invariant
+             checks) and the metrics conformance replay; the two routes
+             decide alike step for step (with content, the chunks each
+             fill shipped too); the kernel route launches exactly one
+             MESI tick (with content one chunk tick) per micro-batch;
+             the uniform kernel-route broker run on the CPU decides
+             exactly as on the card.  Prints each broker's throughput,
+             capacity, request and decide latency, micro-batches,
+             savings against broadcast and warm-up seconds, then a
+             profile of the uniform kernel-route brokers (the device's
+             busy share, the host's time by function).
+6. serve   - coherent serving on gemma-2b at its registered width (18
              layers, d 2048, MQA, head dim 256, vocab 256000, bf16) with
              random weights from ``SEED``: 4 agents, 3 artifacts of 2048
              tokens, 40 steps at V = 0.10, lazy; every agent's context
@@ -78,7 +103,7 @@ Phases, each printing JSON lines:
              their distance <= 1e-2.  Profiles one batched prefill
              (top device operations, flash attention's share) and eight
              decode steps.
-6. serve_rwkv - the same serving workload on rwkv6-1.6b at its
+7. serve_rwkv - the same serving workload on rwkv6-1.6b at its
              registered width (24 layers, d 2048, 32 heads of 64,
              channel-mix 7168, vocab 65536, bf16) with random weights from
              ``SEED``: finite logits, exactly 73 rmsnorm and 24 rwkv6_scan
@@ -86,14 +111,15 @@ Phases, each printing JSON lines:
              within relative L2 4.5e-2 (prefill) and 5e-2 (every decode
              step), set from the per-layer readings in PERF.md, and each
              layer's own share <= 1e-2.
-7. the ``kernels`` line, the card's name and power limit, and the final
+8. the ``kernels`` line, the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
 
-Phases 3-4 (the sweep engine), 5 and 6 (serving) are the main paths;
-each path's kernels' launch counts are set to 0 just before it and read
-just after.  Any failed check raises, and the script then exits
-non-zero.  Without a CUDA device, or without the repository's ``src/``
-beside it, it exits non-zero and prints no result.
+Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving) are
+the main paths; each path's kernels' launch counts are set to 0 just
+before it and read just after.  Any failed check raises, and the script
+then exits non-zero.  Without a CUDA device, or without the
+repository's ``src/`` beside it, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -125,12 +151,15 @@ H100_BF16_FLOPS = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
 #: variant, flop/s (data sheets)
 H100_FP32_FLOPS = {"PCIe": 51e12, "NVL": 60e12, "SXM": 67e12}
 
-#: mid-size, then every shape the main path gives the kernel: the four
-#: scenarios' batch, the eager/access_count fleets, the content fleet
-#: (last: the ``kernels`` line reports this one)
+#: mid-size, then every shape the main paths give the kernel: the four
+#: scenarios' batch, the eager/access_count fleets, the service's
+#: decisions (B = n + 1 prefix simulations: n = 32 clients, the staged
+#: path's top, and n = 48, the direct path; for the chunk tick one
+#: simulation), the content fleet (last: the ``kernels`` line reports
+#: this one)
 MESI_SHAPES = ((8192, 16, 16), (16384, 4, 3), (6144, 16, 16),
-               (24576, 16, 16))
-CHUNK_SHAPES = ((4096, 16, 16, 64), (24576, 16, 16, 64))
+               (33, 32, 6), (49, 48, 6), (24576, 16, 16))
+CHUNK_SHAPES = ((4096, 16, 16, 64), (1, 32, 6, 64), (24576, 16, 16, 64))
 FLEET_RUNS = 4096
 #: runs per family of the eager / access_count fleets, per scenario of
 #: the A-D grid
@@ -170,11 +199,21 @@ REPLACES = {
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:63"),
 }
-#: the serving workload of phase 5
+#: the service cell of phase 5: the JAX package's service bench grid
+#: (``benchmarks/service_bench.py``): 32 clients, 6 artifacts of 4096
+#: tokens, 40 lockstep rounds, lazy; the content plane's brokers cut the
+#: artifacts into 64-token chunks
+SERVICE = dict(clients=32, artifacts=6, artifact_tokens=4096, rounds=40,
+               strategy="lazy", chunk_tokens=64)
+#: the service's workload families and their seeds (the bench's)
+SERVICE_FAMILIES = ("uniform", "bursty", "zipf", "hierarchical", "rag",
+                    "pipeline", "ping_pong")
+SERVICE_SEEDS = {f: 20260701 + i for i, f in enumerate(SERVICE_FAMILIES)}
+#: the serving workload of phase 6
 SERVE = dict(arch="gemma-2b", agents=4, artifacts=3, artifact_tokens=2048,
              steps=40, volatility=0.10, strategy="lazy", max_len=8192,
              decode_steps=32)
-#: the serving workload of phase 6: the same on rwkv6-1.6b
+#: the serving workload of phase 7: the same on rwkv6-1.6b
 SERVE_RWKV = dict(SERVE, arch="rwkv6-1.6b")
 #: tolerances of the model kernels against their plain versions (max-abs)
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
@@ -908,6 +947,82 @@ def chunk_host_split(card: str) -> None:
         "shape": [B, n, m, C], "card": card})
 
 
+def decide_host_split(card: str) -> None:
+    """How a kernel-route ``decide`` call of the service's content broker
+    (``SERVICE``: 32 clients, 6 artifacts, 64-token chunks) splits, in
+    microseconds: the whole call, then each piece on its own: building
+    the prefix batch with the content plane's inputs and moving it to
+    the card in one copy (``decision_inputs``),
+    the MESI tick's launch with its gathers (``decision_tick``), the
+    chunk tick's launch, the one read-back (the batch's buffers copied
+    to the host) and the host bookkeeping (the call less the four).  The
+    two launches are timed behind a spin kernel (``host_us``); the call,
+    the prefix batch and the read-back (which waits for the card) as the
+    mean wall time of ``HOST_SPLIT_CALLS`` calls on an idle stream."""
+    import numpy as np
+    import torch
+    from repro_torch.core import acs
+    from repro_torch.kernels import chunk_diff, mesi_transition as mt
+    from repro_torch.service import BatchDecider
+
+    def wall_us(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_SPLIT_CALLS):
+            fn()
+        return (time.perf_counter() - t0) / HOST_SPLIT_CALLS * 1e6
+
+    n, m = SERVICE["clients"], SERVICE["artifacts"]
+    cfg = acs.ACSConfig(n_agents=n, n_artifacts=m,
+                        artifact_tokens=SERVICE["artifact_tokens"],
+                        n_steps=1, chunk_tokens=SERVICE["chunk_tokens"])
+    C = acs.content_chunks(cfg)
+    rng = np.random.default_rng(SEED)
+    acts = rng.random(n) < 0.75
+    arts = rng.integers(0, m, n).astype(np.int32)
+    writes = rng.random(n) < 0.10
+    wchunks = rng.random((n, C)) < 0.25
+    decider = BatchDecider(cfg, "kernel", device="cuda")
+    decider.decide(acts, arts, writes, write_chunks=wchunks)
+    a = decider.arrays
+    opts = dict(artifact_tokens=cfg.artifact_tokens, eager=False,
+                access_k=0, signal_tokens=12)
+    # the pieces as the decider runs them (``BatchDecider._decide_kernel``)
+    tail = np.concatenate([(acts & writes).astype(np.int32),
+                           wchunks.astype(np.int32).reshape(-1)])
+    prefix = mt.decision_inputs(acts, arts, writes, m, "cuda", tail=tail)
+    st, ver, sy, rd, cnt, miss, served = mt.decision_tick(
+        a.state, a.version, a.last_sync, a.reads_since_fetch, prefix,
+        **opts)
+    B, head = n + 1, 3 * (n + 1) * n + 2 * n
+    chunk_args = (a.chunk_version.clone(), a.chunk_sync.clone(),
+                  a.chunk_dirty.clone(), miss[None],
+                  prefix[head:head + n][None], prefix[B * n:B * n + n][None],
+                  prefix[head + n:].view(1, n, C))
+    copts = dict(artifact_tokens=cfg.artifact_tokens,
+                 chunk_tokens=cfg.chunk_tokens, signal_tokens=12)
+    fetched, ccnt = chunk_diff.chunk_tick_(*chunk_args, **copts)
+    parts = [st, ver, miss, served, cnt[:6], ccnt[0, :3], fetched]
+    split = {
+        "call": wall_us(lambda: decider.decide(acts, arts, writes,
+                                               write_chunks=wchunks)),
+        "prefix_batch": wall_us(lambda: mt.decision_inputs(
+            acts, arts, writes, m, "cuda", tail=tail)),
+        "mesi_tick_launch": host_us(lambda: mt.decision_tick(
+            a.state, a.version, a.last_sync, a.reads_since_fetch, prefix,
+            **opts)),
+        "chunk_tick_launch": host_us(lambda: chunk_diff.chunk_tick_(
+            *chunk_args, **copts)),
+        "read_back": wall_us(lambda: decider._read_back(parts))}
+    split["bookkeeping"] = split["call"] - sum(
+        split[k] for k in ("prefix_batch", "mesi_tick_launch",
+                           "chunk_tick_launch", "read_back"))
+    emit({"phase": "kernels", "kernel": "service_decide",
+          "host_split_us": split, "route": "kernel",
+          "shape": {"clients": n, "artifacts": m, "chunks": C,
+                    "requests": int(acts.sum())}, "card": card})
+
+
 def host_split(card: str) -> None:
     """How the host time of a call splits, for ``mesi_tick_`` at the
     content fleet's shape (lazy), ``rwkv6_scan`` at rwkv6-1.6b's decode
@@ -959,6 +1074,7 @@ def host_split(card: str) -> None:
             "rwkv6_scan", 0, *wptrs, b, 1, h, dh, 0))},
         "shape": [b, 1, h, dh], "card": card})
     chunk_host_split(card)
+    decide_host_split(card)
 
 
 def check_rwkv6_scan(card: str, rate: float, fp32_flops: float, gen,
@@ -1217,6 +1333,236 @@ def phase_fleet(card: str) -> float:
               "savings_mean": {c.scenario: c.savings_mean for c in res},
               "card": card})
     return fleet_seconds
+
+
+def service_workload(family: str):
+    """One family of the service cell, built as the JAX package's service
+    launcher builds it (``uniform`` is ``zipf`` with skew 0 at V = 0.10,
+    the paper's homogeneous scenario)."""
+    from repro_torch.sim import workloads
+    kw = dict(n_agents=SERVICE["clients"], n_artifacts=SERVICE["artifacts"],
+              artifact_tokens=SERVICE["artifact_tokens"],
+              n_steps=SERVICE["rounds"], seed=SERVICE_SEEDS[family])
+    if family == "uniform":
+        return dataclasses.replace(
+            workloads.zipf(skew=0.0, volatility=0.10, **kw),
+            name="uniform V=0.10", family="uniform")
+    return workloads.make(family, **kw)
+
+
+def run_service(family: str, backend: str, chunk_tokens: int = 0,
+                device: str = "cuda", **core) -> dict:
+    """One broker of the service cell (telemetry and trace capture on)
+    driven through its family's lockstep load on ``device``; returns the
+    broker, the ``LoadReport``, the tick launches during the load, every
+    batch's ``BatchDecision`` and the seconds of the decider's warm-up
+    event."""
+    import asyncio
+    from repro_torch.kernels import chunk_diff, mesi_transition as mt
+    from repro_torch.obs import runtime
+    from repro_torch.service import (CoherenceBroker, CoherenceConfig,
+                                     drive_workload)
+    names = tuple(f"artifact-{d}" for d in range(SERVICE["artifacts"]))
+    core.setdefault("strategy", SERVICE["strategy"])
+    cfg = CoherenceConfig.make(
+        SERVICE["clients"], names, artifact_tokens=SERVICE["artifact_tokens"],
+        chunk_tokens=chunk_tokens, backend=backend, telemetry=True,
+        capture_trace=True, **core).broker_view()
+
+    async def main() -> dict:
+        async with CoherenceBroker(cfg, device=device) as broker:
+            decisions = []
+            decide = broker.decider.decide
+
+            def recorded(*args, **kw):
+                decisions.append(decide(*args, **kw))
+                return decisions[-1]
+            broker.decider.decide = recorded
+            events = len(runtime.compile_events())
+            before = (mt.mesi_tick_.launches, chunk_diff.chunk_tick_.launches)
+            load = await drive_workload(broker, service_workload(family),
+                                        SERVICE["rounds"],
+                                        seed=SERVICE_SEEDS[family],
+                                        lockstep=True)
+            launches = (mt.mesi_tick_.launches - before[0],
+                        chunk_diff.chunk_tick_.launches - before[1])
+        warm = [e["dur_s"] for e in runtime.compile_events()[events:]
+                if e["kind"] == "warmup"]
+        return dict(broker=broker, load=load, launches=launches,
+                    decisions=decisions, warmup_s=warm[0])
+    return asyncio.run(main())
+
+
+def same_service(a: dict, b: dict, what: str) -> None:
+    """Two brokers' runs decided alike: traces step for step (agents,
+    artifacts, writes, miss, served versions, measured write chunks),
+    every batch's decision (with content the chunks each fill shipped),
+    ledgers, wire ledgers, directory, versions and last_sync, and with
+    content the chunk arrays."""
+    import numpy as np
+    ba, bb = a["broker"], b["broker"]
+    check(ba.trace.n_steps == bb.trace.n_steps > 0
+          and all((s.agents, s.arts, s.writes, s.miss, s.version, s.chunks)
+                  == (r.agents, r.arts, r.writes, r.miss, r.version,
+                      r.chunks)
+                  for s, r in zip(ba.trace.steps, bb.trace.steps)),
+          f"{what}: traces equal step for step")
+    check(len(a["decisions"]) == len(b["decisions"]) and all(
+        np.array_equal(x.miss, y.miss) and np.array_equal(x.version,
+                                                          y.version)
+        and x.ledger_delta == y.ledger_delta
+        and x.wire_delta == y.wire_delta
+        and (x.fetched_chunks is None) == (y.fetched_chunks is None)
+        and (x.fetched_chunks is None
+             or np.array_equal(x.fetched_chunks, y.fetched_chunks))
+        for x, y in zip(a["decisions"], b["decisions"])),
+        f"{what}: decisions equal batch by batch")
+    leaves = ["last_sync"] + (["chunk_version", "chunk_sync", "chunk_dirty"]
+                              if ba.chunks is not None else [])
+    check(dataclasses.astuple(ba.ledger) == dataclasses.astuple(bb.ledger)
+          and ba.wire == bb.wire
+          and np.array_equal(ba.directory_state, bb.directory_state)
+          and np.array_equal(ba.versions, bb.versions)
+          and all(np.array_equal(getattr(ba.decider.arrays, x).cpu().numpy(),
+                                 getattr(bb.decider.arrays, x).cpu().numpy())
+                  for x in leaves),
+          f"{what}: ledgers, wire, directory, versions, arrays equal")
+
+
+#: host functions whose cumulative time ``service_profile`` reports
+SERVICE_HOST_SPANS = ("_decide_and_resolve", "decide", "_decide_kernel",
+                      "_measure_write_masks", "record_batch", "append_step",
+                      "_patch_mirror", "sample_round")
+
+
+def service_profile(card: str) -> None:
+    """Where the time of the uniform family's kernel-route brokers goes,
+    without and with 64-token chunks: the device's busy share of one run
+    under the torch profiler, then, in another run under ``cProfile``,
+    the host's time by function (own time, largest first, and the
+    cumulative time of ``SERVICE_HOST_SPANS``)."""
+    import cProfile
+    import pstats
+    for chunk in (0, SERVICE["chunk_tokens"]):
+        wall, busy, top = device_profile(
+            lambda: run_service("uniform", "kernel", chunk))
+        prof = cProfile.Profile()
+        prof.enable()
+        t0 = time.perf_counter()
+        run_service("uniform", "kernel", chunk)
+        host_wall = time.perf_counter() - t0
+        prof.disable()
+        stats = pstats.Stats(prof).stats
+        own = sorted(((tt, f"{pathlib.Path(f).name}:{line}({name})", nc)
+                      for (f, line, name), (_, nc, tt, _, _)
+                      in stats.items()), reverse=True)
+        spans = {}
+        for (f, line, name), (_, _, _, ct, _) in stats.items():
+            if name in SERVICE_HOST_SPANS and "repro_torch" in f:
+                spans[name] = spans.get(name, 0.0) + ct
+        emit({"phase": "service", "what": "profile", "family": "uniform",
+              "route": "kernel", "chunk_tokens": chunk, "wall_s": wall,
+              "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+              "top_device": top[:6], "host_wall_s": host_wall,
+              "host_own_s": [{"function": k, "seconds": s, "calls": c}
+                             for s, k, c in own[:10]],
+              "host_cumulative_s": spans, "card": card})
+
+
+def phase_service(card: str) -> None:
+    """The live coherence service on the card: each family of
+    ``SERVICE_FAMILIES`` through brokers on both decision routes, with
+    and without 64-token chunks, then eager and access_count (k = 3) on
+    ``bursty`` (kernel route) and K = 3 staleness on ``uniform`` (scan
+    route).  Every broker's trace is verified by the port's oracle (its
+    kernel legs on the card; K-staleness is outside the oracle's scope,
+    so that broker is held to its live invariant checks) and its metrics
+    by the conformance replay; the routes must agree step for step; the
+    kernel route must launch one MESI tick (and with content one chunk
+    tick) per micro-batch and the scan route none; the uniform family's
+    kernel-route broker on the CPU must decide exactly as on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import check_metrics_conformance
+    from repro_torch.service import verify_broker
+
+    def verified(run: dict, label: str, family: str) -> None:
+        broker = run["broker"]
+        kernel = broker.decider.backend == "kernel"
+        content = broker.chunks is not None
+        batches = broker.n_batches
+        check(run["launches"] == ((batches, batches if content else 0)
+                                  if kernel else (0, 0)),
+              f"{label}: {run['launches']} tick launches for {batches} "
+              f"micro-batches")
+        if broker.config.max_stale_steps:
+            consumed = int(broker.decider.metrics.max_consumed_staleness)
+            check(consumed <= broker.config.max_stale_steps,
+                  f"{label}: served staleness {consumed} within K")
+            legs = ("live_invariants",)
+        else:
+            legs = verify_broker(broker, name=label).implementations
+        conformance = check_metrics_conformance(broker, name=label)
+        load = run["load"]
+        decide = np.array([s.decide_s for s in broker.trace.steps]) * 1e3
+        emit({"phase": "service", "broker": label, "family": family,
+              "route": broker.decider.backend,
+              "strategy": broker.config.strategy,
+              "chunk_tokens": broker.config.chunk_tokens,
+              "max_stale_steps": broker.config.max_stale_steps,
+              "actions": load.n_actions, "micro_batches": batches,
+              "mean_batch": load.n_actions / batches,
+              "throughput_dps": load.throughput_dps,
+              "capacity_dps": load.capacity_dps,
+              "request_p50_ms": load.latency_ms(50),
+              "request_p99_ms": load.latency_ms(99),
+              "decide_p50_ms": float(np.percentile(decide, 50)),
+              "decide_p99_ms": float(np.percentile(decide, 99)),
+              "savings_vs_broadcast": load.savings_vs_broadcast,
+              "wire": dict(broker.wire) if content else None,
+              "warmup_s": run["warmup_s"], "launches": run["launches"],
+              "oracle": list(legs),
+              "conformance_cells": conformance["label_cells_compared"],
+              "card": card})
+
+    t0 = time.perf_counter()
+    brokers = 0
+    cards = {}
+    for family in SERVICE_FAMILIES:
+        for chunk in (0, SERVICE["chunk_tokens"]):
+            runs = {backend: run_service(family, backend, chunk)
+                    for backend in ("kernel", "scan")}
+            for backend, run in runs.items():
+                check(run["broker"].decider.backend == backend,
+                      f"{family}: route {backend}")
+                verified(run, f"{family}:{backend}:chunks={chunk}", family)
+            same_service(runs["kernel"], runs["scan"],
+                         f"{family} (chunks={chunk}): kernel == scan")
+            brokers += 2
+            cards[(family, chunk)] = runs["kernel"]
+    for label, family, backend, core in (
+            ("bursty:kernel:eager", "bursty", "kernel",
+             dict(strategy="eager")),
+            ("bursty:kernel:access_count", "bursty", "kernel",
+             dict(strategy="access_count", access_k=3)),
+            ("uniform:scan:K=3", "uniform", "scan",
+             dict(max_stale_steps=3))):
+        verified(run_service(family, backend, **core), label, family)
+        brokers += 1
+    seconds = time.perf_counter() - t0
+    card_run = cards[("uniform", 0)]
+    cpu_run = run_service("uniform", "kernel", device="cpu")
+    same_service(card_run, cpu_run, "uniform kernel route: card == CPU")
+    check(card_run["load"].savings_vs_broadcast
+          == cpu_run["load"].savings_vs_broadcast,
+          "uniform: savings_vs_broadcast on the card == on the CPU")
+    service_profile(card)
+    emit({"phase": "service", "brokers": brokers, "seconds": seconds,
+          "routes_equal": True, "card_equals_cpu": True,
+          "uniform_savings_vs_broadcast":
+              card_run["load"].savings_vs_broadcast,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": card})
 
 
 def device_profile(fn):
@@ -1542,6 +1888,12 @@ def main() -> int:
     fleet_seconds = phase_fleet(card)
     launches = {"mesi_tick": mt.mesi_tick_.launches,
                 "chunk_tick": chunk_diff.chunk_tick_.launches}
+
+    mt.mesi_tick_.launches = 0
+    chunk_diff.chunk_tick_.launches = 0
+    phase_service(card)
+    launches["mesi_tick"] += mt.mesi_tick_.launches
+    launches["chunk_tick"] += chunk_diff.chunk_tick_.launches
 
     for serve in (SERVE, SERVE_RWKV):
         for fn in model_kernels().values():

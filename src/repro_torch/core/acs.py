@@ -564,6 +564,41 @@ class DecisionOutcome(NamedTuple):
     fetched_chunks: Optional[torch.Tensor] = None
 
 
+def apply_slot_(cfg: ACSConfig, arrays: ACSArrays, met: ACSMetrics, bidx,
+                a: int, act, d, is_write, wchunks=None):
+    """Agent ``a``'s serialization slot of one authority pass, updating
+    ``arrays`` in place: in every simulation where ``act`` (B,) bool,
+    the agent reads or (where ``is_write``) writes artifact ``d`` (B,)
+    long.  ``bidx`` is ``arange(B)``; ``wchunks`` (B, C) bool is the
+    write's dirty chunk mask (content plane).  Returns ``(metrics',
+    missed (B,) bool, stale_before (B, C) bool or None)``: whether the
+    action filled, and which chunks were stale at the slot's start (a
+    fill ships exactly those - the agent's own commit bumps versions
+    only after its prologue fill)."""
+    content = content_enabled(cfg)
+    w = act & is_write
+    r = act & ~is_write
+    arrays.agent_actions[:, a] += _i32(act)
+    fetches_before = met.n_fetches
+    stale_before = None
+    if content:
+        stale_before = (arrays.chunk_version[bidx, d]
+                        > arrays.chunk_sync[bidx, a, d])
+    if cfg.strategy == BROADCAST:
+        # Everything is already injected; actions are free, but writes
+        # still bump the canonical version.
+        met = met._replace(n_reads=met.n_reads + _i32(r),
+                           n_writes=met.n_writes + _i32(w),
+                           n_hits=met.n_hits + _i32(act))
+        arrays.version[bidx, d] += _i32(w)
+    else:
+        met = _access(cfg, arrays, met, a, d, bidx, act)
+        met = _write(cfg, arrays, met, a, d, bidx, w, wchunks)
+        arrays.reads_since_fetch[bidx, a, d] += _i32(r)
+        met = met._replace(n_reads=met.n_reads + _i32(r))
+    return met, met.n_fetches > fetches_before, stale_before
+
+
 def apply_actions_(cfg: ACSConfig, arrays: ACSArrays, met: ACSMetrics,
                     acts, arts, writes, write_chunks=None):
     """:func:`apply_actions` updating ``arrays`` in place."""
@@ -588,30 +623,9 @@ def apply_actions_(cfg: ACSConfig, arrays: ACSArrays, met: ACSMetrics,
     for a in range(n):
         act = acts[:, a]
         d = arts[:, a]
-        w = act & writes[:, a]
-        r = act & ~writes[:, a]
-        arrays.agent_actions[:, a] += _i32(act)
-        fetches_before = met.n_fetches
-        if content:
-            # Snapshot at slot start: a fill ships exactly the chunks
-            # stale *now* - the agent's own commit bumps versions only
-            # after its prologue fill.
-            stale_before = (arrays.chunk_version[bidx, d]
-                            > arrays.chunk_sync[bidx, a, d])
-        if cfg.strategy == BROADCAST:
-            # Everything is already injected; actions are free, but
-            # writes still bump the canonical version.
-            met = met._replace(n_reads=met.n_reads + _i32(r),
-                               n_writes=met.n_writes + _i32(w),
-                               n_hits=met.n_hits + _i32(act))
-            arrays.version[bidx, d] += _i32(w)
-        else:
-            met = _access(cfg, arrays, met, a, d, bidx, act)
-            met = _write(cfg, arrays, met, a, d, bidx, w,
-                         write_chunks[:, a] if content else None)
-            arrays.reads_since_fetch[bidx, a, d] += _i32(r)
-            met = met._replace(n_reads=met.n_reads + _i32(r))
-        missed = met.n_fetches > fetches_before
+        met, missed, stale_before = apply_slot_(
+            cfg, arrays, met, bidx, a, act, d, writes[:, a],
+            write_chunks[:, a] if content else None)
         out_miss[:, a] = missed
         out_ver[:, a] = torch.where(act, arrays.last_sync[bidx, a, d], 0)
         if content:

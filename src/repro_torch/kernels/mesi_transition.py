@@ -200,6 +200,86 @@ def mesi_tick(state, version, last_sync, reads_since_fetch,
     return (*out, counters, miss)
 
 
+def decision_inputs(acts, arts, writes, n_artifacts: int, device,
+                    tail=None):
+    """The prefix-replicated batch of one micro-batch, built on the host
+    and moved to ``device`` in one copy (from pinned memory, without
+    waiting, to a CUDA device).
+
+    ``acts``/``arts``/``writes`` are (n,) array-likes of the requests to
+    one directory of ``n_artifacts`` columns.  Simulation ``j`` of the
+    ``B = n+1`` enables only the first ``j`` active agents in ascending
+    order (rows past the last request repeat the full batch).  Returns
+    ``None`` for an empty batch, else one int32 tensor on ``device``
+    holding, in order, the batch's ``acts``, ``arts`` and ``writes``
+    (B, n) each, then two (n,) vectors that :func:`decision_tick` reads:
+    the flat index of each request's sync word after its slot, and its
+    act flag; then ``tail`` (an int32 array-like, e.g. a content plane's
+    inputs), flattened, when given.
+    """
+    acts_np = np.asarray(acts, bool)
+    order = np.flatnonzero(acts_np)          # ascending agent order
+    if order.size == 0:
+        return None
+    n = acts_np.size
+    B = n + 1
+    dev = torch.device(device)
+    arts_np = np.asarray(arts, np.int64)
+    tail = (np.zeros(0, np.int32) if tail is None
+            else np.asarray(tail, np.int32).reshape(-1))
+    head = 3 * B * n + 2 * n
+    host = torch.empty(head + tail.size, dtype=_I32,
+                       pin_memory=dev.type == "cuda")
+    buf = host.numpy()
+    acts_b, arts_b, writes_b = buf[:3 * B * n].reshape(3, B, n)
+    pos = np.zeros(n, np.int64)
+    pos[order] = np.arange(order.size)
+    # acts_b[j, a] = 1 iff agent a holds prefix slot < j
+    acts_b[:] = (np.arange(B)[:, None] > pos[None, :]) & acts_np
+    arts_b[:] = arts_np
+    writes_b[:] = np.asarray(writes, bool)
+    sidx, act = buf[3 * B * n:head].reshape(2, n)
+    # sim j+1 processed request j last: its sync cell is the version
+    # agent a is synced to at its serialization slot
+    sidx[:] = np.where(acts_np, ((pos + 1) * n + np.arange(n))
+                       * n_artifacts + arts_np, 0)
+    act[:] = acts_np
+    buf[head:] = tail
+    return host.to(dev, non_blocking=True)
+
+
+def decision_tick(state, version, last_sync, reads_since_fetch, prefix, *,
+                  artifact_tokens: int, eager: bool = False,
+                  access_k: int = 0, signal_tokens: int = 12):
+    """One micro-batch of live decisions in ONE tick launch, with no
+    read-back: the internal entry the service's decider uses.
+
+    ``state``/``last_sync``/``reads`` are one directory's (n, m) (or
+    (1, n, m)) int32 tensors and ``version`` its (m,) (or (1, m)),
+    left as they were; ``prefix`` is :func:`decision_inputs`' result on
+    their device.  Returns, on that device, ``(state', version', sync',
+    reads')`` each with a leading axis of 1, ``counters (8,)``,
+    ``miss (n,)`` int32 and ``served_version (n,)`` int32.  The last
+    simulation runs the whole batch in order, so its own counters and
+    miss bits are the batch's; only the served versions need the
+    prefixes (an eager commit later in the batch pushes to an earlier
+    reader).
+    """
+    n, m = state.shape[-2:]
+    B = n + 1
+    acts_b, arts_b, writes_b = prefix[:3 * B * n].view(3, B, n)
+    sidx, act = prefix[3 * B * n:3 * B * n + 2 * n].view(2, n)
+    st = state.reshape(n, m).expand(B, n, m).contiguous()
+    sy = last_sync.reshape(n, m).expand(B, n, m).contiguous()
+    rd = reads_since_fetch.reshape(n, m).expand(B, n, m).contiguous()
+    ver = version.reshape(m).expand(B, m).contiguous()
+    cnt, miss = mesi_tick_(st, ver, sy, rd, acts_b, arts_b, writes_b,
+                           artifact_tokens=artifact_tokens, eager=eager,
+                           access_k=access_k, signal_tokens=signal_tokens)
+    served = sy.view(-1).index_select(0, sidx) * act
+    return (st[-1:], ver[-1:], sy[-1:], rd[-1:], cnt[-1], miss[-1], served)
+
+
 def mesi_decision_batch(state, version, last_sync, reads_since_fetch,
                         acts, arts, writes, *, artifact_tokens: int,
                         eager: bool = False, access_k: int = 0,
@@ -211,51 +291,31 @@ def mesi_decision_batch(state, version, last_sync, reads_since_fetch,
     answer each request on its own (fill vs hit, served version).  So
     the single directory is replicated into ``B = n+1`` simulations
     where simulation ``j`` enables only the first ``j`` active agents in
-    ascending order; request ``j``'s outcome is the counter delta
-    between consecutive prefixes, and every decision of the batch falls
-    out of one tick.  ``B`` is fixed at ``n+1`` whatever the number of
-    requests (rows past it repeat the full batch).
+    ascending order.  The last simulation runs the whole batch, so its
+    miss bits and counters are the batch's; request ``j``'s served
+    version is its sync word in simulation ``j+1``, which ends with it.
+    Every decision of the batch falls out of one tick
+    (:func:`decision_inputs`, :func:`decision_tick`).
 
     Inputs: one directory's ``state``/``last_sync``/``reads`` (n, m) and
     ``version`` (m,) int32 tensors, plus ``acts``/``arts``/``writes``
     (n,).  Returns ``(state', version', sync', reads', counters (8,),
-    miss (n,) bool, served_version (n,) int32)``.
+    miss (n,) bool, served_version (n,) int32)``, on the directory's
+    device.
     """
     n, m = state.shape
     dev = state.device
-    acts_np = np.asarray(torch.as_tensor(acts).cpu(), bool)
-    order = np.flatnonzero(acts_np)          # ascending agent order
-    if order.size == 0:
+    host = [np.asarray(torch.as_tensor(x).cpu()) for x in (acts, arts,
+                                                           writes)]
+    prefix = decision_inputs(*host, m, dev)
+    if prefix is None:
         return (state, version, last_sync, reads_since_fetch,
                 torch.zeros((N_COUNTERS,), dtype=_I32, device=dev),
                 torch.zeros((n,), dtype=torch.bool, device=dev),
                 torch.zeros((n,), dtype=_I32, device=dev))
-    B = n + 1
-    acts_b = np.zeros((B, n), np.int32)
-    for j, a in enumerate(order):
-        acts_b[j + 1:, a] = 1
-
-    def tile(x):
-        x = torch.as_tensor(x, device=dev).to(_I32)
-        return x.expand((B,) + tuple(x.shape)).contiguous()
-
-    st, ver, sy, rd, cnt, _ = mesi_tick(
-        tile(state), tile(version), tile(last_sync),
-        tile(reads_since_fetch), torch.as_tensor(acts_b, device=dev),
-        tile(arts), tile(writes), artifact_tokens=artifact_tokens,
-        eager=eager, access_k=access_k, signal_tokens=signal_tokens)
-    cnt_np = cnt.cpu().numpy().astype(np.int64)
-    arts_np = np.asarray(torch.as_tensor(arts).cpu(), np.int64)
-    sync_np = sy.cpu().numpy()
-    miss = np.zeros((n,), bool)
-    served = np.zeros((n,), np.int32)
-    for j, a in enumerate(order):
-        # counter slot 3 = n_fetches: the delta between prefix j+1 and
-        # prefix j is exactly request j's fill.
-        miss[a] = (cnt_np[j + 1, 3] - cnt_np[j, 3]) == 1
-        # sim j+1 processed request j last: its sync cell is the version
-        # agent a is synced to at its serialization slot.
-        served[a] = sync_np[j + 1, a, arts_np[a]]
-    return (st[-1], ver[-1], sy[-1], rd[-1], cnt[-1],
-            torch.as_tensor(miss, device=dev),
-            torch.as_tensor(served, device=dev))
+    directory = [torch.as_tensor(x, device=dev).to(_I32)
+                 for x in (state, version, last_sync, reads_since_fetch)]
+    st, ver, sy, rd, cnt, miss, served = decision_tick(
+        *directory, prefix, artifact_tokens=artifact_tokens, eager=eager,
+        access_k=access_k, signal_tokens=signal_tokens)
+    return st[0], ver[0], sy[0], rd[0], cnt, miss.bool(), served

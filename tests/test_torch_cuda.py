@@ -167,6 +167,104 @@ def test_chunk_tick_repeated_launches_agree(gen, B, n, m, C):
         assert all(torch.equal(a, b) for a, b in zip(tick(), first)), i
 
 
+#: the service's tick shapes: the staged path's top (B = n + 1 prefix
+#: simulations at n = 32 clients), the direct path at n > 32, and the
+#: content plane's one-simulation chunk tick
+SERVICE_MESI_SHAPES = [(33, 32, 6), (49, 48, 6)]
+SERVICE_CHUNK_SHAPE = (1, 32, 6, 64)
+
+
+@pytest.mark.parametrize("B,n,m", SERVICE_MESI_SHAPES)
+@pytest.mark.parametrize("eager,access_k", [(False, 0), (True, 0),
+                                            (False, 3)])
+def test_mesi_service_shapes_exact_and_repeated(gen, B, n, m, eager,
+                                                access_k):
+    """The tick at the service's shapes: equal to the plain version, and
+    50 more launches from the same inputs equal to the first bit for
+    bit."""
+    assert (mesi_transition.plan(n, m) > 0) == (n <= 32)
+    inputs = _mesi_inputs(gen, B, n, m)
+    opts = dict(artifact_tokens=4096, eager=eager, access_k=access_k)
+
+    def tick():
+        state = [t.clone() for t in inputs[:4]]
+        return state + list(mesi_transition.mesi_tick_(*state, *inputs[4:],
+                                                       **opts))
+    first = tick()
+    plain = [t.clone() for t in inputs[:4]]
+    plain += list(mesi_transition.mesi_tick_plain_(*plain, *inputs[4:],
+                                                   **opts))
+    assert all(torch.equal(a, b) for a, b in zip(first, plain))
+    for i in range(50):
+        assert all(torch.equal(a, b) for a, b in zip(tick(), first)), i
+
+
+def test_chunk_service_shape_exact_and_repeated(gen):
+    B, n, m, C = SERVICE_CHUNK_SHAPE
+    inputs = _chunk_inputs(gen, B, n, m, C)
+    opts = dict(artifact_tokens=64 * C, chunk_tokens=64)
+
+    def tick():
+        state = [t.clone() for t in inputs[:3]]
+        return state + list(chunk_diff.chunk_tick_(*state, *inputs[3:],
+                                                   **opts))
+    first = tick()
+    plain = [t.clone() for t in inputs[:3]]
+    plain += list(chunk_diff.chunk_tick_plain_(*plain, *inputs[3:], **opts))
+    assert all(torch.equal(a, b) for a, b in zip(first, plain))
+    for i in range(50):
+        assert all(torch.equal(a, b) for a, b in zip(tick(), first)), i
+
+
+@pytest.mark.parametrize("strategy,chunk_tokens", [
+    ("lazy", 64), ("eager", 0), ("access_count", 64)])
+def test_decider_routes_agree_on_the_card(gen, strategy, chunk_tokens):
+    """The decision layer's two routes on card-resident directories:
+    equal decisions batch by batch, one tick launch (and with content one
+    chunk tick launch) per kernel-route batch and none on the scan
+    route."""
+    import numpy as np
+    from repro_torch.core import acs
+    from repro_torch.service import BatchDecider
+    n, m = 32, 6
+    cfg = acs.ACSConfig(n_agents=n, n_artifacts=m, artifact_tokens=4096,
+                        n_steps=1, strategy=acs.STRATEGY_CODES[strategy],
+                        access_k=3, chunk_tokens=chunk_tokens)
+    scan = BatchDecider(cfg, "scan", device="cuda")
+    kernel = BatchDecider(cfg, "kernel", device="cuda")
+    rng = np.random.default_rng(3)
+    C = acs.content_chunks(cfg) if chunk_tokens else 0
+    for step in range(12):
+        acts = rng.random(n) < 0.7
+        arts = rng.integers(0, m, n).astype(np.int32)
+        writes = rng.random(n) < 0.3
+        wc = (rng.random((n, C)) < 0.25) if C else None
+        before = (mesi_transition.mesi_tick_.launches,
+                  chunk_diff.chunk_tick_.launches)
+        a = scan.decide(acts, arts, writes, write_chunks=wc)
+        mid = (mesi_transition.mesi_tick_.launches,
+               chunk_diff.chunk_tick_.launches)
+        b = kernel.decide(acts, arts, writes, write_chunks=wc)
+        after = (mesi_transition.mesi_tick_.launches,
+                 chunk_diff.chunk_tick_.launches)
+        assert mid == before
+        assert (after[0] - mid[0], after[1] - mid[1]) == (1, int(bool(C)))
+        np.testing.assert_array_equal(a.miss, b.miss)
+        np.testing.assert_array_equal(a.version, b.version)
+        assert a.ledger_delta == b.ledger_delta
+        assert a.wire_delta == b.wire_delta
+        if C:
+            np.testing.assert_array_equal(a.fetched_chunks,
+                                          b.fetched_chunks)
+        np.testing.assert_array_equal(scan.host_state, kernel.host_state)
+        np.testing.assert_array_equal(scan.host_version,
+                                      kernel.host_version)
+    for leaf in ("state", "version", "last_sync") + (
+            ("chunk_version", "chunk_sync", "chunk_dirty") if C else ()):
+        assert torch.equal(getattr(scan.arrays, leaf),
+                           getattr(kernel.arrays, leaf)), leaf
+
+
 def test_engine_routes_agree_on_the_card(gen):
     scn = dataclasses.replace(SCENARIOS["C"], n_runs=64)
     kern = run_scenario(scn, tick_backend="kernel")

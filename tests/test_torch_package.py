@@ -4,6 +4,7 @@ JAX package, and its entry points run on CUDA unless told otherwise."""
 import ast
 import dataclasses
 import pathlib
+import warnings
 
 import pytest
 
@@ -18,6 +19,9 @@ from repro_torch import models  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.runtime import CoherentServingSystem  # noqa: E402
+from repro_torch.service import (BatchDecider, BrokerConfig,  # noqa: E402
+                                 CoherenceBroker)
+from repro_torch.sim import oracle  # noqa: E402
 
 pytestmark = pytest.mark.torch
 
@@ -56,7 +60,14 @@ def test_every_port_module_is_checked():
                    "models/common.py", "models/attention.py",
                    "models/transformer.py", "models/convert.py",
                    "runtime/coherent_serving.py", "launch/serve.py",
-                   "sim/engine.py", "sim/workloads.py"):
+                   "sim/engine.py", "sim/workloads.py", "sim/oracle.py",
+                   "core/model_check.py", "core/strategies.py",
+                   "content/chunks.py", "configs/coherence.py",
+                   "obs/registry.py", "obs/spans.py", "obs/runtime.py",
+                   "obs/stats.py", "obs/telemetry.py",
+                   "obs/conformance.py", "service/batching.py",
+                   "service/trace.py", "service/broker.py",
+                   "service/client.py", "service/loadgen.py"):
         assert any(n.endswith(module) for n in names), module
 
 
@@ -64,6 +75,19 @@ def test_every_port_module_is_checked():
 def no_card(monkeypatch):
     """The host as one without a CUDA device, whatever it has."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _broker_config():
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return BrokerConfig(n_agents=2, artifacts=("a", "b"),
+                            artifact_tokens=8)
+
+
+def _trace(chunk_tokens: int = 0):
+    cfg = dataclasses.replace(SCENARIOS["A"].acs, n_steps=2,
+                              artifact_tokens=8, chunk_tokens=chunk_tokens)
+    return cfg, oracle.sample_trace(cfg, oracle.episode_key(0, 0, "cpu"))
 
 
 @pytest.mark.parametrize("entry", [
@@ -81,10 +105,19 @@ def no_card(monkeypatch):
     lambda: models.init_params(smoke_config("rwkv6-1.6b")),
     lambda: models.init_cache(smoke_config("rwkv6-1.6b"), 1, 8),
     lambda: serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--steps", "1"]),
+    lambda: BatchDecider(_broker_config().acs_config()),
+    lambda: CoherenceBroker(_broker_config()),
+    lambda: oracle.episode_key(0),
+    lambda: oracle.replay_kernel(*_trace()),
+    lambda: oracle.replay_content_kernel(*_trace(chunk_tokens=4)),
+    lambda: oracle.check_trace(*_trace()),
+    lambda: oracle.check_content_trace(*_trace(chunk_tokens=4)),
 ], ids=["run_scenario", "compare", "rates", "init_arrays", "init_metrics",
         "init_params", "init_cache", "params_from_numpy",
         "serving_system", "serve_cli", "rwkv6_init_params",
-        "rwkv6_init_cache", "rwkv6_serve_cli"])
+        "rwkv6_init_cache", "rwkv6_serve_cli", "batch_decider",
+        "broker", "episode_key", "oracle_kernel_leg",
+        "oracle_content_kernel_leg", "check_trace", "check_content_trace"])
 def test_entry_points_default_to_cuda(no_card, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
