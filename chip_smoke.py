@@ -42,7 +42,9 @@ Phases, each printing JSON lines:
              chunk tick launch, read-back, bookkeeping).  The ticks are
              also held at the service's shapes: (33, 32, 6) and
              (49, 48, 6) for the MESI tick, (1, 32, 6, 64) for the chunk
-             tick.  Times the
+             tick, and at a shard's share of its 6 artifacts on the
+             sharded plane, m = 1, 2, 4: (33, 32, m) and (1, 32, m, 64).
+             Times the
              wrapper call (CUDA events), the kernel alone, the wrapper's
              host time, the plain version and, for the model kernels, the
              one PyTorch call that computes the same function (a
@@ -86,7 +88,27 @@ Phases, each printing JSON lines:
              capacity, request and decide latency, micro-batches,
              savings against broadcast and warm-up seconds, then a
              profile of the uniform kernel-route brokers (the device's
-             busy share, the host's time by function).
+             busy share, the host's time by function).  Then the sharded
+             authority plane (the JAX package's sharded service bench:
+             4 hosts' L1 directories), every plane built by
+             ``service.connect`` on the kernel route, each of its K
+             shards on its own CUDA stream: ``uniform`` at K = 1, 2, 4
+             (throughput, capacity over the slowest shard's ``decide``
+             time, each shard's ``decide`` p50 / p99 and micro-batches,
+             request p50 / p99, L1 fill rate, warm-up), every family at
+             K = 4 without and with 64-token chunks (ledgers equal to the
+             plain broker's above; ``verify_broker``, here the sharded
+             verifier, and the metrics conformance; one tick launch, and
+             with content one chunk tick, per shard micro-batch); the
+             scan route once at K = 4 deciding exactly as the kernel
+             route; a profiled K = 4 run whose exported trace shows the
+             tick kernels on 4 distinct streams, none the default one;
+             the K = 4 plane on the CPU deciding exactly as on the card;
+             the JSON-lines TCP frontend over a K = 4 plane answering a
+             scripted session as the same script does in process (its
+             round trips' p50 / p99, ``stats`` and ``metrics`` checked);
+             and ``launch.service.main`` at K = 4 with ``--verify
+             --verify-metrics``, its summary printed on one line.
 6. serve   - coherent serving on gemma-2b at its registered width (18
              layers, d 2048, MQA, head dim 256, vocab 256000, bf16) with
              random weights from ``SEED``: 4 agents, 3 artifacts of 2048
@@ -155,11 +177,15 @@ H100_FP32_FLOPS = {"PCIe": 51e12, "NVL": 60e12, "SXM": 67e12}
 #: scenarios' batch, the eager/access_count fleets, the service's
 #: decisions (B = n + 1 prefix simulations: n = 32 clients, the staged
 #: path's top, and n = 48, the direct path; for the chunk tick one
-#: simulation), the content fleet (last: the ``kernels`` line reports
-#: this one)
+#: simulation), a shard's share of the 6 artifacts on the sharded plane
+#: (K = 2: 2 / 4, K = 4: 1 / 2 / 1 / 2), the content fleet (last: the
+#: ``kernels`` line reports this one)
 MESI_SHAPES = ((8192, 16, 16), (16384, 4, 3), (6144, 16, 16),
-               (33, 32, 6), (49, 48, 6), (24576, 16, 16))
-CHUNK_SHAPES = ((4096, 16, 16, 64), (1, 32, 6, 64), (24576, 16, 16, 64))
+               (33, 32, 6), (49, 48, 6),
+               (33, 32, 1), (33, 32, 2), (33, 32, 4), (24576, 16, 16))
+CHUNK_SHAPES = ((4096, 16, 16, 64), (1, 32, 6, 64),
+                (1, 32, 1, 64), (1, 32, 2, 64), (1, 32, 4, 64),
+                (24576, 16, 16, 64))
 FLEET_RUNS = 4096
 #: runs per family of the eager / access_count fleets, per scenario of
 #: the A-D grid
@@ -209,6 +235,14 @@ SERVICE = dict(clients=32, artifacts=6, artifact_tokens=4096, rounds=40,
 SERVICE_FAMILIES = ("uniform", "bursty", "zipf", "hierarchical", "rag",
                     "pipeline", "ping_pong")
 SERVICE_SEEDS = {f: 20260701 + i for i, f in enumerate(SERVICE_FAMILIES)}
+#: the sharded authority plane of phase 5 (the JAX package's sharded
+#: service bench, ``benchmarks/service_bench.py:64-67, 90-96``): the
+#: uniform capacity sweep's shard counts (every family at the last), and
+#: the L1 placement domains; each shard on its own CUDA stream of the card
+SERVICE_SHARDS = (1, 2, 4)
+SERVICE_HOSTS = 4
+#: requests of the scripted JSON-lines session over the TCP frontend
+TCP_REQUESTS = 200
 #: the serving workload of phase 6
 SERVE = dict(arch="gemma-2b", agents=4, artifacts=3, artifact_tokens=2048,
              steps=40, volatility=0.10, strategy="lazy", max_len=8192,
@@ -1336,18 +1370,13 @@ def phase_fleet(card: str) -> float:
 
 
 def service_workload(family: str):
-    """One family of the service cell, built as the JAX package's service
-    launcher builds it (``uniform`` is ``zipf`` with skew 0 at V = 0.10,
-    the paper's homogeneous scenario)."""
-    from repro_torch.sim import workloads
-    kw = dict(n_agents=SERVICE["clients"], n_artifacts=SERVICE["artifacts"],
-              artifact_tokens=SERVICE["artifact_tokens"],
-              n_steps=SERVICE["rounds"], seed=SERVICE_SEEDS[family])
-    if family == "uniform":
-        return dataclasses.replace(
-            workloads.zipf(skew=0.0, volatility=0.10, **kw),
-            name="uniform V=0.10", family="uniform")
-    return workloads.make(family, **kw)
+    """One family of the service cell, built by the port's service
+    launcher (``uniform`` is ``zipf`` with skew 0 at V = 0.10, the
+    paper's homogeneous scenario)."""
+    from repro_torch.launch.service import build_workload
+    return build_workload(family, SERVICE["clients"], SERVICE["artifacts"],
+                          SERVICE["artifact_tokens"], SERVICE["rounds"],
+                          seed=SERVICE_SEEDS[family])
 
 
 def run_service(family: str, backend: str, chunk_tokens: int = 0,
@@ -1557,12 +1586,371 @@ def phase_service(card: str) -> None:
           == cpu_run["load"].savings_vs_broadcast,
           "uniform: savings_vs_broadcast on the card == on the CPU")
     service_profile(card)
+    t0 = time.perf_counter()
+    planes = service_sharded(card, cards)
+    sharded_seconds = time.perf_counter() - t0
     emit({"phase": "service", "brokers": brokers, "seconds": seconds,
           "routes_equal": True, "card_equals_cpu": True,
           "uniform_savings_vs_broadcast":
               card_run["load"].savings_vs_broadcast,
+          "sharded_planes": planes, "sharded_seconds": sharded_seconds,
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "card": card})
+
+
+def run_plane(family: str, shards: int, chunk_tokens: int = 0,
+              backend: str = "kernel", device: str = "cuda") -> dict:
+    """One sharded authority plane of the service cell (``shards``
+    shards behind ``SERVICE_HOSTS`` hosts' L1 directories, telemetry and
+    trace capture on), built by ``service.connect`` and driven through
+    its family's lockstep load on ``device``; returns the plane, the
+    ``LoadReport``, the tick launches during the load and the seconds of
+    each shard decider's warm-up event."""
+    import asyncio
+    from repro_torch.kernels import chunk_diff, mesi_transition as mt
+    from repro_torch.obs import runtime
+    from repro_torch.service import connect, drive_workload
+    names = tuple(f"artifact-{d}" for d in range(SERVICE["artifacts"]))
+
+    async def main() -> dict:
+        plane = connect(
+            n_agents=SERVICE["clients"], artifacts=names,
+            artifact_tokens=SERVICE["artifact_tokens"],
+            strategy=SERVICE["strategy"], chunk_tokens=chunk_tokens,
+            backend=backend, shards=shards, hosts=SERVICE_HOSTS,
+            device=device)
+        events = len(runtime.compile_events())
+        async with plane:
+            before = (mt.mesi_tick_.launches, chunk_diff.chunk_tick_.launches)
+            load = await drive_workload(plane, service_workload(family),
+                                        SERVICE["rounds"],
+                                        seed=SERVICE_SEEDS[family],
+                                        lockstep=True)
+            launches = (mt.mesi_tick_.launches - before[0],
+                        chunk_diff.chunk_tick_.launches - before[1])
+        warm = [e["dur_s"] for e in runtime.compile_events()[events:]
+                if e["kind"] == "warmup"]
+        return dict(plane=plane, load=load, launches=launches,
+                    warmup_s=warm)
+    return asyncio.run(main())
+
+
+def same_plane(a: dict, b: dict, what: str) -> None:
+    """Two planes decided alike: traces step for step (the committing
+    shard and the measured write chunks included), ledgers, wire and L1
+    ledgers, the assembled directory, versions and last_sync."""
+    import numpy as np
+    pa, pb = a["plane"], b["plane"]
+    check(pa.trace.n_steps == pb.trace.n_steps > 0
+          and all((s.agents, s.arts, s.writes, s.miss, s.version, s.chunks,
+                   s.shard)
+                  == (r.agents, r.arts, r.writes, r.miss, r.version,
+                      r.chunks, r.shard)
+                  for s, r in zip(pa.trace.steps, pb.trace.steps)),
+          f"{what}: traces equal step for step")
+    check(dataclasses.astuple(pa.ledger) == dataclasses.astuple(pb.ledger)
+          and pa.wire == pb.wire and pa.l1_wire == pb.l1_wire
+          and all(np.array_equal(getattr(pa, v), getattr(pb, v))
+                  for v in ("directory_state", "versions", "last_sync")),
+          f"{what}: ledgers, wire, L1, directory, versions, last_sync "
+          f"equal")
+
+
+def plane_row(card: str, run: dict, label: str, family: str) -> dict:
+    """The JSON row of one plane: decisions per second, capacity (over
+    the slowest shard's time in ``decide``), request latency, each
+    shard's ``decide`` p50 / p99 and micro-batches, the L1 fill split
+    and the deciders' warm-up."""
+    import numpy as np
+    plane, load = run["plane"], run["load"]
+    shards = []
+    for k, sub in enumerate(plane.brokers):
+        decide = np.array([s.decide_s for s in plane.trace.steps
+                           if s.shard == k]) * 1e3
+        shards.append({
+            "artifacts": len(sub.names), "micro_batches": sub.n_batches,
+            "decide_p50_ms": (float(np.percentile(decide, 50))
+                              if decide.size else None),
+            "decide_p99_ms": (float(np.percentile(decide, 99))
+                              if decide.size else None)})
+    l1 = plane.stats()["l1"]
+    return {"phase": "service", "plane": label, "family": family,
+            "shards": plane.n_shards, "hosts": SERVICE_HOSTS,
+            "route": plane.brokers[0].decider.backend,
+            "chunk_tokens": plane.config.core.chunk_tokens,
+            "actions": load.n_actions, "micro_batches": plane.n_batches,
+            "throughput_dps": load.throughput_dps,
+            "capacity_dps": load.capacity_dps,
+            "request_p50_ms": load.latency_ms(50),
+            "request_p99_ms": load.latency_ms(99),
+            "per_shard": shards, "l1_fill_rate": l1["l1_fill_rate"],
+            "l1_fills": l1["l1_fills"], "l2_fills": l1["l2_fills"],
+            "wire": dict(plane.wire) if plane.chunked else None,
+            "warmup_s": run["warmup_s"], "launches": run["launches"],
+            "card": card}
+
+
+def plane_streams(card: str) -> dict:
+    """One K = 4 ``uniform`` plane (no content: no chunk tick) on the
+    card under the torch profiler, between two chunk tick launches queued
+    on the default stream as markers: the streams its MESI tick kernels
+    ran on, read from the exported trace, must be 4, none the markers'.
+    Returns the tick launches by stream."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import chunk_diff
+    marker = [torch.zeros(shape, dtype=torch.int32, device="cuda")
+              for shape in ((1, 1, 4), (1, 1, 1, 4), (1, 1, 4), (1, 1),
+                            (1, 1), (1, 1), (1, 1, 4))]
+
+    def mark():
+        chunk_diff.chunk_tick_(*marker, artifact_tokens=256,
+                               chunk_tokens=64)
+        chunk_diff.chunk_tick_.launches -= 1   # not a main-path launch
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mark()
+        run = run_plane("uniform", SERVICE_SHARDS[-1])
+        mark()
+        torch.cuda.synchronize()
+    path = REPO / "build" / "service_plane_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    kernels = [e for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+
+    def streams(pattern):
+        return collections.Counter(e["args"]["stream"] for e in kernels
+                                   if re.search(pattern, e["name"]))
+    default = streams(r"chunk_(staged|direct)_kernel")
+    ticks = streams(r"mesi_(staged|direct)_kernel")
+    check(len(default) == 1 and run["launches"][1] == 0,
+          f"the marker chunk ticks on one default stream: {dict(default)}")
+    check(len(ticks) == SERVICE_SHARDS[-1] and not set(ticks) & set(default),
+          f"tick kernels on {len(ticks)} streams {dict(ticks)}, default "
+          f"{dict(default)}: one non-default stream a shard")
+    check(sum(ticks.values()) == run["launches"][0]
+          == run["plane"].n_batches,
+          f"the trace holds every tick launch: {dict(ticks)} vs "
+          f"{run['launches']}")
+    by_stream = {str(k): v for k, v in sorted(ticks.items())}
+    emit({"phase": "service", "what": "streams",
+          "default_stream": sorted(default), "tick_launches_by_stream":
+          by_stream, "card": card})
+    return by_stream
+
+
+def service_tcp(card: str) -> None:
+    """The JSON-lines TCP frontend (``launch.service.serve_tcp`` on
+    127.0.0.1, port 0) over a K = 4, hosts 4 plane on the card: a
+    scripted session of ``TCP_REQUESTS`` reads and writes (some with new
+    content) over one socket, then ``stats`` and ``metrics``.  The
+    replies must equal the same script awaited in process on another
+    plane; the ``stats`` sections equal that plane's; the ``metrics``
+    counters the registry's.  Prints the round trips' p50 / p99."""
+    import asyncio
+    import numpy as np
+    from repro_torch.launch.service import artifact_names, serve_tcp
+    from repro_torch.service import connect
+    rng = np.random.default_rng(SEED)
+    names = artifact_names(SERVICE["artifacts"])
+    script = []
+    for _ in range(TCP_REQUESTS):
+        req = {"op": "write" if rng.random() < 0.3 else "read",
+               "agent": int(rng.integers(SERVICE["clients"])),
+               "artifact": names[int(rng.integers(len(names)))]}
+        if req["op"] == "write" and rng.random() < 0.5:
+            req["content"] = rng.integers(
+                0, 50_000, SERVICE["artifact_tokens"]).tolist()
+        script.append(req)
+
+    def plane():
+        return connect(n_agents=SERVICE["clients"], artifacts=names,
+                       artifact_tokens=SERVICE["artifact_tokens"],
+                       strategy=SERVICE["strategy"], backend="kernel",
+                       shards=SERVICE_SHARDS[-1], hosts=SERVICE_HOSTS)
+
+    async def rpc(reader, writer, req):
+        writer.write(json.dumps(req).encode() + b"\n")
+        await writer.drain()
+        return json.loads(await reader.readline())
+
+    async def over_tcp():
+        async with plane() as broker:
+            server = await serve_tcp(broker, "127.0.0.1", 0)
+            port = server.sockets[0].getsockname()[1]
+            reader, writer = await asyncio.open_connection(
+                "127.0.0.1", port, limit=1 << 20)
+            replies, rtt = [], []
+            for req in script:
+                t0 = time.perf_counter()
+                replies.append(await rpc(reader, writer, req))
+                rtt.append(time.perf_counter() - t0)
+            stats = await rpc(reader, writer, {"op": "stats"})
+            metrics = await rpc(reader, writer, {"op": "metrics"})
+            writer.close()
+            server.close()
+            await server.wait_closed()
+            return replies, rtt, stats, metrics, broker
+
+    async def in_process():
+        async with plane() as broker:
+            replies, lat = [], []
+            for req in script:
+                t0 = time.perf_counter()
+                if req["op"] == "read":
+                    r = await broker.read(req["agent"], req["artifact"])
+                    replies.append({"ok": True, "version": r.version,
+                                    "hit": r.hit,
+                                    "content": list(r.content)})
+                else:
+                    w = await broker.write(req["agent"], req["artifact"],
+                                           req.get("content"))
+                    replies.append({"ok": True, "version": w.version})
+                lat.append(time.perf_counter() - t0)
+            return replies, lat, broker
+
+    replies, rtt, stats, metrics, tcp_plane = asyncio.run(over_tcp())
+    want, lat, local_plane = asyncio.run(in_process())
+    check(replies == json.loads(json.dumps(want)),
+          "TCP replies equal the in-process replies")
+    local = json.loads(json.dumps(local_plane.stats(), default=float))
+    check(stats["ok"] and all(stats["stats"][k] == local[k]
+                              for k in ("ledger", "topology", "l1")),
+          "TCP stats equal the in-process plane's")
+    reg = tcp_plane.telemetry.registry
+    counters = metrics["snapshot"]["counters"]
+    check(metrics["ok"] and "coh_fetch_tokens_total" in metrics["prometheus"]
+          and counters and all(
+              {tuple(sorted(v["labels"].items())): v["value"]
+               for v in c["values"]}
+              == {tuple(sorted(k)): v
+                  for k, v in reg.counter_cells(name).items()}
+              for name, c in counters.items()),
+          "TCP metrics counters equal the registry's, cell by cell")
+    ms = np.array(rtt) * 1e3
+    local_ms = np.array(lat) * 1e3
+    emit({"phase": "service", "what": "tcp", "requests": len(script),
+          "writes": sum(r["op"] == "write" for r in script),
+          "round_trip_p50_ms": float(np.percentile(ms, 50)),
+          "round_trip_p99_ms": float(np.percentile(ms, 99)),
+          "in_process_p50_ms": float(np.percentile(local_ms, 50)),
+          "in_process_p99_ms": float(np.percentile(local_ms, 99)),
+          "counters_compared": len(counters), "card": card})
+
+
+def service_cli(card: str) -> None:
+    """``python -m repro_torch.launch.service`` on the card, in process:
+    the service grid at K = 4, hosts 4, with ``--verify`` and
+    ``--verify-metrics``; its printed summary is checked and emitted on
+    one line."""
+    import contextlib
+    import io
+    from repro_torch.launch import service as launch
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = launch.main([
+            "--clients", str(SERVICE["clients"]),
+            "--artifacts", str(SERVICE["artifacts"]),
+            "--artifact-tokens", str(SERVICE["artifact_tokens"]),
+            "--rounds", str(SERVICE["rounds"]), "--backend", "kernel",
+            "--shards", str(SERVICE_SHARDS[-1]),
+            "--hosts", str(SERVICE_HOSTS), "--verify", "--verify-metrics"])
+    check(json.loads(out.getvalue()) == json.loads(json.dumps(
+        summary, default=float)) and summary["oracle"]["bit_exact"]
+        and summary["metrics_conformance"]["bit_exact"]
+        and summary["backend"] == "kernel"
+        and summary["shards"] == SERVICE_SHARDS[-1],
+        "the service CLI verified its K = 4 run")
+    emit({"phase": "service", "what": "cli", "summary": summary,
+          "card": card})
+
+
+def service_sharded(card: str, plain: dict) -> int:
+    """The sharded authority plane on the card, every plane built by
+    ``service.connect`` on the kernel route, each shard on its own CUDA
+    stream: the uniform capacity sweep over ``SERVICE_SHARDS``, then
+    every family at K = 4 without and with 64-token chunks, its token
+    ledger (with content its wire ledger) equal to the plain broker's of
+    ``plain`` (the kernel-route runs of ``phase_service``), verified by
+    the port's oracle (``verify_broker`` dispatches to
+    ``verify_sharded_broker``, its kernel legs on the card) and by the
+    metrics conformance replay, one tick launch (with content one chunk
+    tick) per shard micro-batch; the scan route once; the tick kernels'
+    streams; card == CPU; the TCP frontend and the CLI.  Returns the
+    planes driven."""
+    from repro_torch.obs import check_metrics_conformance
+    from repro_torch.service import verify_broker
+
+    def checked(run: dict, label: str, family: str, verify: bool) -> None:
+        plane = run["plane"]
+        content = plane.chunked
+        base = plain[(family, plane.config.core.chunk_tokens)]["broker"]
+        batches = plane.n_batches
+        check(batches == sum(b.n_batches for b in plane.brokers)
+              and run["launches"] == (batches, batches if content else 0),
+              f"{label}: {run['launches']} tick launches for {batches} "
+              f"shard micro-batches")
+        check(dataclasses.astuple(plane.ledger)
+              == dataclasses.astuple(base.ledger)
+              and (not content or plane.wire == base.wire),
+              f"{label}: ledgers equal the plain broker's")
+        row = plane_row(card, run, label, family)
+        if verify:
+            t0 = time.perf_counter()
+            row["oracle"] = list(verify_broker(
+                plane, name=label).implementations)
+            t1 = time.perf_counter()
+            row["conformance_cells"] = check_metrics_conformance(
+                plane, name=label)["label_cells_compared"]
+            row["verify_s"] = t1 - t0
+            row["conformance_s"] = time.perf_counter() - t1
+        emit(row)
+
+    planes = 0
+    runs = {}
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(part: str) -> None:
+        nonlocal t0
+        seconds[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    for shards in SERVICE_SHARDS:
+        runs[shards] = run_plane("uniform", shards)
+        checked(runs[shards], f"uniform:K={shards}", "uniform",
+                verify=shards == SERVICE_SHARDS[-1])
+        planes += 1
+    lap("capacity_sweep")
+    k = SERVICE_SHARDS[-1]
+    for family in SERVICE_FAMILIES:
+        for chunk in (0, SERVICE["chunk_tokens"]):
+            if (family, chunk) == ("uniform", 0):
+                continue                  # the sweep's last plane
+            checked(run_plane(family, k, chunk),
+                    f"{family}:K={k}:chunks={chunk}", family, verify=True)
+            planes += 1
+    lap("families")
+    scan = run_plane("uniform", k, backend="scan")
+    check(scan["plane"].brokers[0].decider.backend == "scan"
+          and scan["launches"] == (0, 0), "the scan plane launched nothing")
+    same_plane(runs[k], scan, f"uniform K={k}: kernel route == scan route")
+    lap("scan")
+    cpu = run_plane("uniform", k, device="cpu")
+    same_plane(runs[k], cpu, f"uniform K={k}: card == CPU")
+    lap("cpu")
+    plane_streams(card)
+    lap("streams")
+    service_tcp(card)
+    lap("tcp")
+    service_cli(card)
+    lap("cli")
+    emit({"phase": "service", "what": "sharded_seconds", "seconds": seconds,
+          "card": card})
+    return planes + 5
 
 
 def device_profile(fn):

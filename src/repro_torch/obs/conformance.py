@@ -186,8 +186,8 @@ def check_metrics_conformance(broker, name: str = "metrics") -> dict:
         raise ValueError(
             "broker runs with telemetry disabled; metrics conformance "
             "needs the live registry (telemetry=True)")
-    capture = (broker.config.service.capture_trace
-               if getattr(broker, "is_sharded", False)
+    sharded = getattr(broker, "is_sharded", False)
+    capture = (broker.config.service.capture_trace if sharded
                else broker.config.capture_trace)
     if not capture:
         raise ValueError(
@@ -200,9 +200,10 @@ def check_metrics_conformance(broker, name: str = "metrics") -> dict:
             f"{broker.n_batches} batches - partial capture cannot be "
             f"verified")
 
+    authority = broker.brokers[0] if sharded else broker
     replayed = replay_telemetry(trace, broker.names,
                                 storm_threshold=tel.storm_threshold,
-                                device=broker.decider.device)
+                                device=authority.decider.device)
     cells = 0
     for counter in CONFORMANCE_COUNTERS:
         cells += _compare(tel.registry, replayed.registry, counter)
@@ -225,7 +226,7 @@ def check_metrics_conformance(broker, name: str = "metrics") -> dict:
         "n_steps": trace.n_steps,
         "n_actions": trace.n_actions,
     }
-    if getattr(broker, "is_sharded", False):
+    if sharded:
         read_misses = sum(
             sum(1 for w, miss in zip(s.writes, s.miss)
                 if miss and not w) for s in trace.steps)

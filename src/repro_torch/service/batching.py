@@ -32,10 +32,18 @@ states and versions, and with content the chunks each fill shipped.
 ``auto`` resolves to the kernel route whenever the config is one it
 covers, on either device (on the CPU the kernels' wrappers run their
 plain versions); ``REPRO_SERVICE_DECIDE=scan|kernel`` forces either.
+
+A decider given a CUDA ``stream`` (one shard of the sharded authority
+plane, ``launch.mesh.shard_streams``) allocates its directory on that
+stream and queues every decision there.  PyTorch's current stream is
+per thread, so the stream is entered around each synchronous call
+(``__init__``, ``decide``, ``metrics``, :meth:`on_stream`) and never
+held across an ``await``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import time
@@ -144,16 +152,20 @@ class BatchDecider:
     """
 
     def __init__(self, cfg: acs.ACSConfig, backend: str = "auto",
-                 device=None) -> None:
+                 device=None, stream=None) -> None:
         self.cfg = cfg
         self.backend = resolve_decide_backend(cfg, backend)
         #: device this authority's directory lives on (``None``: CUDA)
         self.device = resolve_device(device)
-        #: the directory: the ACS arrays of one simulation (leading
-        #: axis 1), resident on ``device``
-        self.arrays = acs.init_arrays(cfg, 1, self.device)
-        self._metrics = torch.zeros(len(acs.ACSMetrics._fields),
-                                    dtype=_I32, device=self.device)
+        #: CUDA stream every decision is queued on (``None``: the
+        #: thread's current stream)
+        self.stream = stream
+        with self.on_stream():
+            #: the directory: the ACS arrays of one simulation (leading
+            #: axis 1), resident on ``device``
+            self.arrays = acs.init_arrays(cfg, 1, self.device)
+            self._metrics = torch.zeros(len(acs.ACSMetrics._fields),
+                                        dtype=_I32, device=self.device)
         n, m = cfg.n_agents, cfg.n_artifacts
         #: host copies of the directory's MESI states (n, m) and
         #: versions (m,), refreshed from every decide's one read-back
@@ -171,14 +183,22 @@ class BatchDecider:
         self._deciding = False
         self._warmed = False
 
+    def on_stream(self):
+        """Context in which work is queued on the decider's stream (a
+        no-op without one); read the directory's tensors inside it."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     @property
     def metrics(self) -> acs.ACSMetrics:
         """The decider's running ACS metrics, (1,) int32 tensors."""
-        if self._pending.any():
-            self._metrics = self._metrics + torch.as_tensor(
-                self._pending, dtype=_I32, device=self.device)
-            self._pending[:] = 0
-        return acs.ACSMetrics(*self._metrics[:, None].unbind(0))
+        with self.on_stream():
+            if self._pending.any():
+                self._metrics = self._metrics + torch.as_tensor(
+                    self._pending, dtype=_I32, device=self.device)
+                self._pending[:] = 0
+            return acs.ACSMetrics(*self._metrics[:, None].unbind(0))
 
     # ------------------------------------------------------------------
     def decide(self, acts: np.ndarray, arts: np.ndarray,
@@ -198,10 +218,12 @@ class BatchDecider:
         self._deciding = True
         t0 = time.perf_counter()
         try:
-            if self.backend == "scan":
-                return self._decide_scan(acts, arts, writes,
-                                         write_chunks)
-            return self._decide_kernel(acts, arts, writes, write_chunks)
+            with self.on_stream():
+                if self.backend == "scan":
+                    return self._decide_scan(acts, arts, writes,
+                                             write_chunks)
+                return self._decide_kernel(acts, arts, writes,
+                                           write_chunks)
         finally:
             if not self._warmed:
                 # first-call wall time: the first dispatch, and a kernel

@@ -242,26 +242,32 @@ class CoherenceBroker:
 
         async with CoherenceBroker(cfg) as broker:
             await broker.read(agent=0, artifact="plan")
+
+    The directory lives on ``device`` (``None``: CUDA); with a CUDA
+    ``stream`` (one shard of the sharded authority plane) every
+    decision is queued on that stream.
     """
 
     def __init__(self, config: BrokerConfig,
                  contents: Optional[Dict[str, Sequence[int]]] = None,
                  *, on_commit: Optional[Callable] = None,
-                 device=None, telemetry: Optional[Telemetry] = None,
+                 device=None, stream=None,
+                 telemetry: Optional[Telemetry] = None,
                  shard: int = 0) -> None:
         if hasattr(config, "broker_view"):   # layered CoherenceConfig
             if not config.topology.trivial:
                 raise ValueError(
                     "CoherenceBroker is the single-authority shard; "
                     "non-trivial topologies need the sharded authority "
-                    "plane, which repro_torch does not have yet")
+                    "plane: build it with repro_torch.service.connect"
+                    "(...)")
             config = config.broker_view()
         self.config = config
         self.names = tuple(config.artifacts)
         self._index = {a: d for d, a in enumerate(self.names)}
         self.acs_config = config.acs_config()
         self.decider = BatchDecider(self.acs_config, config.backend,
-                                    device=device)
+                                    device=device, stream=stream)
         #: called as ``on_commit(broker, commit)`` after every committed
         #: micro-batch (the sharded authority plane uses this to build
         #: the globally-sequenced trace)

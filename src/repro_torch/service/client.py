@@ -127,22 +127,20 @@ class ServicePortal:
             target=self._loop.run_forever, name="coherence-broker",
             daemon=True)
         self._thread.start()
-        self.broker = self.call(self._make_broker(config, contents,
-                                                  device))
+        try:
+            self.broker = self.call(self._make_broker(config, contents,
+                                                      device))
+        except BaseException:
+            self._stop_loop()       # no broker: end the loop's thread
+            raise
 
     @staticmethod
     async def _make_broker(config, contents, device):
-        # topology-neutral in the JAX package: a layered config with
-        # shards/hosts gets the sharded authority plane there
-        # (``service.connect``), which this package does not have yet
-        topology = getattr(config, "topology", None)
-        if topology is not None and not topology.trivial:
-            raise NotImplementedError(
-                "the sharded authority plane (repro_torch.service."
-                "connect) is not ported yet; give ServicePortal a "
-                "config with one shard and one host")
-        return await CoherenceBroker(config, contents,
-                                     device=device).start()
+        # topology-neutral: a layered config with shards/hosts gets the
+        # sharded authority plane, anything else the single broker
+        from repro_torch.service.connect import resolve_broker
+        return await resolve_broker(config, contents,
+                                    device=device).start()
 
     # ---------------------------------------------------------------
     def call(self, coro):
@@ -158,6 +156,9 @@ class ServicePortal:
         if self._loop.is_closed():
             return
         self.call(self.broker.stop())
+        self._stop_loop()
+
+    def _stop_loop(self) -> None:
         self._loop.call_soon_threadsafe(self._loop.stop)
         self._thread.join(timeout=self._CALL_TIMEOUT_S)
         self._loop.close()

@@ -378,11 +378,12 @@ def _verify_sharded_content(broker, report, name: str, device=None):
     cd = np.zeros_like(np.asarray(creport.chunk_dirty))
     for shard, sub in enumerate(broker.brokers):
         arrays = sub.decider.arrays
-        for local, d in enumerate(
-                broker.config.shard_artifact_indices()[shard]):
-            cv[d] = arrays.chunk_version[0, local].cpu().numpy()
-            cs[:, d] = arrays.chunk_sync[0, :, local].cpu().numpy()
-            cd[d] = arrays.chunk_dirty[0, local].cpu().numpy()
+        cols = np.asarray(broker.config.shard_artifact_indices()[shard],
+                          np.int64)
+        with sub.decider.on_stream():     # after the shard's own stream
+            cv[cols, :] = arrays.chunk_version[0].cpu().numpy()
+            cs[:, cols] = arrays.chunk_sync[0].cpu().numpy()
+            cd[cols, :] = arrays.chunk_dirty[0].cpu().numpy()
     for label, live, want in (
             ("chunk_version", cv, creport.chunk_version),
             ("chunk_sync", cs, creport.chunk_sync),

@@ -169,9 +169,12 @@ def test_chunk_tick_repeated_launches_agree(gen, B, n, m, C):
 
 #: the service's tick shapes: the staged path's top (B = n + 1 prefix
 #: simulations at n = 32 clients), the direct path at n > 32, and the
-#: content plane's one-simulation chunk tick
-SERVICE_MESI_SHAPES = [(33, 32, 6), (49, 48, 6)]
-SERVICE_CHUNK_SHAPE = (1, 32, 6, 64)
+#: content plane's one-simulation chunk tick; then a shard's share of the
+#: 6 artifacts on the sharded plane (K = 2: 2 / 4, K = 4: 1 / 2 / 1 / 2)
+SERVICE_MESI_SHAPES = [(33, 32, 6), (49, 48, 6),
+                       (33, 32, 1), (33, 32, 2), (33, 32, 4)]
+SERVICE_CHUNK_SHAPES = [(1, 32, 6, 64),
+                        (1, 32, 1, 64), (1, 32, 2, 64), (1, 32, 4, 64)]
 
 
 @pytest.mark.parametrize("B,n,m", SERVICE_MESI_SHAPES)
@@ -199,8 +202,8 @@ def test_mesi_service_shapes_exact_and_repeated(gen, B, n, m, eager,
         assert all(torch.equal(a, b) for a, b in zip(tick(), first)), i
 
 
-def test_chunk_service_shape_exact_and_repeated(gen):
-    B, n, m, C = SERVICE_CHUNK_SHAPE
+@pytest.mark.parametrize("B,n,m,C", SERVICE_CHUNK_SHAPES)
+def test_chunk_service_shape_exact_and_repeated(gen, B, n, m, C):
     inputs = _chunk_inputs(gen, B, n, m, C)
     opts = dict(artifact_tokens=64 * C, chunk_tokens=64)
 
@@ -263,6 +266,62 @@ def test_decider_routes_agree_on_the_card(gen, strategy, chunk_tokens):
             ("chunk_version", "chunk_sync", "chunk_dirty") if C else ()):
         assert torch.equal(getattr(scan.arrays, leaf),
                            getattr(kernel.arrays, leaf)), leaf
+
+
+def _sharded_plane(device, chunk_tokens, rounds=10):
+    """A K = 4, hosts 4 plane over the service grid's 32 clients and 6
+    artifacts of 4096 tokens, driven through ``rounds`` lockstep rounds
+    of ``uniform``; returns the plane and the tick launches."""
+    import asyncio
+    from repro_torch.launch.service import artifact_names, build_workload
+    from repro_torch.service import connect, drive_workload
+
+    async def main():
+        plane = connect(n_agents=32, artifacts=artifact_names(6),
+                        artifact_tokens=4096, chunk_tokens=chunk_tokens,
+                        shards=4, hosts=4, device=device)
+        before = (mesi_transition.mesi_tick_.launches,
+                  chunk_diff.chunk_tick_.launches)
+        async with plane:
+            await drive_workload(plane, build_workload(
+                "uniform", 32, 6, 4096, rounds, seed=11), rounds, seed=11)
+        return plane, (mesi_transition.mesi_tick_.launches - before[0],
+                       chunk_diff.chunk_tick_.launches - before[1])
+    return asyncio.run(main())
+
+
+def _same_plane(a, b):
+    import numpy as np
+    assert dataclasses.astuple(a.ledger) == dataclasses.astuple(b.ledger)
+    assert a.wire == b.wire and a.l1_wire == b.l1_wire
+    for view in ("directory_state", "versions", "last_sync"):
+        assert np.array_equal(getattr(a, view), getattr(b, view)), view
+    assert a.trace.n_steps == b.trace.n_steps > 0
+    for s1, s2 in zip(a.trace.steps, b.trace.steps):
+        assert ((s1.agents, s1.arts, s1.writes, s1.miss, s1.version,
+                 s1.chunks, s1.shard)
+                == (s2.agents, s2.arts, s2.writes, s2.miss, s2.version,
+                    s2.chunks, s2.shard))
+
+
+@pytest.mark.parametrize("chunk_tokens", [0, 64])
+def test_sharded_plane_on_four_streams_equals_the_cpu(gen, chunk_tokens):
+    """K = 4 shards on four streams of the card: one tick launch (and
+    with content one chunk tick) per shard micro-batch; equal to the same
+    plane on the CPU, and to a second card run, to the integer."""
+    from repro_torch.service import verify_broker
+    card, launches = _sharded_plane("cuda", chunk_tokens)
+    streams = {s.stream_id for s in card.streams}
+    assert len(streams) == 4
+    assert torch.cuda.default_stream().stream_id not in streams
+    batches = sum(b.n_batches for b in card.brokers)
+    assert launches == (batches, batches if chunk_tokens else 0)
+    again, _ = _sharded_plane("cuda", chunk_tokens)
+    cpu, cpu_launches = _sharded_plane("cpu", chunk_tokens)
+    assert cpu_launches == (0, 0)
+    _same_plane(card, again)
+    _same_plane(card, cpu)
+    assert "kernel" in verify_broker(card).implementations
 
 
 def test_engine_routes_agree_on_the_card(gen):

@@ -17,10 +17,13 @@ from repro_torch.kernels import mesi_transition  # noqa: E402
 from repro_torch.sim import SCENARIOS, compare, run_scenario, zoo  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import mesh, serve  # noqa: E402
+from repro_torch.launch import service as launch_service  # noqa: E402
 from repro_torch.runtime import CoherentServingSystem  # noqa: E402
 from repro_torch.service import (BatchDecider, BrokerConfig,  # noqa: E402
-                                 CoherenceBroker)
+                                 CoherenceBroker, CoherenceConfig,
+                                 ServicePortal, ShardedCoherenceBroker,
+                                 connect)
 from repro_torch.sim import oracle  # noqa: E402
 
 pytestmark = pytest.mark.torch
@@ -67,7 +70,10 @@ def test_every_port_module_is_checked():
                    "obs/stats.py", "obs/telemetry.py",
                    "obs/conformance.py", "service/batching.py",
                    "service/trace.py", "service/broker.py",
-                   "service/client.py", "service/loadgen.py"):
+                   "service/client.py", "service/loadgen.py",
+                   "service/sharding.py", "service/connect.py",
+                   "service/adapters.py", "launch/mesh.py",
+                   "launch/service.py"):
         assert any(n.endswith(module) for n in names), module
 
 
@@ -112,12 +118,22 @@ def _trace(chunk_tokens: int = 0):
     lambda: oracle.replay_content_kernel(*_trace(chunk_tokens=4)),
     lambda: oracle.check_trace(*_trace()),
     lambda: oracle.check_content_trace(*_trace(chunk_tokens=4)),
+    lambda: mesh.shard_streams(2),
+    lambda: connect(n_agents=2, artifacts=("a", "b"), shards=2),
+    lambda: connect(n_agents=2, artifacts=("a",)),
+    lambda: ShardedCoherenceBroker(CoherenceConfig.make(2, ("a",), hosts=2)),
+    lambda: ServicePortal(CoherenceConfig.make(2, ("a", "b"), shards=2)),
+    lambda: launch_service.main(["--clients", "2", "--artifacts", "2",
+                                 "--artifact-tokens", "8", "--rounds", "1",
+                                 "--shards", "2"]),
 ], ids=["run_scenario", "compare", "rates", "init_arrays", "init_metrics",
         "init_params", "init_cache", "params_from_numpy",
         "serving_system", "serve_cli", "rwkv6_init_params",
         "rwkv6_init_cache", "rwkv6_serve_cli", "batch_decider",
         "broker", "episode_key", "oracle_kernel_leg",
-        "oracle_content_kernel_leg", "check_trace", "check_content_trace"])
+        "oracle_content_kernel_leg", "check_trace", "check_content_trace",
+        "shard_streams", "connect_sharded", "connect_single",
+        "sharded_broker", "sharded_portal", "service_cli"])
 def test_entry_points_default_to_cuda(no_card, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
