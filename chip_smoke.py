@@ -5,13 +5,13 @@
 
 Phases, each printing JSON lines:
 
-1. build   - compiles the six CUDA kernels from
+1. build   - compiles the eight CUDA kernels from
              ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a into
              ``build/repro_torch_kernels/``, one nvcc per source, all at
              once; prints each entry's registers, shared memory and
              spills (none allowed in the entries of ``NO_SPILL``, the WKV
-             scan and both ticks, or in the bf16 wgmma flash kernel at
-             any head dim) and, where ``cuobjdump`` is
+             scan, both ticks and both backward kernels, or in the bf16
+             wgmma flash kernel at any head dim) and, where ``cuobjdump`` is
              installed, the tensor-core (HGMMA) instructions of its
              machine code (at least one).
 2. kernels - holds each kernel against its plain PyTorch version on the
@@ -133,13 +133,38 @@ Phases, each printing JSON lines:
              within relative L2 4.5e-2 (prefill) and 5e-2 (every decode
              step), set from the per-layer readings in PERF.md, and each
              layer's own share <= 1e-2.
-8. the ``kernels`` line, the card's name and power limit, and the final
+8. train   - training of gemma-2b at its registered width (random weights
+             from ``SEED``, bf16, 2.51 B parameters) on 4 x 2048-token
+             batches of the port's synthetic stream: the first step's
+             loss and every gradient leaf on the kernel route within
+             ``TRAIN_LOSS_REL`` / ``TRAIN_GRAD_REL_L2`` of the plain route;
+             then 4 steps of ``make_train_step`` with ``AdamWConfig()``,
+             exactly 73 rmsnorm, 37 rmsnorm_bwd, 36 flash_attention (18
+             recomputed) and 18 flash_attention_bwd launches a step;
+             prints the step time, tokens/s, model TFLOP/s and its share
+             of the bf16 peak, peak memory and the idle share of a
+             profiled step.  Then ``run_training`` on the card at
+             qwen3-1.7b's smoke config, crashed at step 25 and resumed
+             from 20 with the uninterrupted run's losses, and the training
+             CLI for 3 steps.  The backward kernels are held in phase 2
+             too: ``flash_attention_bwd`` (gemma-2b's and qwen3-1.7b's
+             training shapes, mid fp32 / bf16, a ragged length) and
+             ``rmsnorm_bwd`` ((8192, 2048), the qk-norm width, mid fp32,
+             a ragged width) against autograd of their plain versions
+             (fp32 within 1e-4 of the reference's largest magnitude; bf16
+             relative L2 within 1e-2 and each element within 2 bf16 ulps
+             plus 2**-8 of its tensor's rms), timed beside their bounds
+             and the backward of ``scaled_dot_product_attention`` /
+             ``F.rms_norm``, and ``REPEATS`` more launches bit-equal;
+             the forward flash kernel is timed with and without its row
+             statistics.
+9. the ``kernels`` line, the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
 
-Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving) are
-the main paths; each path's kernels' launch counts are set to 0 just
-before it and read just after.  Any failed check raises, and the script
-then exits non-zero.  Without a CUDA device, or without the
+Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving) and 8
+(training) are the main paths; each path's kernels' launch counts are
+set to 0 just before it and read just after.  Any failed check raises,
+and the script then exits non-zero.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no
 result.
 """
@@ -150,6 +175,7 @@ import collections
 import dataclasses
 import functools
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -204,7 +230,8 @@ SPIN_CYCLES = 10_000_000
 #: the tick's staged slabs are reused the same way)
 REPEATS = 50
 #: kernels none of whose entries may spill registers (the build phase)
-NO_SPILL = ("rwkv6_scan", "mesi_tick", "chunk_tick")
+NO_SPILL = ("rwkv6_scan", "mesi_tick", "chunk_tick", "flash_attention_bwd",
+            "rmsnorm_bwd")
 #: fp32 lanes of an SM on Hopper (the issue floor of the WKV scan)
 FP32_LANES_PER_SM = 128
 #: host-time samples of each piece of a wrapper call (``host_split``)
@@ -224,6 +251,13 @@ REPLACES = {
                          "src/repro/kernels/decode_attention.py:71"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:63"),
+    # no Pallas kernel of the JAX package has a backward: these replace
+    # jax.grad of the functions it trains through
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:76 _sdpa_block (jax.grad)"),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                    "src/repro/models/common.py:46 norm_apply (jax.grad)"),
 }
 #: the service cell of phase 5: the JAX package's service bench grid
 #: (``benchmarks/service_bench.py``): 32 clients, 6 artifacts of 4096
@@ -249,8 +283,38 @@ SERVE = dict(arch="gemma-2b", agents=4, artifacts=3, artifact_tokens=2048,
              decode_steps=32)
 #: the serving workload of phase 7: the same on rwkv6-1.6b
 SERVE_RWKV = dict(SERVE, arch="rwkv6-1.6b")
+#: the training cell of phase 8: gemma-2b at its registered width, a
+#: batch of 4 sequences of 2048 tokens from the port's synthetic stream,
+#: ``steps`` steps of AdamW (``AdamWConfig()``); and the trainer's smoke
+#: run (qwen3-1.7b's smoke config, a crash at 25 of 40 steps, resumed)
+TRAIN = dict(arch="gemma-2b", batch=4, seq_len=2048, steps=4)
+TRAIN_LOOP = dict(arch="qwen3-1.7b", steps=40, every=10, crash_at=25)
+#: the backward kernels against autograd of the plain versions: fp32
+#: max-abs within this share of the reference tensor's largest magnitude;
+#: bf16 relative L2 within GRAD_REL_L2 per tensor and each element within
+#: GRAD_ULPS bf16 ulps of the reference plus GRAD_RMS_FLOOR of its
+#: tensor's rms (both round fp32 sums of different order; a key tile or a
+#: row's statistics lost moves a tensor by far more)
+GRAD_FP32_TOL = 1e-4
+GRAD_REL_L2 = 1e-2
+GRAD_ULPS = 2.0
+GRAD_RMS_FLOOR = 2.0 ** -8
+#: kernel route vs plain route of gemma-2b's first train step (phase 8):
+#: the loss's relative difference and each gradient leaf's relative L2,
+#: set from the H100 readings recorded in PERF.md (8.9e-6; at most 0.0116,
+#: the tied embedding's, median 0.0054): bf16 activations of random
+#: weights round differently on the two routes layer by layer, and the
+#: embedding's gradient sums every token's
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL_L2 = 2e-2
 #: tolerances of the model kernels against their plain versions (max-abs)
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+#: the forward's row statistics (fp32 natural log-sum-exp, which the
+#: backward reads) against the plain version's: max-abs within this share
+#: of max(1, the largest |lse|), in both types: both sum the same fp32
+#: exponentials of logits that are exact in fp32, in other orders, while
+#: one key tile of 64 lost at L = 2048 moves a row's lse by ~3e-2
+LSE_REL = 1e-4
 #: bf16 attention is also held element by element to one bf16 ulp of the
 #: plain value plus this share of the rms of its row: both round nearly the
 #: same fp32 result, so they differ in the last bit at most, while a key
@@ -2247,6 +2311,397 @@ def layer_divergence(card: str, system, params, phase: str) -> list:
     return rows
 
 
+def check_grad(got, exp, what: str) -> tuple:
+    """Holds a backward kernel's output to autograd of the plain version
+    on the same inputs: fp32 max-abs within ``GRAD_FP32_TOL`` of the
+    reference's largest magnitude; bf16 relative L2 within
+    ``GRAD_REL_L2`` and each element within ``GRAD_ULPS`` bf16 ulps of
+    the reference plus ``GRAD_RMS_FLOOR`` of its tensor's rms.  Returns
+    (max-abs error, relative L2, largest element error over its
+    allowance or None)."""
+    import torch
+    check(got.dtype == exp.dtype and got.shape == exp.shape,
+          f"{what}: type and shape of the reference")
+    g, e = got.float(), exp.float()
+    err = float((g - e).abs().max())
+    rel = float(torch.linalg.vector_norm(g - e)
+                / torch.linalg.vector_norm(e).clamp_min(1e-30))
+    if exp.dtype == torch.float32:
+        limit = GRAD_FP32_TOL * float(e.abs().max())
+        check(err <= limit, f"{what} within {limit} max-abs ({err})")
+        return err, rel, None
+    check(rel <= GRAD_REL_L2, f"{what} relative L2 {rel} <= {GRAD_REL_L2}")
+    ulp = torch.where(e == 0, 0.0, torch.ldexp(
+        torch.ones_like(e), torch.frexp(e).exponent - 8))
+    ratio = float(((g - e).abs() / (GRAD_ULPS * ulp + GRAD_RMS_FLOOR
+                                    * e.square().mean().sqrt())).max())
+    check(ratio <= 1.0, f"{what}: every element within {GRAD_ULPS} bf16 "
+          f"ulps plus {GRAD_RMS_FLOOR} of the tensor's rms ({ratio})")
+    return err, rel, ratio
+
+
+def phase_train_kernels(card: str, rate: float, flops: float) -> dict:
+    """The two backward kernels against autograd of their plain versions
+    on the card, and the forward kernels as training launches them
+    against theirs (flash with its row statistics, output and lse each
+    held; rmsnorm at the same rows as its backward), at a mid shape in
+    fp32 and bf16, at the training path's shapes (gemma-2b's attention at (4, 8, 1, 2048, 256) and its rows
+    (8192, 2048), its qk-norm width at qwen3-1.7b's heads, qwen3-1.7b's
+    attention (4, 16, 8, 2048, 128)) and a ragged length; each timed
+    alone, with its bound and the backward of the one PyTorch call that
+    computes the same forward (a yardstick the port never calls), then
+    launched ``REPEATS`` more times, every output equal to the first bit
+    for bit.  Also times the forward flash kernel with and without its
+    row statistics at the batched prefill's shape.  Returns, per kernel,
+    the row of gemma-2b's training shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ref import (attention_bwd_plain,
+                                         attention_lse_plain, attention_plain,
+                                         rmsnorm_bwd_plain, rmsnorm_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def normal(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def size(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def library_grad(fn, inputs, dout):
+        """The backward alone of ``fn`` (a PyTorch call): its forward
+        once, then autograd's backward timed with the graph kept."""
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, dout,
+                                           retain_graph=True)
+
+    results, repeat_cases = {}, []
+    for label, b, h, g, lq, lk, dim, dtype in (
+            ("mid fp32", 2, 8, 2, 700, 700, 64, torch.float32),
+            ("mid bf16", 2, 8, 2, 700, 700, 64, bf16),
+            ("gemma-2b train", TRAIN["batch"], 8, 1, TRAIN["seq_len"],
+             TRAIN["seq_len"], 256, bf16),
+            ("qwen3-1.7b train", TRAIN["batch"], 16, 8, TRAIN["seq_len"],
+             TRAIN["seq_len"], 128, bf16),
+            ("ragged bf16", 1, 8, 1, 333, 1001, 256, bf16)):
+        q = normal(b, h, lq, dim, dtype=dtype)
+        k, v = (normal(b, g, lk, dim, dtype=dtype) for _ in range(2))
+        dout = normal(b, h, lq, dim, dtype=dtype)
+        # the forward as training launches it: with its row statistics
+        fwd, lse = _forward(q, k, v, True, None, with_lse=True)
+        got = flash_attention_bwd(q, k, v, dout, lse)
+        torch.cuda.synchronize()
+        fwd_err, fwd_row_err = check_attention(
+            fwd, attention_plain(q, k, v), dtype,
+            f"flash_attention with lse ({label})")
+        check(torch.equal(fwd, _forward(q, k, v, True, None, False)[0]),
+              f"flash_attention's output unchanged by its lse ({label})")
+        exp_lse = attention_lse_plain(q, k)
+        lse_err = float((lse - exp_lse).abs().max())
+        lse_limit = LSE_REL * max(1.0, float(exp_lse.abs().max()))
+        check(lse_err <= lse_limit, f"flash_attention lse ({label}) "
+              f"within {lse_limit} max-abs ({lse_err})")
+        del fwd, exp_lse
+        exp = attention_bwd_plain(q, k, v, dout)
+        errs = [check_grad(a, e, f"flash_attention_bwd d{n} ({label})")
+                for n, a, e in zip("qkv", got, exp)]
+        del exp
+        args = lambda: (q, k, v, dout, lse)   # noqa: E731
+        work = 2.5 * 4 * b * h * dim * attention_pairs(lq, lk, True)
+        dev_ms, host_ms = device_ms(flash_attention_bwd, args, 3)
+        row = {"phase": "kernels", "kernel": "flash_attention_bwd",
+               "case": label, "shape": [b, h, g, lq, lk, dim],
+               "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": max(e[0] for e in errs),
+               "rel_l2": [e[1] for e in errs],
+               "max_elem_err": (None if dtype == torch.float32
+                                else max(e[2] for e in errs)),
+               "fwd_max_abs_err": fwd_err, "fwd_row_err": fwd_row_err,
+               "lse_max_abs_err": lse_err,
+               "ms": median_ms(flash_attention_bwd, args, 3),
+               "device_ms": dev_ms, "host_ms": host_ms,
+               "plain_ms": median_ms(lambda *a: attention_bwd_plain(
+                   *a[:4]), args, 1),
+               "library_ms": median_ms(library_grad(
+                   lambda a, b_, c: F.scaled_dot_product_attention(
+                       a, b_, c, is_causal=True, enable_gqa=True),
+                   (q, k, v), dout), tuple, 3),
+               "bound_ms": max(size(q, k, v, dout, lse, *got) / rate,
+                               work / flops) * 1e3,
+               "bound_by": "operations", "card": card}
+        row["tflops"] = work / (row["device_ms"] * 1e-3) / 1e12
+        emit(row)
+        repeat_cases.append(("flash_attention_bwd", label, functools.partial(
+            flash_attention_bwd, q, k, v, dout, lse), got))
+        if label == "gemma-2b train":
+            results["flash_attention_bwd"] = row
+    del q, k, v, dout, lse, got
+
+    # the forward with and without its row statistics, at the batched
+    # prefill's shape (1.420 ms without them on an H100, PERF.md)
+    q = normal(SERVE["agents"], 8, 6144, 256)
+    k, v = (normal(SERVE["agents"], 1, 6144, 256) for _ in range(2))
+    timed = {}
+    for with_lse in (False, True, True, False):
+        ms, _ = device_ms(lambda a, b_, c: _forward(a, b_, c, True, None,
+                                                    with_lse), lambda: (
+                                                        q, k, v), 5)
+        timed.setdefault(with_lse, []).append(ms)
+    emit({"phase": "kernels", "kernel": "flash_attention",
+          "case": "batched prefill, with and without lse",
+          "shape": [SERVE["agents"], 8, 1, 6144, 256],
+          "ms_without_lse": timed[False], "ms_with_lse": timed[True],
+          "card": card})
+    del q, k, v
+
+    for label, rows, width, dtype in (
+            ("mid fp32", 4096, 2048, torch.float32),
+            ("gemma-2b train", TRAIN["batch"] * TRAIN["seq_len"], 2048,
+             bf16),
+            ("qk-norm", TRAIN["batch"] * TRAIN["seq_len"] * 16,
+             QK_NORM_WIDTH, bf16),
+            ("ragged bf16", 333, 1000, bf16)):
+        x, dy = (normal(rows, width, dtype=dtype) for _ in range(2))
+        w = normal(width, dtype=dtype)
+        # the forward at training's rows, then the backward
+        fwd = rmsnorm(x, w)
+        got = rmsnorm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        exp = rmsnorm_plain(x, w)
+        fwd_err = float((fwd.float() - exp.float()).abs().max())
+        if dtype == bf16:
+            fwd_ulps = bf16_ulps(fwd, exp)
+            check(fwd_ulps <= 1.0,
+                  f"rmsnorm within one bf16 ulp ({label}, training)")
+        else:
+            fwd_ulps = None
+            check(fwd_err <= 1e-5 * max(1.0, float(exp.abs().max())),
+                  f"rmsnorm fp32 within 1e-5 ({label}, training)")
+        del fwd
+        exp = rmsnorm_bwd_plain(x, w, dy)
+        errs = [check_grad(a, e, f"rmsnorm_bwd {n} ({label})")
+                for n, a, e in zip(("dx", "dw"), got, exp)]
+        args = lambda: (x, w, dy)   # noqa: E731
+        dev_ms, host_ms = device_ms(rmsnorm_bwd, args, 10)
+        row = {"phase": "kernels", "kernel": "rmsnorm_bwd", "case": label,
+               "shape": [rows, width], "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": max(e[0] for e in errs),
+               "rel_l2": [e[1] for e in errs],
+               "max_elem_err": (None if dtype == torch.float32
+                                else max(e[2] for e in errs)),
+               "fwd_max_abs_err": fwd_err, "fwd_max_bf16_ulps": fwd_ulps,
+               "ms": median_ms(rmsnorm_bwd, args, 10),
+               "device_ms": dev_ms, "host_ms": host_ms,
+               "plain_ms": median_ms(rmsnorm_bwd_plain, args, 3),
+               "library_ms": median_ms(library_grad(
+                   lambda a, b_: F.rms_norm(a, (width,), b_, 1e-6),
+                   (x, w), dy), tuple, 10),
+               "bound_ms": size(x, w, dy, *got) / rate * 1e3,
+               "bound_by": "bytes", "card": card}
+        emit(row)
+        repeat_cases.append(("rmsnorm_bwd", label, functools.partial(
+            rmsnorm_bwd, x, w, dy), got))
+        if label == "gemma-2b train":
+            results["rmsnorm_bwd"] = row
+    check_repeats(card, repeat_cases)
+    return results
+
+
+def train_kernels():
+    """The wrappers of the training path's kernels, by kernel name."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    return {"rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
+            "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd}
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Launches of each kernel over ``steps`` train steps of a dense model
+    whose superblocks are checkpointed: the forward's norms (two a layer,
+    two more with qk-norm, the final norm) and attention, the layers'
+    recomputed in the backward, and one backward launch of each norm and
+    attention."""
+    norms = (2 + 2 * cfg.use_qk_norm) * cfg.n_layers
+    return {"rmsnorm": (2 * norms + 1) * steps,
+            "rmsnorm_bwd": (norms + 1) * steps,
+            "flash_attention": 2 * cfg.n_layers * steps,
+            "flash_attention_bwd": cfg.n_layers * steps}
+
+
+def phase_train(card: str, flops: float) -> dict:
+    """Training of gemma-2b at its registered width (18 layers, d 2048,
+    MQA, head dim 256, vocab 256000, bf16; random weights from ``SEED``)
+    on batches of 4 x 2048 tokens from the port's synthetic stream:
+    the first step's loss and gradients on the kernel route against the
+    same step on the plain route (``TRAIN_LOSS_REL``,
+    ``TRAIN_GRAD_REL_L2``), then ``TRAIN["steps"]`` steps of
+    ``make_train_step`` with ``AdamWConfig()``, the kernels' launch counts
+    set to 0 just before them and checked exactly after; prints the step
+    time (median of steps 2 on), tokens/s, model TFLOP/s and its share of
+    the card's bf16 peak, peak memory, and the idle share of one profiled
+    step.  Returns the steps' launch counts."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime import steps as step_factories
+
+    cfg = get(TRAIN["arch"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = models.params_count(params)
+    b, s = TRAIN["batch"], TRAIN["seq_len"]
+    stream = SyntheticLMStream(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=s, global_batch=b,
+                                          seed=SEED))
+
+    def batch(step):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in stream.batch_at(step).items()}
+
+    # the first step on both routes, no update
+    first = batch(0)
+    loss_k, grads_k = step_factories.value_and_grad(params, cfg, first)
+    with plain_route():
+        loss_p, grads_p = step_factories.value_and_grad(params, cfg, first)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    leaf_rel = [float(torch.linalg.vector_norm((a - e).float())
+                      / torch.linalg.vector_norm(e.float()).clamp_min(1e-30))
+                for a, e in zip(tree_leaves(grads_k), tree_leaves(grads_p))]
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in tree_leaves(grads_k))
+    del grads_k, grads_p
+    emit({"phase": "train", "what": "route equality", "arch": cfg.name,
+          "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+          "loss_rel": loss_rel, "grad_rel_l2_max": max(leaf_rel),
+          "grad_rel_l2_median": statistics.median(leaf_rel),
+          "grad_rel_l2": leaf_rel, "card": card})
+    check(finite and bool(torch.isfinite(loss_k)),
+          "finite loss and gradients on the kernel route")
+    check(loss_rel <= TRAIN_LOSS_REL,
+          f"{cfg.name} train loss: kernel vs plain {loss_rel} <= "
+          f"{TRAIN_LOSS_REL}")
+    check(max(leaf_rel) <= TRAIN_GRAD_REL_L2,
+          f"{cfg.name} gradients: kernel vs plain relative L2 "
+          f"{max(leaf_rel)} <= {TRAIN_GRAD_REL_L2}")
+
+    opt_cfg = AdamWConfig()
+    opt_state = init_state(opt_cfg, params)
+    step_fn = step_factories.make_train_step(cfg, opt_cfg)
+    batches = [batch(i) for i in range(TRAIN["steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in train_kernels().values():
+        fn.launches = 0
+    losses, times = [], []
+    for i in range(TRAIN["steps"]):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batches[i])
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in train_kernels().items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = expected_train_launches(cfg, TRAIN["steps"])
+    check(launches == expected,
+          f"{cfg.name} train: launch counts {launches} == {expected}")
+    check(all(map(math.isfinite, losses)), "finite train losses")
+    step_s = statistics.median(times[1:])
+    tokens = b * s
+    attn = 12 * cfg.n_layers * b * cfg.n_heads * cfg.kv_head_dim() \
+        * attention_pairs(s, s, True)
+    model_flops = 6 * n_params * tokens + attn
+    wall, busy, top = device_profile(lambda: step_fn(
+        params, opt_state, batches[0]))
+    emit({"phase": "train", "arch": cfg.name, "params": n_params,
+          "dtype": cfg.dtype, "init_seconds": init_s, "batch": b,
+          "seq_len": s, "steps": TRAIN["steps"], "losses": losses,
+          "step_seconds": times, "step_ms": step_s * 1e3,
+          "tokens_per_s": tokens / step_s,
+          "model_flops_per_step": model_flops,
+          "model_flops_formula": "6*N*T + 12*L*B*Hq*D*causal_pairs(S); "
+                                 "recompute not counted",
+          "model_tflops": model_flops / step_s / 1e12,
+          "model_flops_share": model_flops / step_s / flops,
+          "peak_gib": peak, "launches": launches,
+          "launches_per_step": {k: v // TRAIN["steps"]
+                                for k, v in launches.items()},
+          "profiled_step_s": wall, "profiled_busy_s": busy,
+          "device_idle_share": 1.0 - busy / wall, "top": top[:10],
+          "card": card})
+    del params, opt_state, batches, step_fn
+    torch.cuda.empty_cache()
+    train_loop_on_card(card)
+    return launches
+
+
+def train_loop_on_card(card: str) -> None:
+    """The trainer on the card at ``TRAIN_LOOP``'s smoke config: a run
+    that crashes at ``crash_at`` and resumes from its last checkpoint
+    gives the losses of an uninterrupted run (rtol 1e-4); then the
+    training CLI for 3 steps.  Checkpoints go under ``build/``."""
+    import contextlib
+    import io
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+
+    cfg = smoke_config(TRAIN_LOOP["arch"])
+    loop = TrainLoopConfig(total_steps=TRAIN_LOOP["steps"],
+                           checkpoint_every=TRAIN_LOOP["every"])
+    root = REPO / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    straight = run_training(cfg, loop, root / "straight")
+    try:
+        run_training(cfg, loop, root / "resumed",
+                     crash_at_step=TRAIN_LOOP["crash_at"])
+        check(False, "the injected crash was raised")
+    except RuntimeError as exc:
+        check("injected crash" in str(exc), f"injected crash ({exc})")
+    resumed = run_training(cfg, loop, root / "resumed")
+    seconds = time.perf_counter() - t0
+    resume_at = (TRAIN_LOOP["crash_at"] // TRAIN_LOOP["every"]
+                 * TRAIN_LOOP["every"])
+    worst = max(abs(a - b) / abs(b) for a, b in zip(
+        resumed.losses, straight.losses[resume_at:]))
+    check(resumed.resumed_from == resume_at
+          and len(resumed.losses) == TRAIN_LOOP["steps"] - resume_at,
+          f"resumed from {resumed.resumed_from}")
+    check(worst <= 1e-4, f"resumed losses reproduce the straight run "
+          f"({worst})")
+    check(straight.losses[-1] < straight.losses[0] - 0.5,
+          "the smoke loss drops")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_train.main(["--arch", TRAIN_LOOP["arch"], "--smoke",
+                           "--steps", "3", "--ckpt-dir",
+                           str(root / "cli")])
+    summary = out.getvalue().strip()
+    check("steps_run=3" in summary, f"the training CLI ran ({summary})")
+    emit({"phase": "train", "what": "train loop", "arch": cfg.name,
+          "steps": TRAIN_LOOP["steps"], "crash_at": TRAIN_LOOP["crash_at"],
+          "resumed_from": resumed.resumed_from,
+          "first_loss": straight.losses[0],
+          "last_loss": straight.losses[-1],
+          "resumed_rel_diff_max": worst, "seconds": seconds,
+          "stragglers": straight.straggler_events, "cli": summary,
+          "card": card})
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2269,6 +2724,7 @@ def main() -> int:
                 for i in range(len(system.agents))]
     kernels.update(phase_model_kernels(card, rate, flops, fp32_flops,
                                        contexts))
+    kernels.update(phase_train_kernels(card, rate, flops))
 
     mt.mesi_tick_.launches = 0
     chunk_diff.chunk_tick_.launches = 0
@@ -2288,6 +2744,8 @@ def main() -> int:
             fn.launches = 0
         for name, count in phase_serve(card, serve).items():
             launches[name] = launches.get(name, 0) + count
+    for name, count in phase_train(card, flops).items():
+        launches[name] = launches.get(name, 0) + count
     check(set(kernels) == set(launches) == set(REPLACES)
           == set(build.KERNELS) and all(v > 0 for v in launches.values()),
           "the main paths launched every kernel")

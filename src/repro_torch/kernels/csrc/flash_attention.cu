@@ -46,7 +46,10 @@
 //     fp32 result) by 7.26x at (1, 4, 2048, 256) causal MQA on the CPU,
 //     while the split P reads 0.958, as an fp32 P does on the card;
 //   * epilogue: O / l in fp32, cast to bf16, staged in the warpgroup's
-//     own rows of the Q tile and stored 16 bytes a thread.
+//     own rows of the Q tile and stored 16 bytes a thread; with an `lse`
+//     buffer, each row's log-sum-exp of its scaled logits,
+//     (m + log2 l) ln 2, which the backward (flash_attention_bwd.cu)
+//     reads to recompute P without a second pass over the keys.
 // Shared memory: Q 128 x D, then K and V rings of 64 x D each, bf16:
 // 192 KB at D = 256 (2 stages); 160, 80 and 40 KB at D = 128, 64 and 32
 // (4 stages).
@@ -55,13 +58,15 @@
 // per 64-row q tile, K and V tiles of 64 keys staged through shared
 // memory in fp32 (Q and K transposed, one float of padding per row), a
 // 4 x 4 register tile of logits per thread, 215 KB of shared memory at
-// D = 256.  The type code alone chooses it: an fp32 product on the tensor
-// cores is TF32 (10 mantissa bits), which the fp32 limit of 1e-5 against
+// D = 256; with an `lse` buffer it writes m + log l of each row.  The
+// type code alone chooses it: an fp32 product on the tensor cores is TF32 (10 mantissa bits), which the fp32 limit of 1e-5 against
 // the plain version refuses.
 //
-// C interface (ctypes): flash_attention_launch(q, k, v, out, B, Hq, Hkv,
-// Lq, Lk, D, causal, scale, dtype, stream) with dtype 0 = float32,
-// 1 = bfloat16 (16-byte aligned pointers) and D in {32, 64, 128, 256}.
+// C interface (ctypes): flash_attention_launch(q, k, v, out, lse, B, Hq,
+// Hkv, Lq, Lk, D, causal, scale, dtype, stream) with dtype 0 = float32,
+// 1 = bfloat16 (16-byte aligned pointers) and D in {32, 64, 128, 256};
+// lse is NULL (serving) or an fp32 (B, Hq, Lq) buffer that receives the
+// natural log-sum-exp of each row's scaled logits (training).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it
 // does not take.
 
@@ -85,6 +90,7 @@ constexpr int kWgThreads = 128;
 constexpr int kThreadsWg = 3 * kWgThreads;
 constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
@@ -125,8 +131,8 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap k_map,
             const __grid_constant__ CUtensorMap v_map,
-            __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Lq,
-            int Lk, int causal, float scale_log2) {
+            __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+            int Hq, int Hkv, int Lq, int Lk, int causal, float scale_log2) {
   using C = Cfg<D>;
   constexpr int S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -313,6 +319,12 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
     }
+    if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row0 + 8 * i < Lq)
+          lse[size_t(bh) * Lq + row0 + 8 * i] = (m[i] + log2f(l[i])) * kLn2;
+    }
 #pragma unroll
     for (int j = 0; j < D / 2; j += 2) {
       const int i = (j >> 1) & 1;
@@ -392,8 +404,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int L, int heads,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int Hq, int Hkv, int Lq, int Lk, int causal,
-                 float scale, cudaStream_t stream) {
+                 float* lse, int B, int Hq, int Hkv, int Lq, int Lk,
+                 int causal, float scale, cudaStream_t stream) {
   const int n_qt = (Lq + kRows - 1) / kRows;
   if (n_qt > 65535 || long(B) * Hq > 0x7fffffffL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -409,8 +421,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, n_qt), block(kThreadsWg);
   flash_wgmma<D><<<grid, block, bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Hq, Hkv, Lq,
-      Lk, causal, scale * kLog2e);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Hq, Hkv,
+      Lq, Lk, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,8 +441,9 @@ constexpr size_t smem_bytes_fp32() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ out, int Hq,
-           int Hkv, int Lq, int Lk, int causal, float scale) {
+           const float* __restrict__ v, float* __restrict__ out,
+           float* __restrict__ lse, int Hq, int Hkv, int Lq, int Lk,
+           int causal, float scale) {
   constexpr int C = D / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qt = smem;                 // [D][kPad]: Qt[d][row]
@@ -557,13 +570,15 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < C; ++c)
       ob[long(qr) * D + tx + 16 * c] = acc[i][c] * inv;
+    if (lse != nullptr && tx == 0)
+      lse[(long(b) * Hq + h) * Lq + qr] = m_i[i] + logf(l_i[i]);
   }
 }
 
 template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                int B, int Hq, int Hkv, int Lq, int Lk, int causal,
-                float scale, cudaStream_t stream) {
+                float* lse, int B, int Hq, int Hkv, int Lq, int Lk,
+                int causal, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes_fp32<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -572,27 +587,27 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Lq + kBQ - 1) / kBQ, Hq, B), block(kThreads);
   flash_fp32<D><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Lq,
-      Lk, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, Hkv,
+      Lq, Lk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Lq, int Lk, int causal, float scale,
-           int dtype, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int causal,
+           float scale, int dtype, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_fp32<D>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
-                          stream);
-  return launch_wgmma<D>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
-                         stream);
+    return launch_fp32<D>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                          scale, stream);
+  return launch_wgmma<D>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                         scale, stream);
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B,
-                                      int Hq, int Hkv, int Lq, int Lk,
+                                      const void* v, void* out, float* lse,
+                                      int B, int Hq, int Hkv, int Lq, int Lk,
                                       int D, int causal, float scale,
                                       int dtype, cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
@@ -601,17 +616,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
-                        dtype, stream);
+      return launch<32>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                        scale, dtype, stream);
     case 64:
-      return launch<64>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
-                        dtype, stream);
+      return launch<64>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                        scale, dtype, stream);
     case 128:
-      return launch<128>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
-                         dtype, stream);
+      return launch<128>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                         scale, dtype, stream);
     case 256:
-      return launch<256>(q, k, v, out, B, Hq, Hkv, Lq, Lk, causal, scale,
-                         dtype, stream);
+      return launch<256>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                         scale, dtype, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -97,11 +97,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (B, Hq, D) in q's type.  CUDA tensors (contiguous, q and the caches
     16-byte aligned, one type of fp32 / bf16, D in :data:`HEAD_DIMS`,
     Hq / Hkv <= 8, kv_len int32) launch the kernel, and nothing else, and
-    add one to ``decode_attention.launches``; CPU tensors run
+    add one to ``decode_attention.launches``; they raise
+    ``NotImplementedError`` under grad mode when an input requires a
+    gradient (the kernel has no backward).  CPU tensors run
     :func:`decode_attention_plain`."""
     on = (q, k_cache, v_cache) + (() if kv_len is None else (kv_len,))
     if not use_kernel(*on):
         return decode_attention_plain(q, k_cache, v_cache, kv_len, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
+                                    or v_cache.requires_grad):
+        raise NotImplementedError(
+            "decode_attention has no backward kernel: training runs the "
+            "prefill path (ROADMAP.md section 1, item 7)")
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError("q must be (B, Hq, D) and the caches one "
                          "(B, Hkv, L, D) shape")

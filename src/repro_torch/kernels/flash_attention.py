@@ -1,4 +1,5 @@
-"""Flash attention (prefill, GQA): the CUDA kernels and their plain version.
+"""Flash attention (prefill, GQA) and its backward: the CUDA kernels and
+their plain versions.
 
 :func:`flash_attention` launches a kernel of ``csrc/flash_attention.cu``
 for CUDA tensors, which replaces the TPU kernel of the JAX package
@@ -9,6 +10,13 @@ memory, online fp32 softmax, P fed as two bf16 terms so the product
 keeps fp32-grade P), fp32 on the CUDA cores (FA-2 schedule, 64-row q
 tiles), since a tensor-core fp32 product is TF32.  Both skip causal
 tiles past the diagonal and mask ragged lengths.
+
+When grad mode is on and an input requires a gradient, the CUDA route
+goes through an autograd function: its forward launches the same kernel
+with a buffer for each row's log-sum-exp, and its backward launches
+:func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``: dQ, dK,
+dV in deterministic passes), which replaces ``jax.grad`` of the JAX
+package's attention.  CPU tensors differentiate the plain version.
 """
 
 from __future__ import annotations
@@ -19,12 +27,77 @@ import torch
 
 from repro_torch.kernels.backend import (FLOAT_CODES, float_code, launch,
                                          use_kernel)
-from repro_torch.kernels.ref import attention_plain
+from repro_torch.kernels.ref import attention_bwd_plain, attention_plain
 
 #: head dims the kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
 
-__all__ = ["flash_attention", "attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_bwd", "attention_plain",
+           "attention_bwd_plain", "HEAD_DIMS"]
+
+
+def _check(q, k, v) -> int:
+    """Raise unless the kernels take q, k, v; returns their type code."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError("q must be (B, Hq, Lq, D) and k, v one "
+                         "(B, Hkv, Lk, D) shape")
+    b, hq, _, d = q.shape
+    hkv = k.shape[1]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         f"differ in batch or head dim, or Hq % Hkv != 0")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}; the kernel is built for "
+                         f"{HEAD_DIMS}")
+    return float_code(q, k, v)
+
+
+def _forward(q, k, v, causal: bool, scale, with_lse: bool):
+    """One launch of the forward kernel: the output and, ``with_lse``,
+    each row's fp32 log-sum-exp (B, Hq, Lq) (else None)."""
+    code = _check(q, k, v)
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if causal and lq > lk:
+        raise ValueError("causal attention needs Lq <= Lk")
+    out = torch.empty_like(q)
+    if code == FLOAT_CODES[torch.bfloat16] and any(
+            t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("bf16 attention reads its inputs by TMA, which "
+                         "needs 16-byte aligned tensors")
+    lse = (torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    scale = d ** -0.5 if scale is None else float(scale)
+    launch("flash_attention", q.get_device(), q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), out.data_ptr(),
+           None if lse is None else lse.data_ptr(), b, hq, hkv, lq, lk, d,
+           int(causal), scale, code)
+    flash_attention.launches += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA route under autograd: forward kernel with row statistics,
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _forward(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:       # the kernel reads 16-byte rows
+            dout = dout.clone()
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -35,38 +108,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are the last Lq of Lk positions.  Returns (B, Hq, Lq, D) in q's
     type.  CUDA tensors (contiguous, one type of fp32 / bf16, D in
     :data:`HEAD_DIMS`, any Lq <= Lk) launch the kernel and add one to
-    ``flash_attention.launches``; CPU tensors run
+    ``flash_attention.launches``; under grad mode with an input that
+    requires a gradient the result carries one, which
+    :func:`flash_attention_bwd` computes.  CPU tensors run
     :func:`attention_plain`."""
     if not use_kernel(q, k, v):
         return attention_plain(q, k, v, causal=causal, scale=scale)
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError("q must be (B, Hq, Lq, D) and k, v one "
-                         "(B, Hkv, Lk, D) shape")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return _forward(q, k, v, causal, scale, with_lse=False)[0]
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True, scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`flash_attention` at q, k, v, whose rows'
+    log-sum-exp the forward gave as ``lse`` (fp32 (B, Hq, Lq)), against
+    the output's gradient ``dout``; each in its input's type and shape.
+    CUDA tensors (as the forward takes them, all 16-byte aligned, ``dout``
+    contiguous and of q's type) launch the backward kernel (dQ and each
+    row's sum of dO o O in one pass, dK and dV in a second) and add one
+    to ``flash_attention_bwd.launches``; CPU tensors differentiate
+    :func:`attention_plain` (``lse`` unused)."""
+    if not use_kernel(q, k, v, dout):
+        return attention_bwd_plain(q, k, v, dout, causal, scale)
+    code = _check(q, k, v)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
-                         f"differ in batch or head dim, or Hq % Hkv != 0")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}; the kernel is built for "
-                         f"{HEAD_DIMS}")
     if causal and lq > lk:
         raise ValueError("causal attention needs Lq <= Lk")
-    code = float_code(q, k, v)
-    out = torch.empty_like(q)
-    if code == FLOAT_CODES[torch.bfloat16] and any(
-            t.data_ptr() % 16 for t in (q, k, v, out)):
-        raise ValueError("bf16 attention reads its inputs by TMA, which "
-                         "needs 16-byte aligned tensors")
-    if out.numel() == 0:
-        return out
-    scale = d ** -0.5 if scale is None else float(scale)
-    launch("flash_attention", q.get_device(), q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), out.data_ptr(), b, hq, hkv, lq, lk, d, int(causal),
-           scale, code)
-    flash_attention.launches += 1
-    return out
+    float_code(q, dout)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout has shape {tuple(dout.shape)}, expected "
+                         f"q's {tuple(q.shape)}")
+    if (lse.shape != (b, hq, lq) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be the forward's contiguous fp32 "
+                         f"({b}, {hq}, {lq}) row statistics")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v, dout, dq, dk, dv)):
+        raise ValueError("the attention backward reads and writes 16-byte "
+                         "rows, which needs 16-byte aligned tensors")
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", q.get_device(), q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           b, hq, hkv, lq, lk, d, int(causal),
+           d ** -0.5 if scale is None else float(scale), code)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 #: kernel launches since the count was last set to 0
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -1,5 +1,7 @@
 """Plain PyTorch versions of the model kernels: RMSNorm, flash attention
-(prefill), flash decode and the RWKV6 WKV recurrence.
+(prefill), flash decode and the RWKV6 WKV recurrence, and of the two
+backward kernels (RMSNorm's and attention's), which are autograd of the
+forward versions here.
 
 Each is the function its CUDA kernel computes, in fp32 whatever the
 input type, written for clarity: the kernel wrappers run them for
@@ -50,6 +52,49 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(kpos > qpos, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vg).to(q.dtype)
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                        causal: bool = True,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """The natural log-sum-exp over keys of each row's scaled logits, fp32
+    (B, Hq, Lq): what the forward kernel writes for its backward."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    kg = torch.repeat_interleave(k.to(torch.float32), hq // hkv, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32) * scale, kg)
+    if causal:
+        qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        kpos = torch.arange(lk, device=q.device)[None, :]
+        logits = logits.masked_fill(kpos > qpos, float("-inf"))
+    return torch.logsumexp(logits, dim=-1)
+
+
+def _grads(fn, inputs, dout):
+    """Autograd of ``fn(*inputs)`` against ``dout``: one gradient per
+    input, each in its input's type."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`attention_plain` against the output's
+    gradient ``dout``, by autograd (fp32 inside, each cast to its
+    input's type)."""
+    return _grads(lambda a, b_, c: attention_plain(a, b_, c, causal, scale),
+                  (q, k, v), dout)
+
+
+def rmsnorm_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                      dy: torch.Tensor, eps: float = 1e-6):
+    """(dx, dweight) of :func:`rmsnorm_plain` against the output's
+    gradient ``dy``, by autograd."""
+    return _grads(lambda a, w: rmsnorm_plain(a, w, eps), (x, weight), dy)
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,

@@ -71,11 +71,20 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (y (B, T, H, dh) in r's type, final state (B, H, dh, dh)
     fp32).  CUDA tensors (r/k/v/w contiguous, 16-byte aligned, of one
     type of fp32 / bf16; dh in :data:`HEAD_SIZES`) launch the kernel and
-    add one to ``rwkv6_scan.launches``; CPU tensors run
-    :func:`rwkv6_scan_plain`."""
+    add one to ``rwkv6_scan.launches``; they raise
+    ``NotImplementedError`` under grad mode when an input requires a
+    gradient (the kernel has no backward yet).  CPU tensors run
+    :func:`rwkv6_scan_plain`, which autograd differentiates."""
     if not (use_kernel(r, k, v, w, bonus) if initial_state is None
             else use_kernel(r, k, v, w, bonus, initial_state)):
         return rwkv6_scan_plain(r, k, v, w, bonus, initial_state)
+    if torch.is_grad_enabled() and (
+            r.requires_grad or k.requires_grad or v.requires_grad
+            or w.requires_grad or bonus.requires_grad
+            or (initial_state is not None and initial_state.requires_grad)):
+        raise NotImplementedError(
+            "rwkv6_scan has no backward kernel yet: rwkv6 training on the "
+            "card waits for it (ROADMAP.md section 1, item 7)")
     code = _check(r, k, v, w, bonus, initial_state)
     if bonus.dtype != torch.float32 or not bonus.is_contiguous():
         bonus = bonus.to(torch.float32).contiguous()

@@ -88,7 +88,7 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
             and not (isinstance(cache_len, int) and cache_len == 0)):
         raise NotImplementedError(
             "a cached prefill at a non-zero offset is not ported "
-            "(ROADMAP.md queue 1, item 12)")
+            "(ROADMAP.md section 1, item 7(b))")
     hd = cfg.kv_head_dim()
     q, k, v = _project_qkv(p, cfg, x)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)

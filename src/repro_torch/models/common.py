@@ -12,7 +12,7 @@ the ``meta`` device nothing is drawn or allocated (shapes only).
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -136,6 +136,21 @@ def glu_mlp_apply(p, x, act: str = "silu"):
     if "b_down" in p:
         y = y + p["b_down"]
     return y
+
+
+# ------------------------------ loss ----------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32.  logits (..., V), labels
+    (...) integer."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 # --------------------------- param trees ------------------------------

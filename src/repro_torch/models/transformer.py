@@ -8,6 +8,9 @@ repeating superblock whose params are stacked on a leading axis, as in
 the JAX package, so a JAX parameter tree carries across leaf for leaf.
 Superblocks run as a Python loop.  Modes:
 
+  train    full causal forward -> mean loss (``forward_train``); each
+           superblock and each sequence chunk of the loss checkpointed,
+           so the backward recomputes their interiors
   prefill  full causal forward over a prompt -> last-token logits, and
            the KV cache filled
   decode   one token per row against the cache
@@ -16,8 +19,11 @@ The attention cache is head-major, ``(n_super, B, Hkv, Lmax, D)`` per
 stacked layer; an rwkv layer caches its two token-shift vectors ``tm``
 and ``cm`` (B, d) and its fp32 WKV state ``wkv`` (B, H, dh, dh), whatever
 ``max_len``.  Prefill and decode update the cache in place.  Other
-mixers (MLA, mamba, cross-attention), MoE layers, the encoder and
-training (``forward_train``) wait for their slices of the port.
+mixers (MLA, mamba, cross-attention), MoE layers and the encoder wait
+for their slices of the port.  On the card, training runs the dense
+family through the attention and RMSNorm kernels' backward kernels;
+rwkv6 trains on the CPU, where its WKV recurrence is plain PyTorch (the
+WKV kernel has no backward yet and raises under autograd).
 """
 
 from __future__ import annotations
@@ -27,16 +33,18 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.common import (dtype_of, embed_init, glu_mlp_apply,
-                                       glu_mlp_init, norm_apply, norm_init,
-                                       stack_layers, tree_leaves, tree_map)
+from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
+                                       glu_mlp_apply, glu_mlp_init,
+                                       norm_apply, norm_init, stack_layers,
+                                       tree_leaves, tree_map)
 
-_TODO = "is not ported yet (ROADMAP.md queue 1, item 12)"
+_TODO = "is not ported yet (ROADMAP.md section 1, item 7(b))"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,7 +217,12 @@ def _logits(params, cfg: ModelConfig, x):
 def _run_layers(params, cfg: ModelConfig, x, *, positions, context=None,
                 cache=None, cache_len=None):
     """Prefix layers, then the superblocks in a Python loop.  ``cache``
-    (None without one) is updated in place and returned."""
+    (None without one) is updated in place and returned.  Without a
+    cache (train mode) each superblock runs under
+    ``torch.utils.checkpoint``, as the JAX package remats it: only the
+    block boundaries are kept for the backward, which recomputes each
+    block's interior; the stacked params are unbound once, so their
+    gradients are stacked once."""
     specs = layer_specs(cfg)
     prefix, period = split_pattern(specs)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -220,17 +233,30 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, context=None,
                                 cache=c, cache_len=cache_len)
         aux_total = aux_total + aux
     n_super = (cfg.n_layers - prefix) // period
-    for i in range(n_super):
-        block_p = tree_map(lambda a: a[i], params["blocks"])
-        block_c = (tree_map(lambda a: a[i], cache["blocks"])
-                   if cache is not None else None)
+
+    def block(block_p, x, block_c=None):
+        aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
         for j in range(period):
             c = block_c[f"sub{j}"] if block_c is not None else None
             x, _, aux = layer_apply(block_p[f"sub{j}"], cfg,
                                     specs[prefix + j], x,
                                     positions=positions, context=context,
                                     cache=c, cache_len=cache_len)
+            aux_acc = aux_acc + aux
+        return x, aux_acc
+
+    if cache is None:
+        layers = tree_map(lambda a: a.unbind(0), params["blocks"])
+        for i in range(n_super):
+            block_p = tree_map(lambda a: a[i], layers)
+            x, aux = checkpoint(block, block_p, x, use_reentrant=False)
             aux_total = aux_total + aux
+        return x, cache, aux_total
+    for i in range(n_super):
+        block_p = tree_map(lambda a: a[i], params["blocks"])
+        block_c = tree_map(lambda a: a[i], cache["blocks"])
+        x, aux = block(block_p, x, block_c)
+        aux_total = aux_total + aux
     return x, cache, aux_total
 
 
@@ -255,8 +281,48 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+#: sequence-chunk size of the streamed cross-entropy: the fp32 logits
+#: exist one chunk at a time, and each chunk is checkpointed, so the
+#: backward recomputes its logits instead of keeping them
+CE_CHUNK = 512
+
+
+def _chunk_loss(xc, yc, head):
+    """Summed softmax cross-entropy of one chunk: :func:`cross_entropy`'s
+    mean (fp32 logits, the gold logit by a gather) times its count."""
+    return cross_entropy(xc @ head.T, yc) * yc.numel()
+
+
+def _chunked_ce(params, cfg: ModelConfig, x, labels):
+    """Mean next-token cross-entropy over sequence chunks of
+    ``CE_CHUNK`` positions across the whole batch, the remainder last,
+    as in the JAX package: never the full (B, S, V) logit tensor."""
+    b = x.shape[0]
+    shift_x = x[:, :-1]
+    shift_y = labels[:, 1:].long()
+    n = shift_x.shape[1]
+    chunk = min(CE_CHUNK, n)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        total = total + checkpoint(_chunk_loss, shift_x[:, start:stop],
+                                   shift_y[:, start:stop], head,
+                                   use_reentrant=False)
+    return total / (b * n)
+
+
 def forward_train(params, cfg: ModelConfig, batch):
-    raise NotImplementedError(f"training (forward_train) {_TODO}")
+    """batch: {tokens, labels} (B, S) integer tensors on the params'
+    device -> mean loss (+ the layers' aux losses), differentiable."""
+    if cfg.encoder_layers or "vision_embeds" in batch:
+        raise NotImplementedError(f"training with a context {_TODO}")
+    tokens = batch["tokens"].long()
+    x = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    x, _, aux = _run_layers(params, cfg, x, positions=positions)
+    x = norm_apply(params["final_norm"], x, cfg.norm)
+    return _chunked_ce(params, cfg, x, batch["labels"]) + aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, context=None):
@@ -286,4 +352,5 @@ def decode_step(params, cfg: ModelConfig, token, cache):
 
 __all__ = ["LayerSpec", "layer_specs", "split_pattern", "layer_init",
            "cache_init_layer", "layer_apply", "init_params", "init_cache",
-           "forward_train", "prefill", "decode_step", "tree_leaves"]
+           "CE_CHUNK", "forward_train", "prefill", "decode_step",
+           "tree_leaves"]

@@ -21,10 +21,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import chunk_diff, mesi_transition  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, plan)
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_bwd)
 from repro_torch.kernels.ref import (attention_plain,  # noqa: E402
                                      decode_attention_plain, rmsnorm_plain)
-from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,  # noqa: E402
                                             rwkv6_scan_plain)
 from repro_torch.core import prng  # noqa: E402
@@ -739,3 +740,211 @@ def test_rwkv6_scan_cpu_tensors_never_reach_the_kernel(gen):
     assert y.device.type == "cpu" and s.device.type == "cpu"
     with pytest.raises(ValueError, match="one CUDA device"):
         rwkv6_scan(args[0].cuda(), *args[1:])
+
+
+# ---------------------------------------------------------------- training
+# The backward kernels against autograd of their plain versions.  Gates
+# (PERF.md section 2): fp32 max-abs within 1e-4 of the reference tensor's
+# largest magnitude; bf16 relative L2 within 1e-2 per tensor and each
+# element within 2 bf16 ulps of the reference plus 2**-8 of its tensor's
+# rms.
+
+def _grad_gate(got, exp, what=""):
+    assert got.dtype == exp.dtype and got.shape == exp.shape, what
+    g, e = got.float(), exp.float()
+    if exp.dtype == torch.float32:
+        err = float((g - e).abs().max())
+        assert err <= 1e-4 * max(float(e.abs().max()), 1e-30), (what, err)
+        return
+    rel = float(torch.linalg.vector_norm(g - e)
+                / torch.linalg.vector_norm(e).clamp_min(1e-30))
+    assert rel <= 1e-2, (what, rel)
+    ulp = torch.where(e == 0, 0.0, torch.ldexp(
+        torch.ones_like(e), torch.frexp(e).exponent - 8))
+    allow = 2 * ulp + 2.0 ** -8 * e.square().mean().sqrt()
+    assert bool(((g - e).abs() <= allow).all()), (what, float(
+        ((g - e).abs() / allow).max()))
+
+
+def _attention_grads(gen, b, hq, hkv, lq, lk, d, dtype):
+    from repro_torch.kernels.ref import attention_bwd_plain
+    q = _normal(gen, b, hq, lq, d, dtype=dtype)
+    k, v = (_normal(gen, b, hkv, lk, d, dtype=dtype) for _ in range(2))
+    dout = _normal(gen, b, hq, lq, d, dtype=dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_bwd.launches == bwd + 1
+    return got, attention_bwd_plain(q, k, v, dout, causal=True), (
+        q, k, v, dout)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2), (8, 1)])
+@pytest.mark.parametrize("lq,lk", [(64, 64), (100, 100), (37, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_equals_plain(gen, d, hq, hkv, lq, lk, dtype):
+    """dq, dk, dv through the autograd route (forward kernel with row
+    statistics, backward kernel) against autograd of the plain version:
+    query groups 1, 2 and 8, every head dim, whole and ragged tiles,
+    Lq < Lk."""
+    got, exp, _ = _attention_grads(gen, 2, hq, hkv, lq, lk, d, dtype)
+    for name, g, e in zip("qkv", got, exp):
+        _grad_gate(g, e, f"d{name}")
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_equals_plain(gen, d, dtype):
+    """The forward's row statistics (natural log-sum-exp of the scaled
+    logits) against the plain version's, and the output unchanged by
+    writing them."""
+    from repro_torch.kernels.flash_attention import _forward
+    from repro_torch.kernels.ref import attention_lse_plain
+    q = _normal(gen, 2, 4, 150, d, dtype=dtype)
+    k, v = (_normal(gen, 2, 2, 200, d, dtype=dtype) for _ in range(2))
+    out, lse = _forward(q, k, v, True, None, with_lse=True)
+    plain, none = _forward(q, k, v, True, None, with_lse=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, plain)
+    err = float((lse - attention_lse_plain(q, k)).abs().max())
+    assert err <= (1e-5 if dtype == torch.float32 else 1e-3), err
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
+    (4, 8, 1, 2048, 2048, 256),   # gemma-2b's training shape
+    (2, 16, 8, 300, 300, 128),    # qwen3-1.7b's heads, ragged
+])
+def test_flash_attention_bwd_repeated_launches_agree(gen, b, hq, hkv, lq,
+                                                     lk, d):
+    """The backward launched 20 times more on the same inputs: dq, dk, dv
+    equal to the first bit for bit (no atomics: gemma-2b's dk and dv sum
+    over its 8 query heads in one fixed order)."""
+    first, exp, (q, k, v, dout) = _attention_grads(
+        gen, b, hq, hkv, lq, lk, d, torch.bfloat16)
+    for name, g, e in zip("qkv", first, exp):
+        _grad_gate(g, e, f"d{name}")
+    _, lse = _lse(q, k, v)
+    for i in range(20):
+        again = flash_attention_bwd(q, k, v, dout, lse)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
+def _lse(q, k, v):
+    from repro_torch.kernels.flash_attention import _forward
+    return _forward(q, k, v, True, None, with_lse=True)
+
+
+@pytest.mark.parametrize("shape", [(1, 32), (7, 128), (300, 2048),
+                                   (2, 3, 5, 256), (4, 8192), (33, 100),
+                                   (2113, 128), (8192, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_equals_plain(gen, shape, dtype):
+    """dx and dweight through the autograd route against autograd of the
+    plain version: every team width, a width that is no multiple of the
+    vector (element by element), uneven teams, gemma-2b's rows."""
+    from repro_torch.kernels.ref import rmsnorm_bwd_plain
+    x = _normal(gen, *shape, dtype=dtype)
+    w = _normal(gen, shape[-1], dtype=dtype)
+    dy = _normal(gen, *shape, dtype=dtype)
+    leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    fwd, bwd = rmsnorm.launches, rmsnorm_bwd.launches
+    got = torch.autograd.grad(rmsnorm(*leaves), leaves, dy)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm_bwd.launches) == (fwd + 1, bwd + 1)
+    for name, g, e in zip(("dx", "dw"), got, rmsnorm_bwd_plain(x, w, dy)):
+        _grad_gate(g, e, name)
+
+
+@pytest.mark.parametrize("rows,d", [(8192, 2048), (8192 * 16, 128)])
+def test_rmsnorm_bwd_repeated_launches_agree(gen, rows, d):
+    """20 launches more, bit-equal: dweight's partials are summed in a
+    fixed order."""
+    x, dy = (_normal(gen, rows, d, dtype=torch.bfloat16) for _ in range(2))
+    w = _normal(gen, d, dtype=torch.bfloat16)
+    first = rmsnorm_bwd(x, w, dy)
+    for i in range(20):
+        again = rmsnorm_bwd(x, w, dy)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
+def test_kernels_without_backward_raise_under_grad(gen):
+    """decode_attention and rwkv6_scan have no backward kernel: with an
+    input that requires a gradient under grad mode they raise, so no
+    output leaves the autograd graph unnoticed; under no_grad they
+    launch."""
+    q = _normal(gen, 2, 4, 64).requires_grad_(True)
+    kc, vc = (_normal(gen, 2, 2, 16, 64) for _ in range(2))
+    with pytest.raises(NotImplementedError, match="backward"):
+        decode_attention(q, kc, vc)
+    args = list(_wkv_inputs(gen, 1, 5, 2, 64, torch.float32, False))
+    args[0] = args[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        rwkv6_scan(*args)
+    with torch.no_grad():
+        decode_attention(q, kc, vc)
+        rwkv6_scan(*args)
+    torch.cuda.synchronize()
+
+
+def _train_launches(cfg) -> dict:
+    """Kernel launches of one train step of a dense model with each
+    superblock checkpointed: the forward's norms (two a layer, two more
+    with qk-norm, the final norm) and attention, the recomputed layers'
+    again, then one backward launch each (the final norm's included)."""
+    norms = (2 + 2 * cfg.use_qk_norm) * cfg.n_layers
+    return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
+            "flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-1.7b"])
+def test_value_and_grad_step_on_the_card_equals_the_cpu(gen, arch):
+    """One smoke train step (fp32, ``value_and_grad_step``'s optimizer)
+    on the card, through the forward and backward kernels, against the
+    same step on the CPU's plain route: the loss within 1e-4 relative,
+    every gradient leaf within 1e-4 of the leaf's largest magnitude, and
+    the card's AdamW update equal, within 1e-6, to the CPU's update from
+    the card's own gradients.  (Params after the step
+    are not compared across devices directly: AdamW's first step moves
+    each param by lr * g / (|g| + eps), so a gradient near eps = 1e-8
+    that differs in its last bits moves its param by up to lr.)"""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = smoke_config(arch)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    cpu = init_params(cfg, 0, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+    wrappers = {"rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
+                "flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), cpu)
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        loss, grads = steps.value_and_grad(
+            params, cfg, {"tokens": toks.to(dev), "labels": toks.to(dev)})
+        torch.cuda.synchronize()
+        launches = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        updated, _, _ = adamw.apply_updates(
+            opt, params, grads, adamw.init_state(opt, params))
+        out[dev] = float(loss), grads, updated, launches
+    assert out["cpu"][3] == dict.fromkeys(wrappers, 0)
+    assert out["cuda"][3] == _train_launches(cfg)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for i, (a, b) in enumerate(zip(tree_leaves(out["cuda"][1]),
+                                   tree_leaves(out["cpu"][1]))):
+        assert a.device.type == "cuda"
+        _grad_gate(a.cpu(), b, f"leaf {i}")
+    card_grads = tree_map(lambda t: t.cpu(), out["cuda"][1])
+    again, _, _ = adamw.apply_updates(opt, tree_map(torch.clone, cpu),
+                                      card_grads, adamw.init_state(opt, cpu))
+    for a, b in zip(tree_leaves(out["cuda"][2]), tree_leaves(again)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-6

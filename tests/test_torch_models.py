@@ -242,10 +242,12 @@ def test_unported_paths_raise():
     p = tcommon.tree_map(lambda a: a[0], params["blocks"]["sub0"]["mixer"])
     x = torch.zeros((1, 4, tc.d_model))
     kv = (cache["blocks"]["sub0"]["k"][0], cache["blocks"]["sub0"]["v"][0])
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+    with pytest.raises(NotImplementedError, match="section 1, item 7"):
         tattn.gqa_apply(p, tc, x, torch.arange(4)[None], cache_kv=kv,
                         cache_len=torch.tensor([3]))
-    with pytest.raises(NotImplementedError, match="forward_train"):
-        tm.forward_train(params, tc, {})
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="training with a context"):
+        tm.forward_train(params, tc, {"tokens": tokens, "labels": tokens,
+                                      "vision_embeds": x})
     with pytest.raises(NotImplementedError, match="mamba"):
         ttf.init_params(t_smoke("jamba-1.5-large-398b"), device="meta")

@@ -25,6 +25,9 @@ from repro_torch.service import (BatchDecider, BrokerConfig,  # noqa: E402
                                  ServicePortal, ShardedCoherenceBroker,
                                  connect)
 from repro_torch.sim import oracle  # noqa: E402
+from repro_torch import checkpoint, data, optim  # noqa: E402, F401
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.runtime import steps, train_loop  # noqa: E402, F401
 
 pytestmark = pytest.mark.torch
 
@@ -73,7 +76,10 @@ def test_every_port_module_is_checked():
                    "service/client.py", "service/loadgen.py",
                    "service/sharding.py", "service/connect.py",
                    "service/adapters.py", "launch/mesh.py",
-                   "launch/service.py"):
+                   "launch/service.py", "optim/adamw.py",
+                   "data/pipeline.py", "checkpoint/checkpoint.py",
+                   "runtime/steps.py", "runtime/train_loop.py",
+                   "launch/train.py"):
         assert any(n.endswith(module) for n in names), module
 
 
@@ -126,6 +132,12 @@ def _trace(chunk_tokens: int = 0):
     lambda: launch_service.main(["--clients", "2", "--artifacts", "2",
                                  "--artifact-tokens", "8", "--rounds", "1",
                                  "--shards", "2"]),
+    lambda: train_loop.run_training(smoke_config("qwen3-1.7b"),
+                                    train_loop.TrainLoopConfig(total_steps=1),
+                                    "build/never_written"),
+    lambda: launch_train.main(["--arch", "qwen3-1.7b", "--smoke",
+                               "--steps", "1",
+                               "--ckpt-dir", "build/never_written"]),
 ], ids=["run_scenario", "compare", "rates", "init_arrays", "init_metrics",
         "init_params", "init_cache", "params_from_numpy",
         "serving_system", "serve_cli", "rwkv6_init_params",
@@ -133,7 +145,8 @@ def _trace(chunk_tokens: int = 0):
         "broker", "episode_key", "oracle_kernel_leg",
         "oracle_content_kernel_leg", "check_trace", "check_content_trace",
         "shard_streams", "connect_sharded", "connect_single",
-        "sharded_broker", "sharded_portal", "service_cli"])
+        "sharded_broker", "sharded_portal", "service_cli",
+        "run_training", "train_cli"])
 def test_entry_points_default_to_cuda(no_card, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
