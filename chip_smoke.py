@@ -12,13 +12,20 @@ Phases, each printing JSON lines:
              spills (none allowed in the entries of ``NO_SPILL``, the WKV
              scan, both ticks and both backward kernels, or in the bf16
              wgmma flash kernel at any head dim) and, where ``cuobjdump`` is
-             installed, the tensor-core (HGMMA) instructions of its
-             machine code (at least one).
+             installed, the tensor-core (HGMMA) instructions of the
+             machine code of flash and of its backward (at least one
+             each; the backward's ``dq_wgmma`` and ``dkdv_wgmma`` built
+             at every head dim).
 2. kernels - holds each kernel against its plain PyTorch version on the
              card at a mid-size shape and at every shape the main paths
-             give it: the coherence ticks exactly (int32); RMSNorm within
-             one bf16 ulp (also on a view offset by one element, the
-             kernel's element-by-element path, and at a qk-norm width);
+             give it: the coherence ticks exactly (int32); RMSNorm in
+             both cast orders, the TPU kernel's within one bf16 ulp and
+             the cast-first order the models run within |w| one ulp of
+             x_hat plus one ulp, differing from its plain twin in at most
+             1e-4 of the elements (the TPU order, as a control, must fail
+             that) (also
+             on a view offset by one element, the kernel's
+             element-by-element path, and at a qk-norm width);
              flash attention and flash decode within 1e-2 max-abs in bf16
              and 1e-5 in fp32 on unit-scale inputs, and in bf16 also
              element by element within one bf16 ulp of the plain value
@@ -148,9 +155,13 @@ Phases, each printing JSON lines:
              from 20 with the uninterrupted run's losses, and the training
              CLI for 3 steps.  The backward kernels are held in phase 2
              too: ``flash_attention_bwd`` (gemma-2b's and qwen3-1.7b's
-             training shapes, mid fp32 / bf16, a ragged length) and
-             ``rmsnorm_bwd`` ((8192, 2048), the qk-norm width, mid fp32,
-             a ragged width) against autograd of their plain versions
+             training shapes, mid fp32 / bf16, a ragged length, with
+             the dK/dV pass's head split, and without it where it
+             splits; each pass's device time from
+             one profiled call, after phase 8) and ``rmsnorm_bwd`` in
+             both cast orders
+             ((8192, 2048), the qk-norm width, mid fp32, a ragged width)
+             against autograd of their plain versions
              (fp32 within 1e-4 of the reference's largest magnitude; bf16
              relative L2 within 1e-2 and each element within 2 bf16 ulps
              plus 2**-8 of its tensor's rms), timed beside their bounds
@@ -289,6 +300,15 @@ SERVE_RWKV = dict(SERVE, arch="rwkv6-1.6b")
 #: run (qwen3-1.7b's smoke config, a crash at 25 of 40 steps, resumed)
 TRAIN = dict(arch="gemma-2b", batch=4, seq_len=2048, steps=4)
 TRAIN_LOOP = dict(arch="qwen3-1.7b", steps=40, every=10, crash_at=25)
+#: the attention backward's shapes in phase ``kernels`` (label, b, Hq,
+#: Hkv, Lq, Lk, D, dtype name)
+BWD_CASES = (("mid fp32", 2, 8, 2, 700, 700, 64, "float32"),
+             ("mid bf16", 2, 8, 2, 700, 700, 64, "bfloat16"),
+             ("gemma-2b train", TRAIN["batch"], 8, 1, TRAIN["seq_len"],
+              TRAIN["seq_len"], 256, "bfloat16"),
+             ("qwen3-1.7b train", TRAIN["batch"], 16, 8, TRAIN["seq_len"],
+              TRAIN["seq_len"], 128, "bfloat16"),
+             ("ragged bf16", 1, 8, 1, 333, 1001, 256, "bfloat16"))
 #: the backward kernels against autograd of the plain versions: fp32
 #: max-abs within this share of the reference tensor's largest magnitude;
 #: bf16 relative L2 within GRAD_REL_L2 per tensor and each element within
@@ -307,6 +327,14 @@ GRAD_RMS_FLOOR = 2.0 ** -8
 #: embedding's gradient sums every token's
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL_L2 = 2e-2
+#: the cast-first bf16 ``rmsnorm`` (the models' order) against its plain
+#: twin: at most this share of the elements may differ at all (at least
+#: one is allowed).  The two sum the squares in other orders, so the
+#: first rounding of x_hat falls the other way in a few elements a
+#: million (2.8e-6 on an H100, PERF.md), while the TPU kernel's order,
+#: which rounds once, differs in about a quarter of them: the gate tells
+#: the two orders apart, which the per-element allowance cannot
+CAST_FIRST_DIFF_SHARE = 1e-4
 #: tolerances of the model kernels against their plain versions (max-abs)
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 #: the forward's row statistics (fp32 natural log-sum-exp, which the
@@ -538,8 +566,11 @@ def ptxas_entries(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"\d(flash_[a-z0-9]+)ILi(\d+)E", m.group(1))
-            name = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)
+            t = re.search(r"\d((?:flash|dq|dkdv)_[a-z0-9]+)I(?:f)?Li(\d+)E",
+                          m.group(1))
+            plain = re.search(r"\d(dkdv_reduce)E", m.group(1))
+            name = (f"{t.group(1)}<{t.group(2)}>" if t
+                    else plain.group(1) if plain else m.group(1))
             entries[name] = {}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -561,8 +592,10 @@ def phase_build(card: str) -> None:
     hand); prints each entry's registers, shared memory and spills, which
     must be none in the entries of the kernels of ``NO_SPILL`` and in the
     bf16 flash kernel at every head dim, and, where ``cuobjdump`` is
-    installed, the count of tensor-core (``HGMMA``) instructions in
-    flash's machine code, which must not be 0."""
+    installed, the count of tensor-core (``HGMMA``) instructions in the
+    machine code of flash and of its backward (whose ``dq_wgmma`` and
+    ``dkdv_wgmma`` entries must exist at every head dim), neither of
+    which may be 0."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     for name in build.KERNELS:
@@ -589,24 +622,34 @@ def phase_build(card: str) -> None:
         emit({"phase": "build", "kernel": name, "entries": rows,
               "card": card})
 
-    lib_path = build.library_path("flash_attention")
     entries = ptxas_entries(logs["flash_attention"])
     for d in HEAD_DIMS:
         row = entries.get(f"flash_wgmma<{d}>", {})
         check(row.get("spill_stores") == 0 == row.get("spill_loads")
               and row.get("stack") == 0,
               f"flash_wgmma<{d}> compiled without register spills ({row})")
+    bwd = ptxas_entries(logs["flash_attention_bwd"])
+    for d in HEAD_DIMS:
+        for entry in ("dq_wgmma", "dkdv_wgmma"):
+            check(f"{entry}<{d}>" in bwd,
+                  f"flash_attention_bwd builds {entry}<{d}>")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    hgmma = None
-    if pathlib.Path(tool).exists():
-        sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
-                              capture_output=True, text=True).stdout
-        hgmma = dict(collections.Counter(re.findall(r"HGMMA\.\w+\.\w+\.\w+",
-                                                    sass)))
-        check(sum(hgmma.values()) > 0,
-              "flash_attention's machine code holds HGMMA instructions")
-    emit({"phase": "build", "kernel": "flash_attention", "entries": entries,
-          "hgmma": hgmma, "card": card})
+    for name, rows in (("flash_attention", entries),
+                       ("flash_attention_bwd", None)):
+        hgmma = None
+        if pathlib.Path(tool).exists():
+            sass = subprocess.run(
+                [tool, "-sass", str(build.library_path(name))], check=True,
+                capture_output=True, text=True).stdout
+            hgmma = dict(collections.Counter(
+                re.findall(r"HGMMA\.\w+\.\w+\.\w+", sass)))
+            check(sum(hgmma.values()) > 0,
+                  f"{name}'s machine code holds HGMMA instructions")
+        row = {"phase": "build", "kernel": name, "hgmma": hgmma,
+               "card": card}
+        if rows is not None:
+            row["entries"] = rows
+        emit(row)
 
 
 def random_mesi_inputs(gen, B: int, n: int, m: int):
@@ -785,6 +828,93 @@ def bf16_ulps(got, exp) -> float:
     return float(((got.float() - exp32).abs() / ulp).max())
 
 
+def cast_first_err(got, x, w, eps: float = 1e-6) -> float:
+    """Largest ``|got - exp|`` of a cast-first ``rmsnorm`` (bf16) over its
+    allowance against the plain twin ``exp = bf16(bf16(x_hat) * w)``:
+    ``|w|`` times one bf16 ulp of ``bf16(x_hat)`` plus half an ulp each of
+    ``got`` and ``exp``.  The kernel sums the squares in another order
+    than the plain version, so where the two fp32 x_hat lie either side
+    of a bf16 rounding boundary the first rounding falls the other way:
+    the two exact products then differ by at most ``|w|`` one ulp of
+    x_hat, and each is rounded by at most half an ulp of its result (up
+    to 2 ulps of y, in a few elements a million on an H100); a lost row
+    or a wrong scale moves it far more."""
+    import torch
+
+    def ulp(t):
+        t = t.float()
+        return torch.where(t == 0, 0.0, torch.ldexp(
+            torch.ones_like(t), torch.frexp(t).exponent - 8))
+
+    x32 = x.float()
+    xhat = (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+            ).to(x.dtype)
+    exp = xhat * w
+    allow = w.float().abs() * ulp(xhat) + 0.5 * (ulp(got) + ulp(exp))
+    diff = (got.float() - exp.float()).abs()
+    # x = 0 (randn draws it) gives exp = 0 and no allowance: equal is 0
+    return float(torch.where(diff == 0, 0.0, diff / allow).max())
+
+
+def differing_share(got, exp) -> tuple:
+    """(elements of ``got`` that differ from ``exp`` at all, their share,
+    the share ``CAST_FIRST_DIFF_SHARE`` allows: at least one element)."""
+    n = int((got != exp).sum())
+    return n, n / got.numel(), max(CAST_FIRST_DIFF_SHARE, 1 / got.numel())
+
+
+def check_rmsnorm(x, w, label: str) -> dict:
+    """``rmsnorm`` in both cast orders against its plain versions: the
+    TPU kernel's order (``ops.rmsnorm``) within one bf16 ulp of
+    ``rmsnorm_plain``, the cast-first order (the model's
+    ``norm_apply``) within :func:`cast_first_err`'s allowance of
+    ``rmsnorm_cast_first_plain`` and differing from it in at most
+    ``CAST_FIRST_DIFF_SHARE`` of the elements; fp32 within 1e-5 of the
+    largest magnitude in both.  As a control, the TPU kernel's order must
+    fail the share gate against the cast-first twin (bf16 inputs of 4096
+    elements or more, where a quarter of them differ).  Returns the
+    readings."""
+    import torch
+    from repro_torch.kernels.ref import (rmsnorm_cast_first_plain,
+                                         rmsnorm_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    out, outputs = {}, {}
+    for cast_first, plain in ((False, rmsnorm_plain),
+                              (True, rmsnorm_cast_first_plain)):
+        got = outputs[cast_first] = rmsnorm(x, w, cast_first=cast_first)
+        torch.cuda.synchronize()
+        exp = plain(x, w)
+        err = float((got.float() - exp.float()).abs().max())
+        order = "cast-first" if cast_first else "TPU-kernel"
+        if x.dtype != torch.bfloat16:
+            check(err <= 1e-5 * max(1.0, float(exp.abs().max())),
+                  f"rmsnorm ({order} order) fp32 within 1e-5 ({label})")
+            out[order] = {"max_abs_err": err}
+        elif cast_first:
+            ratio = cast_first_err(got, x, w)
+            check(ratio <= 1.0, f"rmsnorm (cast-first order) within |w| "
+                  f"one ulp of x_hat plus one bf16 ulp ({label}: {ratio})")
+            n, share, limit = differing_share(got, exp)
+            check(share <= limit, f"rmsnorm (cast-first order) differs "
+                  f"from its plain twin in {share} <= {limit} of the "
+                  f"elements ({label})")
+            out[order] = {"max_abs_err": err, "max_allowance_share": ratio,
+                          "max_bf16_ulps": bf16_ulps(got, exp),
+                          "elements_differing": n, "share_differing": share}
+            if x.numel() >= 4096:
+                n, share, limit = differing_share(outputs[False], exp)
+                check(share > limit, f"control: the TPU kernel's order "
+                      f"fails the cast-first share gate ({label}: {share} "
+                      f"of the elements differ)")
+                out["control: TPU order vs cast-first twin"] = {
+                    "elements_differing": n, "share_differing": share}
+        else:
+            ulps = bf16_ulps(got, exp)
+            check(ulps <= 1.0, f"rmsnorm within one bf16 ulp ({label})")
+            out[order] = {"max_abs_err": err, "max_bf16_ulps": ulps}
+    return out
+
+
 def bf16_row_err(got, exp) -> float:
     """Largest ``|got - exp|`` over its allowance: one bf16 ulp of ``exp``
     plus ``ROW_RMS_FLOOR`` times the rms of ``exp``'s row (last axis).
@@ -835,7 +965,7 @@ def phase_model_kernels(card: str, rate: float, flops: float,
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import (attention_plain,
                                          decode_attention_plain,
-                                         rmsnorm_plain)
+                                         rmsnorm_cast_first_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     cfg = get(SERVE["arch"])
@@ -866,29 +996,24 @@ def phase_model_kernels(card: str, rate: float, flops: float,
         x = normal(rows * width + offset, dtype=dtype)[offset:].view(rows,
                                                                     width)
         w = normal(width, dtype=dtype)
-        out = rmsnorm(x, w)
-        torch.cuda.synchronize()
-        exp = rmsnorm_plain(x, w)
-        err = float((out.float() - exp.float()).abs().max())
-        if dtype == bf16:
-            ulps = bf16_ulps(out, exp)
-            check(ulps <= 1.0, f"rmsnorm within one bf16 ulp ({label})")
-        else:
-            ulps = None
-            check(err <= 1e-5 * max(1.0, float(exp.abs().max())),
-                  f"rmsnorm fp32 within 1e-5 ({label})")
+        errs = check_rmsnorm(x, w, label)
+        # timed in the order the models run (norm_apply: cast first)
+        model_norm = functools.partial(rmsnorm, cast_first=True)
         args = lambda: (x, w)   # noqa: E731
-        dev_ms, host_ms = device_ms(rmsnorm, args, 10)
+        dev_ms, host_ms = device_ms(model_norm, args, 10)
         row = {"phase": "kernels", "kernel": "rmsnorm", "case": label,
                "shape": [rows, width], "offset": offset,
                "dtype": str(dtype).split(".")[-1],
-               "max_abs_err": err, "max_bf16_ulps": ulps,
-               "ms": median_ms(rmsnorm, args, 10),
+               "max_abs_err": max(errs[o]["max_abs_err"]
+                                  for o in ("TPU-kernel", "cast-first")),
+               "orders": errs,
+               "ms": median_ms(model_norm, args, 10),
                "device_ms": dev_ms, "host_ms": host_ms,
-               "plain_ms": median_ms(rmsnorm_plain, args, 3),
+               "device_ms_tpu_order": device_ms(rmsnorm, args, 10)[0],
+               "plain_ms": median_ms(rmsnorm_cast_first_plain, args, 3),
                "library_ms": median_ms(
                    lambda a, b: F.rms_norm(a, (width,), b, 1e-6), args, 10),
-               "bound_ms": size(x, w, out) / rate * 1e3,
+               "bound_ms": (2 * size(x) + size(w)) / rate * 1e3,
                "bound_by": "bytes", "card": card}
         emit(row)
         if label == "batched prefill":
@@ -2119,18 +2244,39 @@ def serve_profile(card: str, system, params, steps: int = 8) -> None:
           "top": top[:10], "card": card})
 
 
+class head_split_off:
+    """Inside ``with head_split_off():`` the bf16 attention backward is
+    planned as on a card of one SM, so its dK/dV pass runs unsplit (S_h =
+    1): the yardstick of what the head split buys."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self.saved = fa._sm_count
+        fa._sm_count = lambda index: 1
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+        fa._sm_count = self.saved
+
+
 class plain_route:
     """Inside ``with plain_route():`` the model kernels' public entry
-    points (``repro_torch.kernels.ops``) run their plain versions, on
-    CUDA tensors too - the reference the serve phase holds the kernel
-    route to.  The port itself has no such switch."""
+    points (``repro_torch.kernels.ops``, and the RMSNorm wrapper that the
+    models' ``norm_apply`` calls in its cast-first order) run their plain
+    versions, on CUDA tensors too - the reference the serve phase holds
+    the kernel route to.  The port itself has no such switch."""
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import rmsnorm as norm
         self.saved = (ops.rmsnorm, ops.flash_attention, ops.decode_attention,
-                      ops.rwkv6_scan)
+                      ops.rwkv6_scan, norm.rmsnorm)
         ops.rmsnorm = lambda x, w, eps=1e-6, block_rows=128: \
             ref.rmsnorm_plain(x, w, eps)
+        norm.rmsnorm = lambda x, w, eps=1e-6, cast_first=False: (
+            ref.rmsnorm_cast_first_plain if cast_first
+            else ref.rmsnorm_plain)(x, w, eps)
         ops.flash_attention = lambda q, k, v, causal=True, scale=None, \
             block_q=128, block_k=128: ref.attention_plain(q, k, v, causal,
                                                           scale)
@@ -2141,8 +2287,9 @@ class plain_route:
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
+        from repro_torch.kernels import rmsnorm as norm
         (ops.rmsnorm, ops.flash_attention, ops.decode_attention,
-         ops.rwkv6_scan) = self.saved
+         ops.rwkv6_scan, norm.rmsnorm) = self.saved
         return False
 
 
@@ -2344,11 +2491,15 @@ def phase_train_kernels(card: str, rate: float, flops: float) -> dict:
     """The two backward kernels against autograd of their plain versions
     on the card, and the forward kernels as training launches them
     against theirs (flash with its row statistics, output and lse each
-    held; rmsnorm at the same rows as its backward), at a mid shape in
-    fp32 and bf16, at the training path's shapes (gemma-2b's attention at (4, 8, 1, 2048, 256) and its rows
-    (8192, 2048), its qk-norm width at qwen3-1.7b's heads, qwen3-1.7b's
-    attention (4, 16, 8, 2048, 128)) and a ragged length; each timed
-    alone, with its bound and the backward of the one PyTorch call that
+    held; rmsnorm at the same rows as its backward, both in both cast
+    orders), at a mid shape in fp32 and bf16, at the
+    training path's shapes (gemma-2b's attention at (4, 8, 1, 2048, 256)
+    and its rows (8192, 2048), its qk-norm width at qwen3-1.7b's heads,
+    qwen3-1.7b's attention (4, 16, 8, 2048, 128)) and a ragged length;
+    each timed alone (rmsnorm's in the cast-first order the models run;
+    the attention backward with its head split and, where it splits,
+    also without, in turns), with its bound and the
+    backward of the one PyTorch call that
     computes the same forward (a yardstick the port never calls), then
     launched ``REPEATS`` more times, every output equal to the first bit
     for bit.  Also times the forward flash kernel with and without its
@@ -2356,11 +2507,11 @@ def phase_train_kernels(card: str, rate: float, flops: float) -> dict:
     the row of gemma-2b's training shape."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (_forward,
+    from repro_torch.kernels.flash_attention import (_forward, bwd_plan,
                                                      flash_attention_bwd)
     from repro_torch.kernels.ref import (attention_bwd_plain,
                                          attention_lse_plain, attention_plain,
-                                         rmsnorm_bwd_plain, rmsnorm_plain)
+                                         rmsnorm_bwd_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 
     bf16 = torch.bfloat16
@@ -2381,14 +2532,8 @@ def phase_train_kernels(card: str, rate: float, flops: float) -> dict:
                                            retain_graph=True)
 
     results, repeat_cases = {}, []
-    for label, b, h, g, lq, lk, dim, dtype in (
-            ("mid fp32", 2, 8, 2, 700, 700, 64, torch.float32),
-            ("mid bf16", 2, 8, 2, 700, 700, 64, bf16),
-            ("gemma-2b train", TRAIN["batch"], 8, 1, TRAIN["seq_len"],
-             TRAIN["seq_len"], 256, bf16),
-            ("qwen3-1.7b train", TRAIN["batch"], 16, 8, TRAIN["seq_len"],
-             TRAIN["seq_len"], 128, bf16),
-            ("ragged bf16", 1, 8, 1, 333, 1001, 256, bf16)):
+    for label, b, h, g, lq, lk, dim, name in BWD_CASES:
+        dtype = getattr(torch, name)
         q = normal(b, h, lq, dim, dtype=dtype)
         k, v = (normal(b, g, lk, dim, dtype=dtype) for _ in range(2))
         dout = normal(b, h, lq, dim, dtype=dtype)
@@ -2435,6 +2580,22 @@ def phase_train_kernels(card: str, rate: float, flops: float) -> dict:
                                work / flops) * 1e3,
                "bound_by": "operations", "card": card}
         row["tflops"] = work / (row["device_ms"] * 1e-3) / 1e12
+        if dtype == bf16:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            row["head_splits"] = bwd_plan(b, h, g, lq, lk, dim,
+                                          sms).head_splits
+            if row["head_splits"] > 1:
+                # what the split buys: alone in turns, unsplit and split
+                turns = {}
+                for off in (True, False, False, True):
+                    if off:
+                        with head_split_off():
+                            ms = device_ms(flash_attention_bwd, args, 3)[0]
+                    else:
+                        ms = device_ms(flash_attention_bwd, args, 3)[0]
+                    turns.setdefault(off, []).append(ms)
+                row["device_ms_split_off"] = turns[True]
+                row["device_ms_split_on"] = turns[False]
         emit(row)
         repeat_cases.append(("flash_attention_bwd", label, functools.partial(
             flash_attention_bwd, q, k, v, dout, lse), got))
@@ -2468,44 +2629,56 @@ def phase_train_kernels(card: str, rate: float, flops: float) -> dict:
             ("ragged bf16", 333, 1000, bf16)):
         x, dy = (normal(rows, width, dtype=dtype) for _ in range(2))
         w = normal(width, dtype=dtype)
-        # the forward at training's rows, then the backward
-        fwd = rmsnorm(x, w)
-        got = rmsnorm_bwd(x, w, dy)
-        torch.cuda.synchronize()
-        exp = rmsnorm_plain(x, w)
-        fwd_err = float((fwd.float() - exp.float()).abs().max())
-        if dtype == bf16:
-            fwd_ulps = bf16_ulps(fwd, exp)
-            check(fwd_ulps <= 1.0,
-                  f"rmsnorm within one bf16 ulp ({label}, training)")
-        else:
-            fwd_ulps = None
-            check(fwd_err <= 1e-5 * max(1.0, float(exp.abs().max())),
-                  f"rmsnorm fp32 within 1e-5 ({label}, training)")
-        del fwd
-        exp = rmsnorm_bwd_plain(x, w, dy)
-        errs = [check_grad(a, e, f"rmsnorm_bwd {n} ({label})")
-                for n, a, e in zip(("dx", "dw"), got, exp)]
+        # the forward at training's rows in both cast orders, then the
+        # backward in both, each against autograd of its plain version
+        fwd_errs = check_rmsnorm(x, w, f"{label}, training")
+        orders = {}
+        for cast_first in (False, True):
+            got = rmsnorm_bwd(x, w, dy, cast_first=cast_first)
+            torch.cuda.synchronize()
+            exp = rmsnorm_bwd_plain(x, w, dy, cast_first=cast_first)
+            order = "cast-first" if cast_first else "TPU-kernel"
+            orders[order] = [check_grad(a, e, f"rmsnorm_bwd {n} ({label}, "
+                                        f"{order} order)")
+                             for n, a, e in zip(("dx", "dw"), got, exp)]
+            repeat_cases.append((f"rmsnorm_bwd ({order} order)", label,
+                                 functools.partial(rmsnorm_bwd, x, w, dy,
+                                                   cast_first=cast_first),
+                                 got))
+            if label == "gemma-2b train":
+                repeat_cases.append((
+                    f"rmsnorm ({order} order)", label, functools.partial(
+                        rmsnorm, x, w, cast_first=cast_first),
+                    rmsnorm(x, w, cast_first=cast_first)))
+        del exp
+        errs = orders["cast-first"]
+        # timed in the order the models run (norm_apply: cast first)
+        model_bwd = functools.partial(rmsnorm_bwd, cast_first=True)
         args = lambda: (x, w, dy)   # noqa: E731
-        dev_ms, host_ms = device_ms(rmsnorm_bwd, args, 10)
+        dev_ms, host_ms = device_ms(model_bwd, args, 10)
         row = {"phase": "kernels", "kernel": "rmsnorm_bwd", "case": label,
                "shape": [rows, width], "dtype": str(dtype).split(".")[-1],
                "max_abs_err": max(e[0] for e in errs),
                "rel_l2": [e[1] for e in errs],
                "max_elem_err": (None if dtype == torch.float32
                                 else max(e[2] for e in errs)),
-               "fwd_max_abs_err": fwd_err, "fwd_max_bf16_ulps": fwd_ulps,
-               "ms": median_ms(rmsnorm_bwd, args, 10),
+               "tpu_order": {"rel_l2": [e[1] for e in orders["TPU-kernel"]],
+                             "max_elem_err": (
+                                 None if dtype == torch.float32 else
+                                 max(e[2] for e in orders["TPU-kernel"])),
+                             "device_ms": device_ms(rmsnorm_bwd, args,
+                                                    10)[0]},
+               "fwd": fwd_errs,
+               "ms": median_ms(model_bwd, args, 10),
                "device_ms": dev_ms, "host_ms": host_ms,
-               "plain_ms": median_ms(rmsnorm_bwd_plain, args, 3),
+               "plain_ms": median_ms(functools.partial(
+                   rmsnorm_bwd_plain, cast_first=True), args, 3),
                "library_ms": median_ms(library_grad(
                    lambda a, b_: F.rms_norm(a, (width,), b_, 1e-6),
                    (x, w), dy), tuple, 10),
-               "bound_ms": size(x, w, dy, *got) / rate * 1e3,
+               "bound_ms": (3 * size(x) + 2 * size(w)) / rate * 1e3,
                "bound_by": "bytes", "card": card}
         emit(row)
-        repeat_cases.append(("rmsnorm_bwd", label, functools.partial(
-            rmsnorm_bwd, x, w, dy), got))
         if label == "gemma-2b train":
             results["rmsnorm_bwd"] = row
     check_repeats(card, repeat_cases)
@@ -2533,6 +2706,62 @@ def expected_train_launches(cfg, steps: int) -> dict:
             "rmsnorm_bwd": (norms + 1) * steps,
             "flash_attention": 2 * cfg.n_layers * steps,
             "flash_attention_bwd": cfg.n_layers * steps}
+
+
+def phase_bwd_passes() -> None:
+    """Each pass of ``flash_attention_bwd`` at the shapes of phase
+    ``kernels``, printed by a process of its own (``chip_smoke.py
+    --bwd-passes``, :func:`bwd_passes`).  Not in this process: on an H100,
+    profiler sessions opened after phase ``train`` saw no device kernel,
+    and with five opened before phase ``service`` that phase's trace held
+    157 of its 158 tick launches."""
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                           "--bwd-passes"], cwd=REPO, timeout=600)
+    check(proc.returncode == 0, "the attention backward's passes profiled")
+
+
+def bwd_passes(card: str) -> None:
+    """Each pass of ``flash_attention_bwd`` (``dq_wgmma``,
+    ``dkdv_wgmma``, ``dkdv_reduce``; fp32: ``dq_kernel``,
+    ``dkdv_kernel``) at the shapes of phase ``kernels``, from one
+    profiled call each, with the dK/dV pass's head split and, where it
+    splits, one more call without."""
+    import torch
+    from repro_torch.kernels.flash_attention import (_forward, bwd_plan,
+                                                     flash_attention_bwd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def short(kernel):   # "void (anonymous namespace)::dq_wgmma<256>(..."
+        m = re.search(r"::(\w+(?:<[^>(]*>)?)\(", kernel)
+        return m.group(1) if m else kernel
+
+    for label, b, h, g, lq, lk, dim, name in BWD_CASES:
+        dtype = getattr(torch, name)
+        q, dout = (torch.randn((b, h, lq, dim), generator=gen,
+                               device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, g, lk, dim), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        lse = _forward(q, k, v, True, None, with_lse=True)[1]
+        flash_attention_bwd(q, k, v, dout, lse)     # built and warm
+
+        def passes():
+            return {short(row["name"]): row["device_ms"]
+                    for row in device_profile(lambda: flash_attention_bwd(
+                        q, k, v, dout, lse))[2]}
+
+        splits = (bwd_plan(b, h, g, lq, lk, dim, sms).head_splits
+                  if dtype == torch.bfloat16 else 1)
+        row = {"phase": "kernels", "kernel": "flash_attention_bwd",
+               "case": label, "shape": [b, h, g, lq, lk, dim],
+               "dtype": name, "head_splits": splits, "passes_ms": passes(),
+               "card": card}
+        if splits > 1:      # the same call with the group unsplit
+            with head_split_off():
+                row["passes_ms_split_off"] = passes()
+        emit(row)
+        del q, k, v, dout, lse
 
 
 def phase_train(card: str, flops: float) -> dict:
@@ -2640,6 +2869,11 @@ def phase_train(card: str, flops: float) -> dict:
                                 for k, v in launches.items()},
           "profiled_step_s": wall, "profiled_busy_s": busy,
           "device_idle_share": 1.0 - busy / wall, "top": top[:10],
+          # the attention backward's passes in the profiled step
+          "attention_bwd_passes": [
+              r for r in top if re.search(
+                  r"dq_wgmma|dkdv_wgmma|dkdv_reduce|dq_kernel|dkdv_kernel",
+                  r["name"])],
           "card": card})
     del params, opt_state, batches, step_fn
     torch.cuda.empty_cache()
@@ -2711,6 +2945,9 @@ def main() -> int:
     from repro_torch.kernels import build, chunk_diff, mesi_transition as mt
 
     card = card_line()
+    if sys.argv[1:] == ["--bwd-passes"]:   # phase_bwd_passes' own process
+        bwd_passes(card)
+        return 0
     rate, flops = memory_rate(card), bf16_rate(card)
     fp32_flops = fp32_rate(card)
     emit({"phase": "env", "torch": torch.__version__,
@@ -2746,6 +2983,7 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + count
     for name, count in phase_train(card, flops).items():
         launches[name] = launches.get(name, 0) + count
+    phase_bwd_passes()
     check(set(kernels) == set(launches) == set(REPLACES)
           == set(build.KERNELS) and all(v > 0 for v in launches.values()),
           "the main paths launched every kernel")

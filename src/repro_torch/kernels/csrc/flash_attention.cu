@@ -70,8 +70,6 @@
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it
 // does not take.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes
-                   // from cudaGetDriverEntryPoint, libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -353,53 +351,12 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 3-D map over (D, L, heads) of bf16 whose box is one swizzle chunk
-// wide and `rows` rows tall; rows past L read as zeros
 template <int D>
 bool make_map(CUtensorMap* map, const void* ptr, int L, int heads,
               int rows) {
   using C = Cfg<D>;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(L),
-                              cuuint64_t(heads)};
-  const cuuint64_t strides[2] = {cuuint64_t(D) * 2,
-                                 cuuint64_t(L) * D * 2};
-  const cuuint32_t box[3] = {cuuint32_t(C::kChunkCols), cuuint32_t(rows),
-                             1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                C::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                   : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::make_map_bf16(map, ptr, D, L, heads, C::kChunkCols, rows,
+                               C::kSwizzle);
 }
 
 template <int D>

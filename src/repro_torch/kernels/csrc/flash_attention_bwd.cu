@@ -17,43 +17,103 @@
 // atomics, so every launch on the same inputs gives the same bits
 // (gemma-2b is MQA: one kv head's dK / dV sums over all 8 query heads,
 // and atomics would add them in a different order each run):
-//   1. dq_kernel: a block per (batch, q head, q tile) holds its Q and dO
-//      rows and walks the causal key tiles: S = Q K^T, P, dP = dO V^T,
-//      A += (P o dP) K, B += P K and D += rowsum(P o dP); at the end
-//      dQ = scale (A - D B), and D goes to `delta` for pass 2.  D is
-//      the row sum of dO o O taken over the keys in fp32 (folded into
-//      this pass) rather than from the bf16-rounded output, whose
-//      rounding moved dQ of rows with few keys by up to 3x the bf16
-//      gate on an H100;
-//   2. dkdv_kernel: a block per (batch, kv head, key tile) holds its dK
-//      and dV in registers and walks the group's query heads and, for
-//      each, the causal q tiles in order: dS = P (dP - D) scale,
-//      dV += P^T dO, dK += dS^T Q.
-// Both passes recompute S and dP: 8 products of the forward's size per
-// tile pair against the forward's 2 (4x its flops; a kernel that adds
-// dQ with atomics needs 5).  The bf16 kernels sum D in a first sweep of
-// the dQ pass instead and feed P and dS as two terms (12 products).
-//
+//   1. dQ: a block per (batch, q head, q tile) holds its Q and dO rows
+//      and walks the causal key tiles; it sums D = rowsum(P o dP) in
+//      fp32 (not from the bf16-rounded output, whose rounding moved dQ
+//      of rows with few keys by up to 3x the bf16 gate on an H100), then
+//      dQ = scale * sum_k P (dP - D) K;
+//   2. dK / dV: a block per (batch, kv head, key tile) holds its dK and
+//      dV and walks the group's query heads and, for each, the causal q
+//      tiles in order: dS = P (dP - D) scale, dV += P^T dO,
+//      dK += dS^T Q.
 // The input type chooses the kernels, as in the forward: bf16 runs on
-// the tensor cores (dq_mma, dkdv_mma: mma.sync with ldmatrix, described
-// below), fp32 on the CUDA cores (dq_kernel, dkdv_kernel), since an fp32
-// tensor-core product is TF32.  The fp32 kernels stage tiles in shared
-// memory as fp32 rows padded to D + 4 floats (D + 1 at D = 32), so that
-// a thread reads four head-dim values of a row as one 16-byte load and
-// 16 threads reading 16 different rows at one column hit 16 different
-// banks; each thread keeps a (tile rows / 16) x (tile columns / 16)
-// block of S and dP and a (rows / 16) x (D / 16) block of each
-// accumulator.  At D = 256 a key tile is 32 rows (dK and dV are 32 x 256
-// fp32 each: 64 registers a thread), at D = 128 64 rows; q tiles are 32
-// rows at D >= 128, 64 below.
+// the tensor cores (dq_wgmma, dkdv_wgmma, below), fp32 on the CUDA cores
+// (dq_kernel, dkdv_kernel), since an fp32 tensor-core product is TF32.
+//
+// fp32 (dq_kernel, dkdv_kernel): both passes recompute S and dP, 8
+// products of the forward's size per tile pair against the forward's 2.
+// Tiles sit in shared memory as fp32 rows padded to D + 4 floats (D + 1
+// at D = 32), so that a thread reads four head-dim values of a row as one
+// 16-byte load and 16 threads reading 16 different rows at one column hit
+// 16 different banks; each thread keeps a (tile rows / 16) x (tile
+// columns / 16) block of S and dP and a (rows / 16) x (D / 16) block of
+// each accumulator.  At D = 256 a key tile is 32 rows (dK and dV are
+// 32 x 256 fp32 each: 64 registers a thread), at D = 128 64 rows; q tiles
+// are 32 rows at D >= 128, 64 below.
+//
+// bf16 (dq_wgmma, dkdv_wgmma, dkdv_reduce): the forward's Hopper pieces
+// (hopper.cuh; flash_attention.cu's schedule and tensor maps).  Every
+// product is wgmma (bf16 in, fp32 sums in registers); tiles arrive by TMA
+// in the forward's swizzled layout (128-byte rows, 64-byte at D = 32,
+// a row of D values as D / 64 column chunks of one swizzle atom each);
+// P and dS enter their products as two bf16 terms, hi = bf16(x) and
+// lo = bf16(x - hi) (a single rounding of dS put dQ at 2.29x the bf16
+// gate's element allowance on an H100): 12 products of the forward's
+// size per tile pair, two sweeps of 2 and 4 in the dQ pass, 6 in the
+// dK / dV pass.
+//   * dq_wgmma: a block of three warpgroups per (b, q head, 128 q rows),
+//     the heaviest causal q tiles first (the grid's slow axis counts
+//     down).  Warpgroup 2 is the producer (setmaxnreg 24): one thread
+//     loads Q and dO once by TMA, then streams the 64-key K and V tiles
+//     through two rings of stages, twice over (one sweep each), each
+//     stage's arrival counted on an mbarrier in bytes and its release
+//     on another by every consumer warp; no block-wide barrier in the key
+//     loop.  Each consumer warpgroup (setmaxnreg 240) owns 64 rows:
+//     S = Q K^T and dP = dO V^T by wgmma.m64n64k16 from shared memory,
+//     P = exp2(S scale log2 e - lse log2 e) in registers.  Sweep 1 sums
+//     D over the keys; sweep 2 forms dS in the accumulator's registers,
+//     whose layout is the A fragment's, and adds dQ += dS K by
+//     wgmma.m64nDk16 with K as the MN-major operand (the transpose bit),
+//     as the forward adds P V; V's stage is released as soon as dP is
+//     done.  Key tiles past a warpgroup's last row are skipped.  At
+//     D = 256 a thread holds dQ 128 + S 32 + dP 32 fp32 registers.  The
+//     pass also writes each row's lse log2 e and D, padded to Lq_pad =
+//     64 ceil(Lq / 64) rows per head (+inf and 0 past Lq, so that padded
+//     rows give P = 0 without a mask), to the scratch buffer for pass 2.
+//     Shared memory: Q and dO 128 x D each, K and V stages of 64 x D:
+//     at D = 256 two K stages and one V stage (64 + 64 + 64 + 32 =
+//     224 KB of the SM's 227; two V stages would need 256), four of each
+//     below (192, 96 and 48 KB at D = 128, 64, 32).
+//   * dkdv_wgmma: a block of three warpgroups per (b, kv head, 64 keys,
+//     head split), key tiles with the most causal q tiles first on the
+//     grid's slow axis.  The producer loads K and V once, then streams
+//     Q, dO (64 rows each, TMA) and their rows' lse log2 e and D (256
+//     bytes each, bulk copies from the scratch) through a ring, over the
+//     split's query heads and each head's causal q tiles in order.  With
+//     the keys as M, S^T = K Q^T and dP^T = V dO^T sit in the A
+//     fragment's layout, so dV += P^T dO and dK += dS^T Q take P^T and
+//     dS^T from registers and dO and Q as MN-major operands: no
+//     transposed loads.  dK and dV of 64 keys at D = 256 are 256 fp32
+//     registers a thread in one warpgroup, so the two consumer
+//     warpgroups split the roles: warpgroup 0 forms S^T and P^T (fp32,
+//     16 KB of shared memory, handed over behind two named barriers,
+//     full and empty) and owns dV; warpgroup 1 forms dP^T, reads P^T,
+//     forms dS^T and owns dK; each holds 128 + 32 accumulator registers
+//     at D = 256 and runs three products of the forward's size a tile
+//     pair.  Shared memory: K, V 64 x D each, stages of Q and dO 64 x D
+//     each plus 512 bytes of row statistics, P^T 16 KB: at D = 256 two
+//     stages, 64 + 128 + 16 + 1 = 209 KB; four stages below.
+//   * MQA balance: where the grid of (b, kv head, key tile) blocks would
+//     be under two waves (gemma-2b: 4 x 1 x 32 = 128 blocks on 132
+//     SMs, the first key tile walking 8 heads x 32 q tiles and the last
+//     8 x 1), the caller splits each query group over S_h blocks of at
+//     least two heads each (kernels/flash_attention.py bwd_plan; gemma-2b
+//     S_h = 4, 512 blocks).  Each block then writes fp32 partial dK and
+//     dV to the scratch, and dkdv_reduce, a second launch of the same
+//     call, sums them in split order and casts: the bits do not depend
+//     on which block ends first.
 //
 // C interface (ctypes): flash_attention_bwd_launch(q, k, v, dout, lse,
-// delta, dq, dk, dv, B, Hq, Hkv, Lq, Lk, D, causal, scale, dtype, stream)
-// with dtype 0 = float32, 1 = bfloat16, D in {32, 64, 128, 256}, every
-// tensor pointer 16-byte aligned; lse is the forward's fp32 (B, Hq, Lq)
-// natural log-sum-exp of the scaled logits and delta an fp32 (B, Hq, Lq)
-// scratch buffer the first pass fills.  Launches the two kernels in
-// order on `stream`; returns cudaGetLastError(), or
+// delta, scratch, dq, dk, dv, B, Hq, Hkv, Lq, Lk, D, causal, scale,
+// head_splits, dtype, stream) with dtype 0 = float32, 1 = bfloat16, D in
+// {32, 64, 128, 256}, every tensor pointer 16-byte aligned; lse is the
+// forward's fp32 (B, Hq, Lq) natural log-sum-exp of the scaled logits.
+// fp32 takes delta, an fp32 (B, Hq, Lq) buffer the first pass fills, and
+// no scratch (head_splits 1); bf16 takes no delta and an fp32 scratch of
+// 2 B Hq Lq_pad floats (the padded row statistics) plus, when
+// head_splits > 1, 2 head_splits B Hkv Lk_pad D (the partial dK and dV;
+// Lk_pad = 64 ceil(Lk / 64)); head_splits divides Hq / Hkv.  Launches
+// the kernels in order on `stream`; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments it does not take.
 
 #include <cuda_bf16.h>
@@ -483,49 +543,59 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D, AI>(dv + size_t(bhk) * Lk * D, acc_v, k0, Lk, ty, tx);
 }
 
-// ===================== bf16: tensor cores (mma.sync) =====================
-//
-// The same two passes on bf16 inputs, every product on the tensor cores
-// by mma.sync m16n8k16 (bf16 operands, fp32 sums) with ldmatrix loads:
-// tiles sit in shared memory as bf16 rows of D + 8 values (16 bytes of
-// padding, so the 8 rows an ldmatrix reads hit 8 different bank
-// groups), a block is 8 warps.  Q K^T and dO V^T take both operands
-// straight from the tiles; P^T dO and dS^T Q take P^T and dS^T by
-// transposed ldmatrix from P and dS stored by rows; dS K takes K by
-// transposed ldmatrix.  D = rowsum(P o dP) and dS = P (dP - D) are
-// formed in fp32, and P and dS enter their products as two bf16 terms
-// each, hi = bf16(x) and lo = bf16(x - hi), as the forward feeds P: a
-// single bf16 rounding put dQ at 2.29x the bf16 gate's allowance per
-// element on an H100.  That makes 12 products of the forward's size.
-//   * dq_mma: a block per (b, q head, 64 q rows), two sweeps over the
-//     causal key tiles of 64: the first sums D (4 x 2 warps each own 16
-//     rows x 32 keys of S and dP), the second forms dS into shared memory
-//     and adds dS K, each warp owning 16 rows x D / 2 columns of dQ;
-//   * dkdv_mma: a block per (b, kv head, BK keys; BK = 32 at D = 256,
-//     else 64), for each query head of the group and each causal q tile
-//     of 64 rows, S and dP by 4 x 2 warps, P and dS into shared memory,
-//     then dV += P^T dO and dK += dS^T Q, each warp owning 16 keys x
-//     D BK / 128 columns of both (64 fp32 registers a thread).
 
-constexpr int kMmaQ = 64;  // q rows of a tile
+// ======================= bf16: tensor cores (wgmma) ======================
+
+constexpr int kTile = 64;          // keys of a K/V tile, q rows of a Q/dO tile
+constexpr int kDqRows = 128;       // q rows of a dQ block (two warpgroups)
+constexpr int kWgThreads = 128;
+constexpr int kThreadsWg = 3 * kWgThreads;
+constexpr int kConsumerWarps = 8;
+constexpr int kPFull = 1, kPEmpty = 2;  // named barriers of the P^T handover
 
 template <int D>
-struct MmaTiles {
-  static constexpr int kRow = D + 8;               // bf16 a tile row
-  static constexpr int kBK = D == 256 ? 32 : 64;   // keys of a dK/dV block
-  static constexpr int kPRow = 64 + 8;             // bf16 a P / dS row
+struct Swz {
+  static constexpr int kSwizzle = D >= 64 ? 128 : 64;  // bytes a tile row
+  static constexpr int kChunkCols = kSwizzle / 2;      // bf16 a tile row
+  static constexpr int kChunks = D / kChunkCols;
+  static constexpr int kStepsPerChunk = kChunkCols / 16;
+  static constexpr uint32_t kDescSwizzle = kSwizzle == 128 ? 1 : 2;
+  static constexpr uint32_t kChunk64 = kTile * kSwizzle;  // a 64-row chunk
+  static constexpr uint32_t kTile64 = kChunks * kChunk64;  // 64 x D bf16
 };
 
-// ldmatrix x4 address of lane `lane` for the 16 x 16 block at (r0, c0) of
-// a bf16 tile of `row` values a row: matrices (rows 0-7, cols 0-7),
-// (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) of the block
-__device__ __forceinline__ uint32_t ldsm_addr(const __nv_bfloat16* tile,
-                                              int row, int r0, int c0,
-                                              int lane) {
-  return hopper::smem_u32(tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                     row +
-                          c0 + (lane >> 4) * 8);
-}
+template <int D>
+struct DqCfg {
+  using W = Swz<D>;
+  static constexpr int kKStages = D == 256 ? 2 : 4;
+  static constexpr int kVStages = D == 256 ? 1 : 4;
+  static constexpr uint32_t kQChunk = kDqRows * W::kSwizzle;
+  static constexpr uint32_t kQBytes = W::kChunks * kQChunk;  // 128 x D
+  static constexpr uint32_t kDOOff = kQBytes;
+  static constexpr uint32_t kKOff = 2 * kQBytes;
+  static constexpr uint32_t kVOff = kKOff + kKStages * W::kTile64;
+  static constexpr uint32_t kBarOff = kVOff + kVStages * W::kTile64;
+  // barriers: Q and dO full; per K stage full, empty; per V stage full,
+  // empty; plus 1 KB to align the base to the swizzle atom
+  static constexpr uint32_t kSmem =
+      kBarOff + 8 * (1 + 2 * kKStages + 2 * kVStages) + 1024;
+};
+
+template <int D>
+struct KvCfg {
+  using W = Swz<D>;
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  static constexpr uint32_t kKOff = 0;
+  static constexpr uint32_t kVOff = W::kTile64;
+  static constexpr uint32_t kQOff = 2 * W::kTile64;  // stage s: Q, then dO
+  static constexpr uint32_t kPOff = kQOff + 2 * kStages * W::kTile64;
+  static constexpr uint32_t kStatOff = kPOff + kTile * kTile * 4;
+  static constexpr uint32_t kStatBytes = 2 * kTile * 4;  // lse2, delta
+  static constexpr uint32_t kBarOff = kStatOff + kStages * kStatBytes;
+  // barriers: K and V full; per stage full, empty
+  static constexpr uint32_t kSmem = kBarOff + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr uint32_t kStageTx = 2 * W::kTile64 + kStatBytes;
+};
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -542,375 +612,570 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
   lo = pack2(x0 - back.x, x1 - back.y);
 }
 
-// rows [r0, r0 + rows) of a (L, D) bf16 matrix into a tile of `row`
-// values a row, 16 bytes a thread; rows past L are zeros
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// acc (64 x 64, fp32) = A B^T over D: A the 64 rows at `a` of a tile whose
+// column chunks lie `a_chunk` bytes apart, B the 64 rows at `b` (chunks
+// `b_chunk` apart), both K-major in the swizzled layout
 template <int D>
-__device__ __forceinline__ void load_bf16(__nv_bfloat16* tile,
-                                         const __nv_bfloat16* src, int r0,
-                                         int rows, int L, int row) {
-  constexpr int kUnits = D / 8;
-  for (int idx = threadIdx.x; idx < rows * kUnits; idx += kThreads) {
-    const int r = idx / kUnits, u = idx % kUnits;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < L)
-      v = __ldg(reinterpret_cast<const uint4*>(src + size_t(r0 + r) * D) +
-                u);
-    *reinterpret_cast<uint4*>(tile + r * row + u * 8) = v;
+__device__ __forceinline__ void wgmma_abt(float (&acc)[32], uint32_t a,
+                                          uint32_t a_chunk, uint32_t b,
+                                          uint32_t b_chunk) {
+  using W = Swz<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / W::kStepsPerChunk;
+    const uint32_t at = (kk % W::kStepsPerChunk) * 32;
+    hopper::wgmma_ss_m64n64(
+        acc,
+        hopper::make_desc(a + c * a_chunk + at, 16, 8 * W::kSwizzle,
+                          W::kDescSwizzle),
+        hopper::make_desc(b + c * b_chunk + at, 16, 8 * W::kSwizzle,
+                          W::kDescSwizzle),
+        kk > 0);
   }
 }
 
-// s (+)= A B^T for one warp: A rows [a0, a0 + 16) of tile `a`, B rows
-// [b0, b0 + 8 NT) of tile `b`, both (rows x D) bf16; s[nt] is the
-// fragment of B rows b0 + 8 nt .. + 7
-template <int D, int NT>
-__device__ __forceinline__ void warp_abt(float (&s)[NT][4],
-                                         const __nv_bfloat16* a, int a0,
-                                         const __nv_bfloat16* b, int b0,
-                                         int lane) {
-  constexpr int R = MmaTiles<D>::kRow;
+// acc (64 x D) += (hi + lo) B over 64 rows of k: A from registers (the
+// 64 x 64 accumulator layout of S, split into bf16 hi and lo terms), B
+// the 64 x D tile at `b` (64-row chunks), MN-major
+template <int D>
+__device__ __forceinline__ void wgmma_rs_split(float (&acc)[D / 2],
+                                               const uint32_t (&hi)[16],
+                                               const uint32_t (&lo)[16],
+                                               uint32_t b) {
+  using W = Swz<D>;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t fa[4];
-    hopper::ldmatrix_x4(fa, ldsm_addr(a, R, a0, kk, lane));
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t fb[4];
-      hopper::ldmatrix_x4(fb, ldsm_addr(b, R, b0 + 16 * np, kk, lane));
-      hopper::mma_bf16_16816(s[2 * np], fa[0], fa[1], fa[2], fa[3], fb[0],
-                             fb[2]);
-      hopper::mma_bf16_16816(s[2 * np + 1], fa[0], fa[1], fa[2], fa[3],
-                             fb[1], fb[3]);
-    }
+  for (int ks = 0; ks < kTile / 16; ++ks) {
+    const uint64_t desc = hopper::make_desc(
+        b + ks * 16 * W::kSwizzle, W::kChunk64, 8 * W::kSwizzle,
+        W::kDescSwizzle);
+    const uint32_t a_hi[4] = {hi[4 * ks], hi[4 * ks + 1], hi[4 * ks + 2],
+                              hi[4 * ks + 3]};
+    const uint32_t a_lo[4] = {lo[4 * ks], lo[4 * ks + 1], lo[4 * ks + 2],
+                              lo[4 * ks + 3]};
+    hopper::WgmmaRS<D>::run(acc, a_hi, desc);
+    hopper::WgmmaRS<D>::run(acc, a_lo, desc);
   }
 }
 
-// P and dP of a warp's 16 q rows x 8 NT keys: P = exp2(s scale log2 e -
-// lse) masked past Lq, Lk and the diagonal; rows w0 + g, w0 + g + 8 of
-// the tile (lse2 by tile row), keys k0 + 8 nt + 2 t (+ 1)
-template <int NT>
-__device__ __forceinline__ void mma_probs(float (&s)[NT][4],
-                                          const float* lse2, int w0,
-                                          int q0, int k0, int Lq, int Lk,
-                                          int off, int causal,
-                                          float scale_log2, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = w0 + g + 8 * (e >> 1);
-      const int q = q0 + r;
-      const int k = k0 + 8 * nt + 2 * t + (e & 1);
-      const bool valid = q < Lq && k < Lk && (!causal || k <= q + off);
-      s[nt][e] = valid ? exp2f(s[nt][e] * scale_log2 - lse2[r]) : 0.f;
-    }
+// Accumulator element j of lane `lane` (m64nN layout): row 16 warp +
+// lane / 4 + 8 ((j >> 1) & 1), column 8 (j >> 2) + 2 (lane & 3) + (j & 1).
+__device__ __forceinline__ int acc_col(int j, int lane) {
+  return 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-dq_mma(const __nv_bfloat16* __restrict__ q,
-       const __nv_bfloat16* __restrict__ k,
-       const __nv_bfloat16* __restrict__ v,
-       const __nv_bfloat16* __restrict__ dout,
-       const float* __restrict__ lse, float* __restrict__ delta,
-       __nv_bfloat16* __restrict__ dq, int Hq, int Hkv, int Lq, int Lk,
-       int causal, float scale) {
-  using C = MmaTiles<D>;
-  constexpr int R = C::kRow, BK = 64, NT = BK / 2 / 8, DW = D / 2;
-  extern __shared__ __align__(16) uint8_t mma_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* dOs = Qs + kMmaQ * R;
-  __nv_bfloat16* Ks = dOs + kMmaQ * R;
-  __nv_bfloat16* Vs = Ks + BK * R;
-  __nv_bfloat16* dSs = Vs + BK * R;                    // [q][key], hi
-  __nv_bfloat16* dSl = dSs + kMmaQ * C::kPRow;         // lo
-  float* lse2 = reinterpret_cast<float*>(dSl + kMmaQ * C::kPRow);
-  float* dlt = lse2 + kMmaQ;
-  float* red = dlt + kMmaQ;                            // [2][kMmaQ]
+// ---- pass 1: dQ, and the padded row statistics for pass 2
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wq = warp & 3, wk = warp >> 2;  // S: rows 16 wq, keys 32 wk
-  const int n_qt = gridDim.x;
-  const int qt = causal ? n_qt - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * kMmaQ;
-  const int bh = blockIdx.y;
+template <int D>
+__global__ void __launch_bounds__(kThreadsWg, 1)
+dq_wgmma(const __grid_constant__ CUtensorMap q_map,
+         const __grid_constant__ CUtensorMap do_map,
+         const __grid_constant__ CUtensorMap k_map,
+         const __grid_constant__ CUtensorMap v_map,
+         const float* __restrict__ lse, float* __restrict__ lse2_pad,
+         float* __restrict__ delta_pad, __nv_bfloat16* __restrict__ dq,
+         int Hq, int Hkv, int Lq, int Lk, int Lq_pad, int causal,
+         float scale) {
+  using W = Swz<D>;
+  using C = DqCfg<D>;
+  constexpr int SK = C::kKStages, SV = C::kVStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = hopper::smem_u32(aligned_smem(smem_raw));
+  const uint32_t q_s = base, do_s = base + C::kDOOff;
+  const uint32_t k_s = base + C::kKOff, v_s = base + C::kVOff;
+  const uint32_t qd_full = base + C::kBarOff;
+  auto k_full = [&](int s) { return qd_full + 8 * (1 + s); };
+  auto k_empty = [&](int s) { return qd_full + 8 * (1 + SK + s); };
+  auto v_full = [&](int s) { return qd_full + 8 * (1 + 2 * SK + s); };
+  auto v_empty = [&](int s) { return qd_full + 8 * (1 + 2 * SK + SV + s); };
+
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kDqRows;
+  const int bh = blockIdx.x;  // b * Hq + h
   const int bhk = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const int off = Lk - Lq;
-  const float scale_log2 = scale * kLog2e;
-  const __nv_bfloat16* kb = k + size_t(bhk) * Lk * D;
-  const __nv_bfloat16* vb = v + size_t(bhk) * Lk * D;
+  const int off = Lk - Lq;  // q row r sits at key position r + off
+  int n_kt = (Lk + kTile - 1) / kTile;
+  if (causal)
+    n_kt = min(n_kt, (min(q0 + kDqRows, Lq) - 1 + off) / kTile + 1);
 
-  load_bf16<D>(Qs, q + size_t(bh) * Lq * D, q0, kMmaQ, Lq, R);
-  load_bf16<D>(dOs, dout + size_t(bh) * Lq * D, q0, kMmaQ, Lq, R);
-  for (int r = threadIdx.x; r < kMmaQ; r += kThreads)
-    lse2[r] = q0 + r < Lq ? lse[size_t(bh) * Lq + q0 + r] * kLog2e : 0.f;
-  int n_kt = (Lk + BK - 1) / BK;
-  if (causal) n_kt = min(n_kt, (min(q0 + kMmaQ, Lq) - 1 + off) / BK + 1);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qd_full, 1);
+    for (int s = 0; s < SK; ++s) {
+      hopper::mbar_init(k_full(s), 1);
+      hopper::mbar_init(k_empty(s), kConsumerWarps);
+    }
+    for (int s = 0; s < SV; ++s) {
+      hopper::mbar_init(v_full(s), 1);
+      hopper::mbar_init(v_empty(s), kConsumerWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 2) {
+    // ---- producer: Q and dO once, then K and V twice (one sweep each)
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 2 * kWgThreads) {
+      hopper::mbar_expect_tx(qd_full, 2 * C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < W::kChunks; ++c) {
+        hopper::tma_load_3d(q_s + c * C::kQChunk, &q_map, qd_full,
+                            c * W::kChunkCols, q0, bh);
+        hopper::tma_load_3d(do_s + c * C::kQChunk, &do_map, qd_full,
+                            c * W::kChunkCols, q0, bh);
+      }
+      for (int t = 0; t < 2 * n_kt; ++t) {
+        const int k0 = (t < n_kt ? t : t - n_kt) * kTile;
+        const int sk = t % SK, sv = t % SV;
+        hopper::mbar_wait(k_empty(sk), ((t / SK) & 1) ^ 1);
+        hopper::mbar_expect_tx(k_full(sk), W::kTile64);
+#pragma unroll
+        for (int c = 0; c < W::kChunks; ++c)
+          hopper::tma_load_3d(k_s + sk * W::kTile64 + c * W::kChunk64,
+                              &k_map, k_full(sk), c * W::kChunkCols, k0,
+                              bhk);
+        hopper::mbar_wait(v_empty(sv), ((t / SV) & 1) ^ 1);
+        hopper::mbar_expect_tx(v_full(sv), W::kTile64);
+#pragma unroll
+        for (int c = 0; c < W::kChunks; ++c)
+          hopper::tma_load_3d(v_s + sv * W::kTile64 + c * W::kChunk64,
+                              &v_map, v_full(sv), c * W::kChunkCols, k0,
+                              bhk);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows q0 + 64 wg ...
+  hopper::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg_first = q0 + wg * kTile;
+  const int row0 = wg_first + warp * 16 + lane / 4;  // and row0 + 8
+  const uint32_t q_wg = q_s + wg * kTile * W::kSwizzle;
+  const uint32_t do_wg = do_s + wg * kTile * W::kSwizzle;
+  const float scale_log2 = scale * kLog2e;
+  // key tiles this warpgroup reads: none past its last row (causal) and
+  // none at all when its rows all lie past Lq
+  int wg_kt = wg_first < Lq ? n_kt : 0;
+  if (causal && wg_first < Lq)
+    wg_kt = min(wg_kt, (min(wg_first + kTile, Lq) - 1 + off) / kTile + 1);
+  float lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    lse2[i] = r < Lq ? lse[size_t(bh) * Lq + r] * kLog2e : 0.f;
+  }
+
+  // P in place of S (element j: row row0 + 8 ((j >> 1) & 1), key k0 +
+  // acc_col(j)), 0 past Lk and the diagonal
+  auto probs = [&](float (&s)[32], int k0) {
+    const bool masked =
+        k0 + kTile > Lk || (causal && k0 + kTile - 1 > wg_first + off);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int i = (j >> 1) & 1;
+      float p = exp2f(s[j] * scale_log2 - lse2[i]);
+      if (masked) {
+        const int key = k0 + acc_col(j, lane);
+        if (key >= Lk || (causal && key > row0 + 8 * i + off)) p = 0.f;
+      }
+      s[j] = p;
+    }
+  };
+  // the stages of sweep step t wait to land; a tile this warpgroup skips
+  // still waits for both before releasing them, or its arrivals would
+  // complete a stage's previous phase while the other warpgroup reads it
+  auto skip = [&](int t) {
+    hopper::mbar_wait(k_full(t % SK), (t / SK) & 1);
+    hopper::mbar_wait(v_full(t % SV), (t / SV) & 1);
+    __syncwarp();
+    if (lane == 0) {
+      hopper::mbar_arrive(k_empty(t % SK));
+      hopper::mbar_arrive(v_empty(t % SV));
+    }
+  };
+  // S = Q K^T and dP = dO V^T of sweep step t
+  auto products = [&](float (&s)[32], float (&dp)[32], int t) {
+    const int sk = t % SK, sv = t % SV;
+    hopper::mbar_wait(k_full(sk), (t / SK) & 1);
+    hopper::wgmma_fence();
+    wgmma_abt<D>(s, q_wg, C::kQChunk, k_s + sk * W::kTile64, W::kChunk64);
+    hopper::mbar_wait(v_full(sv), (t / SV) & 1);
+    wgmma_abt<D>(dp, do_wg, C::kQChunk, v_s + sv * W::kTile64,
+                 W::kChunk64);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(s);
+    hopper::fence_operands(dp);
+  };
+
+  hopper::mbar_wait(qd_full, 0);
 
   // sweep 1: D = rowsum(P o dP) over every key
   float dsum[2] = {0.f, 0.f};
-  for (int tk = 0; tk < n_kt; ++tk) {
-    const int k0 = tk * BK;
-    __syncthreads();
-    load_bf16<D>(Ks, kb, k0, BK, Lk, R);
-    load_bf16<D>(Vs, vb, k0, BK, Lk, R);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    warp_abt<D, NT>(s, Qs, 16 * wq, Ks, 32 * wk, lane);
-    warp_abt<D, NT>(dp, dOs, 16 * wq, Vs, 32 * wk, lane);
-    mma_probs<NT>(s, lse2, 16 * wq, q0, k0 + 32 * wk, Lq, Lk, off, causal,
-                  scale_log2, lane);
+  for (int t = 0; t < n_kt; ++t) {
+    if (t >= wg_kt) {
+      skip(t);
+      continue;
+    }
+    float s[32], dp[32];
+    products(s, dp, t);
+    __syncwarp();
+    if (lane == 0) {
+      hopper::mbar_arrive(k_empty(t % SK));
+      hopper::mbar_arrive(v_empty(t % SV));
+    }
+    probs(s, t * kTile);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dsum[e >> 1] += s[nt][e] * dp[nt][e];
+    for (int j = 0; j < 32; ++j) dsum[(j >> 1) & 1] += s[j] * dp[j];
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], 1);
     dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], 2);
-    if (t == 0) red[wk * kMmaQ + 16 * wq + g + 8 * i] = dsum[i];
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < kMmaQ; r += kThreads) {
-    dlt[r] = red[r] + red[kMmaQ + r];
-    if (q0 + r < Lq) delta[size_t(bh) * Lq + q0 + r] = dlt[r];
+    const int r = row0 + 8 * i;
+    if ((lane & 3) == 0 && r < Lq_pad) {
+      const size_t at = size_t(bh) * Lq_pad + r;
+      lse2_pad[at] = r < Lq ? lse2[i] : INFINITY;
+      delta_pad[at] = r < Lq ? dsum[i] : 0.f;
+    }
   }
 
   // sweep 2: dS = P (dP - D) scale, dQ += dS K
-  float acc[DW / 8][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int nt = 0; nt < DW / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  for (int tk = 0; tk < n_kt; ++tk) {
-    const int k0 = tk * BK;
-    __syncthreads();  // dlt is written; the previous tiles are consumed
-    load_bf16<D>(Ks, kb, k0, BK, Lk, R);
-    load_bf16<D>(Vs, vb, k0, BK, Lk, R);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    warp_abt<D, NT>(s, Qs, 16 * wq, Ks, 32 * wk, lane);
-    warp_abt<D, NT>(dp, dOs, 16 * wq, Vs, 32 * wk, lane);
-    mma_probs<NT>(s, lse2, 16 * wq, q0, k0 + 32 * wk, Lq, Lk, off, causal,
-                  scale_log2, lane);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 16 * wq + g + 8 * h;
-        const int at = r * C::kPRow + 32 * wk + 8 * nt + 2 * t;
-        const float d0 = dlt[r];
-        split2(s[nt][2 * h] * (dp[nt][2 * h] - d0) * scale,
-               s[nt][2 * h + 1] * (dp[nt][2 * h + 1] - d0) * scale,
-               *reinterpret_cast<uint32_t*>(dSs + at),
-               *reinterpret_cast<uint32_t*>(dSl + at));
-      }
-    __syncthreads();
-    // dQ rows 16 wq.., columns DW wk..: A = dS (hi, lo), B = K
-    // (transposed loads)
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t fh[4], fl[4];
-      hopper::ldmatrix_x4(fh, ldsm_addr(dSs, C::kPRow, 16 * wq, kk, lane));
-      hopper::ldmatrix_x4(fl, ldsm_addr(dSl, C::kPRow, 16 * wq, kk, lane));
-#pragma unroll
-      for (int np = 0; np < DW / 16; ++np) {
-        uint32_t fb[4];
-        hopper::ldmatrix_x4_trans(
-            fb, ldsm_addr(Ks, R, kk, DW * wk + 16 * np, lane));
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          hopper::mma_bf16_16816(acc[2 * np + j], fh[0], fh[1], fh[2],
-                                 fh[3], fb[2 * j], fb[2 * j + 1]);
-          hopper::mma_bf16_16816(acc[2 * np + j], fl[0], fl[1], fl[2],
-                                 fl[3], fb[2 * j], fb[2 * j + 1]);
-        }
-      }
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  for (int t = 0; t < n_kt; ++t) {
+    const int u = n_kt + t;
+    if (t >= wg_kt) {
+      skip(u);
+      continue;
     }
+    float s[32], dp[32];
+    products(s, dp, u);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(v_empty(u % SV));
+    probs(s, t * kTile);
+    uint32_t ds_hi[16], ds_lo[16];
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const float d0 = dsum[(j >> 1) & 1];
+      split2(s[j] * (dp[j] - d0) * scale, s[j + 1] * (dp[j + 1] - d0) * scale,
+             ds_hi[j / 2], ds_lo[j / 2]);
+    }
+    hopper::wgmma_fence();
+    wgmma_rs_split<D>(acc, ds_hi, ds_lo, k_s + (u % SK) * W::kTile64);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(k_empty(u % SK));
   }
+
   __nv_bfloat16* ob = dq + size_t(bh) * Lq * D;
 #pragma unroll
-  for (int nt = 0; nt < DW / 8; ++nt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = q0 + 16 * wq + g + 8 * h;
-      if (r < Lq)
-        *reinterpret_cast<uint32_t*>(ob + size_t(r) * D + DW * wk + 8 * nt +
-                                     2 * t) =
-            pack2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-    }
+  for (int j = 0; j < D / 2; j += 2) {
+    const int r = row0 + 8 * ((j >> 1) & 1);
+    if (r < Lq)
+      *reinterpret_cast<uint32_t*>(ob + size_t(r) * D + acc_col(j, lane)) =
+          pack2(acc[j], acc[j + 1]);
+  }
 }
 
+// ---- pass 2: dK and dV, a block per (key tile, b * Hkv + kv head, head
+// split), blockIdx.x = (key tile * B Hkv + b Hkv + kv head) * splits + split
+
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-dkdv_mma(const __nv_bfloat16* __restrict__ q,
-         const __nv_bfloat16* __restrict__ k,
-         const __nv_bfloat16* __restrict__ v,
-         const __nv_bfloat16* __restrict__ dout,
-         const float* __restrict__ lse, const float* __restrict__ delta,
-         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-         int Hq, int Hkv, int Lq, int Lk, int causal, float scale) {
-  using C = MmaTiles<D>;
-  constexpr int R = C::kRow, BK = C::kBK;
-  constexpr int NT = BK / 2 / 8;          // S: n-tiles a warp (BK/2 keys)
-  constexpr int WK = BK / 16;             // dK/dV: warps along the keys
-  constexpr int DW = D / (8 / WK);        // dK/dV: columns a warp
-  extern __shared__ __align__(16) uint8_t mma_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* dOs = Qs + kMmaQ * R;
-  __nv_bfloat16* Ks = dOs + kMmaQ * R;
-  __nv_bfloat16* Vs = Ks + BK * R;
-  // P and dS by rows [q][key], each as hi and lo terms
-  __nv_bfloat16* Ps = Vs + BK * R;
-  __nv_bfloat16* Pl = Ps + kMmaQ * C::kPRow;
-  __nv_bfloat16* dSs = Pl + kMmaQ * C::kPRow;
-  __nv_bfloat16* dSl = dSs + kMmaQ * C::kPRow;
-  float* lse2 = reinterpret_cast<float*>(dSl + kMmaQ * C::kPRow);
-  float* dlt = lse2 + kMmaQ;
+__global__ void __launch_bounds__(kThreadsWg, 1)
+dkdv_wgmma(const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map,
+           const __grid_constant__ CUtensorMap q_map,
+           const __grid_constant__ CUtensorMap do_map,
+           const float* __restrict__ lse2_pad,
+           const float* __restrict__ delta_pad,
+           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+           float* __restrict__ partial, int Hq, int Hkv, int BHkv, int Lq,
+           int Lk, int Lq_pad, int Lk_pad, int splits, int causal,
+           float scale) {
+  using W = Swz<D>;
+  using C = KvCfg<D>;
+  constexpr int S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t k_s = base + C::kKOff, v_s = base + C::kVOff;
+  auto q_st = [&](int s) { return base + C::kQOff + 2 * s * W::kTile64; };
+  auto do_st = [&](int s) { return q_st(s) + W::kTile64; };
+  const uint32_t kv_full = base + C::kBarOff;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + S + s); };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wq = warp & 3, ws = warp >> 2;   // S: rows 16 wq, keys BK/2 ws
-  const int wk = warp % WK, wd = warp / WK;  // dK, dV: keys 16 wk, cols DW wd
-  const int k0 = blockIdx.x * BK;
-  const int bhk = blockIdx.y;
+  const int split = blockIdx.x % splits;
+  const int rest = blockIdx.x / splits;
+  const int bhk = rest % BHkv;
+  const int k0 = (rest / BHkv) * kTile;
   const int b = bhk / Hkv, hk = bhk % Hkv, group = Hq / Hkv;
+  const int heads = group / splits;
+  const int h_first = hk * group + split * heads;  // this block's heads
   const int off = Lk - Lq;
+  const int n_qt = (Lq + kTile - 1) / kTile;
+  // causal: rows r with r + off >= k0 see this key tile
+  const int qt_first = causal ? max(0, k0 - off) / kTile : 0;
+  const int per_head = n_qt - qt_first;
+  const int n_items = heads * per_head;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), kConsumerWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 2) {
+    // ---- producer: K and V once, then Q, dO and their rows' statistics
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 2 * kWgThreads) {
+      hopper::mbar_expect_tx(kv_full, 2 * W::kTile64);
+#pragma unroll
+      for (int c = 0; c < W::kChunks; ++c) {
+        hopper::tma_load_3d(k_s + c * W::kChunk64, &k_map, kv_full,
+                            c * W::kChunkCols, k0, bhk);
+        hopper::tma_load_3d(v_s + c * W::kChunk64, &v_map, kv_full,
+                            c * W::kChunkCols, k0, bhk);
+      }
+      for (int i = 0; i < n_items; ++i) {
+        const int s = i % S;
+        const int bh = b * Hq + h_first + i / per_head;
+        const int q0 = (qt_first + i % per_head) * kTile;
+        hopper::mbar_wait(empty(s), ((i / S) & 1) ^ 1);
+        hopper::mbar_expect_tx(full(s), C::kStageTx);
+#pragma unroll
+        for (int c = 0; c < W::kChunks; ++c) {
+          hopper::tma_load_3d(q_st(s) + c * W::kChunk64, &q_map, full(s),
+                              c * W::kChunkCols, q0, bh);
+          hopper::tma_load_3d(do_st(s) + c * W::kChunk64, &do_map, full(s),
+                              c * W::kChunkCols, q0, bh);
+        }
+        const uint32_t stat = base + C::kStatOff + s * C::kStatBytes;
+        const size_t row = size_t(bh) * Lq_pad + q0;
+        hopper::bulk_load(stat, lse2_pad + row, kTile * 4, full(s));
+        hopper::bulk_load(stat + kTile * 4, delta_pad + row, kTile * 4,
+                          full(s));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup 0 forms P^T and owns dV, warpgroup 1 forms
+  // dP^T and dS^T and owns dK; both over keys k0 ... k0 + 63 as rows
+  hopper::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int key0 = k0 + warp * 16 + lane / 4;  // and key0 + 8
   const float scale_log2 = scale * kLog2e;
+  float4* pbuf = reinterpret_cast<float4*>(smem + C::kPOff);
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
 
-  load_bf16<D>(Ks, k + size_t(bhk) * Lk * D, k0, BK, Lk, R);
-  load_bf16<D>(Vs, v + size_t(bhk) * Lk * D, k0, BK, Lk, R);
-  float acc_k[DW / 8][4], acc_v[DW / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < DW / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[nt][e] = acc_v[nt][e] = 0.f;
+  hopper::mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i % S;
+    const int q0 = (qt_first + i % per_head) * kTile;
+    const float* stat = reinterpret_cast<const float*>(
+        smem + C::kStatOff + s * C::kStatBytes);
+    hopper::mbar_wait(full(s), (i / S) & 1);
+    float x[32];
+    hopper::wgmma_fence();
+    if (wg == 0)  // S^T = K Q^T
+      wgmma_abt<D>(x, k_s, W::kChunk64, q_st(s), W::kChunk64);
+    else          // dP^T = V dO^T
+      wgmma_abt<D>(x, v_s, W::kChunk64, do_st(s), W::kChunk64);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(x);
 
-  const int n_qt = (Lq + kMmaQ - 1) / kMmaQ;
-  const int qt_first = causal ? max(0, k0 - off) / kMmaQ : 0;
-  for (int gi = 0; gi < group; ++gi) {
-    const int bh = b * Hq + hk * group + gi;
-    for (int qt = qt_first; qt < n_qt; ++qt) {
-      const int q0 = qt * kMmaQ;
-      __syncthreads();
-      load_bf16<D>(Qs, q + size_t(bh) * Lq * D, q0, kMmaQ, Lq, R);
-      load_bf16<D>(dOs, dout + size_t(bh) * Lq * D, q0, kMmaQ, Lq, R);
-      for (int r = threadIdx.x; r < kMmaQ; r += kThreads) {
-        const bool in = q0 + r < Lq;
-        lse2[r] = in ? lse[size_t(bh) * Lq + q0 + r] * kLog2e : 0.f;
-        dlt[r] = in ? delta[size_t(bh) * Lq + q0 + r] : 0.f;
+    // element j: key key0 + 8 ((j >> 1) & 1), q row q0 + acc_col(j)
+    uint32_t hi[16], lo[16];
+    if (wg == 0) {
+      const bool masked = causal && k0 + kTile - 1 > q0 + off;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = acc_col(j, lane);
+        float p = exp2f(x[j] * scale_log2 - stat[col]);
+        if (masked && key0 + 8 * ((j >> 1) & 1) > q0 + col + off) p = 0.f;
+        x[j] = p;
       }
-      __syncthreads();
-      float s[NT][4], dp[NT][4];
-      warp_abt<D, NT>(s, Qs, 16 * wq, Ks, (BK / 2) * ws, lane);
-      warp_abt<D, NT>(dp, dOs, 16 * wq, Vs, (BK / 2) * ws, lane);
-      mma_probs<NT>(s, lse2, 16 * wq, q0, k0 + (BK / 2) * ws, Lq, Lk, off,
-                    causal, scale_log2, lane);
+      if (i > 0) hopper::named_sync(kPEmpty, 2 * kWgThreads);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int j = 0; j < 8; ++j)
+        pbuf[j * kWgThreads + tid] =
+            make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      hopper::named_arrive(kPFull, 2 * kWgThreads);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * wq + g + 8 * h;
-          const int at = r * C::kPRow + (BK / 2) * ws + 8 * nt + 2 * t;
-          const float d0 = dlt[r];
-          split2(s[nt][2 * h], s[nt][2 * h + 1],
-                 *reinterpret_cast<uint32_t*>(Ps + at),
-                 *reinterpret_cast<uint32_t*>(Pl + at));
-          split2(s[nt][2 * h] * (dp[nt][2 * h] - d0) * scale,
-                 s[nt][2 * h + 1] * (dp[nt][2 * h + 1] - d0) * scale,
-                 *reinterpret_cast<uint32_t*>(dSs + at),
-                 *reinterpret_cast<uint32_t*>(dSl + at));
-        }
-      __syncthreads();
-      // keys 16 wk.., columns DW wd..: A = P^T / dS^T (hi, lo; transposed
-      // loads of rows q, so the fragment's registers come as 0, 2, 1, 3),
-      // B = dO / Q (transposed loads)
+      for (int j = 0; j < 32; j += 2) split2(x[j], x[j + 1], hi[j / 2], lo[j / 2]);
+    } else {
+      hopper::named_sync(kPFull, 2 * kWgThreads);
+      float p[32];
 #pragma unroll
-      for (int kq = 0; kq < kMmaQ; kq += 16) {
-        uint32_t a[4][4];  // P hi, P lo, dS hi, dS lo
-        const __nv_bfloat16* src[4] = {Ps, Pl, dSs, dSl};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          hopper::ldmatrix_x4_trans(
-              a[i], ldsm_addr(src[i], C::kPRow, kq, 16 * wk, lane));
-#pragma unroll
-        for (int np = 0; np < DW / 16; ++np) {
-          uint32_t fo[4], fq[4];
-          hopper::ldmatrix_x4_trans(
-              fo, ldsm_addr(dOs, R, kq, DW * wd + 16 * np, lane));
-          hopper::ldmatrix_x4_trans(
-              fq, ldsm_addr(Qs, R, kq, DW * wd + 16 * np, lane));
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              hopper::mma_bf16_16816(acc_v[2 * np + j], a[i][0], a[i][2],
-                                     a[i][1], a[i][3], fo[2 * j],
-                                     fo[2 * j + 1]);
-              hopper::mma_bf16_16816(acc_k[2 * np + j], a[2 + i][0],
-                                     a[2 + i][2], a[2 + i][1], a[2 + i][3],
-                                     fq[2 * j], fq[2 * j + 1]);
-            }
-        }
+      for (int j = 0; j < 8; ++j) {
+        const float4 v4 = pbuf[j * kWgThreads + tid];
+        p[4 * j] = v4.x;
+        p[4 * j + 1] = v4.y;
+        p[4 * j + 2] = v4.z;
+        p[4 * j + 3] = v4.w;
       }
+      if (i + 1 < n_items) hopper::named_arrive(kPEmpty, 2 * kWgThreads);
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int col = acc_col(j, lane);
+        split2(p[j] * (x[j] - stat[kTile + col]) * scale,
+               p[j + 1] * (x[j + 1] - stat[kTile + col + 1]) * scale,
+               hi[j / 2], lo[j / 2]);
+      }
+    }
+    // dV += P^T dO (warpgroup 0), dK += dS^T Q (warpgroup 1)
+    hopper::wgmma_fence();
+    wgmma_rs_split<D>(acc, hi, lo, wg == 0 ? do_st(s) : q_st(s));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty(s));
+  }
+
+  // rows key0, key0 + 8 of this warpgroup's tensor: bf16 into dK / dV, or
+  // with a head split fp32 into its partial
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int key = key0 + 8 * ((j >> 1) & 1);
+    if (key >= Lk) continue;
+    const int col = acc_col(j, lane);
+    if (splits == 1) {
+      __nv_bfloat16* out = wg == 0 ? dv : dk;
+      *reinterpret_cast<uint32_t*>(out + (size_t(bhk) * Lk + key) * D +
+                                   col) = pack2(acc[j], acc[j + 1]);
+    } else {
+      // partial[which][split][bhk][key][col], which 0 = dK, 1 = dV
+      const size_t at =
+          ((size_t(1 - wg) * splits + split) * BHkv + bhk) * Lk_pad + key;
+      *reinterpret_cast<float2*>(partial + at * D + col) =
+          make_float2(acc[j], acc[j + 1]);
     }
   }
-  __nv_bfloat16* kbo = dk + size_t(bhk) * Lk * D;
-  __nv_bfloat16* vbo = dv + size_t(bhk) * Lk * D;
+}
+
+// dK and dV from the head splits' partials, summed in split order, four
+// values a thread
+__global__ void __launch_bounds__(256)
+dkdv_reduce(const float* __restrict__ partial, __nv_bfloat16* __restrict__ dk,
+            __nv_bfloat16* __restrict__ dv, int splits, int BHkv, int Lk,
+            int Lk_pad, int D) {
+  const size_t quads = size_t(BHkv) * Lk * D / 4;
+  const size_t split_stride = size_t(BHkv) * Lk_pad * D;
+  for (size_t idx = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+       idx < quads; idx += size_t(gridDim.x) * blockDim.x) {
+    const size_t e = idx * 4;
+    const size_t row = e / D;  // bhk * Lk + key
+    const size_t src = ((row / Lk) * Lk_pad + row % Lk) * D + e % D;
 #pragma unroll
-  for (int nt = 0; nt < DW / 8; ++nt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = k0 + 16 * wk + g + 8 * h;
-      if (r >= Lk) continue;
-      const size_t at = size_t(r) * D + DW * wd + 8 * nt + 2 * t;
-      *reinterpret_cast<uint32_t*>(kbo + at) =
-          pack2(acc_k[nt][2 * h], acc_k[nt][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(vbo + at) =
-          pack2(acc_v[nt][2 * h], acc_v[nt][2 * h + 1]);
+    for (int which = 0; which < 2; ++which) {
+      const float* p = partial + size_t(which) * splits * split_stride + src;
+      float4 sum = *reinterpret_cast<const float4*>(p);
+      for (int s = 1; s < splits; ++s) {
+        const float4 v4 =
+            *reinterpret_cast<const float4*>(p + size_t(s) * split_stride);
+        sum.x += v4.x;
+        sum.y += v4.y;
+        sum.z += v4.z;
+        sum.w += v4.w;
+      }
+      uint2 out;
+      out.x = pack2(sum.x, sum.y);
+      out.y = pack2(sum.z, sum.w);
+      *reinterpret_cast<uint2*>((which == 0 ? dk : dv) + e) = out;
     }
+  }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v,
-               const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int B, int Hq, int Hkv, int Lq, int Lk,
-               int causal, float scale, cudaStream_t stream) {
-  using C = MmaTiles<D>;
+bool make_map(CUtensorMap* map, const void* ptr, int L, int heads,
+              int rows) {
+  using W = Swz<D>;
+  return hopper::make_map_bf16(map, ptr, D, L, heads, W::kChunkCols, rows,
+                               W::kSwizzle);
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, float* scratch,
+                 void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
+                 int Lq, int Lk, int causal, float scale, int splits,
+                 cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const bf* qt = static_cast<const bf*>(q);
-  const bf* kt = static_cast<const bf*>(k);
-  const bf* vt = static_cast<const bf*>(v);
-  const bf* dt = static_cast<const bf*>(dout);
-  if (long(B) * Hq > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int dq_bytes = static_cast<int>(
-      sizeof(bf) * (2 * (kMmaQ + 64) * C::kRow + 2 * kMmaQ * C::kPRow) +
-      sizeof(float) * 4 * kMmaQ);
+  const int group = Hq / Hkv;
+  const int n_qt = (Lq + kDqRows - 1) / kDqRows;
+  const int n_kt = (Lk + kTile - 1) / kTile;
+  const int Lq_pad = (Lq + kTile - 1) / kTile * kTile;
+  const int Lk_pad = n_kt * kTile;
+  const long BHq = long(B) * Hq, BHkv = long(B) * Hkv;
+  const long kv_blocks = long(n_kt) * BHkv * splits;
+  if (scratch == nullptr || splits < 1 || group % splits != 0 ||
+      n_qt > 65535 || BHq > 0x7fffffffL || kv_blocks > 0x7fffffffL ||
+      BHq * Lq_pad > 0x7fffffffL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* lse2_pad = scratch;
+  float* delta_pad = scratch + BHq * Lq_pad;
+  float* partial = delta_pad + BHq * Lq_pad;
+
+  CUtensorMap q128, do128, q64, do64, k64, v64;
+  if (!make_map<D>(&q128, q, Lq, int(BHq), kDqRows) ||
+      !make_map<D>(&do128, dout, Lq, int(BHq), kDqRows) ||
+      !make_map<D>(&q64, q, Lq, int(BHq), kTile) ||
+      !make_map<D>(&do64, dout, Lq, int(BHq), kTile) ||
+      !make_map<D>(&k64, k, Lk, int(BHkv), kTile) ||
+      !make_map<D>(&v64, v, Lk, int(BHkv), kTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  constexpr uint32_t dq_bytes = DqCfg<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      dq_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+      dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dq_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_mma<D><<<dim3((Lq + kMmaQ - 1) / kMmaQ, B * Hq), kThreads, dq_bytes,
-              stream>>>(qt, kt, vt, dt, lse, delta, static_cast<bf*>(dq), Hq,
-                        Hkv, Lq, Lk, causal, scale);
+  dq_wgmma<D><<<dim3(unsigned(BHq), n_qt), kThreadsWg, dq_bytes, stream>>>(
+      q128, do128, k64, v64, lse, lse2_pad, delta_pad, static_cast<bf*>(dq),
+      Hq, Hkv, Lq, Lk, Lq_pad, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kv_bytes = static_cast<int>(
-      sizeof(bf) * (2 * (kMmaQ + C::kBK) * C::kRow + 4 * kMmaQ * C::kPRow) +
-      sizeof(float) * 2 * kMmaQ);
-  err = cudaFuncSetAttribute(
-      dkdv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+
+  constexpr uint32_t kv_bytes = KvCfg<D>::kSmem;
+  err = cudaFuncSetAttribute(dkdv_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kv_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_mma<D><<<dim3((Lk + C::kBK - 1) / C::kBK, B * Hkv), kThreads,
-                kv_bytes, stream>>>(qt, kt, vt, dt, lse, delta,
-                                    static_cast<bf*>(dk),
-                                    static_cast<bf*>(dv), Hq, Hkv, Lq, Lk,
-                                    causal, scale);
+  dkdv_wgmma<D><<<unsigned(kv_blocks), kThreadsWg, kv_bytes, stream>>>(
+      k64, v64, q64, do64, lse2_pad, delta_pad, static_cast<bf*>(dk),
+      static_cast<bf*>(dv), partial, Hq, Hkv, int(BHkv), Lq, Lk, Lq_pad,
+      Lk_pad, splits, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+
+  const long quads = BHkv * Lk * D / 4;
+  const long wanted = (quads + 255) / 256;
+  const int blocks = static_cast<int>(wanted < 4096 ? wanted : 4096);
+  dkdv_reduce<<<blocks, 256, 0, stream>>>(partial, static_cast<bf*>(dk),
+                                          static_cast<bf*>(dv), splits,
+                                          int(BHkv), Lk, Lk_pad, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -948,47 +1213,57 @@ int launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+
 template <int D>
 int dispatch(const void* q, const void* k, const void* v,
-             const void* dout, const float* lse, float* delta, void* dq,
-             void* dk, void* dv, int B, int Hq, int Hkv, int Lq, int Lk,
-             int causal, float scale, int dtype, cudaStream_t stream) {
-  if (dtype == 0)
+             const void* dout, const float* lse, float* delta,
+             float* scratch, void* dq, void* dk, void* dv, int B, int Hq,
+             int Hkv, int Lq, int Lk, int causal, float scale,
+             int head_splits, int dtype, cudaStream_t stream) {
+  if (dtype == 0) {
+    if (delta == nullptr || head_splits != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
     return launch<float, D>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq,
                             Hkv, Lq, Lk, causal, scale, stream);
-  return launch_mma<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
-                       Lq, Lk, causal, scale, stream);
+  }
+  return launch_wgmma<D>(q, k, v, dout, lse, scratch, dq, dk, dv, B, Hq,
+                         Hkv, Lq, Lk, causal, scale, head_splits, stream);
 }
 
 }  // namespace
 
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, float* delta, void* dq, void* dk, void* dv, int B,
-    int Hq, int Hkv, int Lq, int Lk, int D, int causal, float scale,
-    int dtype, cudaStream_t stream) {
+    const float* lse, float* delta, float* scratch, void* dq, void* dk,
+    void* dv, int B, int Hq, int Hkv, int Lq, int Lk, int D, int causal,
+    float scale, int head_splits, int dtype, cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
       (causal && Lq > Lk) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t ptrs =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+      reinterpret_cast<uintptr_t>(scratch) |
       reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
       reinterpret_cast<uintptr_t>(dv);
   if (ptrs & 15) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 32:
-      return dispatch<32>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq,
-                          Hkv, Lq, Lk, causal, scale, dtype, stream);
+      return dispatch<32>(q, k, v, dout, lse, delta, scratch, dq, dk, dv, B,
+                          Hq, Hkv, Lq, Lk, causal, scale, head_splits, dtype,
+                          stream);
     case 64:
-      return dispatch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq,
-                          Hkv, Lq, Lk, causal, scale, dtype, stream);
+      return dispatch<64>(q, k, v, dout, lse, delta, scratch, dq, dk, dv, B,
+                          Hq, Hkv, Lq, Lk, causal, scale, head_splits, dtype,
+                          stream);
     case 128:
-      return dispatch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq,
-                           Hkv, Lq, Lk, causal, scale, dtype, stream);
+      return dispatch<128>(q, k, v, dout, lse, delta, scratch, dq, dk, dv,
+                           B, Hq, Hkv, Lq, Lk, causal, scale, head_splits,
+                           dtype, stream);
     case 256:
-      return dispatch<256>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq,
-                           Hkv, Lq, Lk, causal, scale, dtype, stream);
+      return dispatch<256>(q, k, v, dout, lse, delta, scratch, dq, dk, dv,
+                           B, Hq, Hkv, Lq, Lk, causal, scale, head_splits,
+                           dtype, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

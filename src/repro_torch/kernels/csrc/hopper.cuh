@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the kernels of this
-// directory (flash_attention.cu, decode_attention.cu and chunk_tick.cu
-// include it):
-// mbarriers, TMA tile loads, cp.async, warp-level mma.sync with its
-// ldmatrix loads, warpgroup matrix multiply (wgmma) and its shared-memory
-// descriptors, register reallocation.
+// directory (flash_attention.cu, flash_attention_bwd.cu,
+// decode_attention.cu and chunk_tick.cu include it):
+// mbarriers, TMA tile loads and 1-D bulk copies, cp.async, warp-level
+// mma.sync with its ldmatrix loads, warpgroup matrix multiply (wgmma) and
+// its shared-memory descriptors, register reallocation, named barriers.
 // Header only; a kernel includes it and stays a plain-C library.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes
+                   // from cudaGetDriverEntryPoint, libcuda is not linked
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +59,55 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // --- TMA -------------------------------------------------------------------
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's tensor-map encoder, looked up once (host)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D tensor map (host) over a contiguous (heads, L, cols) bf16 array
+// whose box is `box_cols` wide (one swizzle atom: `swizzle` bytes, 128 or
+// 64) and `rows` tall; rows past L read as zeros
+inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int cols,
+                          int L, int heads, int box_cols, int rows,
+                          int swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(L),
+                              cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2,
+                                 cuuint64_t(L) * cols * 2};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // --- cp.async (16 bytes a thread, through L2) counted on an mbarrier -------
 
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
@@ -83,6 +134,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared memory by the bulk copy engine; completion is
+// counted on `bar` in bytes
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -141,6 +204,13 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // a barrier over `threads` threads on named barrier `id` (1..15)
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrives on named barrier `id` without waiting: the calling threads'
+// earlier shared-memory writes are visible to the threads that complete
+// the barrier with named_sync
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --- wgmma -------------------------------------------------------------------

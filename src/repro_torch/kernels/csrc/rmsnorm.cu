@@ -1,11 +1,18 @@
 // Fused RMSNorm over the rows of a (rows, d) matrix, for sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py::rmsnorm_pallas.
-// out = x * rsqrt(mean(x^2) + eps) * w, computed in fp32: the weight is
-// multiplied in fp32 and the product cast to the output type last, the
-// TPU kernel's order.  Only the order of the sum of squares is the
-// kernel's own: each thread's slots in turn with Kahan compensation, then
-// the warp's butterfly, then the row's warps in order.  (Summed plainly,
+// out = x * rsqrt(mean(x^2) + eps) * w, computed in fp32, in one of two
+// cast orders (a template parameter, chosen by the `order` argument):
+//   * 0, the TPU kernel's: the weight is multiplied in fp32 and the
+//     product cast to the output type last (ops.rmsnorm);
+//   * 1, cast first, the JAX package's model (models/common.py
+//     norm_apply): x * rsqrt(...) is rounded to the output type, then
+//     multiplied by the weight in fp32 and rounded again, which is the
+//     product a bf16 multiply gives (the product of two bf16 values is
+//     exact in fp32).  In fp32 the two orders are one computation.
+// Only the order of the sum of squares is the kernel's own: each
+// thread's slots in turn with Kahan compensation, then the warp's
+// butterfly, then the row's warps in order.  (Summed plainly,
 // 64 slots a thread rounded often enough to move gemma-2b's logits past
 // the serving check's limit against the plain route.)
 //
@@ -31,9 +38,9 @@
 //     writes element by element (coalesced, same slots), so a ragged
 //     width or a view offset by an element needs no copy.
 //
-// C interface (ctypes): rmsnorm_launch(x, w, out, rows, d, eps, dtype,
-// stream) with dtype 0 = float32, 1 = bfloat16 (x, w and out share it),
-// 1 <= d <= 8192.  Returns cudaGetLastError() after the launch.
+// C interface (ctypes): rmsnorm_launch(x, w, out, rows, d, eps, order,
+// dtype, stream) with order 0 = the TPU kernel's, 1 = cast first, dtype
+// 0 = float32, 1 = bfloat16 (x, w and out share it), 1 <= d <= 8192.  Returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +73,7 @@ template <> struct Elem<float> {
                                                const uint4& u, int e) {
     p[i] = get(u, e);
   }
+  __device__ __forceinline__ static float rounded(float f) { return f; }
 };
 
 template <> struct Elem<__nv_bfloat16> {
@@ -92,6 +100,10 @@ template <> struct Elem<__nv_bfloat16> {
     const uint32_t word = (&u.x)[e >> 1];
     p[i] = __ushort_as_bfloat16(
         static_cast<unsigned short>((e & 1) ? (word >> 16) : word));
+  }
+  // f rounded to the nearest bf16 value, as fp32
+  __device__ __forceinline__ static float rounded(float f) {
+    return __bfloat162float(__float2bfloat16(f));
   }
 };
 
@@ -151,7 +163,7 @@ __device__ __forceinline__ void store_row(const uint4 (&r)[V],
 template <int W>
 __host__ __device__ constexpr int threads() { return W == 1 ? 256 : 32 * W; }
 
-template <typename T, int W, int V>
+template <typename T, int W, int V, bool kCastFirst>
 __global__ void __launch_bounds__(threads<W>())
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                T* __restrict__ out, int rows, int d, float eps, bool vec) {
@@ -200,9 +212,11 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < V; ++i)
 #pragma unroll
-      for (int e = 0; e < N; ++e)
-        Elem<T>::set(cur[i], e, Elem<T>::get(cur[i], e) * rstd *
-                                    Elem<T>::get(wv[i], e));
+      for (int e = 0; e < N; ++e) {
+        float xhat = Elem<T>::get(cur[i], e) * rstd;
+        if constexpr (kCastFirst) xhat = Elem<T>::rounded(xhat);
+        Elem<T>::set(cur[i], e, xhat * Elem<T>::get(wv[i], e));
+      }
     store_row<T, V, TT>(cur, out + long(row) * d, d, tid, vec);
 #pragma unroll
     for (int i = 0; i < V; ++i) cur[i] = nxt[i];
@@ -218,30 +232,41 @@ int sm_count(int dev) {
   return counts[dev];
 }
 
-template <typename T, int W, int V>
-int launch(const void* x, const void* w, void* out, int rows, int d,
-           float eps, bool vec, int dev, cudaStream_t stream) {
+template <typename T, int W, int V, bool kCastFirst>
+int launch_order(const void* x, const void* w, void* out, int rows, int d,
+                 float eps, bool vec, int dev, cudaStream_t stream) {
   // blocks of this instantiation that fit on one SM, read once per device
   static int per_sm[kMaxDevices];
   int& fit = per_sm[dev];
   if (fit == 0 &&
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &fit, rmsnorm_kernel<T, W, V>, threads<W>(), 0) != cudaSuccess)
+          &fit, rmsnorm_kernel<T, W, V, kCastFirst>, threads<W>(), 0) !=
+          cudaSuccess)
     return static_cast<int>(cudaGetLastError());
   constexpr int kTeams = threads<W>() / (32 * W);
   const long wanted = (static_cast<long>(rows) + kTeams - 1) / kTeams;
   const long resident = static_cast<long>(sm_count(dev)) * (fit > 0 ? fit : 1);
   const int blocks = static_cast<int>(wanted < resident ? wanted : resident);
-  rmsnorm_kernel<T, W, V><<<blocks, threads<W>(), 0, stream>>>(
+  rmsnorm_kernel<T, W, V, kCastFirst><<<blocks, threads<W>(), 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<T*>(out), rows, d, eps, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int W, int V>
+int launch(const void* x, const void* w, void* out, int rows, int d,
+           float eps, int order, bool vec, int dev, cudaStream_t stream) {
+  if (order == 1)
+    return launch_order<T, W, V, true>(x, w, out, rows, d, eps, vec, dev,
+                                       stream);
+  return launch_order<T, W, V, false>(x, w, out, rows, d, eps, vec, dev,
+                                      stream);
+}
+
 // The smallest team and slot count that hold a row of d elements.
 template <typename T>
 int dispatch(const void* x, const void* w, void* out, int rows, int d,
-             float eps, cudaStream_t stream) {
+             float eps, int order, cudaStream_t stream) {
   constexpr int N = Elem<T>::kPerVec;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
@@ -250,28 +275,28 @@ int dispatch(const void* x, const void* w, void* out, int rows, int d,
                    ((reinterpret_cast<uintptr_t>(x) |
                      reinterpret_cast<uintptr_t>(w) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  if (d <= 32 * N) return launch<T, 1, 1>(x, w, out, rows, d, eps, vec, dev, stream);
-  if (d <= 64 * N) return launch<T, 1, 2>(x, w, out, rows, d, eps, vec, dev, stream);
-  if (d <= 128 * N)
-    return launch<T, 1, 4>(x, w, out, rows, d, eps, vec, dev, stream);
-  if (d <= 256 * N)
-    return launch<T, 1, 8>(x, w, out, rows, d, eps, vec, dev, stream);
-  if (d <= 512 * N)
-    return launch<T, 2, 8>(x, w, out, rows, d, eps, vec, dev, stream);
-  if (d <= 1024 * N)
-    return launch<T, 4, 8>(x, w, out, rows, d, eps, vec, dev, stream);
-  return launch<T, 8, kMaxVecs>(x, w, out, rows, d, eps, vec, dev, stream);
+#define REPRO_LAUNCH(W, V) \
+  return launch<T, W, V>(x, w, out, rows, d, eps, order, vec, dev, stream)
+  if (d <= 32 * N) REPRO_LAUNCH(1, 1);
+  if (d <= 64 * N) REPRO_LAUNCH(1, 2);
+  if (d <= 128 * N) REPRO_LAUNCH(1, 4);
+  if (d <= 256 * N) REPRO_LAUNCH(1, 8);
+  if (d <= 512 * N) REPRO_LAUNCH(2, 8);
+  if (d <= 1024 * N) REPRO_LAUNCH(4, 8);
+  REPRO_LAUNCH(8, kMaxVecs);
+#undef REPRO_LAUNCH
 }
 
 }  // namespace
 
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
-                              int rows, int d, float eps, int dtype,
-                              cudaStream_t stream) {
-  if (rows <= 0 || d <= 0 || d > kMaxD)
+                              int rows, int d, float eps, int order,
+                              int dtype, cudaStream_t stream) {
+  if (rows <= 0 || d <= 0 || d > kMaxD || (order != 0 && order != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return dispatch<float>(x, w, out, rows, d, eps, stream);
+  if (dtype == 0)
+    return dispatch<float>(x, w, out, rows, d, eps, order, stream);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, w, out, rows, d, eps, stream);
+    return dispatch<__nv_bfloat16>(x, w, out, rows, d, eps, order, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

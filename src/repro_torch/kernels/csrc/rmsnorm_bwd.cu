@@ -3,11 +3,21 @@
 //
 // Replaces jax.grad of src/repro/models/common.py::norm_apply (the JAX
 // package differentiates its norm as plain jnp; the Pallas kernel has no
-// backward).  Forward, in the port's cast order (kernels/ref.py
-// rmsnorm_plain): y = cast(x32 * r * w32), r = rsqrt(mean(x32^2) + eps).
-// With g = dy32 * w32 and a = x32 * r:
+// backward).  With r = rsqrt(mean(x32^2) + eps) and a = x32 * r, the
+// forward in either of rmsnorm.cu's cast orders (a template parameter
+// here too, chosen by the `order` argument):
+//   * 0, the TPU kernel's (kernels/ref.py rmsnorm_plain):
+//     y = cast(a * w32); g = dy32 * w32 and dw sums dy32 * a;
+//   * 1, cast first (rmsnorm_cast_first_plain, the JAX package's model):
+//     y = cast(cast(a) * w32), a multiply in the input's type, whose
+//     autograd rounds both its products to that type: g = cast(dy32 *
+//     w32) before the normalization's backward, and each row's term
+//     cast(dy32 * cast(a)) before dw sums it (unrounded, dw would be
+//     another sum than the one that autograd of the plain version
+//     takes);
+// then, in both,
 //   dx = r * (g - x32 * r^2 * mean(g * x32)),   cast to x's type;
-//   dw = sum over rows of dy32 * a,             cast to w's type last.
+//   dw = the sum over rows above,               cast to w's type last.
 //
 // Bound: bytes.  x and dy are read once and dx written once (6 bytes an
 // element in bf16, 12 in fp32), w once, dw once; the rest is a handful
@@ -31,7 +41,8 @@
 // the card at once, at most max_blocks), so the order is too.
 //
 // C interface (ctypes): rmsnorm_bwd_launch(x, w, dy, dx, dw, partial,
-// rows, d, eps, max_blocks, dtype, stream) with dtype 0 = float32,
+// rows, d, eps, max_blocks, order, dtype, stream) with order as the
+// forward's (0 = the TPU kernel's, 1 = cast first), dtype 0 = float32,
 // 1 = bfloat16 (x, w, dy, dx, dw share it), 1 <= d <= 8192, partial an
 // fp32 buffer of max_blocks * d.  Returns cudaGetLastError() after the
 // launches.
@@ -68,6 +79,7 @@ template <> struct Elem<float> {
     p[i] = get(u, e);
   }
   __device__ __forceinline__ static float cast(float f) { return f; }
+  __device__ __forceinline__ static float rounded(float f) { return f; }
 };
 
 template <> struct Elem<__nv_bfloat16> {
@@ -97,6 +109,10 @@ template <> struct Elem<__nv_bfloat16> {
   }
   __device__ __forceinline__ static __nv_bfloat16 cast(float f) {
     return __float2bfloat16(f);
+  }
+  // f rounded to the nearest bf16 value, as fp32
+  __device__ __forceinline__ static float rounded(float f) {
+    return __bfloat162float(__float2bfloat16(f));
   }
 };
 
@@ -177,7 +193,7 @@ __device__ __forceinline__ float team_sum(float v, float* buf, int tid) {
   return v;
 }
 
-template <typename T, int W, int V>
+template <typename T, int W, int V, bool kCastFirst>
 __global__ void __launch_bounds__(threads<W>(), 1)
 rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
             const T* __restrict__ dy, T* __restrict__ dx,
@@ -202,6 +218,11 @@ rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int row = blockIdx.x * kTeams + team; row < rows; row += stride) {
     load_row<T, V, TT>(xv, x + long(row) * d, d, tid, vec);
     load_row<T, V, TT>(gv, dy + long(row) * d, d, tid, vec);
+    // the gradient at a: dy * w, rounded first in cast-first order
+    auto grad_a = [&](int i, int e) {
+      const float g = Elem<T>::get(gv[i], e) * Elem<T>::get(wv[i], e);
+      return kCastFirst ? Elem<T>::rounded(g) : g;
+    };
     float sq = 0.f, gx = 0.f;
 #pragma unroll
     for (int i = 0; i < V; ++i)
@@ -209,7 +230,7 @@ rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int e = 0; e < N; ++e) {
         const float f = Elem<T>::get(xv[i], e);
         sq = fmaf(f, f, sq);
-        gx = fmaf(Elem<T>::get(gv[i], e) * Elem<T>::get(wv[i], e), f, gx);
+        gx = fmaf(grad_a(i, e), f, gx);
       }
     sq = team_sum<W>(sq, buf, tid);
     gx = team_sum<W>(gx, buf, tid);
@@ -220,9 +241,13 @@ rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         const float f = Elem<T>::get(xv[i], e);
-        const float g = Elem<T>::get(gv[i], e);
-        acc[i][e] = fmaf(g, f * r, acc[i][e]);
-        Elem<T>::set(gv[i], e, r * (g * Elem<T>::get(wv[i], e) - f * c));
+        const float dy = Elem<T>::get(gv[i], e);
+        const float ga = grad_a(i, e);
+        if constexpr (kCastFirst)
+          acc[i][e] += Elem<T>::rounded(dy * Elem<T>::rounded(f * r));
+        else
+          acc[i][e] = fmaf(dy, f * r, acc[i][e]);
+        Elem<T>::set(gv[i], e, r * (ga - f * c));
       }
     store_row<T, V, TT>(gv, dx + long(row) * d, d, tid, vec);
   }
@@ -270,17 +295,17 @@ int sm_count(int dev) {
   return counts[dev];
 }
 
-template <typename T, int W, int V>
-int launch(const void* x, const void* w, const void* dy, void* dx, void* dw,
-           float* partial, int rows, int d, float eps, int max_blocks,
-           bool vec, int dev, cudaStream_t stream) {
+template <typename T, int W, int V, bool kCastFirst>
+int launch_order(const void* x, const void* w, const void* dy, void* dx,
+                 void* dw, float* partial, int rows, int d, float eps,
+                 int max_blocks, bool vec, int dev, cudaStream_t stream) {
   constexpr int kTeams = threads<W>() / (32 * W);
   const int smem = kTeams > 1 ? d * static_cast<int>(sizeof(float)) : 0;
   static int per_sm[kMaxDevices];
   int& fit = per_sm[dev];
   if (fit == 0 &&
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &fit, rows_kernel<T, W, V>, threads<W>(),
+          &fit, rows_kernel<T, W, V, kCastFirst>, threads<W>(),
           kTeams > 1 ? kMaxD * sizeof(float) : 0) != cudaSuccess)
     return static_cast<int>(cudaGetLastError());
   const long wanted = (static_cast<long>(rows) + kTeams - 1) / kTeams;
@@ -289,12 +314,13 @@ int launch(const void* x, const void* w, const void* dy, void* dx, void* dw,
   if (max_blocks < blocks) blocks = max_blocks;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rows_kernel<T, W, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rows_kernel<T, W, V, kCastFirst>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  rows_kernel<T, W, V><<<static_cast<int>(blocks), threads<W>(), smem,
-                         stream>>>(
+  rows_kernel<T, W, V, kCastFirst><<<static_cast<int>(blocks), threads<W>(),
+                                     smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(dy), static_cast<T*>(dx), partial, rows, d, eps,
       vec);
@@ -305,10 +331,21 @@ int launch(const void* x, const void* w, const void* dy, void* dx, void* dw,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int W, int V>
+int launch(const void* x, const void* w, const void* dy, void* dx, void* dw,
+           float* partial, int rows, int d, float eps, int max_blocks,
+           int order, bool vec, int dev, cudaStream_t stream) {
+  if (order == 1)
+    return launch_order<T, W, V, true>(x, w, dy, dx, dw, partial, rows, d,
+                                       eps, max_blocks, vec, dev, stream);
+  return launch_order<T, W, V, false>(x, w, dy, dx, dw, partial, rows, d,
+                                      eps, max_blocks, vec, dev, stream);
+}
+
 template <typename T>
 int dispatch(const void* x, const void* w, const void* dy, void* dx,
              void* dw, float* partial, int rows, int d, float eps,
-             int max_blocks, cudaStream_t stream) {
+             int max_blocks, int order, cudaStream_t stream) {
   constexpr int N = Elem<T>::kPerVec;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
@@ -320,7 +357,7 @@ int dispatch(const void* x, const void* w, const void* dy, void* dx,
                      reinterpret_cast<uintptr_t>(dx)) & 15) == 0;
 #define REPRO_LAUNCH(W, V)                                                   \
   return launch<T, W, V>(x, w, dy, dx, dw, partial, rows, d, eps,            \
-                         max_blocks, vec, dev, stream)
+                         max_blocks, order, vec, dev, stream)
   if (d <= 32 * N) REPRO_LAUNCH(1, 1);
   if (d <= 64 * N) REPRO_LAUNCH(1, 2);
   if (d <= 128 * N) REPRO_LAUNCH(1, 4);
@@ -338,15 +375,16 @@ int dispatch(const void* x, const void* w, const void* dy, void* dx,
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
                                   const void* dy, void* dx, void* dw,
                                   float* partial, int rows, int d, float eps,
-                                  int max_blocks, int dtype,
+                                  int max_blocks, int order, int dtype,
                                   cudaStream_t stream) {
-  if (rows <= 0 || d <= 0 || d > kMaxD || max_blocks <= 0)
+  if (rows <= 0 || d <= 0 || d > kMaxD || max_blocks <= 0 ||
+      (order != 0 && order != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch<float>(x, w, dy, dx, dw, partial, rows, d, eps,
-                           max_blocks, stream);
+                           max_blocks, order, stream);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(x, w, dy, dx, dw, partial, rows, d, eps,
-                                   max_blocks, stream);
+                                   max_blocks, order, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

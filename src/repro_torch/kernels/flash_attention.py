@@ -15,13 +15,15 @@ When grad mode is on and an input requires a gradient, the CUDA route
 goes through an autograd function: its forward launches the same kernel
 with a buffer for each row's log-sum-exp, and its backward launches
 :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``: dQ, dK,
-dV in deterministic passes), which replaces ``jax.grad`` of the JAX
-package's attention.  CPU tensors differentiate the plain version.
+dV in deterministic passes; bf16 on ``wgmma`` with TMA-fed rings, the
+dK/dV pass's query group split over blocks by :func:`bwd_plan` where
+its grid would not fill the card), which replaces ``jax.grad`` of the
+JAX package's attention.  CPU tensors differentiate the plain version.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,8 +34,66 @@ from repro_torch.kernels.ref import attention_bwd_plain, attention_plain
 #: head dims the kernel is built for
 HEAD_DIMS = (32, 64, 128, 256)
 
+#: keys of a dK/dV block and rows of a q tile in the bf16 backward
+BWD_TILE = 64
+#: the waves of blocks under which the dK/dV pass splits its query groups
+BWD_MIN_WAVES = 2
+
 __all__ = ["flash_attention", "flash_attention_bwd", "attention_plain",
-           "attention_bwd_plain", "HEAD_DIMS"]
+           "attention_bwd_plain", "bwd_plan", "BwdPlan", "HEAD_DIMS"]
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class BwdPlan(NamedTuple):
+    """The bf16 backward's launch plan (``bwd_plan``): what the launch
+    takes besides the shape.
+
+    ``head_splits``: S_h, the blocks that share one (batch, kv head, key
+    tile) of the dK/dV pass, each over ``group // S_h`` consecutive query
+    heads; ``scratch_floats``: the fp32 scratch the launch takes, each
+    row's lse log2 e and D padded to 64 rows (2 B Hq Lq_pad) and, when
+    S_h > 1, the splits' partial dK and dV (2 S_h B Hkv Lk_pad D)."""
+    head_splits: int
+    scratch_floats: int
+
+
+def bwd_plan(b: int, hq: int, hkv: int, lq: int, lk: int, d: int,
+             sms: int) -> BwdPlan:
+    """The bf16 backward's plan at a shape, on a card of ``sms`` SMs.
+
+    The dK/dV pass runs a block per (batch, kv head, 64 keys); where that
+    grid holds fewer than ``BWD_MIN_WAVES`` blocks an SM (gemma-2b: 4 x 1
+    x 32 = 128 on 132 SMs) each query group of 4 or more heads is split
+    over S_h blocks, doubling S_h while the grid is short and each block
+    keeps two heads or more (gemma-2b: S_h = 4, 512 blocks).  Groups of 1
+    and 2 never split: a block of one head would send its whole dK and
+    dV through memory to save no more than one head's walk."""
+    group = hq // hkv
+    n_kt = _ceil(lk, BWD_TILE)
+    head_splits = 1
+    while (b * hkv * n_kt * head_splits < BWD_MIN_WAVES * sms
+           and group % (2 * head_splits) == 0
+           and group // (2 * head_splits) >= 2):
+        head_splits *= 2
+    floats = 2 * b * hq * _ceil(lq, BWD_TILE) * BWD_TILE
+    if head_splits > 1:
+        floats += 2 * head_splits * b * hkv * n_kt * BWD_TILE * d
+    return BwdPlan(head_splits, floats)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once (the plan's input)."""
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms
 
 
 def _check(q, k, v) -> int:
@@ -128,9 +188,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the output's gradient ``dout``; each in its input's type and shape.
     CUDA tensors (as the forward takes them, all 16-byte aligned, ``dout``
     contiguous and of q's type) launch the backward kernel (dQ and each
-    row's sum of dO o O in one pass, dK and dV in a second) and add one
+    row's sum of P o dP in one pass, dK and dV in a second) and add one
     to ``flash_attention_bwd.launches``; CPU tensors differentiate
-    :func:`attention_plain` (``lse`` unused)."""
+    :func:`attention_plain` (``lse`` unused).  The bf16 dK/dV pass splits
+    each query group as :func:`bwd_plan` says for the card's SM count."""
     if not use_kernel(q, k, v, dout):
         return attention_bwd_plain(q, k, v, dout, causal, scale)
     code = _check(q, k, v)
@@ -152,12 +213,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "rows, which needs 16-byte aligned tensors")
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
-    launch("flash_attention_bwd", q.get_device(), q.data_ptr(),
-           k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           b, hq, hkv, lq, lk, d, int(causal),
-           d ** -0.5 if scale is None else float(scale), code)
+    index = q.get_device()
+    delta = scratch = None
+    splits = 1
+    if code == FLOAT_CODES[torch.float32]:
+        delta = torch.empty((b, hq, lq), dtype=torch.float32,
+                            device=q.device)
+    else:
+        plan = bwd_plan(b, hq, hkv, lq, lk, d, _sm_count(index))
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                              device=q.device)
+        splits = plan.head_splits
+    launch("flash_attention_bwd", index, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+           None if delta is None else delta.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), b, hq, hkv, lq, lk, d, int(causal),
+           d ** -0.5 if scale is None else float(scale), splits, code)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

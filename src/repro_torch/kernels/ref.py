@@ -9,7 +9,9 @@ tensors on the CPU, and the tests and ``chip_smoke.py`` hold the
 kernels to them.  They follow the JAX package's ``repro.kernels.ref``
 oracles, with one deliberate difference: :func:`rmsnorm_plain`
 multiplies by the weight in fp32 and then casts, as the TPU kernel
-(``rmsnorm_pallas``) does, where ``ref.rmsnorm_ref`` casts first.
+(``rmsnorm_pallas``) does, where ``ref.rmsnorm_ref`` casts first;
+:func:`rmsnorm_cast_first_plain` is the cast-first twin, the order of
+the JAX package's model (``repro.models.common.norm_apply``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,16 @@ def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)
             * weight.to(torch.float32)).to(x.dtype)
+
+
+def rmsnorm_cast_first_plain(x: torch.Tensor, weight: torch.Tensor,
+                             eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x**2) + eps)`` in fp32, cast to ``x.dtype``, then
+    multiplied by ``weight`` in that type: the JAX package's model
+    (``repro.models.common.norm_apply``), bit for bit on the CPU."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,10 +103,13 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def rmsnorm_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
-                      dy: torch.Tensor, eps: float = 1e-6):
-    """(dx, dweight) of :func:`rmsnorm_plain` against the output's
-    gradient ``dy``, by autograd."""
-    return _grads(lambda a, w: rmsnorm_plain(a, w, eps), (x, weight), dy)
+                      dy: torch.Tensor, eps: float = 1e-6,
+                      cast_first: bool = False):
+    """(dx, dweight) of :func:`rmsnorm_plain` (``cast_first``: of
+    :func:`rmsnorm_cast_first_plain`) against the output's gradient
+    ``dy``, by autograd."""
+    fn = rmsnorm_cast_first_plain if cast_first else rmsnorm_plain
+    return _grads(lambda a, w: fn(a, w, eps), (x, weight), dy)
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,

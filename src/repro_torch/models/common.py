@@ -17,7 +17,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as _rmsnorm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -60,11 +60,13 @@ def norm_init(d: int, kind: str, dtype, device,
 
 
 def norm_apply(p, x, kind: str = "rmsnorm", eps: float = 1e-6):
-    """RMSNorm through the kernel wrapper (``ops.rmsnorm``: fp32, the
-    scale multiplied in fp32 before the cast); layernorm in torch, cast
-    before the scale as the JAX package does."""
+    """RMSNorm through the kernel wrapper in the JAX package's cast order
+    (``kernels.rmsnorm.rmsnorm(..., cast_first=True)``: the normalized x
+    cast to x's type first, then multiplied by the scale in that type, one
+    launch on the card; ``ops.rmsnorm`` keeps the Pallas kernel's order);
+    layernorm in torch, cast before the scale as the JAX package does."""
     if kind == "rmsnorm":
-        y = ops.rmsnorm(x, p["scale"], eps)
+        y = _rmsnorm.rmsnorm(x, p["scale"], eps, cast_first=True)
     else:
         x32 = x.to(torch.float32)
         mu = x32.mean(-1, keepdim=True)

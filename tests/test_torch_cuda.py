@@ -838,6 +838,131 @@ def _lse(q, k, v):
     return _forward(q, k, v, True, None, with_lse=True)
 
 
+@pytest.mark.parametrize("hq,hkv,lq,lk,d", [
+    (8, 1, 2049, 2049, 256),   # one past a 64-key tile (and a 128-row one)
+    (4, 2, 2049, 2049, 64),
+    (8, 1, 1, 1001, 128),      # a single query row at the end of 1001 keys
+    (8, 1, 63, 1001, 64),
+    (8, 1, 65, 1001, 256),
+    (4, 2, 65, 1001, 32),
+])
+def test_flash_attention_bwd_ragged_tiles(gen, hq, hkv, lq, lk, d):
+    """bf16 lengths that end one past a tile and short query blocks at the
+    end of a long key range: the dQ pass's skipped warpgroups, the padded
+    row statistics (+inf and 0 past Lq) and the dK/dV pass's first causal
+    q tile."""
+    got, exp, _ = _attention_grads(gen, 1, hq, hkv, lq, lk, d,
+                                   torch.bfloat16)
+    for name, g, e in zip("qkv", got, exp):
+        _grad_gate(g, e, f"d{name}")
+
+
+@pytest.mark.parametrize("lq,d", [(300, 128), (2048, 256)])
+def test_flash_attention_bwd_head_split_on_and_off(gen, monkeypatch, lq, d):
+    """Group 8 (MQA) with the dK/dV pass's head split forced off (the plan
+    read on a card of one SM) and on (on a card so wide that the group
+    splits in 4, two heads a block): dQ bit-equal either way (the dQ pass
+    does not depend on it), dK and dV each within the gate of autograd of
+    the plain version (the split sums the partials in another order),
+    and 20 more launches with the split on bit-equal (the partials are
+    summed in split order, not in the order blocks finish)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_bwd_plain
+    b, hq, hkv = (4, 8, 1) if d == 256 else (2, 8, 1)
+    q = _normal(gen, b, hq, lq, d, dtype=torch.bfloat16)
+    k, v = (_normal(gen, b, hkv, lq, d, dtype=torch.bfloat16)
+            for _ in range(2))
+    dout = _normal(gen, b, hq, lq, d, dtype=torch.bfloat16)
+    _, lse = _lse(q, k, v)
+    exp = attention_bwd_plain(q, k, v, dout, causal=True)
+    runs = {}
+    for sms in (1, 100_000):
+        assert fa.bwd_plan(b, hq, hkv, lq, lq, d, sms).head_splits == (
+            1 if sms == 1 else 4)
+        monkeypatch.setattr(fa, "_sm_count", lambda index, n=sms: n)
+        runs[sms] = flash_attention_bwd(q, k, v, dout, lse)
+        torch.cuda.synchronize()
+        for name, g, e in zip("qkv", runs[sms], exp):
+            _grad_gate(g, e, f"d{name}, {sms} SMs")
+        if sms > 1:
+            for i in range(20):
+                again = flash_attention_bwd(q, k, v, dout, lse)
+                assert all(torch.equal(a, f)
+                           for a, f in zip(again, runs[sms])), i
+    assert torch.equal(runs[1][0], runs[100_000][0])
+
+
+#: the share of a cast-first bf16 ``rmsnorm``'s elements that may differ
+#: from its plain twin (the first rounding of x_hat falls the other way in
+#: a few elements a million; the TPU kernel's order differs in ~1/4)
+CAST_FIRST_DIFF_SHARE = 1e-4
+
+
+@pytest.mark.parametrize("shape", [(1, 32), (7, 128), (300, 2048),
+                                   (2, 3, 5, 256), (4, 8192), (33, 100),
+                                   (2113, 128), (8192, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_cast_first_equals_its_plain_twin(gen, shape, dtype):
+    """The cast-first order (the model's ``norm_apply``) with a trained
+    scale, one launch each way: the forward against
+    ``rmsnorm_cast_first_plain`` (bf16: within |w| one ulp of x_hat plus
+    half an ulp each of the two results, since the first rounding may
+    fall the other way where the two sums of squares differ, and in at
+    most ``CAST_FIRST_DIFF_SHARE`` of the elements, at least one; the
+    TPU kernel's order, as a control, must differ in more, checked at
+    4096 elements or more, where its quarter lies far above the limit;
+    fp32 within 1e-5), the
+    backward through autograd against autograd of the twin at the
+    gradient gates."""
+    from repro_torch.kernels.ref import (rmsnorm_bwd_plain,
+                                         rmsnorm_cast_first_plain)
+    x = _normal(gen, *shape, dtype=dtype)
+    w = (1 + 0.3 * _normal(gen, shape[-1])).to(dtype)
+    dy = _normal(gen, *shape, dtype=dtype)
+    leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    fwd, bwd = rmsnorm.launches, rmsnorm_bwd.launches
+    out = rmsnorm(*leaves, cast_first=True)
+    got = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm_bwd.launches) == (fwd + 1, bwd + 1)
+    exp = rmsnorm_cast_first_plain(x, w)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out.detach(), exp, rtol=1e-5, atol=1e-5)
+    else:
+        e32 = exp.float()
+        x32 = x.float()
+        xhat = (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True)
+                                  + 1e-6)).to(dtype).float()
+
+        def ulp(t):
+            return torch.where(t == 0, 0.0, torch.ldexp(
+                torch.ones_like(t), torch.frexp(t).exponent - 8))
+        got32 = out.detach().float()
+        allow = w.float().abs() * ulp(xhat) + 0.5 * (ulp(got32) + ulp(e32))
+        assert bool(((got32 - e32).abs() <= allow).all())
+        limit = max(CAST_FIRST_DIFF_SHARE * x.numel(), 1)
+        assert int((out.detach() != exp).sum()) <= limit
+        if x.numel() >= 4096:
+            assert int((rmsnorm(x, w) != exp).sum()) > limit
+    for name, g, e in zip(("dx", "dw"), got, rmsnorm_bwd_plain(
+            x, w, dy, cast_first=True)):
+        _grad_gate(g, e, name)
+
+
+@pytest.mark.parametrize("rows,d", [(8192, 2048), (8192 * 16, 128)])
+def test_rmsnorm_cast_first_repeated_launches_agree(gen, rows, d):
+    """Both kernels in the cast-first order, 50 launches more each,
+    bit-equal."""
+    x, dy = (_normal(gen, rows, d, dtype=torch.bfloat16) for _ in range(2))
+    w = (1 + 0.3 * _normal(gen, d)).bfloat16()
+    first_fwd = rmsnorm(x, w, cast_first=True)
+    first = rmsnorm_bwd(x, w, dy, cast_first=True)
+    for i in range(50):
+        assert torch.equal(rmsnorm(x, w, cast_first=True), first_fwd), i
+        again = rmsnorm_bwd(x, w, dy, cast_first=True)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
 @pytest.mark.parametrize("shape", [(1, 32), (7, 128), (300, 2048),
                                    (2, 3, 5, 256), (4, 8192), (33, 100),
                                    (2113, 128), (8192, 2048)])

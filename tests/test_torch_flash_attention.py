@@ -83,3 +83,49 @@ def test_scale_and_cpu_route():
     assert tfa.flash_attention.launches == before
     assert_allclose(_f32(got), _f32(jref.attention_ref(
         jq, jk, jv, causal=True, scale=0.3)), **TOLS["float32"])
+
+
+# --- the bf16 backward's launch plan (pure Python; the launch takes its
+# --- split and its scratch, and the card tests hold what the kernel does
+# --- with them)
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", [
+    (4, 8, 1, 2048, 2048, 256),   # gemma-2b's training shape
+    (4, 16, 8, 2048, 2048, 128),  # qwen3-1.7b's
+    (2, 8, 2, 700, 700, 64),
+    (1, 8, 1, 333, 1001, 256),
+    (2, 8, 1, 64, 64, 32),
+    (1, 32, 2, 129, 129, 128),
+])
+@pytest.mark.parametrize("sms", [1, 132, 100_000])
+def test_bwd_plan_covers_every_query_head_once(b, hq, hkv, lq, lk, d, sms):
+    """On a card of one SM (no split), an H100 and a card so wide that
+    every group splits as far as it may: S_h divides the group, so the
+    kernel's blocks of ``group // S_h`` consecutive heads walk each query
+    head once, and keeps two heads a block; the scratch holds the row
+    statistics and, when split, the partials."""
+    group = hq // hkv
+    plan = tfa.bwd_plan(b, hq, hkv, lq, lk, d, sms)
+    s_h = plan.head_splits
+    assert group % s_h == 0 and (s_h == 1 or group // s_h >= 2)
+    if sms == 1 or group <= 2:
+        assert s_h == 1
+    stats = 2 * b * hq * (-(-lq // 64) * 64)
+    partials = 2 * s_h * b * hkv * (-(-lk // 64) * 64) * d
+    assert plan.scratch_floats == stats + (partials if s_h > 1 else 0)
+
+
+def test_bwd_plan_splits_only_short_grids_of_wide_groups():
+    """gemma-2b (MQA, group 8) on an H100: 128 dK/dV blocks on 132 SMs,
+    split in 4 (512 blocks, two heads each, a 67 MB scratch of partials);
+    qwen3-1.7b (group 2, 1024 blocks) and every group of 1 or 2 never
+    split, however wide the card; a grid of two waves or more stays
+    whole; a group of 16 splits in 8 at most (two heads a block)."""
+    gemma = tfa.bwd_plan(4, 8, 1, 2048, 2048, 256, 132)
+    assert gemma.head_splits == 4
+    assert 67e6 < 4 * gemma.scratch_floats < 68e6
+    assert tfa.bwd_plan(4, 16, 8, 2048, 2048, 128, 132).head_splits == 1
+    for hq, hkv in ((2, 2), (4, 2), (8, 8), (16, 8)):
+        assert tfa.bwd_plan(1, hq, hkv, 64, 64, 64, 100_000).head_splits == 1
+    assert tfa.bwd_plan(16, 8, 1, 2048, 2048, 256, 132).head_splits == 1
+    assert tfa.bwd_plan(1, 16, 1, 64, 64, 64, 132).head_splits == 8

@@ -1,0 +1,173 @@
+"""The model's RMSNorm in the JAX package's cast order.
+
+``repro.models.common.norm_apply`` casts the normalized x to the input's
+type first and then multiplies by the scale in that type; the port's
+``models.common.norm_apply`` now does the same
+(``kernels.rmsnorm.rmsnorm(..., cast_first=True)``, one ``rmsnorm`` launch
+on the card), while ``ops.rmsnorm`` keeps the Pallas kernel's order
+(scale multiplied in fp32, one cast).  Inputs: numpy seed 0, x (512, d) standard normal, scale
+1 + 0.3 N(0, 1), both bf16, d = 64 and 2048 (a trained scale; every
+random init has scale 1, where the two orders agree).
+
+Tolerances: the forward bit for bit; gradients against ``jax.vjp`` of the
+reference in fp32 within 1e-5 (sums in another order), in bf16 at the
+card's bf16 gradient gate (relative L2 within 1e-2, each element within
+2 bf16 ulps plus 2**-8 of its tensor's rms), dscale by relative L2
+only: autograd of a bf16 multiply rounds each of the 512 products
+dy * bf16(x_hat) to bf16 before the sum over rows, in both frameworks,
+and the reference also sums in bf16, so dscale's elements lie up to 0.57
+and 0.93 (d = 64, 2048; rms ~21) from the exact sum of those products in
+the reference and 0.13 and 0.22 in the port: the reductions' own
+rounding, not the cast order's.  One bf16 smoke-config
+prefill with non-unit norm scales within relative L2 1.4e-2 of the
+reference's logits (readings 0.0115 for both archs; 0.0164 and 0.0168
+in the Pallas order: the rest is attention and matmuls rounding in other
+places).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import models as jm  # noqa: E402
+from repro.configs import smoke_config as j_smoke  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro_torch import models as tm  # noqa: E402
+from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rmsnorm as trms  # noqa: E402
+from repro_torch.kernels.ref import (rmsnorm_bwd_plain,  # noqa: E402
+                                     rmsnorm_cast_first_plain, rmsnorm_plain)
+from repro_torch.models import common as tcommon  # noqa: E402
+
+pytestmark = pytest.mark.torch
+
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PREFILL_REL_L2 = 1.4e-2
+
+
+def _probe(d, dtype="bfloat16", seed=0):
+    """The probe's inputs: x (512, d) ~ N(0, 1), scale 1 + 0.3 N(0, 1),
+    and (for gradients) dy (512, d) ~ N(0, 1), in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((512, d)).astype(np.float32)
+    scale = (1 + 0.3 * rng.standard_normal(d)).astype(np.float32)
+    dy = rng.standard_normal((512, d)).astype(np.float32)
+    jax_in = [jnp.asarray(a).astype(JAX_DT[dtype]) for a in (x, scale, dy)]
+    torch_in = [torch.from_numpy(a).to(TORCH_DT[dtype])
+                for a in (x, scale, dy)]
+    return jax_in, torch_in
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("d", [64, 2048])
+def test_norm_apply_is_the_reference_bit_for_bit(d):
+    (jx, js, _), (tx, ts, _) = _probe(d)
+    exp = _f32(jcommon.norm_apply({"scale": js}, jx))
+    got = tcommon.norm_apply({"scale": ts}, tx)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(got), exp)
+    np.testing.assert_array_equal(_f32(rmsnorm_cast_first_plain(tx, ts)),
+                                  exp)
+    # the Pallas order rounds once, elsewhere: about a quarter of the
+    # elements lie one bf16 ulp from the reference's
+    differ = float(np.mean(_f32(rmsnorm_plain(tx, ts)) != exp))
+    assert 0.2 < differ < 0.35, differ
+
+
+def test_ops_rmsnorm_keeps_the_pallas_order():
+    """``ops.rmsnorm`` is the Pallas kernel's result to the bit on the
+    probe's inputs; the wrapper's ``cast_first`` gives the model's
+    order."""
+    (jx, js, _), (tx, ts, _) = _probe(64)
+    np.testing.assert_array_equal(_f32(ops.rmsnorm(tx, ts)),
+                                  _f32(jops.rmsnorm(jx, js)))
+    np.testing.assert_array_equal(
+        _f32(trms.rmsnorm(tx, ts, cast_first=True)),
+        _f32(jcommon.norm_apply({"scale": js}, jx)))
+
+
+def _grad_gate(got, exp, what, elements=True):
+    g, e = (torch.tensor(_f32(t)) for t in (got, exp))
+    rel = float(torch.linalg.vector_norm(g - e)
+                / torch.linalg.vector_norm(e).clamp_min(1e-30))
+    assert rel <= 1e-2, (what, rel)
+    if not elements:
+        return
+    ulp = torch.where(e == 0, 0.0, torch.ldexp(
+        torch.ones_like(e), torch.frexp(e).exponent - 8))
+    allow = 2 * ulp + 2.0 ** -8 * e.square().mean().sqrt()
+    assert bool(((g - e).abs() <= allow).all()), (what, float(
+        ((g - e).abs() / allow).max()))
+
+
+@pytest.mark.parametrize("d", [64, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_apply_gradients_match_jax(d, dtype):
+    """dx and dscale of the model's norm (autograd of the cast-first
+    plain version, the CPU route) against ``jax.vjp`` of the reference's
+    ``norm_apply``; ``rmsnorm_bwd_plain(..., cast_first=True)`` gives the
+    same as autograd through ``norm_apply``."""
+    (jx, js, jdy), (tx, ts, tdy) = _probe(d, dtype)
+    _, vjp = jax.vjp(lambda a, s: jcommon.norm_apply({"scale": s}, a),
+                     jx, js)
+    jdx, jds = vjp(jdy)
+    leaves = [tx.clone().requires_grad_(True), ts.clone().requires_grad_(True)]
+    out = tcommon.norm_apply({"scale": leaves[1]}, leaves[0])
+    tdx, tds = torch.autograd.grad(out, leaves, tdy)
+    twin = rmsnorm_bwd_plain(tx, ts, tdy, cast_first=True)
+    for got, again in zip((tdx, tds), twin):
+        assert torch.equal(got, again)
+    for name, got, exp in (("dx", tdx, jdx), ("dscale", tds, jds)):
+        assert got.dtype == TORCH_DT[dtype]
+        if dtype == "float32":
+            np.testing.assert_allclose(_f32(got), _f32(exp), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+    if dtype == "bfloat16":
+        _grad_gate(tdx, jdx, "dx")
+        _grad_gate(tds, jds, "dscale", elements=False)
+
+
+def _non_unit_scales(tree, rng, path=""):
+    """The tree with every norm scale drawn as 1 + 0.3 N(0, 1)."""
+    if isinstance(tree, dict):
+        return {k: _non_unit_scales(v, rng, f"{path}/{k}")
+                for k, v in tree.items()}
+    if path.endswith("scale"):
+        return (1 + 0.3 * rng.standard_normal(tree.shape)).astype(tree.dtype)
+    return tree
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-1.7b"])
+def test_bf16_prefill_with_trained_scales_matches_reference(arch):
+    """One bf16 prefill of the smoke config (qwen3-1.7b adds qk-norm) with
+    non-unit norm scales, carried in by ``params_from_numpy``: the last
+    position's logits within ``PREFILL_REL_L2`` of the reference's."""
+    jc = dataclasses.replace(j_smoke(arch), dtype="bfloat16")
+    tc = dataclasses.replace(t_smoke(arch), dtype="bfloat16")
+    jp = jax.tree.map(np.asarray, jm.init_params(jc, jax.random.PRNGKey(1)))
+    jp = _non_unit_scales(jp, np.random.default_rng(5))
+    tp = tm.params_from_numpy(jp, tc, "cpu")
+    toks = np.random.default_rng(7).integers(
+        0, jc.vocab_size, (2, 37)).astype(np.int32)
+    jl, _ = jm.prefill(jax.tree.map(jnp.asarray, jp), jc, jnp.asarray(toks),
+                       jm.init_cache(jc, 2, 40))
+    tl, _ = tm.prefill(tp, tc, torch.from_numpy(toks).long(),
+                       tm.init_cache(tc, 2, 40, device="cpu"))
+    exp, got = _f32(jl), _f32(tl)
+    assert got.shape == exp.shape and np.isfinite(got).all()
+    rel = float(np.linalg.norm(got - exp) / np.linalg.norm(exp))
+    assert rel <= PREFILL_REL_L2, rel

@@ -125,3 +125,31 @@ def test_rmsnorm_grads_match_jax(shape):
         assert_allclose(g.numpy(), e, **TOL, err_msg=name)
         assert_allclose(g2.numpy(), e, **TOL, err_msg=name)
         assert_allclose(d.numpy(), e, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 64), (2, 37, 4, 32), (5, 128)])
+def test_rmsnorm_cast_first_grads_match_jax(shape):
+    """The cast-first twin (``rmsnorm(..., cast_first=True)``, the order
+    the model runs) under autograd and the backward wrapper's plain route
+    in that order against ``jax.grad`` of the JAX package's
+    ``norm_apply``, fp32; in bf16 the wrapper's autograd and
+    ``rmsnorm_bwd(..., cast_first=True)`` agree bit for bit."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (1 + 0.3 * rng.standard_normal(shape[-1])).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    want = _jax_vjp(lambda a, s: j_norm_apply({"scale": s}, a), (x, w), dy)
+    launches = rmsnorm.launches, rmsnorm_bwd.launches
+    _, wrapped = _torch_grads(
+        lambda a, s: rmsnorm(a, s, cast_first=True), (x, w), dy)
+    direct = rmsnorm_bwd(*(torch.from_numpy(t) for t in (x, w, dy)),
+                         cast_first=True)
+    for name, g, d, e in zip(("dx", "dw"), wrapped, direct, want):
+        assert_allclose(g.numpy(), e, **TOL, err_msg=name)
+        assert_allclose(d.numpy(), e, **TOL, err_msg=name)
+    xb, wb, dyb = (torch.from_numpy(t).bfloat16() for t in (x, w, dy))
+    leaves = [xb.clone().requires_grad_(True), wb.clone().requires_grad_(True)]
+    got = torch.autograd.grad(rmsnorm(*leaves, cast_first=True), leaves, dyb)
+    for g, d in zip(got, rmsnorm_bwd(xb, wb, dyb, cast_first=True)):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, d)
+    assert (rmsnorm.launches, rmsnorm_bwd.launches) == launches
