@@ -5,12 +5,12 @@
 
 Phases, each printing JSON lines:
 
-1. build   - compiles the eight CUDA kernels from
+1. build   - compiles the nine CUDA kernels from
              ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a into
              ``build/repro_torch_kernels/``, one nvcc per source, all at
              once; prints each entry's registers, shared memory and
              spills (none allowed in the entries of ``NO_SPILL``, the WKV
-             scan, both ticks and both backward kernels, or in the bf16
+             scan, both ticks and the three backward kernels, or in the bf16
              wgmma flash kernel at any head dim) and, where ``cuobjdump`` is
              installed, the tensor-core (HGMMA) instructions of the
              machine code of flash and of its backward (at least one
@@ -139,18 +139,32 @@ Phases, each printing JSON lines:
              launches per forward and no attention launch; the plain route
              within relative L2 4.5e-2 (prefill) and 5e-2 (every decode
              step), set from the per-layer readings in PERF.md, and each
-             layer's own share <= 1e-2.
-8. train   - training of gemma-2b at its registered width (random weights
-             from ``SEED``, bf16, 2.51 B parameters) on 4 x 2048-token
-             batches of the port's synthetic stream: the first step's
-             loss and every gradient leaf on the kernel route within
-             ``TRAIN_LOSS_REL`` / ``TRAIN_GRAD_REL_L2`` of the plain route;
-             then 4 steps of ``make_train_step`` with ``AdamWConfig()``,
-             exactly 73 rmsnorm, 37 rmsnorm_bwd, 36 flash_attention (18
-             recomputed) and 18 flash_attention_bwd launches a step;
-             prints the step time, tokens/s, model TFLOP/s and its share
-             of the bf16 peak, peak memory and the idle share of a
-             profiled step.  Then ``run_training`` on the card at
+             layer's own share <= 1e-2.  Then ``serve_moe``, the same
+             workload on olmoe-1b-7b (16 layers, d 2048, 16 heads of 128,
+             64 experts top 8 of width 1024, vocab 50304, bf16, 6.9 B):
+             33 rmsnorm per forward, 16 flash_attention per
+             prefill, 16 decode_attention per step; the plain route run
+             on the kernel route's expert choices, as on its greedy
+             tokens, within gemma-2b's gates (2e-2 / 2.5e-2, each layer
+             1e-2), and the tokens whose top-k set of experts the plain
+             route would choose otherwise counted per layer and over the
+             request.
+8. train   - training of gemma-2b and of rwkv6-1.6b at their registered
+             widths (random weights from ``SEED``, bf16, 2.51 B / 1.60 B
+             parameters) on 4 x 2048-token batches of the port's
+             synthetic stream: the first step's loss and every gradient
+             leaf on the kernel route within ``TRAIN_LOSS_REL`` /
+             ``TRAIN_GRAD_REL_L2`` of the plain route (the worst leaf
+             named; rwkv6-1.6b also in fp32 at 1 x 1024 tokens, within
+             ``TRAIN_FP32_GRAD_REL_L2``); then 4 steps of ``make_train_step`` with
+             ``AdamWConfig()``, exactly 73 rmsnorm, 37 rmsnorm_bwd, 36
+             flash_attention (18 recomputed) and 18 flash_attention_bwd
+             launches a step on gemma-2b, 145 rmsnorm, 73 rmsnorm_bwd,
+             48 rwkv6_scan (24 recomputed, each writing its state every
+             64 steps) and 24 rwkv6_scan_bwd on rwkv6-1.6b; prints the
+             step time, tokens/s, model TFLOP/s and its share of the bf16
+             peak, peak memory and the idle share of a profiled step.
+             Then ``run_training`` on the card at
              qwen3-1.7b's smoke config, crashed at step 25 and resumed
              from 20 with the uninterrupted run's losses, and the training
              CLI for 3 steps.  The backward kernels are held in phase 2
@@ -168,7 +182,12 @@ Phases, each printing JSON lines:
              and the backward of ``scaled_dot_product_attention`` /
              ``F.rms_norm``, and ``REPEATS`` more launches bit-equal;
              the forward flash kernel is timed with and without its row
-             statistics.
+             statistics; and ``rwkv6_scan_bwd`` at rwkv6-1.6b's training
+             shape (4, 2048, 32, 64) and a ragged (2, 333, 2, 64) from the
+             forward's checkpoints, against the plain reverse recurrence
+             at the fp32 gate, beside its bound, its issue floor and the
+             plain version (no library call computes it), with the
+             checkpointing forward timed against the serving launch.
 9. the ``kernels`` line, the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
 
@@ -242,7 +261,7 @@ SPIN_CYCLES = 10_000_000
 REPEATS = 50
 #: kernels none of whose entries may spill registers (the build phase)
 NO_SPILL = ("rwkv6_scan", "mesi_tick", "chunk_tick", "flash_attention_bwd",
-            "rmsnorm_bwd")
+            "rmsnorm_bwd", "rwkv6_scan_bwd")
 #: fp32 lanes of an SM on Hopper (the issue floor of the WKV scan)
 FP32_LANES_PER_SM = 128
 #: host-time samples of each piece of a wrapper call (``host_split``)
@@ -269,6 +288,9 @@ REPLACES = {
         "src/repro/models/attention.py:76 _sdpa_block (jax.grad)"),
     "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                     "src/repro/models/common.py:46 norm_apply (jax.grad)"),
+    "rwkv6_scan_bwd": ("src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+                       "src/repro/models/rwkv6.py:142 rwkv_time_mix_apply's "
+                       "chunked scan of _wkv_step (jax.grad)"),
 }
 #: the service cell of phase 5: the JAX package's service bench grid
 #: (``benchmarks/service_bench.py``): 32 clients, 6 artifacts of 4096
@@ -292,13 +314,23 @@ TCP_REQUESTS = 200
 SERVE = dict(arch="gemma-2b", agents=4, artifacts=3, artifact_tokens=2048,
              steps=40, volatility=0.10, strategy="lazy", max_len=8192,
              decode_steps=32)
-#: the serving workload of phase 7: the same on rwkv6-1.6b
+#: the serving workload of phase 7: the same on rwkv6-1.6b, and on
+#: olmoe-1b-7b (16 layers, d 2048, 16 heads of 128, 64 experts top 8 of
+#: width 1024, vocab 50304, bf16)
 SERVE_RWKV = dict(SERVE, arch="rwkv6-1.6b")
+SERVE_MOE = dict(SERVE, arch="olmoe-1b-7b")
+#: each serving workload's phase name, by arch
+SERVE_PHASES = {"gemma-2b": "serve", "rwkv6-1.6b": "serve_rwkv",
+                "olmoe-1b-7b": "serve_moe"}
 #: the training cell of phase 8: gemma-2b at its registered width, a
 #: batch of 4 sequences of 2048 tokens from the port's synthetic stream,
 #: ``steps`` steps of AdamW (``AdamWConfig()``); and the trainer's smoke
 #: run (qwen3-1.7b's smoke config, a crash at 25 of 40 steps, resumed)
 TRAIN = dict(arch="gemma-2b", batch=4, seq_len=2048, steps=4)
+#: the same training cell on rwkv6-1.6b at its registered width (24
+#: layers, d 2048, 32 heads of 64, bf16, 1.60 B): its WKV runs the
+#: checkpointing forward and the backward kernel
+TRAIN_RWKV = dict(TRAIN, arch="rwkv6-1.6b")
 TRAIN_LOOP = dict(arch="qwen3-1.7b", steps=40, every=10, crash_at=25)
 #: the attention backward's shapes in phase ``kernels`` (label, b, Hq,
 #: Hkv, Lq, Lk, D, dtype name)
@@ -309,6 +341,21 @@ BWD_CASES = (("mid fp32", 2, 8, 2, 700, 700, 64, "float32"),
              ("qwen3-1.7b train", TRAIN["batch"], 16, 8, TRAIN["seq_len"],
               TRAIN["seq_len"], 128, "bfloat16"),
              ("ragged bf16", 1, 8, 1, 333, 1001, 256, "bfloat16"))
+#: the WKV backward's shapes in phase ``kernels`` (label, b, t, h, dh):
+#: rwkv6-1.6b's training shape and a ragged one (T not a multiple of the
+#: checkpoint spacing, B*H below the SMs)
+WKV_BWD_CASES = (("rwkv6-1.6b train", TRAIN_RWKV["batch"],
+                  TRAIN_RWKV["seq_len"], 32, 64),
+                 ("ragged", 2, 333, 2, 64))
+#: fp32 instructions per state element a step of the WKV backward's
+#: design (its issue floor): the state recomputed in pass A (3 a step for
+#: all but a chunk's last 8-step sub-chunk: 3 x 56 / 64) and in pass B (3
+#: for 7 of 8 steps), four FMAs of the sums and two for G
+WKV_BWD_INSTRUCTIONS = 3 * 56 / 64 + 3 * 7 / 8 + 4 + 2
+#: flops per state element a step of the WKV backward (its operations
+#: bound): the forward's state once (multiply, multiply, add), the four
+#: sums (an FMA each) and G (a multiply and an FMA)
+WKV_BWD_FLOPS = 3 + 8 + 3
 #: the backward kernels against autograd of the plain versions: fp32
 #: max-abs within this share of the reference tensor's largest magnitude;
 #: bf16 relative L2 within GRAD_REL_L2 per tensor and each element within
@@ -319,14 +366,26 @@ GRAD_FP32_TOL = 1e-4
 GRAD_REL_L2 = 1e-2
 GRAD_ULPS = 2.0
 GRAD_RMS_FLOOR = 2.0 ** -8
-#: kernel route vs plain route of gemma-2b's first train step (phase 8):
-#: the loss's relative difference and each gradient leaf's relative L2,
-#: set from the H100 readings recorded in PERF.md (8.9e-6; at most 0.0116,
-#: the tied embedding's, median 0.0054): bf16 activations of random
-#: weights round differently on the two routes layer by layer, and the
-#: embedding's gradient sums every token's
+#: kernel route vs plain route of the first train step (phase 8): the
+#: loss's relative difference and each gradient leaf's relative L2, by
+#: arch, set from the H100 readings recorded in PERF.md: gemma-2b 8.9e-6
+#: and at most 0.0116 (the tied embedding's, median 0.0054); rwkv6-1.6b
+#: 5.0e-7 and at most 0.0739 (the stacked bonus, median 0.048), parting
+#: evenly over its 24 layers (each layer's worst leaf 0.058-0.092) and
+#: as far with either kind of kernel alone on the kernel route (the norms
+#: 0.043, the WKV 0.073), while in fp32 the routes agree to 2.3e-5: bf16
+#: activations of random weights round differently on the two routes
+#: layer by layer, through rwkv's 24 recurrent states more than through
+#: gemma's attention, and a leaf that sums every token's gradient (the
+#: embedding, the bonus) gathers it all
 TRAIN_LOSS_REL = 1e-4
-TRAIN_GRAD_REL_L2 = 2e-2
+TRAIN_GRAD_REL_L2 = {"gemma-2b": 2e-2, "rwkv6-1.6b": 9e-2}
+#: the same first step of rwkv6-1.6b at its registered width in fp32 (a
+#: batch of 1 x 1024 tokens) on both routes: every gradient leaf within
+#: this relative L2 (reading 2.3e-5: the fp32 kernels sum in other
+#: orders), the gate that a faulty layer could not pass
+TRAIN_FP32 = dict(batch=1, seq_len=1024)
+TRAIN_FP32_GRAD_REL_L2 = 1e-4
 #: the cast-first bf16 ``rmsnorm`` (the models' order) against its plain
 #: twin: at most this share of the elements may differ at all (at least
 #: one is allowed).  The two sum the squares in other orders, so the
@@ -359,8 +418,10 @@ WKV_FP32_TOL = 1e-5
 #: by arch: (the prefill's last position, every decode step's), set from
 #: the H100 readings recorded in PERF.md: gemma-2b 0.0167 and at most
 #: 0.0191; rwkv6-1.6b 0.0378 and at most 0.0399, where the per-layer
-#: readings show no layer parting the routes (each adds at most 0.0037)
-LOGITS_REL_L2 = {"gemma-2b": (2e-2, 2.5e-2), "rwkv6-1.6b": (4.5e-2, 5e-2)}
+#: readings show no layer parting the routes (each adds at most 0.0037);
+#: olmoe-1b-7b starts at gemma-2b's
+LOGITS_REL_L2 = {"gemma-2b": (2e-2, 2.5e-2), "rwkv6-1.6b": (4.5e-2, 5e-2),
+                 "olmoe-1b-7b": (2e-2, 2.5e-2)}
 #: relative L2 error allowed for one layer's own share of the routes'
 #: distance (``layer_divergence``'s ``local``; readings at most 0.0015 on
 #: gemma-2b and 0.0037 on rwkv6-1.6b)
@@ -971,6 +1032,8 @@ def phase_model_kernels(card: str, rate: float, flops: float,
     cfg = get(SERVE["arch"])
     d, hq, hkv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                       cfg.kv_head_dim())
+    moe = get(SERVE_MOE["arch"])    # olmoe-1b-7b: 16 heads of 128, MHA
+    mq, mkv, md = moe.n_heads, moe.n_kv_heads, moe.kv_head_dim()
     P = min(contexts)
     L1 = min(max(contexts), SERVE["max_len"])
     bf16 = torch.bfloat16
@@ -1024,6 +1087,8 @@ def phase_model_kernels(card: str, rate: float, flops: float,
     for label, b, h, g, lq, dim, dtype in (
             ("batched prefill", SERVE["agents"], hq, hkv, P, hd, bf16),
             ("agent prefill", 1, hq, hkv, L1, hd, bf16),
+            ("olmoe batched prefill", SERVE["agents"], mq, mkv, P, md, bf16),
+            ("olmoe agent prefill", 1, mq, mkv, L1, md, bf16),
             ("mid bf16", 2, 16, 8, 2048, 128, bf16),
             ("mid fp32", 1, 8, 2, 1000, 64, torch.float32)):
         q = normal(b, h, lq, dim, dtype=dtype)
@@ -1062,6 +1127,8 @@ def phase_model_kernels(card: str, rate: float, flops: float,
     for label, b, h, g, L, dim, dtype, ragged in (
             ("batched decode", SERVE["agents"], hq, hkv, P + steps, hd, bf16,
              False),
+            ("olmoe batched decode", SERVE["agents"], mq, mkv, P + steps, md,
+             bf16, False),
             ("mid bf16", 8, 16, 8, 2048, 128, bf16, True),
             ("mid fp32", 4, 8, 2, 777, 64, torch.float32, True)):
         q = normal(b, h, dim, dtype=dtype)
@@ -1294,7 +1361,7 @@ def host_split(card: str) -> None:
             lambda: bonus.to(torch.float32).contiguous()),
         "outputs": host_us(lambda: wkv._outputs(r)),
         "launch": host_us(lambda: backend.launch(
-            "rwkv6_scan", 0, *wptrs, b, 1, h, dh, 0))},
+            "rwkv6_scan", 0, *wptrs, None, b, 1, h, dh, 0, 0))},
         "shape": [b, 1, h, dh], "card": card})
     chunk_host_split(card)
     decide_host_split(card)
@@ -2260,12 +2327,43 @@ class head_split_off:
         fa._sm_count = self.saved
 
 
+@functools.lru_cache(maxsize=None)
+def plain_wkv():
+    """The WKV scan's plain version as an autograd function whose backward
+    is the plain reverse recurrence (``ref.rwkv6_scan_bwd_plain``, held to
+    autograd of the plain scan by the CPU tests): ``plain_route``'s, since
+    autograd of the step-by-step loop would walk tens of thousands of
+    graph nodes a layer on the host."""
+    import torch
+    from repro_torch.kernels import ref
+
+    class PlainWKV(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, w, bonus, initial_state):
+            ctx.save_for_backward(r, k, v, w, bonus, initial_state)
+            ctx.set_materialize_grads(False)
+            return ref.rwkv6_scan_plain(r, k, v, w, bonus, initial_state)
+
+        @staticmethod
+        def backward(ctx, dy, dstate):
+            r, k, v, w, bonus, s0 = ctx.saved_tensors
+            dy = torch.zeros_like(r) if dy is None else dy
+            dr, dk, dv, dw, du, ds0 = ref.rwkv6_scan_bwd_plain(
+                r, k, v, w, bonus, s0, dy, dstate)
+            return (dr, dk, dv, dw, du.to(bonus.dtype),
+                    None if s0 is None else ds0)
+
+    return PlainWKV
+
+
 class plain_route:
     """Inside ``with plain_route():`` the model kernels' public entry
     points (``repro_torch.kernels.ops``, and the RMSNorm wrapper that the
     models' ``norm_apply`` calls in its cast-first order) run their plain
-    versions, on CUDA tensors too - the reference the serve phase holds
-    the kernel route to.  The port itself has no such switch."""
+    versions, on CUDA tensors too - the reference the serve and train
+    phases hold the kernel route to (the WKV scan's backward its plain
+    reverse recurrence, ``plain_wkv``).  The port itself has no such
+    switch."""
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
@@ -2282,7 +2380,8 @@ class plain_route:
                                                           scale)
         ops.decode_attention = lambda q, kc, vc, kv_len=None, scale=None, \
             block_k=256: ref.decode_attention_plain(q, kc, vc, kv_len, scale)
-        ops.rwkv6_scan = ref.rwkv6_scan_plain
+        ops.rwkv6_scan = lambda r, k, v, w, bonus, initial_state=None, \
+            chunk=64: plain_wkv().apply(r, k, v, w, bonus, initial_state)
         return self
 
     def __exit__(self, *exc):
@@ -2337,7 +2436,7 @@ def phase_serve(card: str, serve=SERVE) -> dict:
     torch.cuda.reset_peak_memory_stats()
     (system, stats), _ = sync_time(lambda: serving_system(serve))
     cfg = system.cfg
-    phase = "serve" if serve is SERVE else "serve_rwkv"
+    phase = SERVE_PHASES[serve["arch"]]
     params, init_s = sync_time(lambda: models.init_params(cfg, seed=SEED))
     n_params = models.params_count(params)
     n = len(system.agents)
@@ -2363,9 +2462,18 @@ def phase_serve(card: str, serve=SERVE) -> dict:
           f"{cfg.name}: launch counts {launches} == {expected}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    with plain_route():
+    # an MoE model's plain route takes the kernel route's experts, as it
+    # takes its greedy tokens (moe_routes); the two routes' own choices
+    # are compared apart (``request_flipped_tokens``, per layer in
+    # ``layer_divergence``)
+    with moe_routes() as kernel_routes:
+        if cfg.moe is not None:
+            batched_request(system, params, steps)
+    with plain_route(), moe_routes(kernel_routes.routes) as plain_routes:
         plain, plain_s = sync_time(lambda: batched_request(
             system, params, steps, forced=out["tokens"]))
+    flips = [flipped_tokens(a, b) for a, b in zip(kernel_routes.routes,
+                                                  plain_routes.routes)]
     rel_steps = (torch.linalg.vector_norm(
         (out["logits"] - plain["logits"]).float(), dim=-1)
         / torch.linalg.vector_norm(plain["logits"].float(), dim=-1))
@@ -2386,6 +2494,10 @@ def phase_serve(card: str, serve=SERVE) -> dict:
           "logits_rel_l2_max_decode_step": worst,
           "logits_rel_l2_by_step": rel_steps.max(dim=0).values.tolist(),
           "greedy_agreement": agree, "launches": launches,
+          "routes_forced": bool(flips),
+          "request_flipped_tokens": sum(flips) if flips else None,
+          "request_routed_tokens": (sum(r.shape[0] for r in plain_routes.routes)
+                                    if flips else None),
           "peak_gib": peak, "token_savings": stats.token_savings,
           "flops_savings": stats.flops_savings,
           "prefill_tokens": stats.prefill_tokens,
@@ -2394,6 +2506,13 @@ def phase_serve(card: str, serve=SERVE) -> dict:
           "card": card})
     layers = layer_divergence(card, system, params, phase)
     worst_layer = max(row["local"] for row in layers)
+    if cfg.moe is not None:
+        emit({"phase": phase, "what": "routing flips", "arch": cfg.name,
+              "tokens": max(row.get("tokens", 0) for row in layers),
+              "flipped_local": [row.get("flipped_local") for row in layers],
+              "flipped_chained": [row.get("flipped_chained")
+                                  for row in layers],
+              "card": card})
     check(worst_layer <= LAYER_REL_L2,
           f"{cfg.name}: every layer's own share of the routes' distance "
           f"{worst_layer} <= {LAYER_REL_L2}")
@@ -2409,13 +2528,60 @@ def phase_serve(card: str, serve=SERVE) -> dict:
     return {name: count for name, count in launches.items() if count}
 
 
+class moe_routes:
+    """Inside ``with moe_routes(forced) as rec:`` every MoE routing
+    (``models.moe._route``) appends the experts it chose itself, (tokens,
+    k), to ``rec.routes``.  While ``forced`` (a list of such routings)
+    holds any, each call takes the next of them instead, its gate values
+    its own router probabilities at those experts, renormalized as
+    ``_route`` does: the plain route then runs the kernel route's expert
+    choices, as it runs its greedy tokens, so that the comparison of the
+    two measures the kernels and not a near-tie in the top k (those are
+    counted apart).  The model is unchanged."""
+
+    def __init__(self, forced=()):
+        self.forced = list(forced)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.saved, self.routes = moe._route, []
+
+        def route(p, m, xs):
+            probs, gate, idx = self.saved(p, m, xs)
+            self.routes.append(idx.reshape(-1, m.top_k))
+            if self.forced:
+                idx = self.forced.pop(0).reshape(idx.shape)
+                top = torch.gather(probs, -1, idx)
+                gate = (top / torch.clamp(top.sum(-1, keepdim=True),
+                                          min=1e-9)).to(xs.dtype)
+            return probs, gate, idx
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.saved
+        return False
+
+
+def flipped_tokens(a, b) -> int:
+    """Tokens whose set of k experts differs between two routings."""
+    import torch
+    return int((torch.sort(a, dim=-1).values
+                != torch.sort(b, dim=-1).values).any(dim=-1).sum())
+
+
 def layer_divergence(card: str, system, params, phase: str) -> list:
     """Where the kernel and plain routes part: the batched request's
     prompt through the layers one at a time, on both routes.  Per layer,
     the relative L2 distance of the residual stream after it (whole, and
     at the last position, the one the logits read): ``chained``, each
     route fed its own previous output; ``local``, the kernel route fed
-    the plain route's input, so the layer's own share.  Returns the
+    the plain route's input, so the layer's own share.  An MoE layer's
+    row adds the tokens whose top-k set of experts differs from the plain
+    route's (``flipped_local``, ``flipped_chained``).  Returns the
     rows."""
     import torch
     from repro_torch.models import transformer as tf
@@ -2444,14 +2610,22 @@ def layer_divergence(card: str, system, params, phase: str) -> list:
     xk = xp = tf._embed_tokens(params, cfg, tokens)
     rows = []
     for i in range(cfg.n_layers):
-        local = layer(i, xp)
-        xk = layer(i, xk)
-        with plain_route():
+        with moe_routes() as kernel:
+            local = layer(i, xp)
+            xk = layer(i, xk)
+        # an MoE layer's plain route takes the local kernel call's experts
+        with plain_route(), moe_routes(kernel.routes[:1]) as plain:
             xp = layer(i, xp)
         rows.append({"layer": i, "chained": rel(xk, xp),
                      "chained_last": rel(xk[:, -1], xp[:, -1]),
                      "local": rel(local, xp),
                      "local_last": rel(local[:, -1], xp[:, -1])})
+        if plain.routes:    # the plain route's own choice against the two
+            here, chained = kernel.routes
+            rows[-1].update(
+                tokens=int(here.shape[0]),
+                flipped_local=flipped_tokens(here, plain.routes[0]),
+                flipped_chained=flipped_tokens(chained, plain.routes[0]))
     torch.cuda.synchronize()
     emit({"phase": phase, "what": "layer_divergence", "arch": cfg.name,
           "prompt": [n, p], "layers": rows, "card": card})
@@ -2487,7 +2661,8 @@ def check_grad(got, exp, what: str) -> tuple:
     return err, rel, ratio
 
 
-def phase_train_kernels(card: str, rate: float, flops: float) -> dict:
+def phase_train_kernels(card: str, rate: float, flops: float,
+                        fp32_flops: float) -> dict:
     """The two backward kernels against autograd of their plain versions
     on the card, and the forward kernels as training launches them
     against theirs (flash with its row statistics, output and lse each
@@ -2681,31 +2856,122 @@ def phase_train_kernels(card: str, rate: float, flops: float) -> dict:
         emit(row)
         if label == "gemma-2b train":
             results["rmsnorm_bwd"] = row
-    check_repeats(card, repeat_cases)
+    row, wkv_repeats = check_rwkv6_scan_bwd(card, rate, fp32_flops, gen)
+    results["rwkv6_scan_bwd"] = row
+    check_repeats(card, repeat_cases + wkv_repeats)
     return results
 
 
+def check_rwkv6_scan_bwd(card: str, rate: float, fp32_flops: float,
+                         gen) -> tuple:
+    """The WKV backward kernel against the plain reverse recurrence
+    (``rwkv6_scan_bwd_plain``) at ``WKV_BWD_CASES``, each from the
+    checkpoints of the forward as training launches it, with an initial
+    state and a final state's gradient: every gradient within the fp32
+    gate of ``check_grad``.  Timed alone and through its wrapper beside
+    its bound (bytes: r, k, v, w, dy, the bonus, the checkpoints and the
+    final state's gradient read once, the six gradients written once;
+    operations: ``WKV_BWD_FLOPS`` a state element a step at the card's
+    fp32 rate), its issue floor (``WKV_BWD_INSTRUCTIONS`` at the card's
+    fp32 lanes and highest SM clock) and the plain version; no PyTorch
+    call computes it (``library_ms`` None).  The checkpointing forward is
+    timed against the serving launch, in turns.  Returns the training
+    shape's row and the cases for ``check_repeats``."""
+    import torch
+    from repro_torch.kernels.ref import rwkv6_scan_bwd_plain
+    from repro_torch.kernels.rwkv6_scan import (CKPT, rwkv6_scan,
+                                                rwkv6_scan_bwd,
+                                                rwkv6_scan_checkpoints)
+    lanes = (torch.cuda.get_device_properties(0).multi_processor_count
+             * FP32_LANES_PER_SM)
+    clock_hz = max_sm_clock_hz()
+    result, repeats = None, []
+    for label, b, t, h, dh in WKV_BWD_CASES:
+        r, k, v, dy = (torch.randn((b, t, h, dh), generator=gen,
+                                   device="cuda") for _ in range(4))
+        w = torch.exp(-torch.exp(torch.rand(
+            (b, t, h, dh), generator=gen, device="cuda") * 3 - 8))
+        bonus = torch.randn((h, dh), generator=gen, device="cuda") * 0.1
+        s0, ds = (torch.randn((b, h, dh, dh), generator=gen, device="cuda")
+                  for _ in range(2))
+        fwd = (r, k, v, w, bonus, s0)
+        ckpt = rwkv6_scan_checkpoints(*fwd)[2]
+        args = (r, k, v, w, bonus, ckpt, dy, ds)
+        got = rwkv6_scan_bwd(*args)
+        torch.cuda.synchronize()
+        exp = rwkv6_scan_bwd_plain(*fwd, dy, ds)
+        errs = [check_grad(a, e, f"rwkv6_scan_bwd {n} ({label})")
+                for n, a, e in zip(("dr", "dk", "dv", "dw", "du", "dstate0"),
+                                   got, exp)]
+        del exp
+        make = lambda: args   # noqa: E731
+        dev_ms, host_ms = device_ms(rwkv6_scan_bwd, make, 5)
+        moved = sum(x.numel() * x.element_size() for x in args + got)
+        elems = b * t * h * dh * dh
+        bytes_ms = moved / rate * 1e3
+        ops_ms = WKV_BWD_FLOPS * elems / fp32_flops * 1e3
+        # the forward as training launches it (checkpoints every CKPT
+        # steps) against the serving launch, alone, in turns
+        turns = {}
+        for ckpts in (False, True, True, False):
+            fn = rwkv6_scan_checkpoints if ckpts else rwkv6_scan
+            turns.setdefault(ckpts, []).append(
+                device_ms(fn, lambda: fwd, 5)[0])
+        row = {"phase": "kernels", "kernel": "rwkv6_scan_bwd",
+               "case": label, "shape": [b, t, h, dh], "dtype": "float32",
+               "checkpoint_every": CKPT,
+               "max_abs_err": max(e[0] for e in errs),
+               "rel_l2": [e[1] for e in errs],
+               "ms": median_ms(rwkv6_scan_bwd, make, 5),
+               "device_ms": dev_ms, "host_ms": host_ms,
+               "plain_ms": median_ms(lambda *a: rwkv6_scan_bwd_plain(
+                   *fwd, dy, ds), make, 1),
+               "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+               "issue_floor_ms": WKV_BWD_INSTRUCTIONS * elems
+               / (lanes * clock_hz) * 1e3,
+               "forward_device_ms": turns[False],
+               "forward_checkpointed_device_ms": turns[True],
+               "card": card}
+        emit(row)
+        repeats.append(("rwkv6_scan_bwd", label,
+                        functools.partial(rwkv6_scan_bwd, *args), got))
+        if label == "rwkv6-1.6b train":
+            result = row
+    return result, repeats
+
+
+
 def train_kernels():
-    """The wrappers of the training path's kernels, by kernel name."""
+    """The wrappers of the training paths' kernels, by kernel name."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
     return {"rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
             "flash_attention": flash_attention,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "rwkv6_scan": rwkv6_scan, "rwkv6_scan_bwd": rwkv6_scan_bwd}
 
 
 def expected_train_launches(cfg, steps: int) -> dict:
-    """Launches of each kernel over ``steps`` train steps of a dense model
-    whose superblocks are checkpointed: the forward's norms (two a layer,
-    two more with qk-norm, the final norm) and attention, the layers'
-    recomputed in the backward, and one backward launch of each norm and
-    attention."""
-    norms = (2 + 2 * cfg.use_qk_norm) * cfg.n_layers
+    """Launches of each kernel over ``steps`` train steps of a model whose
+    superblocks are checkpointed: the forward's norms (two a layer, two
+    more with qk-norm in an attention layer, rwkv's ln_x a third in an
+    rwkv layer, the final norm) and mixer kernels (flash attention or the
+    WKV scan), the layers' again in the recompute, and one backward
+    launch of each norm and mixer kernel."""
+    from repro_torch.models.transformer import layer_specs
+    mixers = [spec.mixer for spec in layer_specs(cfg)]
+    n_attn, n_rwkv = mixers.count("attn"), mixers.count("rwkv")
+    norms = (2 + 2 * cfg.use_qk_norm) * n_attn + 3 * n_rwkv
     return {"rmsnorm": (2 * norms + 1) * steps,
             "rmsnorm_bwd": (norms + 1) * steps,
-            "flash_attention": 2 * cfg.n_layers * steps,
-            "flash_attention_bwd": cfg.n_layers * steps}
+            "flash_attention": 2 * n_attn * steps,
+            "flash_attention_bwd": n_attn * steps,
+            "rwkv6_scan": 2 * n_rwkv * steps,
+            "rwkv6_scan_bwd": n_rwkv * steps}
 
 
 def phase_bwd_passes() -> None:
@@ -2764,13 +3030,14 @@ def bwd_passes(card: str) -> None:
         del q, k, v, dout, lse
 
 
-def phase_train(card: str, flops: float) -> dict:
-    """Training of gemma-2b at its registered width (18 layers, d 2048,
-    MQA, head dim 256, vocab 256000, bf16; random weights from ``SEED``)
-    on batches of 4 x 2048 tokens from the port's synthetic stream:
-    the first step's loss and gradients on the kernel route against the
-    same step on the plain route (``TRAIN_LOSS_REL``,
-    ``TRAIN_GRAD_REL_L2``), then ``TRAIN["steps"]`` steps of
+def phase_train(card: str, flops: float, train=TRAIN) -> dict:
+    """Training of ``train``'s model at its registered width (gemma-2b:
+    18 layers, d 2048, MQA, head dim 256, vocab 256000; rwkv6-1.6b: 24
+    layers, d 2048, 32 heads of 64, vocab 65536; bf16, random weights
+    from ``SEED``) on batches of 4 x 2048 tokens from the port's synthetic
+    stream: the first step's loss and gradients on the kernel route
+    against the same step on the plain route (``TRAIN_LOSS_REL``,
+    ``TRAIN_GRAD_REL_L2``; the worst leaf named), then ``steps`` steps of
     ``make_train_step`` with ``AdamWConfig()``, the kernels' launch counts
     set to 0 just before them and checked exactly after; prints the step
     time (median of steps 2 on), tokens/s, model TFLOP/s and its share of
@@ -2784,14 +3051,14 @@ def phase_train(card: str, flops: float) -> dict:
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.runtime import steps as step_factories
 
-    cfg = get(TRAIN["arch"])
+    cfg = get(train["arch"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = models.init_params(cfg, seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = models.params_count(params)
-    b, s = TRAIN["batch"], TRAIN["seq_len"]
+    b, s = train["batch"], train["seq_len"]
     stream = SyntheticLMStream(DataConfig(vocab_size=cfg.vocab_size,
                                           seq_len=s, global_batch=b,
                                           seed=SEED))
@@ -2806,36 +3073,37 @@ def phase_train(card: str, flops: float) -> dict:
     with plain_route():
         loss_p, grads_p = step_factories.value_and_grad(params, cfg, first)
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    leaf_rel = [float(torch.linalg.vector_norm((a - e).float())
-                      / torch.linalg.vector_norm(e.float()).clamp_min(1e-30))
-                for a, e in zip(tree_leaves(grads_k), tree_leaves(grads_p))]
+    paths = leaf_paths(grads_k)
+    split = grad_split(grads_k, grads_p, paths)
+    leaf_rel = list(split["leaves"].values())
     finite = all(bool(torch.isfinite(g).all())
                  for g in tree_leaves(grads_k))
     del grads_k, grads_p
     emit({"phase": "train", "what": "route equality", "arch": cfg.name,
           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
-          "loss_rel": loss_rel, "grad_rel_l2_max": max(leaf_rel),
-          "grad_rel_l2_median": statistics.median(leaf_rel),
-          "grad_rel_l2": leaf_rel, "card": card})
+          "loss_rel": loss_rel, **split, "card": card})
     check(finite and bool(torch.isfinite(loss_k)),
           "finite loss and gradients on the kernel route")
     check(loss_rel <= TRAIN_LOSS_REL,
           f"{cfg.name} train loss: kernel vs plain {loss_rel} <= "
           f"{TRAIN_LOSS_REL}")
-    check(max(leaf_rel) <= TRAIN_GRAD_REL_L2,
+    grad_limit = TRAIN_GRAD_REL_L2[train["arch"]]
+    check(max(leaf_rel) <= grad_limit,
           f"{cfg.name} gradients: kernel vs plain relative L2 "
-          f"{max(leaf_rel)} <= {TRAIN_GRAD_REL_L2}")
+          f"{max(leaf_rel)} <= {grad_limit}")
+    if cfg.rwkv is not None:
+        route_equality_fp32(card, train)
 
     opt_cfg = AdamWConfig()
     opt_state = init_state(opt_cfg, params)
     step_fn = step_factories.make_train_step(cfg, opt_cfg)
-    batches = [batch(i) for i in range(TRAIN["steps"])]
+    batches = [batch(i) for i in range(train["steps"])]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in train_kernels().values():
         fn.launches = 0
     losses, times = [], []
-    for i in range(TRAIN["steps"]):
+    for i in range(train["steps"]):
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batches[i])
         losses.append(float(metrics["loss"]))
@@ -2843,29 +3111,32 @@ def phase_train(card: str, flops: float) -> dict:
         times.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, fn in train_kernels().items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = expected_train_launches(cfg, TRAIN["steps"])
+    expected = expected_train_launches(cfg, train["steps"])
     check(launches == expected,
           f"{cfg.name} train: launch counts {launches} == {expected}")
     check(all(map(math.isfinite, losses)), "finite train losses")
     step_s = statistics.median(times[1:])
     tokens = b * s
-    attn = 12 * cfg.n_layers * b * cfg.n_heads * cfg.kv_head_dim() \
+    n_attn = [spec.mixer for spec in models.layer_specs(cfg)].count("attn")
+    attn = 12 * n_attn * b * cfg.n_heads * cfg.kv_head_dim() \
         * attention_pairs(s, s, True)
     model_flops = 6 * n_params * tokens + attn
     wall, busy, top = device_profile(lambda: step_fn(
         params, opt_state, batches[0]))
     emit({"phase": "train", "arch": cfg.name, "params": n_params,
           "dtype": cfg.dtype, "init_seconds": init_s, "batch": b,
-          "seq_len": s, "steps": TRAIN["steps"], "losses": losses,
+          "seq_len": s, "steps": train["steps"], "losses": losses,
           "step_seconds": times, "step_ms": step_s * 1e3,
           "tokens_per_s": tokens / step_s,
           "model_flops_per_step": model_flops,
-          "model_flops_formula": "6*N*T + 12*L*B*Hq*D*causal_pairs(S); "
-                                 "recompute not counted",
+          "model_flops_formula": "6*N*T + 12*L_attn*B*Hq*D*causal_pairs(S); "
+                                 "recompute not counted; the WKV "
+                                 "recurrence's flops (about 0.5 % of 6*N*T "
+                                 "at rwkv6-1.6b) not counted",
           "model_tflops": model_flops / step_s / 1e12,
           "model_flops_share": model_flops / step_s / flops,
           "peak_gib": peak, "launches": launches,
-          "launches_per_step": {k: v // TRAIN["steps"]
+          "launches_per_step": {k: v // train["steps"]
                                 for k, v in launches.items()},
           "profiled_step_s": wall, "profiled_busy_s": busy,
           "device_idle_share": 1.0 - busy / wall, "top": top[:10],
@@ -2874,11 +3145,126 @@ def phase_train(card: str, flops: float) -> dict:
               r for r in top if re.search(
                   r"dq_wgmma|dkdv_wgmma|dkdv_reduce|dq_kernel|dkdv_kernel",
                   r["name"])],
+          "wkv_passes": [r for r in top if re.search(r"wkv_", r["name"])],
           "card": card})
     del params, opt_state, batches, step_fn
     torch.cuda.empty_cache()
-    train_loop_on_card(card)
     return launches
+
+
+def grad_split(got, exp, paths) -> dict:
+    """Each gradient leaf's relative L2 distance from the reference's, the
+    largest (and its leaf) and the median; and per stacked layer (the
+    leaves under ``/blocks``, split on their leading axis) the largest
+    distance of its leaves, its leaf, and their median."""
+    import torch
+    from repro_torch.models.common import tree_leaves
+
+    def rel(a, e):
+        return float(torch.linalg.vector_norm((a - e).float())
+                     / torch.linalg.vector_norm(e.float()).clamp_min(1e-30))
+
+    leaves, layers = {}, {}
+    for path, a, e in zip(paths, tree_leaves(got), tree_leaves(exp)):
+        leaves[path] = rel(a, e)
+        if path.startswith("/blocks"):
+            for i in range(a.shape[0]):
+                layers.setdefault(i, []).append((rel(a[i], e[i]), path))
+    worst = max(leaves, key=leaves.get)
+    return {"grad_rel_l2_max": leaves[worst],
+            "grad_rel_l2_worst_leaf": worst,
+            "grad_rel_l2_median": statistics.median(leaves.values()),
+            "grad_rel_l2_by_layer_max": [max(v)[0] for v in layers.values()],
+            "grad_rel_l2_by_layer_worst_leaf": [max(v)[1]
+                                                for v in layers.values()],
+            "grad_rel_l2_by_layer_median": [
+                statistics.median(x for x, _ in v) for v in layers.values()],
+            "leaves": leaves}
+
+
+def train_route_split(card: str) -> None:
+    """Where rwkv6-1.6b's first-step gradients part between the routes
+    (``chip_smoke.py --train-route-split``, a process of its own): the
+    kernel route, then the WKV kernel alone (the norms plain) and the
+    norm kernels alone (the WKV plain), each against the plain route, in
+    bf16 at ``TRAIN_RWKV``'s batch, per leaf and per stacked layer
+    (``grad_split``)."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as norm
+    from repro_torch.runtime import steps as step_factories
+    cfg = get(TRAIN_RWKV["arch"])
+    params = models.init_params(cfg, seed=SEED)
+    stream = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_RWKV["seq_len"],
+        global_batch=TRAIN_RWKV["batch"], seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch_at(0).items()}
+    paths = leaf_paths(params)
+    with plain_route():
+        loss_p, grads_p = step_factories.value_and_grad(params, cfg, batch)
+        plain_wkv, plain_norm = ops.rwkv6_scan, norm.rmsnorm
+    for label, wkv_plain, norm_plain in (("kernel route", False, False),
+                                         ("WKV kernel alone", False, True),
+                                         ("norm kernels alone", True, False)):
+        saved = ops.rwkv6_scan, norm.rmsnorm
+        if wkv_plain:
+            ops.rwkv6_scan = plain_wkv
+        if norm_plain:
+            norm.rmsnorm = plain_norm
+        try:
+            loss, grads = step_factories.value_and_grad(params, cfg, batch)
+        finally:
+            ops.rwkv6_scan, norm.rmsnorm = saved
+        emit({"phase": "train", "what": "route split", "arch": cfg.name,
+              "route": label, "loss_rel": abs(float(loss) - float(loss_p))
+              / abs(float(loss_p)), **grad_split(grads, grads_p, paths),
+              "card": card})
+        del grads
+
+
+def route_equality_fp32(card: str, train) -> None:
+    """``train``'s model at its registered width in fp32 (``TRAIN_FP32``'s
+    batch, random weights from ``SEED``): the first step's gradients on
+    the kernel route within ``TRAIN_FP32_GRAD_REL_L2`` of the plain
+    route's, leaf by leaf, and the worst leaf named."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.runtime import steps as step_factories
+    cfg = dataclasses.replace(get(train["arch"]), dtype="float32")
+    params = models.init_params(cfg, seed=SEED)
+    stream = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_FP32["seq_len"],
+        global_batch=TRAIN_FP32["batch"], seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch_at(0).items()}
+    loss_k, grads_k = step_factories.value_and_grad(params, cfg, batch)
+    with plain_route():
+        loss_p, grads_p = step_factories.value_and_grad(params, cfg, batch)
+    split = grad_split(grads_k, grads_p, leaf_paths(grads_k))
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "what": "route equality fp32", "arch": cfg.name,
+          "batch": TRAIN_FP32["batch"], "seq_len": TRAIN_FP32["seq_len"],
+          "loss_rel": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+          **split, "card": card})
+    check(split["grad_rel_l2_max"] <= TRAIN_FP32_GRAD_REL_L2,
+          f"{cfg.name} fp32 gradients: kernel vs plain relative L2 "
+          f"{split['grad_rel_l2_max']} <= {TRAIN_FP32_GRAD_REL_L2}")
+
+
+def leaf_paths(tree, prefix="") -> list:
+    """The ``/``-joined key path of each leaf of a nested dict, in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}/{k}")]
+    return [prefix]
 
 
 def train_loop_on_card(card: str) -> None:
@@ -2948,6 +3334,16 @@ def main() -> int:
     if sys.argv[1:] == ["--bwd-passes"]:   # phase_bwd_passes' own process
         bwd_passes(card)
         return 0
+    if sys.argv[1:] == ["--train-route-split"]:
+        train_route_split(card)
+        return 0
+    seconds, since = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:     # each phase's wall seconds
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - since[0]
+        since[0] = now
+
     rate, flops = memory_rate(card), bf16_rate(card)
     fp32_flops = fp32_rate(card)
     emit({"phase": "env", "torch": torch.__version__,
@@ -2955,13 +3351,15 @@ def main() -> int:
           "memory_bytes_per_s": rate, "bf16_flops_per_s": flops,
           "fp32_flops_per_s": fp32_flops})
     phase_build(card)
+    lap("build")
     kernels = phase_kernels(card, rate)
     system, _ = serving_system()
     contexts = [len(system.context_tokens(i))
                 for i in range(len(system.agents))]
     kernels.update(phase_model_kernels(card, rate, flops, fp32_flops,
                                        contexts))
-    kernels.update(phase_train_kernels(card, rate, flops))
+    kernels.update(phase_train_kernels(card, rate, flops, fp32_flops))
+    lap("kernels")
 
     mt.mesi_tick_.launches = 0
     chunk_diff.chunk_tick_.launches = 0
@@ -2969,26 +3367,35 @@ def main() -> int:
     fleet_seconds = phase_fleet(card)
     launches = {"mesi_tick": mt.mesi_tick_.launches,
                 "chunk_tick": chunk_diff.chunk_tick_.launches}
+    lap("scenarios and fleet")
 
     mt.mesi_tick_.launches = 0
     chunk_diff.chunk_tick_.launches = 0
     phase_service(card)
     launches["mesi_tick"] += mt.mesi_tick_.launches
     launches["chunk_tick"] += chunk_diff.chunk_tick_.launches
+    lap("service")
 
-    for serve in (SERVE, SERVE_RWKV):
+    for serve in (SERVE, SERVE_RWKV, SERVE_MOE):
         for fn in model_kernels().values():
             fn.launches = 0
         for name, count in phase_serve(card, serve).items():
             launches[name] = launches.get(name, 0) + count
-    for name, count in phase_train(card, flops).items():
-        launches[name] = launches.get(name, 0) + count
+        lap(SERVE_PHASES[serve["arch"]])
+    for train in (TRAIN, TRAIN_RWKV):
+        for name, count in phase_train(card, flops, train).items():
+            launches[name] = launches.get(name, 0) + count
+        lap(f"train {train['arch']}")
+    train_loop_on_card(card)
     phase_bwd_passes()
     check(set(kernels) == set(launches) == set(REPLACES)
           == set(build.KERNELS) and all(v > 0 for v in launches.values()),
           "the main paths launched every kernel")
 
     phase_profile(card, fleet_seconds)
+    lap("train loop, passes, profile")
+    emit({"phase": "timing", "seconds": seconds,
+          "total_s": sum(seconds.values()), "card": card})
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": REPLACES[name][0],
         "replaces": REPLACES[name][1], "launches": launches[name],

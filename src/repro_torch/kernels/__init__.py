@@ -8,7 +8,10 @@ held to):
   * ``rmsnorm``, ``flash_attention``, ``decode_attention``,
     ``rwkv6_scan``   - the model kernels of the serving path, public
                      through ``kernels.ops`` with the JAX package's
-                     signatures
+                     signatures; the backward kernels of rmsnorm,
+                     flash attention and the WKV scan beside their
+                     forwards (``rmsnorm_bwd``, ``flash_attention_bwd``,
+                     ``rwkv6_scan_bwd``)
 
 Sources live in ``csrc/``; ``build`` compiles them with nvcc at first
 use.

@@ -49,7 +49,9 @@ KERNELS = {
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
                          [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
     "rwkv6_scan": ("rwkv6_scan.cu", "rwkv6_scan_launch",
-                   [_P] * 8 + [_I] * 5 + [_P]),
+                   [_P] * 9 + [_I] * 6 + [_P]),
+    "rwkv6_scan_bwd": ("rwkv6_scan_bwd.cu", "rwkv6_scan_bwd_launch",
+                       [_P] * 15 + [_I] * 5 + [_P]),
 }
 
 _LIBS: dict = {}

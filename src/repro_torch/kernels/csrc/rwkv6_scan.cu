@@ -51,11 +51,22 @@
 // its own columns of state_in before it writes the same columns of
 // state_out, so the two may be one buffer.
 //
+// Checkpoints.  Under autograd the wrapper passes a checkpoint buffer
+// (B, H, ceil(T / every), dh, dh) fp32: at the start of every stage whose
+// first step t is a multiple of `every` (a multiple of the stage's TS
+// steps), each thread writes its tile of the state before step t, so
+// checkpoint c is the state before step c * every (checkpoint 0 the
+// initial state).  The backward kernel (rwkv6_scan_bwd.cu) recomputes
+// each chunk's states from them in the same rounding, so they equal the
+// forward's bit for bit.  Serving passes null: one untaken branch a stage.
+//
 // C interface (ctypes): rwkv6_scan_launch(r, k, v, w, u, state_in,
-// y, state_out, B, T, H, dh, dtype, stream); dtype 0 = float32,
-// 1 = bfloat16 (r, k, v, w and y share it; u and the states are fp32);
-// state_in may be null (zeros) and may equal state_out.  r/k/v/w/y must be
-// 16-byte aligned; dh is 32 (the smoke configs) or 64 (rwkv6-1.6b).
+// y, state_out, ckpt, B, T, H, dh, dtype, every, stream); dtype 0 =
+// float32, 1 = bfloat16 (r, k, v, w and y share it; u, the states and the
+// checkpoints are fp32); state_in may be null (zeros) and may equal
+// state_out; ckpt may be null (no checkpoints; `every` is then not read).
+// r/k/v/w/y must be 16-byte aligned; dh is 32 (the smoke configs) or 64
+// (rwkv6-1.6b); `every` a positive multiple of 1024 / dh.
 // Returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
@@ -190,7 +201,8 @@ __global__ void __launch_bounds__(Tile<T, DH, COLS, JT, IT>::THREADS, 1)
 wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ w,
            const float* __restrict__ u, const float* state_in,
-           T* __restrict__ y, float* state_out, int T_len, int H) {
+           T* __restrict__ y, float* state_out, float* __restrict__ ckpt,
+           int T_len, int H, int every) {
   using L = Tile<T, DH, COLS, JT, IT>;
   constexpr int TS = L::TS, NIL = L::NIL;
   constexpr int NJL = L::NJL, NG = L::NG, THREADS = L::THREADS;
@@ -268,6 +280,18 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
     if (chunk < n_chunks) {
       const int buf = chunk % kRing, pb = chunk & 1;
       const int steps = steps_of(chunk);
+      if (ckpt != nullptr && (chunk * TS) % every == 0) {
+        // the state before this stage's first step
+        const int n_ckpt = (T_len + every - 1) / every;
+        float* dst = ckpt + (static_cast<long>(bh) * n_ckpt +
+                             chunk * TS / every) * DH * DH +
+                     j0 * DH + c0 + i0;
+#pragma unroll
+        for (int jj = 0; jj < JT; ++jj) {
+#pragma unroll
+          for (int ii = 0; ii < IT; ++ii) dst[jj * DH + ii] = S[jj][ii];
+        }
+      }
       // the bonus scalar of each step: eight lanes, j = q, q + 8, ...
       for (int s = tid >> 3; s < steps; s += THREADS / 8) {
         const int q = tid & 7;
@@ -392,8 +416,9 @@ Split choose_split(int heads, int dh, int sms) {
 
 template <typename T, int DH, int COLS, int JT, int IT>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const float* u, const float* s_in, void* y, float* s_out, int B,
-           int T_len, int H, int device, cudaStream_t stream) {
+           const float* u, const float* s_in, void* y, float* s_out,
+           float* ckpt, int B, int T_len, int H, int every, int device,
+           cudaStream_t stream) {
   using L = Tile<T, DH, COLS, JT, IT>;
   static bool ready[kMaxDevices];   // dynamic shared memory above 48 KB
   if (!ready[device]) {
@@ -407,7 +432,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
       <<<B * H * (DH / COLS), L::THREADS, L::SMEM_BYTES, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w), u, s_in,
-      static_cast<T*>(y), s_out, T_len, H);
+      static_cast<T*>(y), s_out, ckpt, T_len, H, every);
   return 0;
 }
 
@@ -421,13 +446,13 @@ constexpr bool tiles() {
 template <typename T, int DH>
 int launch_split(Split split, const void* r, const void* k, const void* v,
                  const void* w, const float* u, const float* s_in, void* y,
-                 float* s_out, int B, int T_len, int H, int device,
-                 cudaStream_t stream) {
+                 float* s_out, float* ckpt, int B, int T_len, int H,
+                 int every, int device, cudaStream_t stream) {
 #define WKV_SPLIT(C, J, I)                                                 \
   if constexpr (tiles<DH, C, J, I>() && (C == DH) == (J == 8)) {           \
     if (split.cols == C && split.jt == J && split.it == I)                 \
-      return launch<T, DH, C, J, I>(r, k, v, w, u, s_in, y, s_out, B,      \
-                                    T_len, H, device, stream);             \
+      return launch<T, DH, C, J, I>(r, k, v, w, u, s_in, y, s_out, ckpt,   \
+                                    B, T_len, H, every, device, stream);   \
   }
   WKV_SPLIT(64, 8, 2)
   WKV_SPLIT(32, 8, 1)
@@ -441,14 +466,16 @@ int launch_split(Split split, const void* r, const void* k, const void* v,
 template <typename T>
 int launch_dh(const void* r, const void* k, const void* v, const void* w,
               const float* u, const float* s_in, void* y, float* s_out,
-              int B, int T_len, int H, int dh, int sms, int device,
-              cudaStream_t stream) {
+              float* ckpt, int B, int T_len, int H, int dh, int every,
+              int sms, int device, cudaStream_t stream) {
   const Split split = choose_split(B * H, dh, sms);
   switch (dh) {
     case 32: return launch_split<T, 32>(split, r, k, v, w, u, s_in, y,
-                                        s_out, B, T_len, H, device, stream);
+                                        s_out, ckpt, B, T_len, H, every,
+                                        device, stream);
     case 64: return launch_split<T, 64>(split, r, k, v, w, u, s_in, y,
-                                        s_out, B, T_len, H, device, stream);
+                                        s_out, ckpt, B, T_len, H, every,
+                                        device, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -458,11 +485,14 @@ int launch_dh(const void* r, const void* k, const void* v, const void* w,
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* w, const void* u,
                                  const void* state_in, void* y,
-                                 void* state_out, int B, int T_len, int H,
-                                 int dh, int dtype, cudaStream_t stream) {
+                                 void* state_out, void* ckpt, int B,
+                                 int T_len, int H, int dh, int dtype,
+                                 int every, cudaStream_t stream) {
   // the kernel indexes the states with 32-bit offsets
-  if (B <= 0 || T_len <= 0 || H <= 0 ||
+  if (B <= 0 || T_len <= 0 || H <= 0 || dh <= 0 ||
       static_cast<long>(B) * H * dh * dh > 0x7fffffffL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ckpt != nullptr && (every <= 0 || every % (kStageValues / dh) != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   static int sms[kMaxDevices];
   int device = 0;
@@ -478,13 +508,15 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
   const float* uf = static_cast<const float*>(u);
   const float* si = static_cast<const float*>(state_in);
   float* so = static_cast<float*>(state_out);
+  float* ck = static_cast<float*>(ckpt);
   int code;
   if (dtype == 0)
-    code = launch_dh<float>(r, k, v, w, uf, si, y, so, B, T_len, H, dh,
-                            sms[device], device, stream);
+    code = launch_dh<float>(r, k, v, w, uf, si, y, so, ck, B, T_len, H, dh,
+                            every, sms[device], device, stream);
   else if (dtype == 1)
-    code = launch_dh<__nv_bfloat16>(r, k, v, w, uf, si, y, so, B, T_len, H,
-                                    dh, sms[device], device, stream);
+    code = launch_dh<__nv_bfloat16>(r, k, v, w, uf, si, y, so, ck, B, T_len,
+                                    H, dh, every, sms[device], device,
+                                    stream);
   else
     code = static_cast<int>(cudaErrorInvalidValue);
   if (code != 0) return code;

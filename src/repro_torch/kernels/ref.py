@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the model kernels: RMSNorm, flash attention
-(prefill), flash decode and the RWKV6 WKV recurrence, and of the two
-backward kernels (RMSNorm's and attention's), which are autograd of the
-forward versions here.
+(prefill), flash decode and the RWKV6 WKV recurrence, and of the three
+backward kernels: RMSNorm's and attention's, which are autograd of the
+forward versions here, and the WKV recurrence's, an explicit reverse
+recurrence (:func:`rwkv6_scan_bwd_plain`).
 
 Each is the function its CUDA kernel computes, in fp32 whatever the
 input type, written for clarity: the kernel wrappers run them for
@@ -168,3 +169,63 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state = w32[:, i, :, :, None] * state
         state = state + kv
     return torch.stack(ys, dim=1).to(r.dtype), state
+
+
+def rwkv6_scan_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         w: torch.Tensor, bonus: torch.Tensor,
+                         initial_state: Optional[torch.Tensor],
+                         dy: torch.Tensor,
+                         dstate: Optional[torch.Tensor] = None):
+    """The gradients of :func:`rwkv6_scan_plain` as an explicit reverse
+    recurrence, in fp32.
+
+    With P_t the state before step t (P_0 the initial state), y_t its
+    output and G_t the gradient of the state after step t (G_T =
+    ``dstate``, or zeros), for t = T .. 1 in the reverse order::
+
+        dr_t = P_t dy_t + u * k_t (v_t . dy_t)
+        dk_t = G_t v_t + u * r_t (v_t . dy_t)
+        dv_t = G_t^T k_t + (sum_j r_t u k_t) dy_t
+        dw_t = sum_i G_t[:, i] * P_t[:, i]
+        G_{t-1} = w_t * G_t + r_t (x) dy_t
+        du += r_t * k_t (v_t . dy_t)
+
+    summed over the batch for du.  Returns (dr, dk, dv, dw (B, T, H, dh)
+    in r's type, dbonus (H, dh) fp32, the initial state's gradient
+    (B, H, dh, dh) fp32).  It keeps every state of the forward, so it is
+    the kernel's reference, not a route of the model."""
+    b, t, h, dh = r.shape
+    r32, k32, v32, w32, dy32 = (x.to(torch.float32)
+                                for x in (r, k, v, w, dy))
+    u = bonus.to(torch.float32)
+    state = (torch.zeros((b, h, dh, dh), dtype=torch.float32,
+                         device=r.device)
+             if initial_state is None else initial_state.to(torch.float32))
+    states = []                      # P_t, the forward's own roundings
+    for i in range(t):
+        states.append(state)
+        kv = k32[:, i, :, :, None] * v32[:, i, :, None, :]
+        state = w32[:, i, :, :, None] * state
+        state = state + kv
+    g = (torch.zeros_like(state) if dstate is None
+         else dstate.to(torch.float32).clone())
+    grads = {name: torch.empty((b, t, h, dh), dtype=torch.float32,
+                               device=r.device)
+             for name in ("r", "k", "v", "w")}
+    du = torch.zeros((h, dh), dtype=torch.float32, device=r.device)
+    for i in reversed(range(t)):
+        r_t, k_t, v_t, w_t, dy_t = (x[:, i] for x in (r32, k32, v32, w32,
+                                                       dy32))
+        p_t = states[i]
+        vd = (v_t * dy_t).sum(-1, keepdim=True)              # (B, H, 1)
+        c = (r_t * u * k_t).sum(-1, keepdim=True)
+        grads["r"][:, i] = (torch.einsum("bhji,bhi->bhj", p_t, dy_t)
+                            + u * k_t * vd)
+        grads["k"][:, i] = (torch.einsum("bhji,bhi->bhj", g, v_t)
+                            + u * r_t * vd)
+        grads["v"][:, i] = torch.einsum("bhji,bhj->bhi", g, k_t) + c * dy_t
+        grads["w"][:, i] = (g * p_t).sum(-1)
+        du += (r_t * k_t * vd).sum(0)
+        g = w_t[..., :, None] * g + r_t[..., :, None] * dy_t[..., None, :]
+    return (grads["r"].to(r.dtype), grads["k"].to(r.dtype),
+            grads["v"].to(r.dtype), grads["w"].to(r.dtype), du, g)

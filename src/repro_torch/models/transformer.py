@@ -1,7 +1,8 @@
 """Config-driven model assembly in PyTorch, with the JAX package's names
 (``repro.models.transformer``), for the dense family - GQA / MQA
 attention with a GLU feed-forward (gemma, qwen3, yi, command-r's layer
-kind) - and RWKV6 (an rwkv time-mix with a channel-mix, rwkv6-1.6b).
+kind) -, the MoE feed-forward behind GQA attention (olmoe-1b-7b) and
+RWKV6 (an rwkv time-mix with a channel-mix, rwkv6-1.6b).
 
 The layer sequence is an optional unstacked prefix followed by a
 repeating superblock whose params are stacked on a leading axis, as in
@@ -18,12 +19,11 @@ Superblocks run as a Python loop.  Modes:
 The attention cache is head-major, ``(n_super, B, Hkv, Lmax, D)`` per
 stacked layer; an rwkv layer caches its two token-shift vectors ``tm``
 and ``cm`` (B, d) and its fp32 WKV state ``wkv`` (B, H, dh, dh), whatever
-``max_len``.  Prefill and decode update the cache in place.  Other
-mixers (MLA, mamba, cross-attention), MoE layers and the encoder wait
-for their slices of the port.  On the card, training runs the dense
-family through the attention and RMSNorm kernels' backward kernels;
-rwkv6 trains on the CPU, where its WKV recurrence is plain PyTorch (the
-WKV kernel has no backward yet and raises under autograd).
+``max_len``.  Prefill and decode update the cache in place.  An MoE
+layer's aux loss is summed over the layers into the training loss.
+Other mixers (MLA, mamba, cross-attention) and the encoder wait for
+their slices of the port.  On the card, training runs through the
+attention, RMSNorm and WKV kernels' backward kernels.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
                                        glu_mlp_apply, glu_mlp_init,
@@ -91,8 +92,6 @@ def split_pattern(specs: list[LayerSpec]) -> tuple[int, int]:
 def _check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
     if spec.mixer not in ("attn", "rwkv"):
         raise NotImplementedError(f"the {spec.mixer!r} mixer {_TODO}")
-    if spec.moe:
-        raise NotImplementedError(f"the MoE feed-forward {_TODO}")
     if spec.cross or cfg.family == "audio":
         raise NotImplementedError(f"encoder-decoder layers {_TODO}")
 
@@ -103,17 +102,25 @@ def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
                device) -> dict:
     _check_spec(cfg, spec)
     rwkv = spec.mixer == "rwkv"
-    return {
+    p = {
         "norm1": norm_init(cfg.d_model, cfg.norm, dtype, device,
                            cfg.use_bias),
         "mixer": (rwkv_mod.rwkv_time_mix_init(gen, cfg, dtype, device)
                   if rwkv else attn.gqa_init(gen, cfg, dtype, device)),
         "norm2": norm_init(cfg.d_model, cfg.norm, dtype, device,
                            cfg.use_bias),
-        "ffn": (rwkv_mod.rwkv_channel_mix_init(gen, cfg, dtype, device)
-                if rwkv else glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
-                                          device, cfg.use_bias)),
     }
+    if spec.moe:
+        p["ffn"] = moe_mod.moe_init(gen, cfg, dtype, device)
+    elif rwkv:
+        p["ffn"] = rwkv_mod.rwkv_channel_mix_init(gen, cfg, dtype, device)
+    else:
+        # a dense layer of an MoE model takes the config's dense width
+        d_ff = (cfg.moe.dense_d_ff if cfg.moe is not None
+                and cfg.moe.dense_d_ff else cfg.d_ff)
+        p["ffn"] = glu_mlp_init(gen, cfg.d_model, d_ff, dtype, device,
+                                cfg.use_bias)
+    return p
 
 
 def cache_init_layer(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -153,7 +160,9 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
             new_cache["k"], new_cache["v"] = kv_out
     x = x + y
     h = norm_apply(p["norm2"], x, cfg.norm)
-    if spec.mixer == "rwkv":
+    if spec.moe:
+        y, aux = moe_mod.moe_apply(p["ffn"], cfg, h, cfg.hidden_act)
+    elif spec.mixer == "rwkv":
         y, cm_out = rwkv_mod.rwkv_channel_mix_apply(
             p["ffn"], cfg, h, cache["cm"] if build else None)
         if build:

@@ -26,8 +26,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ref import (attention_plain,  # noqa: E402
                                      decode_attention_plain, rmsnorm_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import (rwkv6_scan,  # noqa: E402
-                                            rwkv6_scan_plain)
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    rwkv6_scan, rwkv6_scan_bwd, rwkv6_scan_bwd_plain, rwkv6_scan_checkpoints,
+    rwkv6_scan_plain)
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.acs import draw_write_chunks  # noqa: E402
 from repro_torch.sim import SCENARIOS, run_workload, run_scenario, zoo  # noqa: E402
@@ -997,18 +998,27 @@ def test_rmsnorm_bwd_repeated_launches_agree(gen, rows, d):
 
 
 def test_kernels_without_backward_raise_under_grad(gen):
-    """decode_attention and rwkv6_scan have no backward kernel: with an
-    input that requires a gradient under grad mode they raise, so no
-    output leaves the autograd graph unnoticed; under no_grad they
-    launch."""
+    """decode_attention has no backward kernel: with an input that
+    requires a gradient under grad mode it raises, so no output leaves the
+    autograd graph unnoticed; under no_grad it launches.  rwkv6_scan has
+    one: under grad mode its result carries a gradient, the backward
+    kernel's, held to autograd of the plain version; under no_grad it is
+    the serving launch, no checkpoints."""
     q = _normal(gen, 2, 4, 64).requires_grad_(True)
     kc, vc = (_normal(gen, 2, 2, 16, 64) for _ in range(2))
     with pytest.raises(NotImplementedError, match="backward"):
         decode_attention(q, kc, vc)
     args = list(_wkv_inputs(gen, 1, 5, 2, 64, torch.float32, False))
     args[0] = args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        rwkv6_scan(*args)
+    before = rwkv6_scan.launches, rwkv6_scan_bwd.launches
+    y, _ = rwkv6_scan(*args)
+    dy = _normal(gen, *y.shape)
+    (dr,) = torch.autograd.grad(y, args[0], dy)
+    assert (rwkv6_scan.launches, rwkv6_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _grad_gate(dr, rwkv6_scan_bwd_plain(*[a.detach() if a is not None
+                                          else None for a in args],
+                                        dy)[0], "dr")
     with torch.no_grad():
         decode_attention(q, kc, vc)
         rwkv6_scan(*args)
@@ -1073,3 +1083,188 @@ def test_value_and_grad_step_on_the_card_equals_the_cpu(gen, arch):
                                       card_grads, adamw.init_state(opt, cpu))
     for a, b in zip(tree_leaves(out["cuda"][2]), tree_leaves(again)):
         assert float((a.cpu() - b).abs().max()) <= 1e-6
+
+
+# --- the WKV backward (rwkv6_scan_bwd.cu) against the plain reverse
+# --- recurrence, at the fp32 gate of the backward kernels (max-abs within
+# --- 1e-4 of the reference tensor's largest magnitude)
+
+def _wkv_bwd_case(gen, b, t, h, dh, state, dstate, every=None):
+    args = _wkv_inputs(gen, b, t, h, dh, torch.float32, state)
+    dy = _normal(gen, b, t, h, dh)
+    ds = _normal(gen, b, h, dh, dh) if dstate else None
+    return args, dy, ds
+
+
+@pytest.mark.parametrize("b,t,h,dh,state,dstate", [
+    (1, 1, 1, 64, False, False),     # one step
+    (2, 333, 2, 64, True, True),     # ragged T, past a checkpoint
+    (1, 45, 1, 32, True, False),     # the smoke head size, one chunk
+    (3, 130, 4, 32, False, True),    # T one past two checkpoints
+    (2, 1000, 8, 64, False, False),
+    (4, 2048, 32, 64, False, False),  # rwkv6-1.6b's training shape
+])
+def test_rwkv6_scan_bwd_equals_plain(gen, b, t, h, dh, state, dstate):
+    args, dy, ds = _wkv_bwd_case(gen, b, t, h, dh, state, dstate)
+    y, s, ckpt = rwkv6_scan_checkpoints(*args)
+    launches = rwkv6_scan_bwd.launches
+    got = rwkv6_scan_bwd(*args[:5], ckpt, dy, ds)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_bwd.launches == launches + 1
+    exp = rwkv6_scan_bwd_plain(*args, dy, ds)
+    for name, g, e in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got,
+                          exp):
+        _grad_gate(g, e, name)
+
+
+def test_rwkv6_scan_checkpoints_are_the_forward_states(gen):
+    """The checkpointing launch gives the serving launch's y and final
+    state bit for bit, and checkpoint c is, bit for bit, the final state
+    of the first c * CKPT steps (checkpoint 0 the initial state)."""
+    from repro_torch.kernels.rwkv6_scan import CKPT
+    args = _wkv_inputs(gen, 2, 3 * CKPT + 5, 4, 64, torch.float32, True)
+    y, s, ckpt = rwkv6_scan_checkpoints(*args)
+    ey, es = rwkv6_scan(*args)
+    assert torch.equal(y, ey) and torch.equal(s, es)
+    assert ckpt.shape == (2, 4, 4, 64, 64)
+    assert torch.equal(ckpt[:, :, 0], args[5])
+    r, k, v, w, bonus, s0 = args
+    for c in range(1, 4):
+        cut = c * CKPT
+        _, sc = rwkv6_scan(r[:, :cut].contiguous(), k[:, :cut].contiguous(),
+                           v[:, :cut].contiguous(), w[:, :cut].contiguous(),
+                           bonus, s0)
+        assert torch.equal(ckpt[:, :, c], sc), c
+
+
+def test_rwkv6_scan_bwd_does_not_depend_on_the_checkpoint_spacing(gen):
+    """Checkpoints 32, 64, 128 or 256 steps apart give the same gradients
+    bit for bit: every state the backward recomputes equals the forward's
+    (dw reads each of them)."""
+    args, dy, ds = _wkv_bwd_case(gen, 2, 600, 4, 64, True, True)
+    outs = []
+    for every in (32, 64, 128, 256):
+        ckpt = rwkv6_scan_checkpoints(*args, every=every)[2]
+        outs.append(rwkv6_scan_bwd(*args[:5], ckpt, dy, ds, every=every))
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(other, outs[0]))
+
+
+@pytest.mark.parametrize("b,t,h,dh", [(4, 2048, 32, 64), (2, 333, 2, 64),
+                                     (3, 77, 5, 32)])
+def test_rwkv6_scan_bwd_repeated_launches_agree(gen, b, t, h, dh):
+    """50 more launches equal the first bit for bit: no atomics, every
+    sum in a fixed order."""
+    args, dy, ds = _wkv_bwd_case(gen, b, t, h, dh, True, True)
+    ckpt = rwkv6_scan_checkpoints(*args)[2]
+    first = rwkv6_scan_bwd(*args[:5], ckpt, dy, ds)
+    for i in range(50):
+        again = rwkv6_scan_bwd(*args[:5], ckpt, dy, ds)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
+def test_rwkv6_scan_grad_through_autograd(gen):
+    """Every input's gradient through the autograd function (one
+    checkpointing forward and one backward launch) against autograd of
+    the plain version, with an initial state and a used final state; a
+    bf16 input under grad raises."""
+    args, dy, ds = _wkv_bwd_case(gen, 2, 200, 4, 64, True, True)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = rwkv6_scan.launches, rwkv6_scan_bwd.launches
+    y, s = rwkv6_scan(*leaves)
+    got = torch.autograd.grad((y, s), leaves, (dy, ds))
+    assert (rwkv6_scan.launches, rwkv6_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [a.clone().requires_grad_(True) for a in args]
+    exp = torch.autograd.grad(rwkv6_scan_plain(*plain), plain, (dy, ds))
+    for i, (g, e) in enumerate(zip(got, exp)):
+        _grad_gate(g, e, f"input {i}")
+    half = [a.to(torch.bfloat16).requires_grad_(True) for a in args[:4]]
+    with pytest.raises(TypeError, match="fp32"):
+        rwkv6_scan(*half, args[4], None)
+
+
+def test_rwkv6_train_step_on_the_card_equals_the_cpu(gen):
+    """One rwkv6 smoke train step (fp32, T = 32, two of its 16-step
+    chunks) on the card through the WKV forward and backward kernels and
+    the norm kernels, against the CPU's plain route: the loss within 1e-4
+    relative and every gradient leaf within 1e-4 of its largest
+    magnitude; per step 3 norms a layer twice (the recompute) plus the
+    final norm, and twice a layer the WKV forward, once its backward."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime import steps
+    cfg = smoke_config("rwkv6-1.6b")
+    cpu = init_params(cfg, 0, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+    wrappers = {"rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
+                "rwkv6_scan": rwkv6_scan, "rwkv6_scan_bwd": rwkv6_scan_bwd}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), cpu)
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        loss, grads = steps.value_and_grad(
+            params, cfg, {"tokens": toks.to(dev), "labels": toks.to(dev)})
+        torch.cuda.synchronize()
+        out[dev] = float(loss), grads, {
+            k: fn.launches - before[k] for k, fn in wrappers.items()}
+    n = cfg.n_layers
+    assert out["cpu"][2] == dict.fromkeys(wrappers, 0)
+    assert out["cuda"][2] == {"rmsnorm": 6 * n + 1, "rmsnorm_bwd": 3 * n + 1,
+                              "rwkv6_scan": 2 * n, "rwkv6_scan_bwd": n}
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for i, (a, b) in enumerate(zip(tree_leaves(out["cuda"][1]),
+                                   tree_leaves(out["cpu"][1]))):
+        _grad_gate(a.cpu(), b, f"leaf {i}")
+
+
+# --- the MoE feed-forward (models/moe.py, batched PyTorch, no kernel of
+# --- its own): the card against the CPU in fp32, and bf16 repeats
+
+def _moe_layer(cfg, device, dtype, drawn_on="cpu"):
+    """An MoE layer's params drawn from seed 0 on ``drawn_on``, on
+    ``device``."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=drawn_on).manual_seed(0)
+    p = moe.moe_init(gen, cfg, dtype, drawn_on)
+    return {k: v.to(device) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("slices", [1, 4])
+def test_moe_apply_on_the_card_equals_the_cpu(gen, slices):
+    """olmoe's smoke MoE layer (8 experts, top 4) in fp32 at 256 tokens,
+    with tight capacity (1.25, so tokens drop): the experts chosen and the
+    tokens dropped alike, y within 1e-5 and the aux loss within 1e-6 of
+    the CPU's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+    cfg = smoke_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25, dispatch_slices=slices))
+    x = torch.randn((4, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _moe_layer(cfg, dev, torch.float32)
+        y, aux = moe.moe_apply(p, cfg, x.to(dev))
+        out[dev] = y.cpu(), float(aux)
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 1e-5
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-6
+
+
+def test_bf16_moe_repeats_bit_equal(gen):
+    """An olmoe-1b-7b layer's MoE at its registered width (d 2048, 64
+    experts, top 8 of 1024) in bf16 over 4096 tokens: 20 more calls equal
+    the first bit for bit (the combine adds in a fixed order, no
+    atomics)."""
+    from repro_torch.configs import get
+    from repro_torch.models import moe
+    cfg = get("olmoe-1b-7b")
+    p = _moe_layer(cfg, "cuda", torch.bfloat16, drawn_on="cuda")
+    x = _normal(gen, 2, 2048, cfg.d_model, dtype=torch.bfloat16)
+    y, aux = moe.moe_apply(p, cfg, x)
+    for i in range(20):
+        y2, aux2 = moe.moe_apply(p, cfg, x)
+        assert torch.equal(y2, y) and torch.equal(aux2, aux), i
