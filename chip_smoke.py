@@ -185,11 +185,19 @@ Phases, each printing JSON lines:
              statistics; and ``rwkv6_scan_bwd`` at rwkv6-1.6b's training
              shape (4, 2048, 32, 64) and a ragged (2, 333, 2, 64) from the
              forward's checkpoints, against the plain reverse recurrence
-             at the fp32 gate, beside its bound, its issue floor and the
-             plain version (no library call computes it), with the
-             checkpointing forward timed against the serving launch.
+             at the fp32 gate, its device memory beyond its inputs and
+             outputs at most du's B * H * dh float partials plus 1 MiB,
+             beside its bound, its issue floor and the plain version (no
+             library call computes it), with the checkpointing forward
+             timed against the serving launch.
 9. the ``kernels`` line, the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
+
+``python3 chip_smoke.py --wkv-bwd-turns SRC...`` builds each given
+source of the WKV backward (this tree's, an earlier tree's unpacked
+under ``build/``, or a probe variant) into a library of its own and
+times them alone at rwkv6-1.6b's training shape in turns
+(:func:`wkv_bwd_turns`).
 
 Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving) and 8
 (training) are the main paths; each path's kernels' launch counts are
@@ -350,8 +358,15 @@ WKV_BWD_CASES = (("rwkv6-1.6b train", TRAIN_RWKV["batch"],
 #: fp32 instructions per state element a step of the WKV backward's
 #: design (its issue floor): the state recomputed in pass A (3 a step for
 #: all but a chunk's last 8-step sub-chunk: 3 x 56 / 64) and in pass B (3
-#: for 7 of 8 steps), four FMAs of the sums and two for G
-WKV_BWD_INSTRUCTIONS = 3 * 56 / 64 + 3 * 7 / 8 + 4 + 2
+#: for 10 of 8 steps: steps 1-6 forward to the even states kept in
+#: registers, then the 4 odd ones again in the reverse loop), four FMAs
+#: of the sums and two for G, and the shuffle trees that replace the
+#: shared-memory partials: over a sub-chunk a thread's 8 elements x 8
+#: steps take 61 adds and 61 shuffles at dh 64 (dr, dk, dw
+#: reduce-scattered over 16 lanes, 24 + 12 + 6 + 3; dv over the warp's two
+#: row pairs, 2 a step), counted by hand from ``csrc/rwkv6_scan_bwd.cu``;
+#: the trees' 122 selects and the loads from shared memory are not counted
+WKV_BWD_INSTRUCTIONS = 3 * 56 / 64 + 3 * 10 / 8 + 4 + 2 + 2 * 61 / 64
 #: flops per state element a step of the WKV backward (its operations
 #: bound): the forward's state once (multiply, multiply, add), the four
 #: sums (an FMA each) and G (a multiply and an FMA)
@@ -2864,23 +2879,27 @@ def phase_train_kernels(card: str, rate: float, flops: float,
 
 def check_rwkv6_scan_bwd(card: str, rate: float, fp32_flops: float,
                          gen) -> tuple:
-    """The WKV backward kernel against the plain reverse recurrence
+    """The WKV backward kernel (a cluster of a head's row groups per
+    (batch, head), dv summed in distributed shared memory, then du's
+    batch sum) against the plain reverse recurrence
     (``rwkv6_scan_bwd_plain``) at ``WKV_BWD_CASES``, each from the
     checkpoints of the forward as training launches it, with an initial
     state and a final state's gradient: every gradient within the fp32
-    gate of ``check_grad``.  Timed alone and through its wrapper beside
-    its bound (bytes: r, k, v, w, dy, the bonus, the checkpoints and the
-    final state's gradient read once, the six gradients written once;
-    operations: ``WKV_BWD_FLOPS`` a state element a step at the card's
-    fp32 rate), its issue floor (``WKV_BWD_INSTRUCTIONS`` at the card's
-    fp32 lanes and highest SM clock) and the plain version; no PyTorch
-    call computes it (``library_ms`` None).  The checkpointing forward is
-    timed against the serving launch, in turns.  Returns the training
-    shape's row and the cases for ``check_repeats``."""
+    gate of ``check_grad``, and the call's device memory beyond its
+    inputs and outputs (``extra_bytes``, the peak) at most du's B * H *
+    dh float partials plus 1 MiB.  Timed alone and through its wrapper
+    beside its bound (bytes: r, k, v, w, dy, the bonus, the checkpoints
+    and the final state's gradient read once, the six gradients written
+    once; operations: ``WKV_BWD_FLOPS`` a state element a step at the
+    card's fp32 rate), its issue floor (``WKV_BWD_INSTRUCTIONS`` at the
+    card's fp32 lanes and highest SM clock) and the plain version; no
+    PyTorch call computes it (``library_ms`` None).  The checkpointing
+    forward is timed against the serving launch, in turns.  Returns the
+    training shape's row and the cases for ``check_repeats``."""
     import torch
     from repro_torch.kernels.ref import rwkv6_scan_bwd_plain
-    from repro_torch.kernels.rwkv6_scan import (CKPT, rwkv6_scan,
-                                                rwkv6_scan_bwd,
+    from repro_torch.kernels.rwkv6_scan import (CKPT, bwd_resident_blocks,
+                                                rwkv6_scan, rwkv6_scan_bwd,
                                                 rwkv6_scan_checkpoints)
     lanes = (torch.cuda.get_device_properties(0).multi_processor_count
              * FP32_LANES_PER_SM)
@@ -2897,8 +2916,16 @@ def check_rwkv6_scan_bwd(card: str, rate: float, fp32_flops: float,
         fwd = (r, k, v, w, bonus, s0)
         ckpt = rwkv6_scan_checkpoints(*fwd)[2]
         args = (r, k, v, w, bonus, ckpt, dy, ds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         got = rwkv6_scan_bwd(*args)
         torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - before
+                 - sum(g.numel() * g.element_size() for g in got))
+        check(extra <= 4 * b * h * dh + (1 << 20),
+              f"rwkv6_scan_bwd ({label}) takes {extra} bytes beyond its "
+              f"inputs and outputs")
         exp = rwkv6_scan_bwd_plain(*fwd, dy, ds)
         errs = [check_grad(a, e, f"rwkv6_scan_bwd {n} ({label})")
                 for n, a, e in zip(("dr", "dk", "dv", "dw", "du", "dstate0"),
@@ -2919,7 +2946,8 @@ def check_rwkv6_scan_bwd(card: str, rate: float, fp32_flops: float,
                 device_ms(fn, lambda: fwd, 5)[0])
         row = {"phase": "kernels", "kernel": "rwkv6_scan_bwd",
                "case": label, "shape": [b, t, h, dh], "dtype": "float32",
-               "checkpoint_every": CKPT,
+               "checkpoint_every": CKPT, "extra_bytes": extra,
+               "resident_blocks": bwd_resident_blocks(dh),
                "max_abs_err": max(e[0] for e in errs),
                "rel_l2": [e[1] for e in errs],
                "ms": median_ms(rwkv6_scan_bwd, make, 5),
@@ -2941,6 +2969,117 @@ def check_rwkv6_scan_bwd(card: str, rate: float, fp32_flops: float,
             result = row
     return result, repeats
 
+
+
+#: rounds of ``wkv_bwd_turns`` (each the sources in order, then reversed)
+#: and launches timed a source a turn
+WKV_TURNS = (3, 5)
+
+
+def wkv_bwd_turns(card: str, sources, shape=None) -> None:
+    """``chip_smoke.py --wkv-bwd-turns [--shape B,T,H,DH] SRC...``: each
+    WKV backward source (this tree's ``rwkv6_scan_bwd.cu``, an earlier
+    tree's unpacked under ``build/``, or a probe variant of either) built
+    into a library of its own with the port's nvcc flags (its own
+    directory, then this tree's ``csrc``, for headers), then launched
+    through its C entry alone at rwkv6-1.6b's training shape,
+    ``WKV_BWD_CASES[0]`` (or ``shape``), fp32, checkpoints ``CKPT`` steps
+    apart, in turns: ``WKV_TURNS[0]`` rounds of the sources in order and
+    then reversed, the median of ``WKV_TURNS[1]`` launches a turn by CUDA
+    events.  Each source's first launch is held
+    to the plain reverse recurrence and its max-abs error over each
+    gradient's largest magnitude printed (a probe with parts switched off
+    computes wrong sums, so nothing here is gated).  Prints a row a
+    source: its ptxas lines, turn times and median."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import rwkv6_scan_bwd_plain
+    from repro_torch.kernels.rwkv6_scan import CKPT, rwkv6_scan_checkpoints
+    b, t, h, dh = shape or WKV_BWD_CASES[0][1:]
+    out_dir = REPO / "build" / "wkv_bwd_turns"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
+    procs = []
+    for i, src in enumerate(sources):
+        src = pathlib.Path(src).resolve()
+        lib = out_dir / f"v{i}.so"
+        procs.append((src, lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
+             f"-I{src.parent}", f"-I{csrc}", "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    entries = []
+    for src, lib, proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"{src} builds:\n{log}")
+        so = ctypes.CDLL(str(lib))
+        fn = so.rwkv6_scan_bwd_launch
+        fn.argtypes = build.KERNELS["rwkv6_scan_bwd"][2]
+        fn.restype = ctypes.c_int
+        resident = (so.rwkv6_scan_bwd_resident(dh, CKPT)
+                    if hasattr(so, "rwkv6_scan_bwd_resident") else None)
+        entries.append((src, fn, ptxas_entries(log), resident))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    r, k, v, dy = (torch.randn((b, t, h, dh), generator=gen, device="cuda")
+                   for _ in range(4))
+    w = torch.exp(-torch.exp(torch.rand(
+        (b, t, h, dh), generator=gen, device="cuda") * 3 - 8))
+    bonus = torch.randn((h, dh), generator=gen, device="cuda") * 0.1
+    s0, ds = (torch.randn((b, h, dh, dh), generator=gen, device="cuda")
+              for _ in range(2))
+    ckpt = rwkv6_scan_checkpoints(r, k, v, w, bonus, s0)[2]
+    outs = [torch.empty_like(r) for _ in range(4)] + [
+        torch.empty_like(bonus), torch.empty_like(s0)]
+    # the largest scratch any design of the kernel took: dv's row-group
+    # partials and du's batch partials
+    scratch = torch.empty((dh // 16) * b * t * h * dh + b * h * dh,
+                          device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    dr, dk, dv, dw, du, ds0 = outs
+
+    def run(fn) -> None:
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 bonus.data_ptr(), ckpt.data_ptr(), dy.data_ptr(),
+                 ds.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+                 scratch.data_ptr(), b, t, h, dh, CKPT, stream)
+        check(err == 0, f"launch failed: CUDA error {err}")
+
+    exp = rwkv6_scan_bwd_plain(r, k, v, w, bonus, s0, dy, ds)
+    errs = []
+    for _, fn, _, _ in entries:
+        for o in outs:
+            o.fill_(float("nan"))
+        run(fn)
+        torch.cuda.synchronize()
+        errs.append([float((g - e).abs().max() / e.abs().max())
+                     for g, e in zip(outs, exp)])
+    del exp
+    times = [[] for _ in entries]
+    rounds, reps = WKV_TURNS
+    for _ in range(rounds):
+        order = list(range(len(entries)))
+        for i in order + order[::-1]:
+            fn = entries[i][1]
+            run(fn)
+            spans = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run(fn)
+                end.record()
+                end.synchronize()
+                spans.append(start.elapsed_time(end))
+            times[i].append(statistics.median(spans))
+    for (src, _, ptxas, resident), err, ms in zip(entries, errs, times):
+        emit({"phase": "wkv_bwd_turns", "source": str(src.relative_to(REPO))
+              if src.is_relative_to(REPO) else str(src),
+              "shape": [b, t, h, dh], "checkpoint_every": CKPT,
+              "ptxas": ptxas, "resident_blocks": resident,
+              "max_abs_err_over_max": err,
+              "turn_ms": ms, "median_ms": statistics.median(ms),
+              "card": card})
 
 
 def train_kernels():
@@ -3145,7 +3284,10 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
               r for r in top if re.search(
                   r"dq_wgmma|dkdv_wgmma|dkdv_reduce|dq_kernel|dkdv_kernel",
                   r["name"])],
-          "wkv_passes": [r for r in top if re.search(r"wkv_", r["name"])],
+          # the WKV's: the forward, the backward's cluster launch and its
+          # batch sum of du
+          "wkv_passes": [r for r in top if re.search(
+              r"wkv_kernel|wkv_bwd_kernel|wkv_bwd_du", r["name"])],
           "card": card})
     del params, opt_state, batches, step_fn
     torch.cuda.empty_cache()
@@ -3336,6 +3478,14 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--train-route-split"]:
         train_route_split(card)
+        return 0
+    if sys.argv[1:2] == ["--wkv-bwd-turns"]:
+        args = sys.argv[2:]
+        shape = None
+        if args[:1] == ["--shape"]:
+            shape = tuple(int(x) for x in args[1].split(","))
+            args = args[2:]
+        wkv_bwd_turns(card, args, shape)
         return 0
     seconds, since = {}, [time.perf_counter()]
 

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX, for the kernels of this
 // directory (flash_attention.cu, flash_attention_bwd.cu,
-// decode_attention.cu and chunk_tick.cu include it):
-// mbarriers, TMA tile loads and 1-D bulk copies, cp.async, warp-level
-// mma.sync with its ldmatrix loads, warpgroup matrix multiply (wgmma) and
-// its shared-memory descriptors, register reallocation, named barriers.
+// decode_attention.cu, chunk_tick.cu and rwkv6_scan_bwd.cu include it):
+// mbarriers, TMA tile loads and 1-D bulk copies, cp.async, the cluster
+// barrier and distributed shared-memory loads, warp-level mma.sync with
+// its ldmatrix loads, warpgroup matrix multiply (wgmma) and its
+// shared-memory descriptors, register reallocation, named barriers.
 // Header only; a kernel includes it and stays a plain-C library.
 
 #pragma once
@@ -108,6 +109,27 @@ inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// a 3-D tensor map (host) over a contiguous (batches, rows, cols) fp32
+// array, unswizzled, whose box is `box_cols` wide (a multiple of 4) and
+// `box_rows` tall and lands row-major in shared memory; rows past `rows`
+// read as zeros
+inline bool make_map_f32(CUtensorMap* map, const void* ptr, int cols,
+                         int rows, int batches, int box_cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
+                              cuuint64_t(batches)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * 4,
+                                 cuuint64_t(rows) * cols * 4};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // --- cp.async (16 bytes a thread, through L2) counted on an mbarrier -------
 
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
@@ -137,6 +159,15 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// one box of a 3-D tensor map into L2 only (no completion to wait for)
+__device__ __forceinline__ void tma_prefetch_3d(const void* map, int c0,
+                                                int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
 // global memory into shared memory by the bulk copy engine; completion is
 // counted on `bar` in bytes
@@ -147,6 +178,43 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// --- thread-block clusters ---------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// the cluster barrier split in two: every thread of the cluster arrives
+// (its earlier shared-memory writes released to the cluster), and later
+// waits until all have arrived (their writes acquired).  A thread waits
+// once between two arrivals; every warp calls both converged.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// a float of block `rank`'s shared memory (distributed shared memory), at
+// the offset that `addr` (a shared::cta address) has in this block's
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(x)
+               : "r"(remote)
+               : "memory");
+  return x;
 }
 
 // --- warp-level tensor-core products (mma.sync) and their operand loads ----

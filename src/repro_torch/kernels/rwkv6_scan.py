@@ -19,10 +19,12 @@ chunked scan, which no Pallas kernel covers.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.backend import FLOAT_CODES, float_code, launch, \
     use_kernel
 from repro_torch.kernels.ref import rwkv6_scan_bwd_plain, rwkv6_scan_plain
@@ -31,15 +33,17 @@ from repro_torch.kernels.ref import rwkv6_scan_bwd_plain, rwkv6_scan_plain
 #: rwkv6-1.6b's
 HEAD_SIZES = (32, 64)
 #: steps between two state checkpoints of the forward under autograd: a
-#: multiple of the forward's stage (1024 / dh steps) and of the
-#: backward's 16-step sub-chunk, at most 256.  They take B * H *
-#: ceil(T / CKPT) * dh * dh * 4 bytes: 64 MB a layer at rwkv6-1.6b's
-#: training shape (4, 2048, 32, 64), alive from a layer's forward to its
-#: backward.  The results do not depend on it.
+#: multiple of the forward's stage (1024 / dh steps) and of 16, at most
+#: 256 (the backward walks 8-step sub-chunks and keeps a chunk's
+#: sub-checkpoints in shared memory: at 64, four of its blocks share an
+#: SM).  They take B * H * ceil(T / CKPT) * dh * dh * 4 bytes: 64 MB a
+#: layer at rwkv6-1.6b's training shape (4, 2048, 32, 64), alive from a
+#: layer's forward to its backward.  The results do not depend on it.
 CKPT = 64
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_plain", "rwkv6_scan_checkpoints",
-           "rwkv6_scan_bwd", "rwkv6_scan_bwd_plain", "HEAD_SIZES", "CKPT"]
+           "rwkv6_scan_bwd", "rwkv6_scan_bwd_plain", "bwd_scratch_floats",
+           "HEAD_SIZES", "CKPT"]
 
 
 def _check(r, k, v, w, bonus, initial_state) -> int:
@@ -208,6 +212,27 @@ def rwkv6_scan_checkpoints(r: torch.Tensor, k: torch.Tensor,
     return _forward(r, k, v, w, bonus, initial_state, every)
 
 
+def bwd_scratch_floats(b: int, h: int, dh: int) -> int:
+    """The backward kernel's device scratch, in floats: du's partial of
+    each (batch, head), B * H * dh, whatever T is (dv is summed across a
+    head's row groups in the cluster's shared memory)."""
+    return b * h * dh
+
+
+def bwd_resident_blocks(dh: int, every: int = CKPT) -> int:
+    """Blocks of the backward kernel at head size ``dh`` that the current
+    CUDA device holds at once with checkpoints ``every`` steps apart (its
+    clusters of dh / 16 blocks; a call on the card, building the kernel at
+    first use)."""
+    _check_every(every, dh)
+    n = build.entry("rwkv6_scan_bwd", "rwkv6_scan_bwd_resident",
+                    [ctypes.c_int, ctypes.c_int])(dh, every)
+    if n <= 0:
+        raise RuntimeError(f"occupancy query of the WKV backward at dh {dh}, "
+                           f"every {every} failed")
+    return n
+
+
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, bonus: torch.Tensor,
                    checkpoints: torch.Tensor, dy: torch.Tensor,
@@ -243,8 +268,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(bonus)
     ds0 = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
-    scratch = torch.empty((dh // 16) * b * t * h * dh + b * h * dh,
-                          dtype=torch.float32, device=r.device)
+    scratch = torch.empty(bwd_scratch_floats(b, h, dh), dtype=torch.float32,
+                          device=r.device)
     if any(x.data_ptr() % 16 for x in (dy, checkpoints, bonus) + state_in):
         raise ValueError("the WKV backward reads 16-byte aligned tensors")
     launch("rwkv6_scan_bwd", r.get_device(), r.data_ptr(), k.data_ptr(),

@@ -100,6 +100,11 @@ def run_training(cfg: ModelConfig, loop: TrainLoopConfig, ckpt_dir,
     saved = []
     for step in range(start_step, loop.total_steps):
         if crash_at_step is not None and step == crash_at_step:
+            # the crash ends this run, not the checkpoint write it started
+            # on a thread: let that land first, or the restart may list the
+            # directory before it does (on a card a step takes ms) while
+            # the orphaned writer still races the restart's own writes
+            mgr.wait()
             raise RuntimeError(f"injected crash at step {step}")
         t0 = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(dev)

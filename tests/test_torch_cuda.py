@@ -1117,6 +1117,52 @@ def test_rwkv6_scan_bwd_equals_plain(gen, b, t, h, dh, state, dstate):
         _grad_gate(g, e, name)
 
 
+@pytest.mark.parametrize("b,t,h,dh,every", [
+    (3, 77, 5, 32, 64),      # dh 32 (clusters of 2), odd B * H
+    (2, 5, 3, 64, 64),       # T below one 8-step sub-chunk
+    (3, 6, 5, 32, 32),
+    (2, 65, 3, 64, 64),      # T one past a multiple of 8 (and of every)
+    (1, 33, 2, 32, 32),
+    (2, 129, 2, 64, 128),
+    (8, 300, 40, 64, 64),    # 1280 blocks: more than one resident wave
+])
+def test_rwkv6_scan_bwd_cluster_edges(gen, b, t, h, dh, every):
+    """The backward's cluster of a head's row groups at its edges, with
+    an initial state and a final state's gradient: every gradient at the
+    fp32 gate against the plain reverse recurrence."""
+    args, dy, ds = _wkv_bwd_case(gen, b, t, h, dh, True, True)
+    ckpt = rwkv6_scan_checkpoints(*args, every=every)[2]
+    got = rwkv6_scan_bwd(*args[:5], ckpt, dy, ds, every=every)
+    torch.cuda.synchronize()
+    exp = rwkv6_scan_bwd_plain(*args, dy, ds)
+    for name, g, e in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got,
+                          exp):
+        _grad_gate(g, e, name)
+
+
+@pytest.mark.parametrize("b,t,h,dh", [(4, 2048, 32, 64), (2, 1000, 8, 64),
+                                     (3, 77, 5, 32)])
+def test_rwkv6_scan_bwd_scratch_is_not_proportional_to_t(gen, b, t, h, dh):
+    """The backward's device memory beyond its inputs and outputs (the
+    peak during the call) is at most B * H * dh floats, du's partials,
+    plus a fixed allowance for the allocator's rounding: dv is summed in
+    the cluster's shared memory, not in a (dh / 16) * B * T * H * dh-float
+    scratch."""
+    from repro_torch.kernels.rwkv6_scan import bwd_scratch_floats
+    args, dy, ds = _wkv_bwd_case(gen, b, t, h, dh, True, True)
+    ckpt = rwkv6_scan_checkpoints(*args)[2]
+    rwkv6_scan_bwd(*args[:5], ckpt, dy, ds)   # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = rwkv6_scan_bwd(*args[:5], ckpt, dy, ds)
+    torch.cuda.synchronize()
+    outputs = sum(g.numel() * g.element_size() for g in got)
+    extra = torch.cuda.max_memory_allocated() - before - outputs
+    assert bwd_scratch_floats(b, h, dh) == b * h * dh
+    assert extra <= 4 * b * h * dh + (1 << 20), extra
+
+
 def test_rwkv6_scan_checkpoints_are_the_forward_states(gen):
     """The checkpointing launch gives the serving launch's y and final
     state bit for bit, and checkpoint c is, bit for bit, the final state

@@ -14,6 +14,7 @@ training tolerances of ``test_torch_train.py`` (loss rtol 1e-5, leaves
 atol 1e-5 / rtol 1e-4).  Inputs are numpy draws from fixed seeds."""
 
 import importlib
+import inspect
 
 import numpy as np
 import pytest
@@ -212,3 +213,12 @@ def test_rwkv6_forward_train_through_the_autograd_function(monkeypatch):
     assert sorted(got) == sorted(want)
     for path, g in got.items():
         assert_allclose(g.numpy(), want[path], **LEAF_TOL, err_msg=path)
+
+
+@pytest.mark.parametrize("b,h,dh", [(4, 32, 64), (3, 5, 32), (1, 1, 64)])
+def test_backward_scratch_is_du_partials_only(b, h, dh):
+    """The backward kernel's device scratch holds du's partial of each
+    (batch, head) and nothing proportional to T: dv is summed across a
+    head's row groups inside the cluster, not through device memory."""
+    assert wkv.bwd_scratch_floats(b, h, dh) == b * h * dh
+    assert "t" not in inspect.signature(wkv.bwd_scratch_floats).parameters
