@@ -157,7 +157,8 @@ Phases, each printing JSON lines:
              ``TRAIN_GRAD_REL_L2`` of the plain route (the worst leaf
              named; rwkv6-1.6b also in fp32 at 1 x 1024 tokens, within
              ``TRAIN_FP32_GRAD_REL_L2``); then 4 steps of ``make_train_step`` with
-             ``AdamWConfig()``, exactly 73 rmsnorm, 37 rmsnorm_bwd, 36
+             ``AdamWConfig()``, exactly 73 rmsnorm, 37 rmsnorm_bwd (a
+             wrapper call each: the rows pass and its dweight sum), 36
              flash_attention (18 recomputed) and 18 flash_attention_bwd
              launches a step on gemma-2b, 145 rmsnorm, 73 rmsnorm_bwd,
              48 rwkv6_scan (24 recomputed, each writing its state every
@@ -173,14 +174,18 @@ Phases, each printing JSON lines:
              the dK/dV pass's head split, and without it where it
              splits; each pass's device time from
              one profiled call, after phase 8) and ``rmsnorm_bwd`` in
-             both cast orders
-             ((8192, 2048), the qk-norm width, mid fp32, a ragged width)
+             both cast orders (``RMS_BWD_CASES``: (8192, 2048), the
+             qk-norm width, mid fp32, a ragged width; its plan, the grid
+             and the ring's stages, printed beside each, and the device
+             time of its two launches from one profiled call, after
+             phase 8)
              against autograd of their plain versions
              (fp32 within 1e-4 of the reference's largest magnitude; bf16
              relative L2 within 1e-2 and each element within 2 bf16 ulps
              plus 2**-8 of its tensor's rms), timed beside their bounds
-             and the backward of ``scaled_dot_product_attention`` /
-             ``F.rms_norm``, and ``REPEATS`` more launches bit-equal;
+             (and their share of it) and the backward of
+             ``scaled_dot_product_attention`` / ``F.rms_norm``, and
+             ``REPEATS`` more launches bit-equal;
              the forward flash kernel is timed with and without its row
              statistics; and ``rwkv6_scan_bwd`` at rwkv6-1.6b's training
              shape (4, 2048, 32, 64) and a ragged (2, 333, 2, 64) from the
@@ -197,7 +202,9 @@ Phases, each printing JSON lines:
 source of the WKV backward (this tree's, an earlier tree's unpacked
 under ``build/``, or a probe variant) into a library of its own and
 times them alone at rwkv6-1.6b's training shape in turns
-(:func:`wkv_bwd_turns`).
+(:func:`wkv_bwd_turns`); ``--rmsnorm-bwd-turns SRC...`` does the same
+for the RMSNorm backward at its two training shapes in both cast
+orders, with each launch's device time (:func:`rmsnorm_bwd_turns`).
 
 Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving) and 8
 (training) are the main paths; each path's kernels' launch counts are
@@ -355,6 +362,15 @@ BWD_CASES = (("mid fp32", 2, 8, 2, 700, 700, 64, "float32"),
 WKV_BWD_CASES = (("rwkv6-1.6b train", TRAIN_RWKV["batch"],
                   TRAIN_RWKV["seq_len"], 32, 64),
                  ("ragged", 2, 333, 2, 64))
+#: the RMSNorm backward's cases in phase ``kernels`` (label, rows, d,
+#: dtype name): a mid fp32 shape, gemma-2b's training rows, the qk-norm
+#: width at qwen3-1.7b's heads, a ragged width
+RMS_BWD_CASES = (("mid fp32", 4096, 2048, "float32"),
+                 ("gemma-2b train", TRAIN["batch"] * TRAIN["seq_len"], 2048,
+                  "bfloat16"),
+                 ("qk-norm", TRAIN["batch"] * TRAIN["seq_len"] * 16, 128,
+                  "bfloat16"),
+                 ("ragged bf16", 333, 1000, "bfloat16"))
 #: fp32 instructions per state element a step of the WKV backward's
 #: design (its issue floor): the state recomputed in pass A (3 a step for
 #: all but a chunk's last 8-step sub-chunk: 3 x 56 / 64) and in pass B (3
@@ -2702,6 +2718,7 @@ def phase_train_kernels(card: str, rate: float, flops: float,
     from repro_torch.kernels.ref import (attention_bwd_plain,
                                          attention_lse_plain, attention_plain,
                                          rmsnorm_bwd_plain)
+    from repro_torch.kernels.rmsnorm import bwd_plan as norm_bwd_plan
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 
     bf16 = torch.bfloat16
@@ -2810,13 +2827,9 @@ def phase_train_kernels(card: str, rate: float, flops: float,
           "card": card})
     del q, k, v
 
-    for label, rows, width, dtype in (
-            ("mid fp32", 4096, 2048, torch.float32),
-            ("gemma-2b train", TRAIN["batch"] * TRAIN["seq_len"], 2048,
-             bf16),
-            ("qk-norm", TRAIN["batch"] * TRAIN["seq_len"] * 16,
-             QK_NORM_WIDTH, bf16),
-            ("ragged bf16", 333, 1000, bf16)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, rows, width, name in RMS_BWD_CASES:
+        dtype = getattr(torch, name)
         x, dy = (normal(rows, width, dtype=dtype) for _ in range(2))
         w = normal(width, dtype=dtype)
         # the forward at training's rows in both cast orders, then the
@@ -2867,7 +2880,11 @@ def phase_train_kernels(card: str, rate: float, flops: float,
                    lambda a, b_: F.rms_norm(a, (width,), b_, 1e-6),
                    (x, w), dy), tuple, 10),
                "bound_ms": (3 * size(x) + 2 * size(w)) / rate * 1e3,
-               "bound_by": "bytes", "card": card}
+               "bound_by": "bytes",
+               "plan": norm_bwd_plan(width, x.element_size(),
+                                     sms)._asdict(),
+               "card": card}
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
         emit(row)
         if label == "gemma-2b train":
             results["rmsnorm_bwd"] = row
@@ -2971,33 +2988,28 @@ def check_rwkv6_scan_bwd(card: str, rate: float, fp32_flops: float,
 
 
 
-#: rounds of ``wkv_bwd_turns`` (each the sources in order, then reversed)
-#: and launches timed a source a turn
+#: rounds of a turns run (each the sources in order, then reversed) and
+#: launches timed a source a turn: ``wkv_bwd_turns`` and
+#: ``rmsnorm_bwd_turns``
 WKV_TURNS = (3, 5)
+RMS_BWD_TURNS = (3, 20)
+#: ``rmsnorm_bwd``'s shapes timed in turns (bf16): gemma-2b's training
+#: rows and the qk-norm width's, phase ``kernels``' two training cases
+RMS_BWD_TURN_SHAPES = ((TRAIN["batch"] * TRAIN["seq_len"], 2048),
+                       (TRAIN["batch"] * TRAIN["seq_len"] * 16,
+                        QK_NORM_WIDTH))
 
 
-def wkv_bwd_turns(card: str, sources, shape=None) -> None:
-    """``chip_smoke.py --wkv-bwd-turns [--shape B,T,H,DH] SRC...``: each
-    WKV backward source (this tree's ``rwkv6_scan_bwd.cu``, an earlier
-    tree's unpacked under ``build/``, or a probe variant of either) built
-    into a library of its own with the port's nvcc flags (its own
-    directory, then this tree's ``csrc``, for headers), then launched
-    through its C entry alone at rwkv6-1.6b's training shape,
-    ``WKV_BWD_CASES[0]`` (or ``shape``), fp32, checkpoints ``CKPT`` steps
-    apart, in turns: ``WKV_TURNS[0]`` rounds of the sources in order and
-    then reversed, the median of ``WKV_TURNS[1]`` launches a turn by CUDA
-    events.  Each source's first launch is held
-    to the plain reverse recurrence and its max-abs error over each
-    gradient's largest magnitude printed (a probe with parts switched off
-    computes wrong sums, so nothing here is gated).  Prints a row a
-    source: its ptxas lines, turn times and median."""
+def build_variants(kernel: str, sources) -> list:
+    """Each given source of ``kernel`` (this tree's, an earlier tree's
+    unpacked under ``build/``, or a probe variant of either) built into a
+    library of its own with the port's nvcc flags (its own directory,
+    then this tree's ``csrc``, for headers), one ``nvcc`` each, all
+    started together.  Returns ``(source, library, ptxas entries)`` a
+    source."""
     import ctypes
-    import torch
     from repro_torch.kernels import build
-    from repro_torch.kernels.ref import rwkv6_scan_bwd_plain
-    from repro_torch.kernels.rwkv6_scan import CKPT, rwkv6_scan_checkpoints
-    b, t, h, dh = shape or WKV_BWD_CASES[0][1:]
-    out_dir = REPO / "build" / "wkv_bwd_turns"
+    out_dir = REPO / "build" / f"{kernel}_turns"
     out_dir.mkdir(parents=True, exist_ok=True)
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     procs = []
@@ -3008,17 +3020,70 @@ def wkv_bwd_turns(card: str, sources, shape=None) -> None:
             [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
              f"-I{src.parent}", f"-I{csrc}", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    entries = []
+    variants = []
     for src, lib, proc in procs:
         log, _ = proc.communicate(timeout=600)
         check(proc.returncode == 0, f"{src} builds:\n{log}")
-        so = ctypes.CDLL(str(lib))
+        variants.append((src, ctypes.CDLL(str(lib)), ptxas_entries(log)))
+    return variants
+
+
+def in_turns(calls, turns) -> list:
+    """Device ms of each zero-argument call in turns: ``turns[0]`` rounds
+    of the calls in order and then reversed, a turn one warm-up call and
+    then ``turns[1]`` calls queued behind a spin kernel (so that the CUDA
+    events between them bracket the device's work and not the host's
+    launches), their median.  Returns each call's turn medians."""
+    import torch
+    times = [[] for _ in calls]
+    rounds, reps = turns
+    for _ in range(rounds):
+        order = list(range(len(calls)))
+        for i in order + order[::-1]:
+            calls[i]()
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(reps + 1)]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            events[0].record()
+            for end in events[1:]:
+                calls[i]()
+                end.record()
+            events[-1].synchronize()
+            times[i].append(statistics.median(
+                a.elapsed_time(b) for a, b in zip(events, events[1:])))
+    return times
+
+
+def source_name(src: pathlib.Path) -> str:
+    return str(src.relative_to(REPO)) if src.is_relative_to(REPO) else str(
+        src)
+
+
+def wkv_bwd_turns(card: str, sources, shape=None) -> None:
+    """``chip_smoke.py --wkv-bwd-turns [--shape B,T,H,DH] SRC...``: each
+    WKV backward source built by :func:`build_variants`, then launched
+    through its C entry alone at rwkv6-1.6b's training shape,
+    ``WKV_BWD_CASES[0]`` (or ``shape``), fp32, checkpoints ``CKPT`` steps
+    apart, in turns (:func:`in_turns`, ``WKV_TURNS``).  Each source's
+    first launch is held to the plain reverse recurrence and its max-abs
+    error over each gradient's largest magnitude printed (a probe with
+    parts switched off computes wrong sums, so nothing here is gated).
+    Prints a row a source: its ptxas lines, turn times and median."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import rwkv6_scan_bwd_plain
+    from repro_torch.kernels.rwkv6_scan import CKPT, rwkv6_scan_checkpoints
+    b, t, h, dh = shape or WKV_BWD_CASES[0][1:]
+    entries = []
+    for src, so, ptxas in build_variants("rwkv6_scan_bwd", sources):
         fn = so.rwkv6_scan_bwd_launch
         fn.argtypes = build.KERNELS["rwkv6_scan_bwd"][2]
         fn.restype = ctypes.c_int
         resident = (so.rwkv6_scan_bwd_resident(dh, CKPT)
                     if hasattr(so, "rwkv6_scan_bwd_resident") else None)
-        entries.append((src, fn, ptxas_entries(log), resident))
+        entries.append((src, fn, ptxas, resident))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     r, k, v, dy = (torch.randn((b, t, h, dh), generator=gen, device="cuda")
                    for _ in range(4))
@@ -3055,31 +3120,131 @@ def wkv_bwd_turns(card: str, sources, shape=None) -> None:
         errs.append([float((g - e).abs().max() / e.abs().max())
                      for g, e in zip(outs, exp)])
     del exp
-    times = [[] for _ in entries]
-    rounds, reps = WKV_TURNS
-    for _ in range(rounds):
-        order = list(range(len(entries)))
-        for i in order + order[::-1]:
-            fn = entries[i][1]
-            run(fn)
-            spans = []
-            for _ in range(reps):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                run(fn)
-                end.record()
-                end.synchronize()
-                spans.append(start.elapsed_time(end))
-            times[i].append(statistics.median(spans))
+    times = in_turns([functools.partial(run, fn) for _, fn, _, _ in entries],
+                     WKV_TURNS)
     for (src, _, ptxas, resident), err, ms in zip(entries, errs, times):
-        emit({"phase": "wkv_bwd_turns", "source": str(src.relative_to(REPO))
-              if src.is_relative_to(REPO) else str(src),
+        emit({"phase": "wkv_bwd_turns", "source": source_name(src),
               "shape": [b, t, h, dh], "checkpoint_every": CKPT,
               "ptxas": ptxas, "resident_blocks": resident,
               "max_abs_err_over_max": err,
               "turn_ms": ms, "median_ms": statistics.median(ms),
               "card": card})
+
+
+#: the most blocks the earlier design of ``rmsnorm_bwd`` (per-block
+#: dweight partials summed by ``dw_kernel``) ran: its wrapper's grid, one
+#: fp32 partial row a block
+PARTIALS_BWD_BLOCKS = 1024
+
+
+def rmsnorm_bwd_call(so, x, w, dy, cast_first: bool):
+    """A zero-argument call of one library's ``rmsnorm_bwd_launch`` on
+    (x, w, dy) in the given cast order, and its (dx, dw) outputs and
+    plan.  A library that exports ``rmsnorm_bwd_smem`` is the ring design
+    and takes :func:`repro_torch.kernels.rmsnorm.bwd_plan`'s grid, stage
+    rows and stages; any other is the earlier per-block-partials design
+    (x, w, dy, dx, dw, partial, rows, d, eps, max_blocks, order, dtype,
+    stream), with its wrapper's grid of ``min(1024, rows)`` blocks."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.backend import float_code
+    rows, d = x.shape
+    code = float_code(x, w, dy)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    fn = so.rmsnorm_bwd_launch
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(so, "rmsnorm_bwd_smem"):
+        from repro_torch.kernels.rmsnorm import bwd_plan
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = bwd_plan(d, x.element_size(), sms)
+        fn.argtypes = build.KERNELS["rmsnorm_bwd"][2]
+        tail = (plan.blocks, plan.rows_per_stage, plan.stages)
+        partial = torch.empty(plan.scratch_floats, device=x.device)
+        shown = plan._asdict()
+    else:
+        _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P]
+        blocks = min(PARTIALS_BWD_BLOCKS, rows)
+        tail = (blocks,)
+        partial = torch.empty(PARTIALS_BWD_BLOCKS * d, device=x.device)
+        shown = {"max_blocks": blocks}
+    ptrs = [t.data_ptr() for t in (x, w, dy, dx, dw, partial)]
+
+    def call():
+        err = fn(*ptrs, rows, d, 1e-6, *tail, int(cast_first), code, stream)
+        check(err == 0, f"launch failed: CUDA error {err}")
+
+    return call, (dx, dw), shown
+
+
+def rmsnorm_bwd_turns(card: str, sources) -> None:
+    """``chip_smoke.py --rmsnorm-bwd-turns SRC...``: each RMSNorm backward
+    source built by :func:`build_variants`, then launched through its C
+    entry (:func:`rmsnorm_bwd_call`) alone at ``RMS_BWD_TURN_SHAPES`` in
+    bf16, cast first (the models' order) and in the TPU kernel's order.
+    At each shape and order every source's output is held to autograd of
+    the plain version (the errors printed, a failed gate named, nothing
+    raised: a probe may compute wrong sums), each launch's device time
+    taken from one profiled call, and the sources timed in turns
+    (:func:`in_turns`, ``RMS_BWD_TURNS``) beside a yardstick of the same
+    bytes, ``torch.add`` of x and dy into a third tensor.  Prints a row a
+    source, shape and order (after a row of each source's ptxas lines):
+    its plan, errors, launches and turn times, and their median's share
+    of the bytes bound."""
+    import torch
+    from repro_torch.kernels.ref import rmsnorm_bwd_plain
+    variants = build_variants("rmsnorm_bwd", sources)
+    for src, _, ptxas in variants:
+        emit({"phase": "rmsnorm_bwd_turns", "source": source_name(src),
+              "ptxas": ptxas, "card": card})
+    rate = memory_rate(card)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for rows, d in RMS_BWD_TURN_SHAPES:
+        x, dy = (torch.randn((rows, d), generator=gen, device="cuda")
+                 .bfloat16() for _ in range(2))
+        w = (1 + 0.3 * torch.randn(d, generator=gen, device="cuda")
+             ).bfloat16()
+        bound_ms = (3 * x.numel() + 2 * d) * x.element_size() / rate * 1e3
+        for cast_first in (True, False):
+            exp = rmsnorm_bwd_plain(x, w, dy, cast_first=cast_first)
+            calls, rows_out = [], []
+            for src, so, _ in variants:
+                call, outs, plan = rmsnorm_bwd_call(so, x, w, dy, cast_first)
+                for o in outs:
+                    o.fill_(float("nan"))
+                call()
+                torch.cuda.synchronize()
+                try:
+                    errs = [check_grad(g, e, n) for n, g, e in
+                            zip(("dx", "dw"), outs, exp)]
+                    gate = "passed"
+                except AssertionError as fault:
+                    errs, gate = None, f"failed: {fault}"
+                launches = {row["name"]: row["device_ms"]
+                            for row in device_profile(call)[2]}
+                calls.append(call)
+                rows_out.append({
+                    "phase": "rmsnorm_bwd_turns", "source": source_name(src),
+                    "shape": [rows, d], "dtype": "bfloat16",
+                    "order": "cast-first" if cast_first else "TPU-kernel",
+                    "plan": plan, "gate": gate,
+                    "errors": errs, "launches_ms": launches})
+            del exp
+            # a yardstick of the same bytes (x and dy read, one (rows, d)
+            # tensor written) that the port never calls: PyTorch's add
+            out = torch.empty_like(x)
+            calls.append(functools.partial(torch.add, x, dy, out=out))
+            rows_out.append({"phase": "rmsnorm_bwd_turns",
+                             "source": "yardstick: torch.add(x, dy, out=)",
+                             "shape": [rows, d], "dtype": "bfloat16",
+                             "order": rows_out[0]["order"]})
+            for row, ms in zip(rows_out, in_turns(calls, RMS_BWD_TURNS)):
+                med = statistics.median(ms)
+                row.update(turn_ms=ms, median_ms=med, bound_ms=bound_ms,
+                           bound_share=bound_ms / med, card=card)
+                emit(row)
 
 
 def train_kernels():
@@ -3114,9 +3279,10 @@ def expected_train_launches(cfg, steps: int) -> dict:
 
 
 def phase_bwd_passes() -> None:
-    """Each pass of ``flash_attention_bwd`` at the shapes of phase
-    ``kernels``, printed by a process of its own (``chip_smoke.py
-    --bwd-passes``, :func:`bwd_passes`).  Not in this process: on an H100,
+    """Each pass of ``flash_attention_bwd`` and each launch of
+    ``rmsnorm_bwd`` at the shapes of phase ``kernels``, printed by a
+    process of its own (``chip_smoke.py --bwd-passes``,
+    :func:`bwd_passes`).  Not in this process: on an H100,
     profiler sessions opened after phase ``train`` saw no device kernel,
     and with five opened before phase ``service`` that phase's trace held
     157 of its 158 tick launches."""
@@ -3131,7 +3297,9 @@ def bwd_passes(card: str) -> None:
     ``dkdv_wgmma``, ``dkdv_reduce``; fp32: ``dq_kernel``,
     ``dkdv_kernel``) at the shapes of phase ``kernels``, from one
     profiled call each, with the dK/dV pass's head split and, where it
-    splits, one more call without."""
+    splits, one more call without; then ``rmsnorm_bwd``'s two launches
+    (the rows pass and the dweight sum) at ``RMS_BWD_CASES`` in the
+    cast-first order the models run."""
     import torch
     from repro_torch.kernels.flash_attention import (_forward, bwd_plan,
                                                      flash_attention_bwd)
@@ -3139,7 +3307,10 @@ def bwd_passes(card: str) -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def short(kernel):   # "void (anonymous namespace)::dq_wgmma<256>(..."
-        m = re.search(r"::(\w+(?:<[^>(]*>)?)\(", kernel)
+        # (the profiler's names are cut at 60 characters: a template's
+        # arguments may be cut off, and then the bare name is kept)
+        m = (re.search(r"::(\w+(?:<[^>(]*>)?)\(", kernel)
+             or re.search(r"::(\w+)", kernel))
         return m.group(1) if m else kernel
 
     for label, b, h, g, lq, lk, dim, name in BWD_CASES:
@@ -3167,6 +3338,20 @@ def bwd_passes(card: str) -> None:
                 row["passes_ms_split_off"] = passes()
         emit(row)
         del q, k, v, dout, lse
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    for label, rows, d, name in RMS_BWD_CASES:
+        dtype = getattr(torch, name)
+        x, dy = (torch.randn((rows, d), generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        w = torch.randn(d, generator=gen, device="cuda").to(dtype)
+        rmsnorm_bwd(x, w, dy, cast_first=True)      # built and warm
+        emit({"phase": "kernels", "kernel": "rmsnorm_bwd", "case": label,
+              "shape": [rows, d], "dtype": name, "launches_ms": {
+                  short(row["name"]): row["device_ms"]
+                  for row in device_profile(lambda: rmsnorm_bwd(
+                      x, w, dy, cast_first=True))[2]}, "card": card})
+        del x, dy, w
 
 
 def phase_train(card: str, flops: float, train=TRAIN) -> dict:
@@ -3478,6 +3663,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--train-route-split"]:
         train_route_split(card)
+        return 0
+    if sys.argv[1:2] == ["--rmsnorm-bwd-turns"]:
+        rmsnorm_bwd_turns(card, sys.argv[2:])
         return 0
     if sys.argv[1:2] == ["--wkv-bwd-turns"]:
         args = sys.argv[2:]

@@ -59,6 +59,19 @@ def check_inputs(shapes: dict) -> None:
             raise ValueError(f"{label} must be contiguous")
 
 
+_SMS: dict = {}
+
+
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once (the input of the
+    kernels' launch plans)."""
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms
+
+
 #: the float types the model kernels read, by their C-side code
 FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

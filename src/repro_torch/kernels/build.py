@@ -40,7 +40,7 @@ KERNELS = {
     "rmsnorm": ("rmsnorm.cu", "rmsnorm_launch",
                 [_P] * 3 + [_I, _I, _F, _I, _I, _P]),
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", "rmsnorm_bwd_launch",
-                    [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P]),
+                    [_P] * 6 + [_I, _I, _F] + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention.cu", "flash_attention_launch",
                         [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
     "flash_attention_bwd": ("flash_attention_bwd.cu",

@@ -29,6 +29,9 @@ import torch
 
 from repro_torch.kernels.backend import (FLOAT_CODES, float_code, launch,
                                          use_kernel)
+# a module name of its own: a card test and chip_smoke.py patch it to
+# force the head split on and off
+from repro_torch.kernels.backend import sm_count as _sm_count
 from repro_torch.kernels.ref import attention_bwd_plain, attention_plain
 
 #: head dims the kernel is built for
@@ -82,18 +85,6 @@ def bwd_plan(b: int, hq: int, hkv: int, lq: int, lk: int, d: int,
     if head_splits > 1:
         floats += 2 * head_splits * b * hkv * n_kt * BWD_TILE * d
     return BwdPlan(head_splits, floats)
-
-
-_SMS: dict = {}
-
-
-def _sm_count(index: int) -> int:
-    """The SMs of CUDA device ``index``, read once (the plan's input)."""
-    sms = _SMS.get(index)
-    if sms is None:
-        sms = _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return sms
 
 
 def _check(q, k, v) -> int:

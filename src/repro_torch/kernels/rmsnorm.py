@@ -9,29 +9,113 @@ runs :func:`rmsnorm_plain` for CPU tensors.
 
 When grad mode is on and an input requires a gradient, the CUDA route
 goes through an autograd function whose backward launches
-:func:`rmsnorm_bwd` (``csrc/rmsnorm_bwd.cu``: dx row by row, dweight as
-per-block fp32 partials summed in a fixed order), which replaces
-``jax.grad`` of the JAX package's norm.  CPU tensors differentiate the
-plain version.
+:func:`rmsnorm_bwd` (``csrc/rmsnorm_bwd.cu``: a persistent grid whose
+blocks stream contiguous row ranges through a shared-memory ring filled
+by the bulk copy engine, dweight summed in registers over a block's
+range, then the blocks' partial rows in block order; :func:`bwd_plan`
+sizes the grid and the ring), which replaces ``jax.grad`` of the JAX
+package's norm.  CPU tensors differentiate the plain version.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.kernels.backend import float_code, launch, use_kernel
+from repro_torch.kernels.backend import (float_code, launch, sm_count,
+                                         use_kernel)
 from repro_torch.kernels.ref import (rmsnorm_bwd_plain,
                                      rmsnorm_cast_first_plain, rmsnorm_plain)
 
 #: the widest row the kernel takes (8 warps x 8 vectors of 16 bytes, fp32)
 MAX_D = 8192
-#: the most blocks the backward's persistent grid runs: its dweight
-#: partials take this many fp32 rows of scratch at most
-MAX_BWD_BLOCKS = 1024
+#: the backward's block: its computing threads (8 warps; one more warp
+#: fills the ring)
+BWD_THREADS = 256
+#: bytes of x and dy a ring stage aims at, the most rows a stage holds,
+#: and the most stages a ring holds
+BWD_STAGE_BYTES = 32 * 1024
+BWD_MAX_STAGE_ROWS = 256
+BWD_MAX_STAGES = 4
+#: Hopper's shared memory: an SM's (228 KB), what each resident block
+#: reserves of it, and the most one block may take (227 KB)
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+MAX_BLOCK_SMEM = 232448
 
 __all__ = ["rmsnorm", "rmsnorm_bwd", "rmsnorm_plain",
            "rmsnorm_cast_first_plain", "rmsnorm_bwd_plain", "MAX_D",
-           "MAX_BWD_BLOCKS"]
+           "BwdPlan", "bwd_plan", "bwd_smem", "row_range"]
+
+
+class BwdPlan(NamedTuple):
+    """The backward's launch at a shape: ``blocks`` (its persistent
+    grid, also the partial rows of dweight), ``rows_per_stage`` and
+    ``stages`` of each block's ring, the blocks an SM holds, a block's
+    shared memory and the fp32 scratch of the partial rows."""
+    blocks: int
+    rows_per_stage: int
+    stages: int
+    blocks_per_sm: int
+    smem_bytes: int
+    scratch_floats: int
+
+
+def _row_bytes(d: int, itemsize: int) -> int:
+    """A row's bytes in shared memory: d up to a 16-byte vector."""
+    return -(-d * itemsize // 16) * 16
+
+
+def bwd_smem(d: int, itemsize: int, rows_per_stage: int,
+             stages: int) -> int:
+    """A backward block's shared memory (``csrc/rmsnorm_bwd.cu``'s
+    ``layout``, which ``rmsnorm_bwd_smem`` reports on the card): the ring
+    (or, if larger, the row groups' fp32 dweight partials that reuse it),
+    w, each stage's rows' two sums a part (a row's vectors in
+    8 / rows_per_stage parts where a stage has fewer rows than the 8
+    computing warps), two mbarriers a stage."""
+    row = _row_bytes(d, itemsize)
+    vectors = row // 16
+    groups = BWD_THREADS // vectors if vectors < BWD_THREADS else 1
+    parts = max(1, BWD_THREADS // 32 // rows_per_stage)
+    ring = stages * 2 * rows_per_stage * row
+    combine = groups * (row // itemsize) * 4 if groups > 1 else 0
+    return max(ring, combine) + row + stages * rows_per_stage * parts * 8 + (
+        2 * stages * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(d: int, itemsize: int, sms: int) -> BwdPlan:
+    """The backward's plan for rows of ``d`` elements of ``itemsize``
+    bytes on a card of ``sms`` SMs.
+
+    A stage holds the rows of x and of dy that come nearest
+    ``BWD_STAGE_BYTES`` (bf16 d 2048: 4; d 128: 64); a ring holds up to
+    ``BWD_MAX_STAGES`` stages and at least 2.  Two blocks an SM where two
+    such rings fit the SM's shared memory, else one (fp32 rows above 16
+    KB) with as many stages as fit 227 KB.  The grid is that many blocks
+    an SM, whatever the rows (a block may have none), so dweight's order
+    of summation is fixed per card and width."""
+    row = _row_bytes(d, itemsize)
+    per_stage = max(1, min(BWD_MAX_STAGE_ROWS, BWD_STAGE_BYTES // (2 * row)))
+    for per_sm in (2, 1):
+        room = min(SM_SMEM // per_sm - BLOCK_RESERVED_SMEM, MAX_BLOCK_SMEM)
+        stages = BWD_MAX_STAGES
+        while stages > 2 and bwd_smem(d, itemsize, per_stage, stages) > room:
+            stages -= 1
+        if bwd_smem(d, itemsize, per_stage, stages) <= room:
+            break
+    blocks = per_sm * sms
+    return BwdPlan(blocks, per_stage, stages, per_sm,
+                   bwd_smem(d, itemsize, per_stage, stages), blocks * d)
+
+
+def row_range(block: int, rows: int, blocks: int) -> range:
+    """The rows block ``block`` of the backward's grid takes, as the
+    kernel computes them: contiguous, balanced to within a row."""
+    return range(block * rows // blocks, (block + 1) * rows // blocks)
 
 
 def _check(x, weight) -> int:
@@ -111,11 +195,14 @@ def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
     dx, dw = torch.empty_like(x), torch.empty_like(weight)
     if not rows:
         return dx, dw.zero_()
-    blocks = min(MAX_BWD_BLOCKS, rows)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
-    launch("rmsnorm_bwd", x.get_device(), x.data_ptr(), weight.data_ptr(),
+    index = x.get_device()
+    plan = bwd_plan(d, x.element_size(), sm_count(index))
+    partial = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=x.device)
+    launch("rmsnorm_bwd", index, x.data_ptr(), weight.data_ptr(),
            dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-           rows, d, float(eps), blocks, int(cast_first), code)
+           rows, d, float(eps), plan.blocks, plan.rows_per_stage,
+           plan.stages, int(cast_first), code)
     rmsnorm_bwd.launches += 1
     return dx, dw
 

@@ -997,6 +997,95 @@ def test_rmsnorm_bwd_repeated_launches_agree(gen, rows, d):
         assert all(torch.equal(a, f) for a, f in zip(again, first)), i
 
 
+def _rmsnorm_bwd_case(gen, rows, d, dtype, offset=0):
+    """x, w, dy of the backward; offset 1 makes x and dy views one
+    element into their buffers, so no pointer is 16-byte aligned."""
+    x, dy = (_normal(gen, rows * d + offset, dtype=dtype)[offset:]
+             .view(rows, d) for _ in range(2))
+    w = (1 + 0.3 * _normal(gen, d)).to(dtype)
+    return x, w, dy
+
+
+#: the ring design's edges (rows, d, dtype name, offset): fewer rows than
+#: the grid's blocks, so that most blocks have none; row counts that are
+#: no multiple of a stage's rows (4 at bf16 d 2048, 64 at d 128) or of
+#: the blocks; fp32 d 8192, the widest row (one block an SM, one row a
+#: stage); bf16 d 100, 200-byte rows the bulk copy cannot take; views one
+#: element into their buffers (no pointer 16-byte aligned)
+RING_EDGES = [(1, 2048, "bfloat16", 0), (5, 2048, "bfloat16", 0),
+              (131, 2048, "bfloat16", 0), (8191, 2048, "bfloat16", 0),
+              (1001, 128, "bfloat16", 0), (300, 8192, "float32", 0),
+              (333, 100, "bfloat16", 0), (257, 2048, "bfloat16", 1),
+              (65, 1000, "float32", 1)]
+
+
+@pytest.mark.parametrize("rows,d,dtype,offset", RING_EDGES)
+@pytest.mark.parametrize("cast_first", [False, True])
+def test_rmsnorm_bwd_ring_edges(gen, rows, d, dtype, offset, cast_first):
+    """One launch each against autograd of the plain version in the same
+    cast order, at the gradient gates."""
+    from repro_torch.kernels.ref import rmsnorm_bwd_plain
+    x, w, dy = _rmsnorm_bwd_case(gen, rows, d, getattr(torch, dtype), offset)
+    launches = rmsnorm_bwd.launches
+    got = rmsnorm_bwd(x, w, dy, cast_first=cast_first)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd.launches == launches + 1
+    exp = rmsnorm_bwd_plain(x, w, dy, cast_first=cast_first)
+    for name, g, e in zip(("dx", "dw"), got, exp):
+        _grad_gate(g, e, name)
+
+
+@pytest.mark.parametrize("cast_first", [False, True])
+def test_rmsnorm_bwd_element_path_repeats_bit_equal(gen, cast_first):
+    """bf16 d 100 (rows loaded element by element): 20 launches more,
+    bit-equal."""
+    x, w, dy = _rmsnorm_bwd_case(gen, 333, 100, torch.bfloat16)
+    first = rmsnorm_bwd(x, w, dy, cast_first=cast_first)
+    for i in range(20):
+        again = rmsnorm_bwd(x, w, dy, cast_first=cast_first)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
+@pytest.mark.parametrize("rows,d", [(8192, 2048), (8192 * 16, 128),
+                                    (300, 8192)])
+def test_rmsnorm_bwd_scratch_is_the_grids_partial_rows(gen, rows, d):
+    """The call's device memory beyond its inputs and outputs (the peak
+    during the call) is at most the grid's partial rows, blocks * d
+    floats, plus 64 KiB for the allocator's rounding (the earlier
+    per-block-partials design took 1024 * d floats)."""
+    from repro_torch.kernels.backend import sm_count
+    from repro_torch.kernels.rmsnorm import bwd_plan
+    x, w, dy = _rmsnorm_bwd_case(gen, rows, d, torch.bfloat16)
+    rmsnorm_bwd(x, w, dy)   # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    outputs = sum(g.numel() * g.element_size() for g in got)
+    extra = torch.cuda.max_memory_allocated() - before - outputs
+    plan = bwd_plan(d, 2, sm_count(x.get_device()))
+    assert plan.scratch_floats == plan.blocks * d < 1024 * d
+    assert extra <= 4 * plan.blocks * d + (1 << 16), extra
+
+
+@pytest.mark.parametrize("d", [1, 64, 100, 128, 1000, 2048, 4100, 8192])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rmsnorm_bwd_plan_is_the_kernels_layout(gen, d, itemsize):
+    """The wrapper's plan asks for the shared memory that the kernel's
+    layout takes (``rmsnorm_bwd_smem``), which the card allows."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.backend import sm_count
+    from repro_torch.kernels.rmsnorm import bwd_plan
+    smem = build.entry("rmsnorm_bwd", "rmsnorm_bwd_smem",
+                       [ctypes.c_int] * 4)
+    plan = bwd_plan(d, itemsize, sm_count(0))
+    dtype = 0 if itemsize == 4 else 1
+    assert smem(d, dtype, plan.rows_per_stage, plan.stages) == \
+        plan.smem_bytes > 0
+
+
 def test_kernels_without_backward_raise_under_grad(gen):
     """decode_attention has no backward kernel: with an input that
     requires a gradient under grad mode it raises, so no output leaves the
