@@ -31,7 +31,11 @@ Phases, each printing JSON lines:
              element by element within one bf16 ulp of the plain value
              plus 2**-10 of its row's rms (flash decode at the batched
              request's shape on every kv_len its 32 steps give it, P + 1
-             .. P + 32); bf16 flash attention, flash decode, the WKV
+             .. P + 32; the context cells' cross caches read whole,
+             kv_len = L); flash attention also non-causal at the
+             context cells' encoder and cross shapes (Lq != Lk), ragged
+             and with Lq > Lk, with its row statistics held to
+             ``LSE_REL``; bf16 flash attention, flash decode, the WKV
              scan (fp32 and bf16), the MESI tick (every shape and
              strategy) and the chunk tick (both shapes) launched
              ``REPEATS`` more times at each shape after every timing,
@@ -148,7 +152,26 @@ Phases, each printing JSON lines:
              tokens, within gemma-2b's gates (2e-2 / 2.5e-2, each layer
              1e-2), and the tokens whose top-k set of experts the plain
              route would choose otherwise counted per layer and over the
-             request.
+             request.  Then the context families, each cross-attention
+             gate set to 1.0 (tanh 0.76; the reference's init 0 would
+             multiply the context away) and, in whisper's layernorm, each
+             norm scale drawn as 1 + 0.3 N(0, 1) and each bias as
+             0.1 N(0, 1) from ``SEED``: ``serve_whisper``, the same
+             workload on whisper-medium at its registered width (24
+             encoder and 24 decoder layers, d 1024, 16 heads of 64,
+             vocab 51968, 0.81 B), every prefill with stub frames of 4096
+             (``_ctx_len``), 72 flash_attention per prefill (the encoder's
+             24 and the cross sublayers' 24 non-causal), 48
+             decode_attention per step (24 over the cross caches) and no
+             rmsnorm; ``serve_vlm``, llama-3.2-vision-90b at its published
+             width cut to 10 layers (cross layers 3 and 8, 10.66 B) with
+             1024 vision embeddings, 21 rmsnorm per forward, 10
+             flash_attention per prefill, 10 decode_attention per step;
+             both within gemma-2b's gates, each layer's share (whisper's
+             encoder walked layer by layer first) within 1e-2, and, as
+             controls, no context and another seed's each moving every
+             row's prefill logits by more than ``CONTEXT_NOISE`` times
+             the row's kernel-vs-plain distance.
 8. train   - training of gemma-2b and of rwkv6-1.6b at their registered
              widths (random weights from ``SEED``, bf16, 2.51 B / 1.60 B
              parameters) on 4 x 2048-token batches of the port's
@@ -165,14 +188,21 @@ Phases, each printing JSON lines:
              64 steps) and 24 rwkv6_scan_bwd on rwkv6-1.6b; prints the
              step time, tokens/s, model TFLOP/s and its share of the bf16
              peak, peak memory and the idle share of a profiled step.
-             Then ``run_training`` on the card at
+             Then whisper-medium (``TRAIN_WHISPER``: 4 x 4096 frames and
+             1024 decoder tokens) the same way, its gates and layernorm
+             moved as in phase 7: 144 flash_attention (72 recomputed, 96
+             non-causal) and 72 flash_attention_bwd (48 non-causal) a
+             step, no rmsnorm, every encoder and cross leaf's gradient
+             non-zero.  Then ``run_training`` on the card at
              qwen3-1.7b's smoke config, crashed at step 25 and resumed
              from 20 with the uninterrupted run's losses, and the training
              CLI for 3 steps.  The backward kernels are held in phase 2
              too: ``flash_attention_bwd`` (gemma-2b's and qwen3-1.7b's
              training shapes, mid fp32 / bf16, a ragged length, with
              the dK/dV pass's head split, and without it where it
-             splits; each pass's device time from
+             splits; whisper's training shapes, its encoder's and cross
+             attention's non-causal, and two ragged non-causal ones;
+             each pass's device time from
              one profiled call, after phase 8) and ``rmsnorm_bwd`` in
              both cast orders (``RMS_BWD_CASES``: (8192, 2048), the
              qk-norm width, mid fp32, a ragged width; its plan, the grid
@@ -206,8 +236,8 @@ times them alone at rwkv6-1.6b's training shape in turns
 for the RMSNorm backward at its two training shapes in both cast
 orders, with each launch's device time (:func:`rmsnorm_bwd_turns`).
 
-Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving) and 8
-(training) are the main paths; each path's kernels' launch counts are
+Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving, five
+cells) and 8 (training, three cells) are the main paths; each path's kernels' launch counts are
 set to 0 just before it and read just after.  Any failed check raises,
 and the script then exits non-zero.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no
@@ -334,9 +364,37 @@ SERVE = dict(arch="gemma-2b", agents=4, artifacts=3, artifact_tokens=2048,
 #: width 1024, vocab 50304, bf16)
 SERVE_RWKV = dict(SERVE, arch="rwkv6-1.6b")
 SERVE_MOE = dict(SERVE, arch="olmoe-1b-7b")
+#: the context families' serving cells: whisper-medium at its registered
+#: width (24 encoder and 24 decoder layers, d 1024, 16 heads of 64, d_ff
+#: 4096, vocab 51968, layernorm with biases, bf16), its stub frames
+#: ``_ctx_len``'s 4096; llama-3.2-vision-90b at its published width (d
+#: 8192, 64 heads, 8 KV heads of 128, d_ff 28672, vocab 128256) cut to
+#: its first ``n_layers`` 10 (two superblocks of the published period 5,
+#: cross layers 3 and 8: 10.66 B of its 87.7 B, which do not fit 80 GB),
+#: 1024 image tokens of vision embeddings
+SERVE_WHISPER = dict(SERVE, arch="whisper-medium")
+SERVE_VLM = dict(SERVE, arch="llama-3.2-vision-90b", n_layers=10)
 #: each serving workload's phase name, by arch
 SERVE_PHASES = {"gemma-2b": "serve", "rwkv6-1.6b": "serve_rwkv",
-                "olmoe-1b-7b": "serve_moe"}
+                "olmoe-1b-7b": "serve_moe", "whisper-medium": "serve_whisper",
+                "llama-3.2-vision-90b": "serve_vlm"}
+#: every cross-attention gate is set to this after the init (tanh 0.76):
+#: the reference draws it 0, and tanh(0) = 0 multiplies the context away;
+#: the layernorm scales are drawn as 1 + 0.3 N(0, 1) and every bias as
+#: 0.1 N(0, 1) (from ``SEED``) for the same reason
+CROSS_GATE = 1.0
+#: the controls of a context cell: the prefill's last-position logits
+#: without a context (empty cross caches, no encoder) and with another
+#: seed's must each move, every row, by more than this many times the
+#: row's own kernel-vs-plain distance (relative L2).  Ten times the route
+#: gate is out of reach with random weights: a cross attention over 4096
+#: frames (1024 image tokens) of iid N(0, 1) draws has nearly flat
+#: softmax rows, so its output is mostly the keys' mean, which another
+#: seed hardly moves, and the vlm's mean of iid embeddings is near 0, so
+#: its two cross layers move its logits by ~6 % in all (readings, as
+#: multiples of the route distance: whisper no context 100x, another
+#: seed 4.5x; vlm 4.2x and 5.8x; PERF.md)
+CONTEXT_NOISE = 3.0
 #: the training cell of phase 8: gemma-2b at its registered width, a
 #: batch of 4 sequences of 2048 tokens from the port's synthetic stream,
 #: ``steps`` steps of AdamW (``AdamWConfig()``); and the trainer's smoke
@@ -346,16 +404,35 @@ TRAIN = dict(arch="gemma-2b", batch=4, seq_len=2048, steps=4)
 #: layers, d 2048, 32 heads of 64, bf16, 1.60 B): its WKV runs the
 #: checkpointing forward and the backward kernel
 TRAIN_RWKV = dict(TRAIN, arch="rwkv6-1.6b")
+#: whisper-medium at its registered width: 4 sequences of 4096 frames and
+#: 1024 decoder tokens (``_dec_len`` of 4096), the JAX package's
+#: ``train_4k`` cut to one card; tokens from the port's synthetic
+#: stream, frames N(0, 1) from ``SEED`` (plus the step)
+TRAIN_WHISPER = dict(TRAIN, arch="whisper-medium", seq_len=1024, frames=4096)
 TRAIN_LOOP = dict(arch="qwen3-1.7b", steps=40, every=10, crash_at=25)
 #: the attention backward's shapes in phase ``kernels`` (label, b, Hq,
-#: Hkv, Lq, Lk, D, dtype name)
-BWD_CASES = (("mid fp32", 2, 8, 2, 700, 700, 64, "float32"),
-             ("mid bf16", 2, 8, 2, 700, 700, 64, "bfloat16"),
+#: Hkv, Lq, Lk, D, dtype name, causal): the non-causal ones are whisper
+#: training's encoder and cross-attention and two ragged ones
+BWD_CASES = (("mid fp32", 2, 8, 2, 700, 700, 64, "float32", True),
+             ("mid bf16", 2, 8, 2, 700, 700, 64, "bfloat16", True),
              ("gemma-2b train", TRAIN["batch"], 8, 1, TRAIN["seq_len"],
-              TRAIN["seq_len"], 256, "bfloat16"),
+              TRAIN["seq_len"], 256, "bfloat16", True),
              ("qwen3-1.7b train", TRAIN["batch"], 16, 8, TRAIN["seq_len"],
-              TRAIN["seq_len"], 128, "bfloat16"),
-             ("ragged bf16", 1, 8, 1, 333, 1001, 256, "bfloat16"))
+              TRAIN["seq_len"], 128, "bfloat16", True),
+             ("ragged bf16", 1, 8, 1, 333, 1001, 256, "bfloat16", True),
+             ("whisper train self", TRAIN_WHISPER["batch"], 16, 16,
+              TRAIN_WHISPER["seq_len"], TRAIN_WHISPER["seq_len"], 64,
+              "bfloat16", True),
+             ("whisper train encoder", TRAIN_WHISPER["batch"], 16, 16,
+              TRAIN_WHISPER["frames"], TRAIN_WHISPER["frames"], 64,
+              "bfloat16", False),
+             ("whisper train cross", TRAIN_WHISPER["batch"], 16, 16,
+              TRAIN_WHISPER["seq_len"], TRAIN_WHISPER["frames"], 64,
+              "bfloat16", False),
+             ("ragged non-causal fp32", 2, 8, 2, 700, 333, 64, "float32",
+              False),
+             ("ragged non-causal bf16", 1, 8, 1, 333, 1001, 256, "bfloat16",
+              False))
 #: the WKV backward's shapes in phase ``kernels`` (label, b, t, h, dh):
 #: rwkv6-1.6b's training shape and a ragged one (T not a multiple of the
 #: checkpoint spacing, B*H below the SMs)
@@ -410,7 +487,19 @@ GRAD_RMS_FLOOR = 2.0 ** -8
 #: gemma's attention, and a leaf that sums every token's gradient (the
 #: embedding, the bonus) gathers it all
 TRAIN_LOSS_REL = 1e-4
-TRAIN_GRAD_REL_L2 = {"gemma-2b": 2e-2, "rwkv6-1.6b": 9e-2}
+#: gradient leaves that are 0 in exact arithmetic: the key bias of an
+#: attention without rope (whisper's encoder) adds q.b to every logit of a
+#: row, which the softmax cancels, so each route's gradient is rounding
+#: noise (relative L2 1.39 between the routes, PERF.md).  Such a leaf is
+#: held by its size instead, on both routes: its norm at most
+#: ``ZERO_LEAF_SHARE`` of the query bias's (readings 1.5e-4 on both
+#: routes; a backward that broke the
+#: softmax's shift invariance, a wrong D = rowsum(P dP), would move it to
+#: the query bias's order)
+ZERO_GRAD_LEAVES = {"/encoder/blocks/mixer/bk": "/encoder/blocks/mixer/bq"}
+ZERO_LEAF_SHARE = 1e-2
+TRAIN_GRAD_REL_L2 = {"gemma-2b": 2e-2, "rwkv6-1.6b": 9e-2,
+                     "whisper-medium": 2e-2}
 #: the same first step of rwkv6-1.6b at its registered width in fp32 (a
 #: batch of 1 x 1024 tokens) on both routes: every gradient leaf within
 #: this relative L2 (reading 2.3e-5: the fp32 kernels sum in other
@@ -452,7 +541,9 @@ WKV_FP32_TOL = 1e-5
 #: readings show no layer parting the routes (each adds at most 0.0037);
 #: olmoe-1b-7b starts at gemma-2b's
 LOGITS_REL_L2 = {"gemma-2b": (2e-2, 2.5e-2), "rwkv6-1.6b": (4.5e-2, 5e-2),
-                 "olmoe-1b-7b": (2e-2, 2.5e-2)}
+                 "olmoe-1b-7b": (2e-2, 2.5e-2),
+                 "whisper-medium": (2e-2, 2.5e-2),
+                 "llama-3.2-vision-90b": (2e-2, 2.5e-2)}
 #: relative L2 error allowed for one layer's own share of the routes'
 #: distance (``layer_divergence``'s ``local``; readings at most 0.0015 on
 #: gemma-2b and 0.0037 on rwkv6-1.6b)
@@ -894,20 +985,76 @@ def phase_kernels(card: str, rate: float) -> dict:
     return results
 
 
+def serve_config(serve):
+    """The model config of a serving or training cell: the registered
+    one, cut to the cell's ``n_layers`` where it names one."""
+    from repro_torch.configs import get
+    cfg = get(serve["arch"])
+    if "n_layers" in serve:
+        cfg = dataclasses.replace(cfg, n_layers=serve["n_layers"])
+    return cfg
+
+
 def serving_system(serve=SERVE):
     """A serving workload (phase 5's by default), driven through its
     coherence decisions (no model yet): the system and its stats."""
-    from repro_torch.configs import ARCHS, get, n_active_params
+    from repro_torch.configs import n_active_params
     from repro_torch.launch.serve import build_artifacts
     from repro_torch.runtime.coherent_serving import (CoherentServingSystem,
                                                       run_workload)
+    cfg = serve_config(serve)
     system = CoherentServingSystem(
-        get(serve["arch"]), serve["agents"],
+        cfg, serve["agents"],
         build_artifacts(serve["artifacts"], serve["artifact_tokens"]),
-        strategy=serve["strategy"],
-        n_active_params=n_active_params(ARCHS[serve["arch"]]))
+        strategy=serve["strategy"], n_active_params=n_active_params(cfg))
     stats = run_workload(system, serve["steps"], serve["volatility"])
     return system, stats
+
+
+#: the bias leaves of the models' trees (norms, attention, whisper's MLP)
+BIAS_LEAVES = ("bias", "bq", "bk", "bv", "bo", "b_in", "b_out")
+
+
+def awake_params(params, cfg) -> dict:
+    """Moves the leaves whose init hides a fault of the context path, in
+    place: every cross-attention ``gate`` to ``CROSS_GATE``, and in a
+    layernorm model every norm scale to 1 + 0.3 N(0, 1) and every bias to
+    0.1 N(0, 1), drawn from ``SEED`` on the params' device.  Returns what
+    it set, for the phase's line."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    moved = collections.Counter()
+
+    def walk(tree):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif key == "gate":
+                leaf.fill_(CROSS_GATE)
+                moved["gates"] += leaf.numel()
+            elif cfg.norm == "layernorm" and key == "scale":
+                leaf.copy_(1.0 + 0.3 * torch.randn(
+                    leaf.shape, generator=gen, device=leaf.device))
+                moved["scales"] += 1
+            elif cfg.norm == "layernorm" and key in BIAS_LEAVES:
+                leaf.copy_(0.1 * torch.randn(leaf.shape, generator=gen,
+                                             device=leaf.device))
+                moved["biases"] += 1
+
+    walk(params)
+    return {"cross_gate": CROSS_GATE, "tanh_gate": math.tanh(CROSS_GATE),
+            "gates_set": moved["gates"], "scale_leaves_drawn":
+            moved["scales"], "bias_leaves_drawn": moved["biases"]}
+
+
+def cell_context(cfg, batch: int, length: int, seed: int):
+    """A cell's stub context on the card (the port's own draw,
+    ``launch.serve.stub_context``): None for a model without cross
+    layers."""
+    from repro_torch.launch.serve import stub_context
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    return stub_context(cfg, batch, length, seed, "cuda")
 
 
 def bf16_ulps(got, exp) -> float:
@@ -1047,15 +1194,18 @@ def attention_pairs(lq: int, lk: int, causal: bool) -> int:
 def phase_model_kernels(card: str, rate: float, flops: float,
                         fp32_flops: float, contexts: list) -> dict:
     """The four model kernels against their plain versions at the
-    serving paths' shapes (gemma-2b and rwkv6-1.6b: the agents'
-    prefills, the batched prefill and decode) and at a mid shape;
-    returns, per kernel, the row of the batched request's shape."""
+    serving paths' shapes (every serving cell's agents' prefills, batched
+    prefill and decode; the context cells' encoder and cross-attention
+    non-causal, their cross caches read whole) and at mid, ragged and
+    Lq > Lk shapes; returns, per kernel, the row of gemma-2b's batched
+    request's shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get
+    from repro_torch.configs.registry import _ctx_len
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import (attention_plain,
+    from repro_torch.kernels.flash_attention import _forward, flash_attention
+    from repro_torch.kernels.ref import (attention_lse_plain,
                                          decode_attention_plain,
                                          rmsnorm_cast_first_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm
@@ -1065,6 +1215,12 @@ def phase_model_kernels(card: str, rate: float, flops: float,
                       cfg.kv_head_dim())
     moe = get(SERVE_MOE["arch"])    # olmoe-1b-7b: 16 heads of 128, MHA
     mq, mkv, md = moe.n_heads, moe.n_kv_heads, moe.kv_head_dim()
+    wsp = get(SERVE_WHISPER["arch"])   # whisper-medium: 16 heads of 64
+    wq, wd = wsp.n_heads, wsp.kv_head_dim()
+    vlm = serve_config(SERVE_VLM)      # 64 heads, 8 KV heads of 128
+    vq, vkv, vd = vlm.n_heads, vlm.n_kv_heads, vlm.kv_head_dim()
+    artifact_len = SERVE["artifacts"] * SERVE["artifact_tokens"]
+    wT, vT = _ctx_len(wsp, artifact_len), _ctx_len(vlm, artifact_len)
     P = min(contexts)
     L1 = min(max(contexts), SERVE["max_len"])
     bf16 = torch.bfloat16
@@ -1113,61 +1269,106 @@ def phase_model_kernels(card: str, rate: float, flops: float,
         if label == "batched prefill":
             results["rmsnorm"] = row
 
-    # --- flash attention: the batched prefill, one agent's, a mid shape
+    # --- flash attention: the batched prefill, one agent's, a mid shape;
+    # the context cells' self-attention (causal), encoder (Lq = Lk) and
+    # cross-attention (Lq != Lk) at the batched request's shapes, non-causal
+    # ragged ones and Lq > Lk (the agents' prefills of the context cells,
+    # the batched shapes at b = 1, checked but not timed)
     repeat_cases = []
-    for label, b, h, g, lq, dim, dtype in (
-            ("batched prefill", SERVE["agents"], hq, hkv, P, hd, bf16),
-            ("agent prefill", 1, hq, hkv, L1, hd, bf16),
-            ("olmoe batched prefill", SERVE["agents"], mq, mkv, P, md, bf16),
-            ("olmoe agent prefill", 1, mq, mkv, L1, md, bf16),
-            ("mid bf16", 2, 16, 8, 2048, 128, bf16),
-            ("mid fp32", 1, 8, 2, 1000, 64, torch.float32)):
+    B = SERVE["agents"]
+    for label, b, h, g, lq, lk, dim, dtype, causal, timed in (
+            ("batched prefill", B, hq, hkv, P, P, hd, bf16, True, True),
+            ("agent prefill", 1, hq, hkv, L1, L1, hd, bf16, True, True),
+            ("olmoe batched prefill", B, mq, mkv, P, P, md, bf16, True,
+             True),
+            ("olmoe agent prefill", 1, mq, mkv, L1, L1, md, bf16, True,
+             True),
+            ("whisper batched self", B, wq, wq, P, P, wd, bf16, True, True),
+            ("whisper encoder", B, wq, wq, wT, wT, wd, bf16, False, True),
+            ("whisper cross", B, wq, wq, P, wT, wd, bf16, False, True),
+            ("whisper agent cross", 1, wq, wq, L1, wT, wd, bf16, False,
+             False),
+            ("vlm batched self", B, vq, vkv, P, P, vd, bf16, True, True),
+            ("vlm cross", B, vq, vkv, P, vT, vd, bf16, False, True),
+            ("vlm agent cross", 1, vq, vkv, L1, vT, vd, bf16, False, False),
+            ("ragged non-causal bf16", 1, 8, 1, 333, 1001, 256, bf16, False,
+             True),
+            ("Lq > Lk fp32", 2, 8, 2, 700, 300, 64, torch.float32, False,
+             True),
+            ("Lq > Lk bf16", 2, 8, 2, 700, 300, 64, bf16, False, True),
+            ("mid bf16", 2, 16, 8, 2048, 2048, 128, bf16, True, True),
+            ("mid fp32", 1, 8, 2, 1000, 1000, 64, torch.float32, True,
+             True)):
         q = normal(b, h, lq, dim, dtype=dtype)
-        k, v = (normal(b, g, lq, dim, dtype=dtype) for _ in range(2))
-        out = flash_attention(q, k, v, causal=True)
+        k, v = (normal(b, g, lk, dim, dtype=dtype) for _ in range(2))
+        out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        err, row_err = check_attention(out, attention_plain(q, k, v), dtype,
-                                       f"flash_attention ({label})")
-        args = lambda: (q, k, v)   # noqa: E731
-        work = 4 * b * h * dim * attention_pairs(lq, lq, True)
+        err, row_err = check_attention(
+            out, plain_attention(q, k, v, causal), dtype,
+            f"flash_attention ({label})")
+        row = {"phase": "kernels", "kernel": "flash_attention",
+               "case": label, "shape": [b, h, g, lq, lk, dim],
+               "causal": causal, "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": err, "max_row_err": row_err, "card": card}
+        if not causal:
+            # the row statistics the backward reads, in the new mode
+            lse = _forward(q, k, v, False, None, with_lse=True)[1]
+            exp_lse = attention_lse_plain(q, k, False)
+            row["lse_max_abs_err"] = float((lse - exp_lse).abs().max())
+            lse_limit = LSE_REL * max(1.0, float(exp_lse.abs().max()))
+            check(row["lse_max_abs_err"] <= lse_limit,
+                  f"flash_attention lse ({label}) within {lse_limit} "
+                  f"max-abs ({row['lse_max_abs_err']})")
+            del lse, exp_lse
+        if not timed:
+            emit(row)
+            continue
+        args = lambda: (q, k, v, causal)   # noqa: E731
+        work = 4 * b * h * dim * attention_pairs(lq, lk, causal)
         bound = max(size(q, k, v, out) / rate, work / flops) * 1e3
         dev_ms, host_ms = device_ms(flash_attention, args, 5)
-        row = {"phase": "kernels", "kernel": "flash_attention",
-               "case": label, "shape": [b, h, g, lq, dim],
-               "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-               "max_row_err": row_err,
-               "ms": median_ms(flash_attention, args, 5),
-               "device_ms": dev_ms, "host_ms": host_ms,
-               "plain_ms": median_ms(attention_plain, args, 3),
-               "library_ms": median_ms(
-                   lambda a, b_, c: F.scaled_dot_product_attention(
-                       a, b_, c, is_causal=True, enable_gqa=True), args, 5),
-               "bound_ms": bound, "bound_by": "operations", "card": card}
+        row.update({
+            "ms": median_ms(flash_attention, args, 5),
+            "device_ms": dev_ms, "host_ms": host_ms,
+            "plain_ms": median_ms(plain_attention, args, 3),
+            "library_ms": median_ms(
+                lambda a, b_, c, m: F.scaled_dot_product_attention(
+                    a, b_, c, is_causal=m, enable_gqa=True), args, 5),
+            "bound_ms": bound, "bound_by": "operations"})
         row["tflops"] = work / (row["device_ms"] * 1e-3) / 1e12
         emit(row)
         if dtype == bf16:
             repeat_cases.append(("flash_attention", label,
                                  functools.partial(flash_attention, q, k, v,
-                                                   causal=True), out))
+                                                   causal=causal), out))
         if label == "batched prefill":
             results["flash_attention"] = row
 
     # --- decode: the batched request's steps (kv_len P + 1 .. P + 32 over
     # a cache of P + 32, as the path gives them), a ragged mid shape
+    # the context cells' self caches (as gemma-2b's) and their write-once
+    # cross caches, read whole (kv_len = L for every row)
     steps = SERVE["decode_steps"]
-    for label, b, h, g, L, dim, dtype, ragged in (
-            ("batched decode", SERVE["agents"], hq, hkv, P + steps, hd, bf16,
-             False),
-            ("olmoe batched decode", SERVE["agents"], mq, mkv, P + steps, md,
-             bf16, False),
-            ("mid bf16", 8, 16, 8, 2048, 128, bf16, True),
-            ("mid fp32", 4, 8, 2, 777, 64, torch.float32, True)):
+    for label, b, h, g, L, dim, dtype, lens_kind in (
+            ("batched decode", B, hq, hkv, P + steps, hd, bf16, "steps"),
+            ("olmoe batched decode", B, mq, mkv, P + steps, md, bf16,
+             "steps"),
+            ("whisper batched decode", B, wq, wq, P + steps, wd, bf16,
+             "steps"),
+            ("whisper cross decode", B, wq, wq, wT, wd, bf16, "full"),
+            ("vlm batched decode", B, vq, vkv, P + steps, vd, bf16, "steps"),
+            ("vlm cross decode", B, vq, vkv, vT, vd, bf16, "full"),
+            ("mid bf16", 8, 16, 8, 2048, 128, bf16, "ragged"),
+            ("mid fp32", 4, 8, 2, 777, 64, torch.float32, "ragged")):
         q = normal(b, h, dim, dtype=dtype)
         kc, vc = (normal(b, g, L, dim, dtype=dtype) for _ in range(2))
-        cases = ([torch.randint(1, L + 1, (b,), generator=gen, device="cuda",
-                                dtype=torch.int32)] if ragged else
-                 [torch.full((b,), P + t, dtype=torch.int32, device="cuda")
-                  for t in range(1, steps + 1)])
+        if lens_kind == "ragged":
+            cases = [torch.randint(1, L + 1, (b,), generator=gen,
+                                   device="cuda", dtype=torch.int32)]
+        else:
+            cases = [torch.full((b,), n, dtype=torch.int32, device="cuda")
+                     for n in ([L] if lens_kind == "full" else
+                               range(P + 1, P + steps + 1))]
         err, row_err = 0.0, None
         for lens in cases:
             out = decode_attention(q, kc, vc, lens)
@@ -2298,10 +2499,12 @@ def phase_profile(card: str, fleet_seconds: float) -> None:
           "top": top[:10], "card": card})
 
 
-def serve_profile(card: str, system, params, steps: int = 8) -> None:
-    """Where the time goes in the batched request: its prefill, then
-    ``steps`` greedy decode steps, each under the profiler.  The prefill's
-    line carries flash attention's share of the device's busy time."""
+def serve_profile(card: str, system, params, steps: int = 8,
+                  context=None) -> None:
+    """Where the time goes in the batched request: its prefill (with the
+    cell's ``context``), then ``steps`` greedy decode steps, each under
+    the profiler.  The prefill's line carries flash attention's share of
+    the device's busy time."""
     import torch
     from repro_torch import models
 
@@ -2310,11 +2513,13 @@ def serve_profile(card: str, system, params, steps: int = 8) -> None:
     p = min(len(c) for c in contexts)
     tokens = torch.tensor([c[:p] for c in contexts], dtype=torch.int64,
                           device="cuda")
-    cache = models.init_cache(cfg, n, p + steps)
+    cache = models.init_cache(cfg, n, p + steps, ctx_len=0 if context is None
+                              else context.shape[1])
 
     def prefill():
         nonlocal logits, cache
-        logits, cache = models.prefill(params, cfg, tokens, cache)
+        logits, cache = models.prefill(params, cfg, tokens, cache,
+                                       context=context)
 
     logits = None
     wall, busy, top = device_profile(prefill)
@@ -2387,6 +2592,33 @@ def plain_wkv():
     return PlainWKV
 
 
+#: logits of one piece of ``plain_attention`` at most (4 GB in fp32)
+PLAIN_ATTENTION_PIECE = 2 ** 30
+
+
+def plain_attention(q, k, v, causal=True, scale=None):
+    """``ref.attention_plain`` in pieces of batch rows and KV heads (each
+    with its query heads), each piece at most ``PLAIN_ATTENTION_PIECE``
+    logits: every row is computed as the whole call computes it, without
+    the whole call's (B, Hq, Lq, Lk) fp32 logits (38.7 GB at the vlm's
+    self-attention)."""
+    import torch
+    from repro_torch.kernels import ref
+    b, hq, lq, _ = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if b * hq * lq * lk <= PLAIN_ATTENTION_PIECE:
+        return ref.attention_plain(q, k, v, causal, scale)
+    heads = max(1, min(hkv, PLAIN_ATTENTION_PIECE // (group * lq * lk)))
+    rows = []
+    for i in range(b):
+        rows.append(torch.cat([ref.attention_plain(
+            q[i:i + 1, h * group:(h + heads) * group], k[i:i + 1, h:h + heads],
+            v[i:i + 1, h:h + heads], causal, scale)
+            for h in range(0, hkv, heads)], dim=1))
+    return torch.cat(rows, dim=0)
+
+
 class plain_route:
     """Inside ``with plain_route():`` the model kernels' public entry
     points (``repro_torch.kernels.ops``, and the RMSNorm wrapper that the
@@ -2407,8 +2639,7 @@ class plain_route:
             ref.rmsnorm_cast_first_plain if cast_first
             else ref.rmsnorm_plain)(x, w, eps)
         ops.flash_attention = lambda q, k, v, causal=True, scale=None, \
-            block_q=128, block_k=128: ref.attention_plain(q, k, v, causal,
-                                                          scale)
+            block_q=128, block_k=128: plain_attention(q, k, v, causal, scale)
         ops.decode_attention = lambda q, kc, vc, kv_len=None, scale=None, \
             block_k=256: ref.decode_attention_plain(q, kc, vc, kv_len, scale)
         ops.rwkv6_scan = lambda r, k, v, w, bonus, initial_state=None, \
@@ -2434,17 +2665,27 @@ def model_kernels():
 
 
 def expected_launches(cfg, prefills: int, steps: int) -> dict:
-    """Launches of each model kernel over ``prefills`` prefills and
-    ``steps`` decode steps: per forward one rmsnorm per norm (norm1 and
-    norm2 of each layer, rwkv's ln_x, the final norm) and one mixer
-    kernel per layer - flash attention per prefill and decode attention
-    per step, or the WKV scan in both."""
+    """Launches of each model kernel over ``prefills`` prefills (each with
+    a context where the model has cross layers) and ``steps`` decode
+    steps: per forward one rmsnorm per norm of an rmsnorm model (norm1
+    and norm2 of each layer, a cross sublayer's norm, rwkv's ln_x, the
+    final norm; a prefill's encoder adds two a layer and its final norm;
+    a layernorm model launches none) and one attention kernel per
+    attention (self, cross mixer, cross sublayer) - flash attention per
+    prefill, the encoder's layers too, and decode attention per step - or
+    the WKV scan in both."""
     from repro_torch.models.transformer import layer_specs
-    mixers = [spec.mixer for spec in layer_specs(cfg)]
+    specs = layer_specs(cfg)
+    mixers = [spec.mixer for spec in specs]
     forwards = prefills + steps
-    n_attn, n_rwkv = mixers.count("attn"), mixers.count("rwkv")
-    return {"rmsnorm": (2 * cfg.n_layers + n_rwkv + 1) * forwards,
-            "flash_attention": n_attn * prefills,
+    n_rwkv = mixers.count("rwkv")
+    n_attn = mixers.count("attn") + mixers.count("cross") + sum(
+        spec.cross for spec in specs)
+    enc = cfg.encoder_layers
+    norms = (2 * cfg.n_layers + sum(spec.cross for spec in specs) + n_rwkv
+             + 1) * forwards + (2 * enc + 1) * prefills * bool(enc)
+    return {"rmsnorm": norms if cfg.norm == "rmsnorm" else 0,
+            "flash_attention": (n_attn + enc) * prefills,
             "decode_attention": n_attn * steps,
             "rwkv6_scan": n_rwkv * forwards}
 
@@ -2455,6 +2696,7 @@ def phase_serve(card: str, serve=SERVE) -> dict:
     returns the counts of the kernels it launched."""
     import torch
     from repro_torch import models
+    from repro_torch.configs.registry import _ctx_len
     from repro_torch.launch.serve import batched_request
 
     def sync_time(fn):
@@ -2469,12 +2711,17 @@ def phase_serve(card: str, serve=SERVE) -> dict:
     cfg = system.cfg
     phase = SERVE_PHASES[serve["arch"]]
     params, init_s = sync_time(lambda: models.init_params(cfg, seed=SEED))
+    awake = awake_params(params, cfg) if cfg.family in ("vlm", "audio") \
+        else None
     n_params = models.params_count(params)
     n = len(system.agents)
     contexts = [len(system.context_tokens(i)) for i in range(n)]
+    ctx_len = _ctx_len(cfg, serve["artifacts"] * serve["artifact_tokens"])
+    context = cell_context(cfg, n, ctx_len, SEED)
     for i in range(n):
         logits, secs = sync_time(lambda: system.materialize_prefill(
-            params, i, max_len=serve["max_len"]))
+            params, i, max_len=serve["max_len"],
+            context=None if context is None else context[i:i + 1]))
         tokens = min(contexts[i], serve["max_len"])
         check(bool(torch.isfinite(logits).all()),
               f"agent {i}: finite prefill logits")
@@ -2482,8 +2729,10 @@ def phase_serve(card: str, serve=SERVE) -> dict:
               "seconds": secs, "prefill_tokens_per_s": tokens / secs,
               "card": card})
     steps = serve["decode_steps"]
-    pre, pre_s = sync_time(lambda: batched_request(system, params, 0))
-    out, full_s = sync_time(lambda: batched_request(system, params, steps))
+    pre, pre_s = sync_time(lambda: batched_request(system, params, 0,
+                                                   context=context))
+    out, full_s = sync_time(lambda: batched_request(system, params, steps,
+                                                    context=context))
     P = out["prompt_len"]
     check(bool(torch.isfinite(out["logits"]).all()),
           "finite logits of the batched request")
@@ -2502,7 +2751,7 @@ def phase_serve(card: str, serve=SERVE) -> dict:
             batched_request(system, params, steps)
     with plain_route(), moe_routes(kernel_routes.routes) as plain_routes:
         plain, plain_s = sync_time(lambda: batched_request(
-            system, params, steps, forced=out["tokens"]))
+            system, params, steps, forced=out["tokens"], context=context))
     flips = [flipped_tokens(a, b) for a, b in zip(kernel_routes.routes,
                                                   plain_routes.routes)]
     rel_steps = (torch.linalg.vector_norm(
@@ -2513,7 +2762,30 @@ def phase_serve(card: str, serve=SERVE) -> dict:
     agree = float((torch.argmax(plain["logits"][:, :-1], dim=-1)
                    == out["tokens"]).float().mean()) if steps else 1.0
     decode_s = full_s - pre_s
+    controls = None
+    if context is not None:
+        # the controls: no context, and another seed's, must move the
+        # logits (a cross path or encoder that is skipped or ignores the
+        # context would not)
+        def moved(other_context):
+            other = batched_request(system, params, 0,
+                                    context=other_context)["logits"][:, 0]
+            return (torch.linalg.vector_norm((other - out["logits"][:, 0])
+                                             .float(), dim=-1)
+                    / torch.linalg.vector_norm(out["logits"][:, 0].float(),
+                                               dim=-1))
+        none_rel = moved(None)
+        other_rel = moved(cell_context(cfg, n, ctx_len, SEED + 1))
+        controls = {"no_context_rel_l2": none_rel.tolist(),
+                    "no_context_over_route": (
+                        none_rel / rel_steps[:, 0]).tolist(),
+                    "other_context_rel_l2": other_rel.tolist(),
+                    "other_context_over_route": (
+                        other_rel / rel_steps[:, 0]).tolist()}
     emit({"phase": phase, "arch": cfg.name, "params": n_params,
+          "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+          "context_len": None if context is None else ctx_len,
+          "awake": awake, "controls": controls,
           "dtype": cfg.dtype, "init_seconds": init_s, "agents": n,
           "context_tokens": contexts, "prompt_len": P,
           "batched_prefill_tokens_per_s": n * P / pre_s,
@@ -2535,7 +2807,7 @@ def phase_serve(card: str, serve=SERVE) -> dict:
           "broadcast_tokens": stats.broadcast_tokens,
           "fetches": stats.fetches, "cache_hits": stats.cache_hits,
           "card": card})
-    layers = layer_divergence(card, system, params, phase)
+    layers = layer_divergence(card, system, params, phase, context)
     worst_layer = max(row["local"] for row in layers)
     if cfg.moe is not None:
         emit({"phase": phase, "what": "routing flips", "arch": cfg.name,
@@ -2555,7 +2827,14 @@ def phase_serve(card: str, serve=SERVE) -> dict:
         check(worst <= step_limit,
               f"{cfg.name} decode-step logits: kernel vs plain relative L2 "
               f"{worst} <= {step_limit}")
-    serve_profile(card, system, params)
+    if controls is not None:
+        for what in ("no_context", "other_context"):
+            ratios = controls[f"{what}_over_route"]
+            check(min(ratios) > CONTEXT_NOISE,
+                  f"{cfg.name}: {what.replace('_', ' ')} moves every row's "
+                  f"logits by more than {CONTEXT_NOISE} times its route "
+                  f"distance ({ratios})")
+    serve_profile(card, system, params, context=context)
     return {name: count for name, count in launches.items() if count}
 
 
@@ -2604,7 +2883,8 @@ def flipped_tokens(a, b) -> int:
                 != torch.sort(b, dim=-1).values).any(dim=-1).sum())
 
 
-def layer_divergence(card: str, system, params, phase: str) -> list:
+def layer_divergence(card: str, system, params, phase: str,
+                     context=None) -> list:
     """Where the kernel and plain routes part: the batched request's
     prompt through the layers one at a time, on both routes.  Per layer,
     the relative L2 distance of the residual stream after it (whole, and
@@ -2612,11 +2892,13 @@ def layer_divergence(card: str, system, params, phase: str) -> list:
     route fed its own previous output; ``local``, the kernel route fed
     the plain route's input, so the layer's own share.  An MoE layer's
     row adds the tokens whose top-k set of experts differs from the plain
-    route's (``flipped_local``, ``flipped_chained``).  Returns the
-    rows."""
+    route's (``flipped_local``, ``flipped_chained``).  With a ``context``
+    the cross layers read it, and an encoder is walked first, layer by
+    layer (rows ``encoder i``; its final norm gives each route its own
+    context, the local call the plain route's).  Returns the rows."""
     import torch
     from repro_torch.models import transformer as tf
-    from repro_torch.models.common import tree_map
+    from repro_torch.models.common import dtype_of, norm_apply, tree_map
 
     cfg, n = system.cfg, len(system.agents)
     contexts = [system.context_tokens(i) for i in range(n)]
@@ -2632,25 +2914,46 @@ def layer_divergence(card: str, system, params, phase: str) -> list:
         return float(torch.linalg.vector_norm(a - b)
                      / torch.linalg.vector_norm(b))
 
-    def layer(i, x):
+    def layer(i, x, ctx):
         blk = tree_map(lambda a: a[(i - prefix) // period], params["blocks"])
         return tf.layer_apply(blk[f"sub{(i - prefix) % period}"], cfg,
-                              specs[i], x, positions=positions)[0]
+                              specs[i], x, positions=positions,
+                              context=ctx)[0]
+
+    def row(label, xk, xp, local):
+        return {"layer": label, "chained": rel(xk, xp),
+                "chained_last": rel(xk[:, -1], xp[:, -1]),
+                "local": rel(local, xp),
+                "local_last": rel(local[:, -1], xp[:, -1])}
 
     check(prefix == 0, "layer_divergence walks stacked layers only")
-    xk = xp = tf._embed_tokens(params, cfg, tokens)
     rows = []
+    ctx_k = ctx_p = None if context is None else context.to(
+        dtype_of(cfg.dtype))
+    if cfg.encoder_layers and context is not None:
+        enc = params["encoder"]
+        t = context.shape[1]
+        xk = xp = ctx_k + tf._sinusoid(torch.arange(t, device="cuda"),
+                                       cfg.d_model).to(ctx_k.dtype)
+        for i in range(cfg.encoder_layers):
+            blk = tree_map(lambda a: a[i], enc["blocks"])
+            local = tf.encoder_layer_apply(blk, cfg, xp)
+            xk = tf.encoder_layer_apply(blk, cfg, xk)
+            with plain_route():
+                xp = tf.encoder_layer_apply(blk, cfg, xp)
+            rows.append(row(f"encoder {i}", xk, xp, local))
+        ctx_k = norm_apply(enc["final_norm"], xk, cfg.norm)
+        ctx_p = norm_apply(enc["final_norm"], xp, cfg.norm)
+        del xk, xp, local
+    xk = xp = tf._embed_tokens(params, cfg, tokens)
     for i in range(cfg.n_layers):
         with moe_routes() as kernel:
-            local = layer(i, xp)
-            xk = layer(i, xk)
+            local = layer(i, xp, ctx_p)
+            xk = layer(i, xk, ctx_k)
         # an MoE layer's plain route takes the local kernel call's experts
         with plain_route(), moe_routes(kernel.routes[:1]) as plain:
-            xp = layer(i, xp)
-        rows.append({"layer": i, "chained": rel(xk, xp),
-                     "chained_last": rel(xk[:, -1], xp[:, -1]),
-                     "local": rel(local, xp),
-                     "local_last": rel(local[:, -1], xp[:, -1])})
+            xp = layer(i, xp, ctx_p)
+        rows.append(row(i, xk, xp, local))
         if plain.routes:    # the plain route's own choice against the two
             here, chained = kernel.routes
             rows[-1].update(
@@ -2739,36 +3042,36 @@ def phase_train_kernels(card: str, rate: float, flops: float,
                                            retain_graph=True)
 
     results, repeat_cases = {}, []
-    for label, b, h, g, lq, lk, dim, name in BWD_CASES:
+    for label, b, h, g, lq, lk, dim, name, causal in BWD_CASES:
         dtype = getattr(torch, name)
         q = normal(b, h, lq, dim, dtype=dtype)
         k, v = (normal(b, g, lk, dim, dtype=dtype) for _ in range(2))
         dout = normal(b, h, lq, dim, dtype=dtype)
         # the forward as training launches it: with its row statistics
-        fwd, lse = _forward(q, k, v, True, None, with_lse=True)
-        got = flash_attention_bwd(q, k, v, dout, lse)
+        fwd, lse = _forward(q, k, v, causal, None, with_lse=True)
+        got = flash_attention_bwd(q, k, v, dout, lse, causal)
         torch.cuda.synchronize()
         fwd_err, fwd_row_err = check_attention(
-            fwd, attention_plain(q, k, v), dtype,
+            fwd, attention_plain(q, k, v, causal), dtype,
             f"flash_attention with lse ({label})")
-        check(torch.equal(fwd, _forward(q, k, v, True, None, False)[0]),
+        check(torch.equal(fwd, _forward(q, k, v, causal, None, False)[0]),
               f"flash_attention's output unchanged by its lse ({label})")
-        exp_lse = attention_lse_plain(q, k)
+        exp_lse = attention_lse_plain(q, k, causal)
         lse_err = float((lse - exp_lse).abs().max())
         lse_limit = LSE_REL * max(1.0, float(exp_lse.abs().max()))
         check(lse_err <= lse_limit, f"flash_attention lse ({label}) "
               f"within {lse_limit} max-abs ({lse_err})")
         del fwd, exp_lse
-        exp = attention_bwd_plain(q, k, v, dout)
+        exp = attention_bwd_plain(q, k, v, dout, causal)
         errs = [check_grad(a, e, f"flash_attention_bwd d{n} ({label})")
                 for n, a, e in zip("qkv", got, exp)]
         del exp
-        args = lambda: (q, k, v, dout, lse)   # noqa: E731
-        work = 2.5 * 4 * b * h * dim * attention_pairs(lq, lk, True)
+        args = lambda: (q, k, v, dout, lse, causal)   # noqa: E731
+        work = 2.5 * 4 * b * h * dim * attention_pairs(lq, lk, causal)
         dev_ms, host_ms = device_ms(flash_attention_bwd, args, 3)
         row = {"phase": "kernels", "kernel": "flash_attention_bwd",
                "case": label, "shape": [b, h, g, lq, lk, dim],
-               "dtype": str(dtype).split(".")[-1],
+               "causal": causal, "dtype": str(dtype).split(".")[-1],
                "max_abs_err": max(e[0] for e in errs),
                "rel_l2": [e[1] for e in errs],
                "max_elem_err": (None if dtype == torch.float32
@@ -2778,10 +3081,10 @@ def phase_train_kernels(card: str, rate: float, flops: float,
                "ms": median_ms(flash_attention_bwd, args, 3),
                "device_ms": dev_ms, "host_ms": host_ms,
                "plain_ms": median_ms(lambda *a: attention_bwd_plain(
-                   *a[:4]), args, 1),
+                   *a[:4], causal), args, 1),
                "library_ms": median_ms(library_grad(
                    lambda a, b_, c: F.scaled_dot_product_attention(
-                       a, b_, c, is_causal=True, enable_gqa=True),
+                       a, b_, c, is_causal=causal, enable_gqa=True),
                    (q, k, v), dout), tuple, 3),
                "bound_ms": max(size(q, k, v, dout, lse, *got) / rate,
                                work / flops) * 1e3,
@@ -2805,7 +3108,7 @@ def phase_train_kernels(card: str, rate: float, flops: float,
                 row["device_ms_split_on"] = turns[False]
         emit(row)
         repeat_cases.append(("flash_attention_bwd", label, functools.partial(
-            flash_attention_bwd, q, k, v, dout, lse), got))
+            flash_attention_bwd, q, k, v, dout, lse, causal), got))
         if label == "gemma-2b train":
             results["flash_attention_bwd"] = row
     del q, k, v, dout, lse, got
@@ -3261,17 +3564,27 @@ def train_kernels():
 
 def expected_train_launches(cfg, steps: int) -> dict:
     """Launches of each kernel over ``steps`` train steps of a model whose
-    superblocks are checkpointed: the forward's norms (two a layer, two
-    more with qk-norm in an attention layer, rwkv's ln_x a third in an
-    rwkv layer, the final norm) and mixer kernels (flash attention or the
-    WKV scan), the layers' again in the recompute, and one backward
-    launch of each norm and mixer kernel."""
+    superblocks and encoder layers are checkpointed: the forward's norms
+    of an rmsnorm model (two a layer, two more with qk-norm in an
+    attention layer, rwkv's ln_x a third in an rwkv layer, the final
+    norm; a layernorm model launches none) and mixer kernels (flash
+    attention for each self, cross and encoder attention, or the WKV
+    scan), the layers' again in the recompute, and one backward launch
+    of each norm and mixer kernel."""
     from repro_torch.models.transformer import layer_specs
-    mixers = [spec.mixer for spec in layer_specs(cfg)]
-    n_attn, n_rwkv = mixers.count("attn"), mixers.count("rwkv")
-    norms = (2 + 2 * cfg.use_qk_norm) * n_attn + 3 * n_rwkv
-    return {"rmsnorm": (2 * norms + 1) * steps,
-            "rmsnorm_bwd": (norms + 1) * steps,
+    specs = layer_specs(cfg)
+    mixers = [spec.mixer for spec in specs]
+    n_rwkv, n_sub = mixers.count("rwkv"), sum(spec.cross for spec in specs)
+    layers = mixers.count("attn") + mixers.count("cross") + cfg.encoder_layers
+    n_attn = layers + n_sub
+    qk = 2 * cfg.use_qk_norm
+    # the layers' norms run twice (forward and recompute), the final norms
+    # (the model's, the encoder's) once
+    norms = (2 + qk) * layers + (1 + qk) * n_sub + 3 * n_rwkv
+    finals = 1 + bool(cfg.encoder_layers)
+    rms = cfg.norm == "rmsnorm"
+    return {"rmsnorm": (2 * norms + finals) * steps * rms,
+            "rmsnorm_bwd": (norms + finals) * steps * rms,
             "flash_attention": 2 * n_attn * steps,
             "flash_attention_bwd": n_attn * steps,
             "rwkv6_scan": 2 * n_rwkv * steps,
@@ -3313,25 +3626,26 @@ def bwd_passes(card: str) -> None:
              or re.search(r"::(\w+)", kernel))
         return m.group(1) if m else kernel
 
-    for label, b, h, g, lq, lk, dim, name in BWD_CASES:
+    for label, b, h, g, lq, lk, dim, name, causal in BWD_CASES:
         dtype = getattr(torch, name)
         q, dout = (torch.randn((b, h, lq, dim), generator=gen,
                                device="cuda").to(dtype) for _ in range(2))
         k, v = (torch.randn((b, g, lk, dim), generator=gen,
                             device="cuda").to(dtype) for _ in range(2))
-        lse = _forward(q, k, v, True, None, with_lse=True)[1]
-        flash_attention_bwd(q, k, v, dout, lse)     # built and warm
+        lse = _forward(q, k, v, causal, None, with_lse=True)[1]
+        flash_attention_bwd(q, k, v, dout, lse, causal)  # built and warm
 
         def passes():
             return {short(row["name"]): row["device_ms"]
                     for row in device_profile(lambda: flash_attention_bwd(
-                        q, k, v, dout, lse))[2]}
+                        q, k, v, dout, lse, causal))[2]}
 
         splits = (bwd_plan(b, h, g, lq, lk, dim, sms).head_splits
                   if dtype == torch.bfloat16 else 1)
         row = {"phase": "kernels", "kernel": "flash_attention_bwd",
                "case": label, "shape": [b, h, g, lq, lk, dim],
-               "dtype": name, "head_splits": splits, "passes_ms": passes(),
+               "causal": causal, "dtype": name, "head_splits": splits,
+               "passes_ms": passes(),
                "card": card}
         if splits > 1:      # the same call with the group unsplit
             with head_split_off():
@@ -3357,11 +3671,15 @@ def bwd_passes(card: str) -> None:
 def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     """Training of ``train``'s model at its registered width (gemma-2b:
     18 layers, d 2048, MQA, head dim 256, vocab 256000; rwkv6-1.6b: 24
-    layers, d 2048, 32 heads of 64, vocab 65536; bf16, random weights
-    from ``SEED``) on batches of 4 x 2048 tokens from the port's synthetic
-    stream: the first step's loss and gradients on the kernel route
-    against the same step on the plain route (``TRAIN_LOSS_REL``,
-    ``TRAIN_GRAD_REL_L2``; the worst leaf named), then ``steps`` steps of
+    layers, d 2048, 32 heads of 64, vocab 65536; whisper-medium: 24 + 24
+    layers, d 1024, 16 heads of 64, vocab 51968, its gates and layernorm
+    moved by ``awake_params``; bf16, random weights from ``SEED``) on
+    batches of 4 x 2048 tokens (whisper: 4 x 1024 tokens and 4 x 4096
+    frames) from the port's synthetic stream: the first step's loss and
+    gradients on the kernel route against the same step on the plain
+    route (``TRAIN_LOSS_REL``, ``TRAIN_GRAD_REL_L2``; the worst leaf
+    named; ``ZERO_GRAD_LEAVES`` by their size; every encoder and cross
+    leaf non-zero), then ``steps`` steps of
     ``make_train_step`` with ``AdamWConfig()``, the kernels' launch counts
     set to 0 just before them and checked exactly after; prints the step
     time (median of steps 2 on), tokens/s, model TFLOP/s and its share of
@@ -3369,27 +3687,33 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     step.  Returns the steps' launch counts."""
     import torch
     from repro_torch import models
-    from repro_torch.configs import get
     from repro_torch.data import DataConfig, SyntheticLMStream
     from repro_torch.models.common import tree_leaves
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.runtime import steps as step_factories
 
-    cfg = get(train["arch"])
+    cfg = serve_config(train)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = models.init_params(cfg, seed=SEED)
+    awake = awake_params(params, cfg) if cfg.family in ("vlm", "audio") \
+        else None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = models.params_count(params)
-    b, s = train["batch"], train["seq_len"]
+    n_enc = (models.params_count(params["encoder"]) if "encoder" in params
+             else 0)
+    b, s, frames = train["batch"], train["seq_len"], train.get("frames", 0)
     stream = SyntheticLMStream(DataConfig(vocab_size=cfg.vocab_size,
                                           seq_len=s, global_batch=b,
                                           seed=SEED))
 
     def batch(step):
-        return {k: torch.from_numpy(v).cuda()
-                for k, v in stream.batch_at(step).items()}
+        out = {k: torch.from_numpy(v).cuda()
+               for k, v in stream.batch_at(step).items()}
+        if frames:
+            out["frames"] = cell_context(cfg, b, frames, SEED + step)
+        return out
 
     # the first step on both routes, no update
     first = batch(0)
@@ -3399,15 +3723,37 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     paths = leaf_paths(grads_k)
     split = grad_split(grads_k, grads_p, paths)
-    leaf_rel = list(split["leaves"].values())
+    leaf_rel = [rel for path, rel in split["leaves"].items()
+                if path not in ZERO_GRAD_LEAVES]
+    by_path = {"kernel": dict(zip(paths, tree_leaves(grads_k))),
+               "plain": dict(zip(paths, tree_leaves(grads_p)))}
+    zero_leaves = {
+        path: {route: float(torch.linalg.vector_norm(g[path].float())
+                            / torch.linalg.vector_norm(g[yardstick].float()))
+               for route, g in by_path.items()}
+        for path, yardstick in ZERO_GRAD_LEAVES.items()
+        if path in by_path["kernel"]}
+    del by_path
     finite = all(bool(torch.isfinite(g).all())
                  for g in tree_leaves(grads_k))
+    # every encoder and cross-attention leaf must get a gradient (at the
+    # reference's init, gate 0, each would be exactly 0)
+    silent = [path for path, g in zip(paths, tree_leaves(grads_k))
+              if re.search(r"/encoder/|/cross/|/gate$", path)
+              and not bool(g.any())]
+    context_leaves = sum(bool(re.search(r"/encoder/|/cross/|/gate$", path))
+                         for path in paths)
     del grads_k, grads_p
     emit({"phase": "train", "what": "route equality", "arch": cfg.name,
           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
-          "loss_rel": loss_rel, **split, "card": card})
+          "loss_rel": loss_rel, "awake": awake,
+          "context_leaves": context_leaves,
+          "context_leaves_zero": silent, "zero_leaves_over_bq": zero_leaves,
+          **split, "card": card})
     check(finite and bool(torch.isfinite(loss_k)),
           "finite loss and gradients on the kernel route")
+    check(not silent, f"{cfg.name}: every encoder and cross leaf has a "
+          f"non-zero gradient ({silent})")
     check(loss_rel <= TRAIN_LOSS_REL,
           f"{cfg.name} train loss: kernel vs plain {loss_rel} <= "
           f"{TRAIN_LOSS_REL}")
@@ -3415,6 +3761,10 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     check(max(leaf_rel) <= grad_limit,
           f"{cfg.name} gradients: kernel vs plain relative L2 "
           f"{max(leaf_rel)} <= {grad_limit}")
+    check(all(v <= ZERO_LEAF_SHARE for r in zero_leaves.values()
+              for v in r.values()),
+          f"{cfg.name}: the gradients that are 0 in exact arithmetic stay "
+          f"within {ZERO_LEAF_SHARE} of the query bias's ({zero_leaves})")
     if cfg.rwkv is not None:
         route_equality_fp32(card, train)
 
@@ -3441,10 +3791,15 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     check(all(map(math.isfinite, losses)), "finite train losses")
     step_s = statistics.median(times[1:])
     tokens = b * s
-    n_attn = [spec.mixer for spec in models.layer_specs(cfg)].count("attn")
-    attn = 12 * n_attn * b * cfg.n_heads * cfg.kv_head_dim() \
-        * attention_pairs(s, s, True)
-    model_flops = 6 * n_params * tokens + attn
+    specs = models.layer_specs(cfg)
+    n_attn = [spec.mixer for spec in specs].count("attn")
+    n_cross = sum(spec.cross for spec in specs)
+    pairs = (n_attn * attention_pairs(s, s, True)
+             + n_cross * attention_pairs(s, frames, False)
+             + cfg.encoder_layers * attention_pairs(frames, frames, False))
+    attn = 12 * b * cfg.n_heads * cfg.kv_head_dim() * pairs
+    model_flops = (6 * (n_params - n_enc) * tokens + 6 * n_enc * b * frames
+                   + attn)
     wall, busy, top = device_profile(lambda: step_fn(
         params, opt_state, batches[0]))
     emit({"phase": "train", "arch": cfg.name, "params": n_params,
@@ -3453,10 +3808,12 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
           "step_seconds": times, "step_ms": step_s * 1e3,
           "tokens_per_s": tokens / step_s,
           "model_flops_per_step": model_flops,
-          "model_flops_formula": "6*N*T + 12*L_attn*B*Hq*D*causal_pairs(S); "
-                                 "recompute not counted; the WKV "
-                                 "recurrence's flops (about 0.5 % of 6*N*T "
-                                 "at rwkv6-1.6b) not counted",
+          "frames": frames or None,
+          "model_flops_formula": "6*N_dec*T + 6*N_enc*B*F + 12*B*Hq*D*("
+                                 "L_attn*causal_pairs(S) + L_cross*S*F + "
+                                 "L_enc*F*F); recompute not counted; the "
+                                 "WKV recurrence's flops (about 0.5 % of "
+                                 "6*N*T at rwkv6-1.6b) not counted",
           "model_tflops": model_flops / step_s / 1e12,
           "model_flops_share": model_flops / step_s / flops,
           "peak_gib": peak, "launches": launches,
@@ -3714,13 +4071,14 @@ def main() -> int:
     launches["chunk_tick"] += chunk_diff.chunk_tick_.launches
     lap("service")
 
-    for serve in (SERVE, SERVE_RWKV, SERVE_MOE):
+    for serve in (SERVE, SERVE_RWKV, SERVE_MOE, SERVE_WHISPER, SERVE_VLM):
         for fn in model_kernels().values():
             fn.launches = 0
         for name, count in phase_serve(card, serve).items():
             launches[name] = launches.get(name, 0) + count
+        torch.cuda.empty_cache()
         lap(SERVE_PHASES[serve["arch"]])
-    for train in (TRAIN, TRAIN_RWKV):
+    for train in (TRAIN, TRAIN_RWKV, TRAIN_WHISPER):
         for name, count in phase_train(card, flops, train).items():
             launches[name] = launches.get(name, 0) + count
         lap(f"train {train['arch']}")

@@ -164,6 +164,22 @@ def smoke_config(name: str) -> ModelConfig:
                                name=f"{full.name}-smoke")
 
 
+def _dec_len(cfg: ModelConfig, s: int) -> int:
+    """Decoder-token length for a nominal seq_len (enc-dec split)."""
+    if cfg.family == "audio":
+        return max(128, s // cfg.audio.dec_ratio)
+    return s
+
+
+def _ctx_len(cfg: ModelConfig, s: int) -> int:
+    """Cross-attention context length at decode time."""
+    if cfg.family == "vlm":
+        return cfg.vision.n_image_tokens
+    if cfg.family == "audio":
+        return min(s, 4096)
+    return 0
+
+
 def n_params_analytic(cfg: ModelConfig) -> int:
     """Total parameter count, computed from shapes: the parameters are
     built on the ``meta`` device, which allocates nothing."""

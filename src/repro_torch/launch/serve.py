@@ -12,7 +12,11 @@ its registered width (``--smoke``: the reduced smoke config) with
 random weights from seed 0, prefills every agent's resident
 context, and, with ``--decode-steps N``, serves one batched request:
 the agents' contexts cut to a common length, prefilled together, then N
-greedy decode steps.  It runs on the card unless ``--device cpu``.
+greedy decode steps.  A model with cross layers (``vlm``, ``audio``)
+reads a stub context drawn from the seed: vision embeddings of the
+config's image tokens, or frame embeddings of ``min(--max-len, 4096)``
+frames, each agent its row.  It runs on the card unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,10 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs import ARCHS, get, n_active_params, smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import _ctx_len
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models.common import dtype_of
 from repro_torch.runtime.coherent_serving import (CoherentServingSystem,
                                                   run_workload)
 
@@ -32,14 +40,28 @@ def build_artifacts(m: int, tokens: int) -> dict:
     return {f"artifact-{i}": list(range(1, tokens + 1)) for i in range(m)}
 
 
+def stub_context(cfg: ModelConfig, batch: int, length: int, seed: int,
+                 device=None) -> torch.Tensor:
+    """Stub frame or vision embeddings (batch, length, d_model), N(0, 1)
+    drawn in fp32 from ``seed`` on ``device`` and cast to the model
+    type: the modality frontends are stubs, as in the JAX package."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return torch.randn((batch, length, cfg.d_model), generator=gen,
+                       device=dev).to(dtype_of(cfg.dtype))
+
+
 def batched_request(system: CoherentServingSystem, params,
                     decode_steps: int,
-                    forced: Optional[torch.Tensor] = None) -> dict:
+                    forced: Optional[torch.Tensor] = None,
+                    context: Optional[torch.Tensor] = None) -> dict:
     """One batched request over every agent: the agents' contexts cut to
     their common length P, prefilled at batch n into a cache of
     P + decode_steps, then ``decode_steps`` greedy steps.  ``forced``
     (n, decode_steps) feeds the given tokens instead of the greedy ones
-    (to hold another route to the same inputs).  Returns ``logits``
+    (to hold another route to the same inputs).  ``context`` (n, T, d),
+    the frames or vision embeddings of a model with cross layers, fills
+    the cross caches (``ctx_len`` T) in the prefill.  Returns ``logits``
     (n, decode_steps + 1, V) - the prefill's last position, then each
     step's - the greedy ``tokens`` (n, decode_steps), and
     ``prompt_len``."""
@@ -50,8 +72,10 @@ def batched_request(system: CoherentServingSystem, params,
     tokens = torch.tensor([c[:p] for c in contexts], dtype=torch.int64,
                           device=dev)
     cache = models.init_cache(cfg, tokens.shape[0], p + decode_steps,
-                              device=dev)
-    logits, cache = models.prefill(params, cfg, tokens, cache)
+                              ctx_len=0 if context is None
+                              else context.shape[1], device=dev)
+    logits, cache = models.prefill(params, cfg, tokens, cache,
+                                   context=context)
     steps = [logits]
     greedy = []
     for t in range(decode_steps):
@@ -114,13 +138,20 @@ def main(argv=None) -> None:
     print(f"  fetches={stats.fetches} cache_hits={stats.cache_hits}")
     if args.materialize:
         params = models.init_params(cfg, seed=0, device=system.device)
+        context = None
+        if cfg.family in ("vlm", "audio"):
+            context = stub_context(cfg, args.agents,
+                                   _ctx_len(cfg, args.max_len), 0,
+                                   system.device)
         for i in range(args.agents):
-            logits = system.materialize_prefill(params, i,
-                                                max_len=args.max_len)
+            logits = system.materialize_prefill(
+                params, i, max_len=args.max_len,
+                context=None if context is None else context[i:i + 1])
             print(f"  agent {i} prefill logits: {tuple(logits.shape)} "
                   f"(finite={bool(torch.isfinite(logits).all())})")
         if args.decode_steps:
-            out = batched_request(system, params, args.decode_steps)
+            out = batched_request(system, params, args.decode_steps,
+                                  context=context)
             print(f"  batched request: {args.agents} x "
                   f"{out['prompt_len']} prompt tokens, "
                   f"{args.decode_steps} greedy steps, logits finite="

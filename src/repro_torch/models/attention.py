@@ -1,5 +1,6 @@
 """GQA / MQA self-attention with qk-norm, for prefill and cached decode,
-with the JAX package's names (``repro.models.attention``).
+the encoder's bidirectional self-attention and cross-attention, with the
+JAX package's names (``repro.models.attention``).
 
 Attention runs through the hand-written kernels (``kernels.ops``):
 
@@ -9,13 +10,19 @@ Attention runs through the hand-written kernels (``kernels.ops``):
   into the cache;
 * decode (``s == 1``): the new k/v are written at each row's
   ``cache_len``, then ``decode_attention`` reads the cache with
-  ``kv_len = cache_len + 1``.
+  ``kv_len = cache_len + 1``;
+* the encoder (``encoder_attn_apply``): non-causal ``flash_attention``
+  over the frames, Lq = Lk;
+* cross-attention (``cross_attn_apply``): q from x, k/v from the context
+  (encoder states or vision embeddings) or from the write-once cross
+  cache; non-causal ``flash_attention`` with Lq != Lk for a prompt, and
+  ``decode_attention`` over the whole cross cache for one token.
 
-The cache is head-major, ``(B, Hkv, Lmax, D)`` per layer (the JAX
-package keeps ``(B, Lmax, Hkv, D)``), so the decode kernel reads it
-without a copy, and it is updated in place.  A cached prefill at a
-non-zero offset is not on this path and raises.  Cross-attention and
-MLA wait for their model slices.
+The caches are head-major, ``(B, Hkv, Lmax, D)`` per layer (the JAX
+package keeps ``(B, Lmax, Hkv, D)``), so the decode kernel reads them
+without a copy, and they are updated in place.  A cached prefill at a
+non-zero offset is not on this path and raises, as does MLA (ROADMAP.md
+section 1, item 7(b)3).
 """
 
 from __future__ import annotations
@@ -88,7 +95,7 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
             and not (isinstance(cache_len, int) and cache_len == 0)):
         raise NotImplementedError(
             "a cached prefill at a non-zero offset is not ported "
-            "(ROADMAP.md section 1, item 7(b))")
+            "(ROADMAP.md section 1, item 7(b)5)")
     hd = cfg.kv_head_dim()
     q, k, v = _project_qkv(p, cfg, x)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
@@ -121,3 +128,80 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
     if "bo" in p:
         y = y + p["bo"]
     return y, new_cache
+
+
+def encoder_attn_apply(p, cfg: ModelConfig, x):
+    """The encoder's bidirectional self-attention of x (B, T, d): the
+    projections (biases and qk-norm where the config has them), no rope,
+    non-causal attention, the output projection and its bias."""
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    out = ops.flash_attention(_head_major(q), _head_major(k), _head_major(v),
+                              causal=False).transpose(1, 2)
+    y = out.reshape(b, t, -1) @ p["wo"]
+    if "bo" in p:
+        y = y + p["bo"]
+    return y
+
+
+# -------------------------- cross-attention --------------------------
+
+def cross_attn_init(gen, cfg: ModelConfig, dtype, device,
+                    kv_dim: int = 0) -> dict:
+    """No biases, whatever ``use_bias``; the tanh ``gate`` a 0-d fp32
+    leaf, 0 at init (the layer starts as the identity)."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.kv_head_dim()
+    kv_dim = kv_dim or d
+    p = {
+        "wq": dense_init(gen, d, hq * hd, dtype, device),
+        "wk": dense_init(gen, kv_dim, hkv * hd, dtype, device),
+        "wv": dense_init(gen, kv_dim, hkv * hd, dtype, device),
+        "wo": dense_init(gen, hq * hd, d, dtype, device),
+        "gate": torch.zeros((), dtype=torch.float32, device=device),
+    }
+    if cfg.use_qk_norm:
+        p["q_norm"] = norm_init(hd, "rmsnorm", dtype, device)
+        p["k_norm"] = norm_init(hd, "rmsnorm", dtype, device)
+    return p
+
+
+def cross_attn_apply(p, cfg: ModelConfig, x, context, cached_kv=None):
+    """Cross-attention of x (B, s, d) over a context (B, T, kv_dim) of
+    frozen encoder or vision states, or, with ``cached_kv = (k, v)``
+    (each (B, Hkv, T, D), the projected context a prefill returned), over
+    those.  Returns ``(y, (k, v))``, k and v head-major.  As in the JAX
+    package, qk-norm normalizes a cached k again, and the output is
+    multiplied by ``tanh(gate)`` cast to its type.  A prompt runs
+    non-causal ``flash_attention``; one token over a cache runs
+    ``decode_attention`` with ``kv_len = T`` for every row; an empty
+    context (T = 0) attends to nothing and gives 0, as the reference's
+    einsum over no key does."""
+    b, s, _ = x.shape
+    hd = cfg.kv_head_dim()
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    if cached_kv is None:
+        t = context.shape[1]
+        k = _head_major((context @ p["wk"]).reshape(b, t, cfg.n_kv_heads,
+                                                    hd))
+        v = _head_major((context @ p["wv"]).reshape(b, t, cfg.n_kv_heads,
+                                                    hd))
+    else:
+        k, v = cached_kv
+        t = k.shape[2]
+    if cfg.use_qk_norm:
+        q = norm_apply(p["q_norm"], q)
+        k = norm_apply(p["k_norm"], k)
+    if t == 0:
+        out = q.new_zeros(q.shape)
+    elif cached_kv is not None and s == 1:
+        out = ops.decode_attention(
+            q[:, 0].contiguous(), k, v,
+            kv_len=torch.full((b,), t, dtype=torch.int32,
+                              device=x.device))[:, None]
+    else:
+        out = ops.flash_attention(_head_major(q), k, v,
+                                  causal=False).transpose(1, 2)
+    y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    gate = torch.tanh(p["gate"]).to(y.dtype)
+    return y * gate, (k, v)

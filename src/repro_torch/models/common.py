@@ -140,6 +140,28 @@ def glu_mlp_apply(p, x, act: str = "silu"):
     return y
 
 
+def mlp_init(gen, d_model: int, d_ff: int, dtype, device,
+             use_bias: bool = True) -> dict:
+    """Plain two-layer feed-forward (whisper's)."""
+    p = {"w_in": dense_init(gen, d_model, d_ff, dtype, device),
+         "w_out": dense_init(gen, d_ff, d_model, dtype, device)}
+    if use_bias:
+        p["b_in"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+        p["b_out"] = torch.zeros((d_model,), dtype=dtype, device=device)
+    return p
+
+
+def mlp_apply(p, x, act: str = "gelu"):
+    y = x @ p["w_in"]
+    if "b_in" in p:
+        y = y + p["b_in"]
+    y = act_fn(act)(y)
+    y = y @ p["w_out"]
+    if "b_out" in p:
+        y = y + p["b_out"]
+    return y
+
+
 # ------------------------------ loss ----------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -22,7 +22,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     (``None``: CUDA).  Each leaf keeps its own float type, as the JAX
     tree does: ``cfg.dtype`` for most, fp32 for the leaves a model keeps
     in fp32 inside a bf16 model (rwkv6's decay, bonus and mixing
-    coefficients); ``ml_dtypes.bfloat16`` becomes ``torch.bfloat16``.
+    coefficients, the cross-attention's 0-d ``gate``, stacked to one
+    a layer); ``ml_dtypes.bfloat16`` becomes ``torch.bfloat16``.
     A leaf of another type than those two raises ``TypeError``."""
     dev = resolve_device(device)
     allowed = {torch.float32, dtype_of(cfg.dtype)}

@@ -1,8 +1,12 @@
 """Config-driven model assembly in PyTorch, with the JAX package's names
 (``repro.models.transformer``), for the dense family - GQA / MQA
 attention with a GLU feed-forward (gemma, qwen3, yi, command-r's layer
-kind) -, the MoE feed-forward behind GQA attention (olmoe-1b-7b) and
-RWKV6 (an rwkv time-mix with a channel-mix, rwkv6-1.6b).
+kind) -, the MoE feed-forward behind GQA attention (olmoe-1b-7b), RWKV6
+(an rwkv time-mix with a channel-mix, rwkv6-1.6b) and the two context
+families: llama-3.2-vision's cross-attention layers over vision
+embeddings, and whisper's encoder-decoder (a bidirectional encoder over
+stub frame embeddings, each decoder layer a cross-attention sublayer
+over its output, a plain GELU feed-forward, layernorm with biases).
 
 The layer sequence is an optional unstacked prefix followed by a
 repeating superblock whose params are stacked on a leading axis, as in
@@ -10,20 +14,24 @@ the JAX package, so a JAX parameter tree carries across leaf for leaf.
 Superblocks run as a Python loop.  Modes:
 
   train    full causal forward -> mean loss (``forward_train``); each
-           superblock and each sequence chunk of the loss checkpointed,
-           so the backward recomputes their interiors
+           superblock, each encoder layer and each sequence chunk of
+           the loss checkpointed, so the backward recomputes their
+           interiors
   prefill  full causal forward over a prompt -> last-token logits, and
-           the KV cache filled
+           the KV cache filled (with a context, the cross caches too)
   decode   one token per row against the cache
 
 The attention cache is head-major, ``(n_super, B, Hkv, Lmax, D)`` per
 stacked layer; an rwkv layer caches its two token-shift vectors ``tm``
 and ``cm`` (B, d) and its fp32 WKV state ``wkv`` (B, H, dh, dh), whatever
-``max_len``.  Prefill and decode update the cache in place.  An MoE
-layer's aux loss is summed over the layers into the training loss.
-Other mixers (MLA, mamba, cross-attention) and the encoder wait for
-their slices of the port.  On the card, training runs through the
-attention, RMSNorm and WKV kernels' backward kernels.
+``max_len``; a cross layer caches the projected context as ``xk``/``xv``
+(``enc_k``/``enc_v`` for whisper's cross sublayer), head-major
+``(B, Hkv, ctx_len, D)``, written by a prefill with a context and read
+by every later step.  Prefill and decode update the cache in place.  An
+MoE layer's aux loss is summed over the layers into the training loss.
+MLA and mamba wait for their slices of the port (ROADMAP.md section 1,
+item 7(b)3-5).  On the card, training runs through the attention,
+RMSNorm and WKV kernels' backward kernels.
 """
 
 from __future__ import annotations
@@ -42,10 +50,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
                                        glu_mlp_apply, glu_mlp_init,
-                                       norm_apply, norm_init, stack_layers,
-                                       tree_leaves, tree_map)
+                                       mlp_apply, mlp_init, norm_apply,
+                                       norm_init, stack_layers, tree_leaves,
+                                       tree_map)
 
-_TODO = "is not ported yet (ROADMAP.md section 1, item 7(b))"
+_TODO = "is not ported yet (ROADMAP.md section 1, item 7(b)3-5)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +99,8 @@ def split_pattern(specs: list[LayerSpec]) -> tuple[int, int]:
 
 
 def _check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "rwkv"):
+    if spec.mixer not in ("attn", "rwkv", "cross"):
         raise NotImplementedError(f"the {spec.mixer!r} mixer {_TODO}")
-    if spec.cross or cfg.family == "audio":
-        raise NotImplementedError(f"encoder-decoder layers {_TODO}")
 
 
 # ----------------------------- layer ---------------------------------
@@ -102,22 +109,31 @@ def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
                device) -> dict:
     _check_spec(cfg, spec)
     rwkv = spec.mixer == "rwkv"
-    p = {
-        "norm1": norm_init(cfg.d_model, cfg.norm, dtype, device,
-                           cfg.use_bias),
-        "mixer": (rwkv_mod.rwkv_time_mix_init(gen, cfg, dtype, device)
-                  if rwkv else attn.gqa_init(gen, cfg, dtype, device)),
-        "norm2": norm_init(cfg.d_model, cfg.norm, dtype, device,
-                           cfg.use_bias),
-    }
+    p = {"norm1": norm_init(cfg.d_model, cfg.norm, dtype, device,
+                            cfg.use_bias)}
+    if rwkv:
+        p["mixer"] = rwkv_mod.rwkv_time_mix_init(gen, cfg, dtype, device)
+    elif spec.mixer == "cross":
+        p["mixer"] = attn.cross_attn_init(gen, cfg, dtype, device)
+    else:
+        p["mixer"] = attn.gqa_init(gen, cfg, dtype, device)
+    if spec.cross:
+        p["cross_norm"] = norm_init(cfg.d_model, cfg.norm, dtype, device,
+                                    cfg.use_bias)
+        p["cross"] = attn.cross_attn_init(gen, cfg, dtype, device)
+    p["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype, device,
+                           cfg.use_bias)
+    # a dense layer of an MoE model takes the config's dense width
+    d_ff = (cfg.moe.dense_d_ff if cfg.moe is not None
+            and cfg.moe.dense_d_ff else cfg.d_ff)
     if spec.moe:
         p["ffn"] = moe_mod.moe_init(gen, cfg, dtype, device)
     elif rwkv:
         p["ffn"] = rwkv_mod.rwkv_channel_mix_init(gen, cfg, dtype, device)
+    elif cfg.family == "audio":
+        p["ffn"] = mlp_init(gen, cfg.d_model, d_ff, dtype, device,
+                            use_bias=True)
     else:
-        # a dense layer of an MoE model takes the config's dense width
-        d_ff = (cfg.moe.dense_d_ff if cfg.moe is not None
-                and cfg.moe.dense_d_ff else cfg.d_ff)
         p["ffn"] = glu_mlp_init(gen, cfg.d_model, d_ff, dtype, device,
                                 cfg.use_bias)
     return p
@@ -126,14 +142,41 @@ def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
 def cache_init_layer(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, ctx_len: int, dtype, device) -> dict:
     """Empty cache entry for one layer: head-major k/v for attention,
-    the token shifts and WKV state for rwkv."""
+    the token shifts and WKV state for rwkv, the ``ctx_len``-long
+    projected context of a cross mixer (``xk``/``xv``) and of a cross
+    sublayer (``enc_k``/``enc_v``)."""
     _check_spec(cfg, spec)
+
+    def kv(length):
+        shape = (batch, cfg.n_kv_heads, length, cfg.kv_head_dim())
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    c: dict[str, Any] = {}
     if spec.mixer == "rwkv":
         st = rwkv_mod.rwkv_state_init(cfg, batch, dtype, device)
-        return {"tm": st.tm_shift, "cm": st.cm_shift, "wkv": st.wkv}
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.kv_head_dim())
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        c.update(tm=st.tm_shift, cm=st.cm_shift, wkv=st.wkv)
+    elif spec.mixer == "cross":
+        c["xk"], c["xv"] = kv(ctx_len)
+    else:
+        c["k"], c["v"] = kv(max_len)
+    if spec.cross:
+        c["enc_k"], c["enc_v"] = kv(ctx_len)
+    return c
+
+
+def _cross(p, cfg: ModelConfig, h, context, cache, names):
+    """A cross-attention over ``context``, or over the cache entries
+    ``names`` when no context is given; a context's projected k/v are
+    written into those entries (in place) when there is a cache."""
+    build = cache is not None
+    cached = (cache[names[0]], cache[names[1]]) \
+        if build and context is None else None
+    y, (k, v) = attn.cross_attn_apply(p, cfg, h, context, cached_kv=cached)
+    if build and context is not None:
+        cache[names[0]].copy_(k)
+        cache[names[1]].copy_(v)
+    return y
 
 
 def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
@@ -152,6 +195,8 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
         if build:
             new_cache["tm"] = cache["tm"].copy_(tm_out)
             new_cache["wkv"] = cache["wkv"].copy_(wkv_out)
+    elif spec.mixer == "cross":
+        y = _cross(p["mixer"], cfg, h, context, cache, ("xk", "xv"))
     else:
         kv = (cache["k"], cache["v"]) if build else None
         y, kv_out = attn.gqa_apply(p["mixer"], cfg, h, positions,
@@ -159,6 +204,10 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
         if build:
             new_cache["k"], new_cache["v"] = kv_out
     x = x + y
+    if spec.cross:
+        h = norm_apply(p["cross_norm"], x, cfg.norm)
+        x = x + _cross(p["cross"], cfg, h, context, cache,
+                       ("enc_k", "enc_v"))
     h = norm_apply(p["norm2"], x, cfg.norm)
     if spec.moe:
         y, aux = moe_mod.moe_apply(p["ffn"], cfg, h, cfg.hidden_act)
@@ -167,6 +216,8 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
             p["ffn"], cfg, h, cache["cm"] if build else None)
         if build:
             new_cache["cm"] = cache["cm"].copy_(cm_out)
+    elif cfg.family == "audio":
+        y = mlp_apply(p["ffn"], h, "gelu")
     else:
         y = glu_mlp_apply(p["ffn"], h, cfg.hidden_act)
     x = x + y
@@ -204,8 +255,74 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
     params["blocks"] = stack_layers(gen, n_super, superblock_init)
     if cfg.encoder_layers:
-        raise NotImplementedError(f"the encoder {_TODO}")
+        params["encoder"] = {
+            "blocks": stack_layers(
+                gen, cfg.encoder_layers,
+                lambda g: layer_init(g, cfg, ENCODER_SPEC, dtype, dev)),
+            "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev,
+                                    cfg.use_bias),
+        }
     return params
+
+
+#: an encoder layer: bidirectional self-attention and the feed-forward
+ENCODER_SPEC = LayerSpec(mixer="attn", moe=False, cross=False)
+
+
+def _sinusoid(positions, d: int):
+    """(T,) positions -> (T, d) fp32 sinusoid embedding, sines then
+    cosines."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions.to(torch.float32)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encoder_layer_apply(p, cfg: ModelConfig, x):
+    """One encoder layer: bidirectional self-attention, then the GELU
+    feed-forward, each behind its norm and added to x."""
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    x = x + attn.encoder_attn_apply(p["mixer"], cfg, h)
+    h = norm_apply(p["norm2"], x, cfg.norm)
+    return x + mlp_apply(p["ffn"], h, "gelu")
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """Whisper-style encoder over stub frame embeddings (B, T, d): the
+    frames cast to the model type plus the fp32 sinusoid cast to it, the
+    layers, the final norm.  Under autograd with a parameter that
+    requires a gradient, each layer runs under ``torch.utils.checkpoint``
+    (the JAX package remats it), so only the layer boundaries are kept
+    for the backward."""
+    dtype = dtype_of(cfg.dtype)
+    enc = params["encoder"]
+    t = frames.shape[1]
+    pos = torch.arange(t, device=frames.device)
+    x = frames.to(dtype) + _sinusoid(pos, cfg.d_model).to(dtype)
+    train = torch.is_grad_enabled() and any(
+        leaf.requires_grad for leaf in tree_leaves(enc))
+    layers = tree_map(lambda a: a.unbind(0), enc["blocks"])
+    for i in range(cfg.encoder_layers):
+        layer_p = tree_map(lambda a: a[i], layers)
+        if train:
+            x = checkpoint(encoder_layer_apply, layer_p, cfg, x,
+                           use_reentrant=False)
+        else:
+            x = encoder_layer_apply(layer_p, cfg, x)
+    return norm_apply(enc["final_norm"], x, cfg.norm)
+
+
+def _context(params, cfg: ModelConfig, context):
+    """The context the cross layers read: ``frames`` through the encoder
+    for an encoder-decoder model, else the vision embeddings cast to the
+    model type (None stays None)."""
+    if context is None:
+        return None
+    if cfg.encoder_layers:
+        return encode(params, cfg, context)
+    return context.to(dtype_of(cfg.dtype))
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
@@ -323,26 +440,33 @@ def _chunked_ce(params, cfg: ModelConfig, x, labels):
 
 def forward_train(params, cfg: ModelConfig, batch):
     """batch: {tokens, labels} (B, S) integer tensors on the params'
-    device -> mean loss (+ the layers' aux losses), differentiable."""
-    if cfg.encoder_layers or "vision_embeds" in batch:
-        raise NotImplementedError(f"training with a context {_TODO}")
+    device, with ``frames`` (B, T, d) for an encoder-decoder model or,
+    optionally, ``vision_embeds`` (B, T, d) -> mean loss (+ the layers'
+    aux losses), differentiable.  A model without cross layers ignores
+    the embeddings, as the JAX package does."""
+    context = _context(params, cfg, batch["frames"] if cfg.encoder_layers
+                       else batch.get("vision_embeds"))
     tokens = batch["tokens"].long()
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-    x, _, aux = _run_layers(params, cfg, x, positions=positions)
+    x, _, aux = _run_layers(params, cfg, x, positions=positions,
+                            context=context)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return _chunked_ce(params, cfg, x, batch["labels"]) + aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, context=None):
     """Fill the cache from a full prompt ``tokens`` (B, S), on the
-    cache's device; returns (last-token logits (B, 1, V), cache)."""
-    if context is not None:
-        raise NotImplementedError(f"prefill with a context {_TODO}")
+    cache's device; returns (last-token logits (B, 1, V), cache).  A
+    ``context`` (whisper's frames, which go through the encoder, or
+    vision embeddings) fills the cross caches, whose ``ctx_len`` must be
+    its length; without one the cross layers read the caches as they
+    are."""
+    context = _context(params, cfg, context)
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     x, cache, _ = _run_layers(params, cfg, x, positions=positions,
-                              cache=cache, cache_len=0)
+                              context=context, cache=cache, cache_len=0)
     cache["length"] = torch.full_like(cache["length"], tokens.shape[1])
     x = norm_apply(params["final_norm"], x[:, -1:].contiguous(), cfg.norm)
     return _logits(params, cfg, x), cache
@@ -361,5 +485,5 @@ def decode_step(params, cfg: ModelConfig, token, cache):
 
 __all__ = ["LayerSpec", "layer_specs", "split_pattern", "layer_init",
            "cache_init_layer", "layer_apply", "init_params", "init_cache",
-           "CE_CHUNK", "forward_train", "prefill", "decode_step",
-           "tree_leaves"]
+           "ENCODER_SPEC", "encoder_layer_apply", "encode", "CE_CHUNK",
+           "forward_train", "prefill", "decode_step", "tree_leaves"]

@@ -193,16 +193,20 @@ class CoherentServingSystem:
         return tokens
 
     def materialize_prefill(self, params, agent_idx: int,
-                            max_len: int = 256):
+                            max_len: int = 256, context=None):
         """Run an actual prefill of the agent's current context through
         the backbone, on the system's device - proves the accounting
         maps to real compute and returns the last-token logits (1, 1,
-        V)."""
+        V).  ``context`` (1, T, d): the frames or vision embeddings of a
+        model with cross layers."""
         tokens = self.context_tokens(agent_idx)[:max_len] or [1]
         tok = torch.tensor(tokens, dtype=torch.int64,
                            device=self.device)[None, :]
-        cache = tf.init_cache(self.cfg, 1, max_len, device=self.device)
-        logits, cache = tf.prefill(params, self.cfg, tok, cache)
+        cache = tf.init_cache(self.cfg, 1, max_len,
+                              ctx_len=0 if context is None
+                              else context.shape[1], device=self.device)
+        logits, cache = tf.prefill(params, self.cfg, tok, cache,
+                                   context=context)
         return logits
 
 

@@ -134,10 +134,13 @@ def value_and_grad_step(cfg: ModelConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """fn(params, batch, cache) -> (last-token logits, cache)."""
+    """fn(params, batch, cache) -> (last-token logits, cache); the
+    batch's ``vision_embeds`` or ``frames``, where it has them, are the
+    prefill's context."""
 
     def step(params, batch, cache):
-        return tf.prefill(params, cfg, batch["tokens"], cache)
+        ctx = batch.get("vision_embeds", batch.get("frames"))
+        return tf.prefill(params, cfg, batch["tokens"], cache, context=ctx)
 
     return step
 

@@ -767,19 +767,19 @@ def _grad_gate(got, exp, what=""):
         ((g - e).abs() / allow).max()))
 
 
-def _attention_grads(gen, b, hq, hkv, lq, lk, d, dtype):
+def _attention_grads(gen, b, hq, hkv, lq, lk, d, dtype, causal=True):
     from repro_torch.kernels.ref import attention_bwd_plain
     q = _normal(gen, b, hq, lq, d, dtype=dtype)
     k, v = (_normal(gen, b, hkv, lk, d, dtype=dtype) for _ in range(2))
     dout = _normal(gen, b, hq, lq, d, dtype=dtype)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
-    out = flash_attention(*leaves, causal=True)
+    out = flash_attention(*leaves, causal=causal)
     got = torch.autograd.grad(out, leaves, dout)
     torch.cuda.synchronize()
     assert flash_attention.launches == fwd + 1
     assert flash_attention_bwd.launches == bwd + 1
-    return got, attention_bwd_plain(q, k, v, dout, causal=True), (
+    return got, attention_bwd_plain(q, k, v, dout, causal=causal), (
         q, k, v, dout)
 
 
@@ -1403,3 +1403,135 @@ def test_bf16_moe_repeats_bit_equal(gen):
     for i in range(20):
         y2, aux2 = moe.moe_apply(p, cfg, x)
         assert torch.equal(y2, y) and torch.equal(aux2, aux), i
+
+
+# --- the attention kernels in the modes cross-attention and the encoder
+# --- run: non-causal flash with Lq != Lk (forward and backward) and
+# --- decode over a whole write-once cross cache
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,dtype", [
+    (2, 8, 2, 700, 300, 64, torch.float32),     # Lq > Lk
+    (2, 8, 2, 700, 300, 64, torch.bfloat16),
+    (1, 8, 1, 333, 1001, 256, torch.bfloat16),  # a ragged last key tile
+    (1, 16, 16, 1536, 1024, 64, torch.bfloat16),   # whisper's cross heads
+    (1, 64, 8, 600, 1024, 128, torch.bfloat16),    # the vlm's cross heads
+    (1, 4, 2, 1000, 1, 128, torch.bfloat16),    # one key
+])
+def test_flash_attention_non_causal_any_lengths(gen, b, hq, hkv, lq, lk, d,
+                                                dtype):
+    """Non-causal attention, Lq above and below Lk, against the plain
+    version: fp32 within 1e-5, bf16 within 1e-2 and the row gate; the
+    row statistics within LSE_REL of the plain ones."""
+    from repro_torch.kernels.flash_attention import _forward
+    from repro_torch.kernels.ref import attention_lse_plain
+    q = _normal(gen, b, hq, lq, d, dtype=dtype)
+    k, v = (_normal(gen, b, hkv, lk, d, dtype=dtype) for _ in range(2))
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    exp = attention_plain(q, k, v, causal=False)
+    _close(got, exp, dtype, 1e-2)
+    if dtype == torch.bfloat16:
+        assert _bf16_row_err(got, exp) <= 1.0
+    out, lse = _forward(q, k, v, False, None, with_lse=True)
+    assert torch.equal(out, got)
+    want = attention_lse_plain(q, k, causal=False)
+    assert float((lse - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,dtype", [
+    (2, 8, 2, 300, 700, 64, torch.float32),
+    (2, 8, 2, 700, 300, 64, torch.float32),     # Lq > Lk
+    (2, 8, 2, 700, 300, 64, torch.bfloat16),
+    (1, 8, 1, 333, 1001, 256, torch.bfloat16),  # ragged, group 8 split
+    (1, 16, 16, 256, 1024, 64, torch.bfloat16),   # whisper's cross heads
+    (1, 16, 16, 1001, 1001, 64, torch.bfloat16),  # its encoder's, ragged
+    (2, 4, 2, 65, 5, 128, torch.bfloat16),      # five keys, Lq > Lk
+])
+def test_flash_attention_bwd_non_causal_equals_plain(gen, b, hq, hkv, lq, lk,
+                                                     d, dtype):
+    """dq, dk, dv of non-causal attention through the autograd route
+    against autograd of the plain version: every q tile reaches every key
+    tile, whatever Lq and Lk.  (Not one key: there P = 1 and dq is 0 in
+    exact arithmetic, so a relative gate compares rounding noise.)"""
+    got, exp, _ = _attention_grads(gen, b, hq, hkv, lq, lk, d, dtype,
+                                   causal=False)
+    for name, g, e in zip("qkv", got, exp):
+        _grad_gate(g, e, f"d{name}")
+
+
+@pytest.mark.parametrize("b,hq,hkv,L,d", [
+    (4, 16, 16, 4096, 64),     # whisper's cross cache (group 1)
+    (4, 64, 8, 1024, 128),     # the vlm's cross cache (group 8)
+    (2, 8, 2, 1001, 64),       # ragged
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_over_a_whole_cross_cache(gen, b, hq, hkv, L, d,
+                                                   dtype):
+    """One token over a whole write-once cache, ``kv_len = L`` for every
+    row (the cross sublayer's decode): the key split without a ragged
+    tail, equal to ``kv_len=None``."""
+    q = _normal(gen, b, hq, d, dtype=dtype)
+    kc, vc = (_normal(gen, b, hkv, L, d, dtype=dtype) for _ in range(2))
+    full = torch.full((b,), L, dtype=torch.int32, device="cuda")
+    got = _decode_checked(q, kc, vc, full)
+    assert torch.equal(got, decode_attention(q, kc, vc, None))
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
+def test_context_model_on_the_card_equals_the_cpu(gen, arch):
+    """A smoke model with cross layers (fp32; every gate 1, the layernorm
+    scales and the biases moved off their init) prefilled with a context
+    and 4 greedy steps on the card, through the kernels, against the same
+    on the CPU's plain route: every logit within 1e-4 of the largest and
+    the greedy tokens equal; the launch counts of the path exact."""
+    from repro_torch import models
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.common import tree_map
+    cfg = smoke_config(arch)
+    cpu = models.init_params(cfg, 0, "cpu")
+    g = torch.Generator().manual_seed(1)
+
+    def wake(tree):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                wake(leaf)
+            elif key == "gate":
+                leaf.fill_(1.0)
+            elif key == "scale":
+                leaf.copy_(1.0 + 0.3 * torch.randn(leaf.shape, generator=g))
+            elif key in ("bias", "bq", "bk", "bv", "bo", "b_in", "b_out"):
+                leaf.copy_(0.1 * torch.randn(leaf.shape, generator=g))
+
+    wake(cpu)
+    t = 16 if cfg.family == "vlm" else 300
+    ctx = torch.randn((2, t, cfg.d_model), generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (2, 77), generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda a: a.to(dev, copy=True), cpu)
+        before = (flash_attention.launches, decode_attention.launches)
+        cache = models.init_cache(cfg, 2, 81, ctx_len=t, device=dev)
+        logits, cache = models.prefill(params, cfg, toks.to(dev), cache,
+                                       context=ctx.to(dev))
+        steps = [logits.cpu()]
+        for _ in range(4):
+            nxt = torch.argmax(logits[:, -1], -1)[:, None]
+            logits, cache = models.decode_step(params, cfg, nxt, cache)
+            steps.append(logits.cpu())
+        torch.cuda.synchronize()
+        out[dev] = torch.cat(steps, 1), (
+            flash_attention.launches - before[0],
+            decode_attention.launches - before[1])
+    specs = models.layer_specs(cfg)
+    mixers = sum(sp.mixer in ("attn", "cross") for sp in specs)
+    subs = sum(sp.cross for sp in specs)
+    assert out["cpu"][1] == (0, 0)
+    assert out["cuda"][1] == (mixers + subs + cfg.encoder_layers,
+                              4 * (mixers + subs))
+    got, exp = out["cuda"][0], out["cpu"][0]
+    assert float((got - exp).abs().max()) <= 1e-4 * float(exp.abs().max())
+    assert torch.equal(got.argmax(-1), exp.argmax(-1))

@@ -35,6 +35,8 @@ pytestmark = pytest.mark.torch
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["gemma-2b", "qwen3-1.7b", "command-r-35b", "yi-9b"]
 RWKV = "rwkv6-1.6b"
+#: the context families: an encoder-decoder and cross-attention layers
+CONTEXT = ["whisper-medium", "llama-3.2-vision-90b"]
 #: the rwkv6 leaves the JAX tree keeps in fp32 inside a bf16 model
 RWKV_FP32_LEAVES = ("mix_base", "decay_base", "bonus", "mix_k", "mix_r")
 
@@ -89,7 +91,7 @@ def _prefill_and_decode(arch, b, s):
     assert tcache["length"].tolist() == [s + steps] * b
 
 
-@pytest.mark.parametrize("arch", ARCHS + [RWKV])
+@pytest.mark.parametrize("arch", ARCHS + [RWKV] + CONTEXT)
 def test_param_tree_matches_reference(arch):
     """Same key names and leaf shapes; the meta device allocates
     nothing."""
@@ -118,6 +120,28 @@ def test_bf16_rwkv6_leaves_keep_the_reference_float_types():
             for k, v in _flat(jp).items()}
     assert {v[1] for v in want.values()} == {"float32", "bfloat16"}
     assert all((v[1] == "float32") == k.endswith(RWKV_FP32_LEAVES)
+               for k, v in want.items())
+    for tp in (tm.init_params(tc, seed=0, device="cpu"),
+               tm.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                    "cpu")):
+        got = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+               for k, v in _flat(tp).items()}
+        assert got == want
+
+
+@pytest.mark.parametrize("arch", CONTEXT)
+def test_bf16_cross_gate_stays_fp32(arch):
+    """A bf16 model with cross-attention: the 0-d ``gate`` of each cross
+    layer stays fp32 (stacked, one a layer), in the port's own init and
+    through ``params_from_numpy``, as in the JAX tree; every other leaf
+    is bf16, and each leaf has the JAX leaf's shape."""
+    jc = dataclasses.replace(j_smoke(arch), dtype="bfloat16")
+    tc = dataclasses.replace(t_smoke(arch), dtype="bfloat16")
+    jp = jm.init_params(jc, jax.random.PRNGKey(0))
+    want = {k: (tuple(v.shape), str(v.dtype))
+            for k, v in _flat(jp).items()}
+    assert any(k.endswith("/gate") for k in want)
+    assert all((v[1] == "float32") == k.endswith("/gate")
                for k, v in want.items())
     for tp in (tm.init_params(tc, seed=0, device="cpu"),
                tm.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
@@ -245,9 +269,16 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="section 1, item 7"):
         tattn.gqa_apply(p, tc, x, torch.arange(4)[None], cache_kv=kv,
                         cache_len=torch.tensor([3]))
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="training with a context"):
-        tm.forward_train(params, tc, {"tokens": tokens, "labels": tokens,
-                                      "vision_embeds": x})
+    # training with a context runs: a model without cross layers ignores
+    # the vision embeddings, as the reference does
+    tokens = torch.randint(0, tc.vocab_size, (1, 4))
+    plain = tm.forward_train(params, tc, {"tokens": tokens,
+                                          "labels": tokens})
+    with_ctx = tm.forward_train(params, tc, {
+        "tokens": tokens, "labels": tokens,
+        "vision_embeds": torch.randn((1, 3, tc.d_model))})
+    assert torch.equal(plain, with_ctx)
     with pytest.raises(NotImplementedError, match="mamba"):
         ttf.init_params(t_smoke("jamba-1.5-large-398b"), device="meta")
+    with pytest.raises(NotImplementedError, match="'mla' mixer"):
+        ttf.init_params(t_smoke("deepseek-v2-lite-16b"), device="meta")
