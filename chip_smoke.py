@@ -15,7 +15,7 @@ Phases, each printing JSON lines:
              installed, the tensor-core (HGMMA) instructions of the
              machine code of flash and of its backward (at least one
              each; the backward's ``dq_wgmma`` and ``dkdv_wgmma`` built
-             at every head dim).
+             at every head-dim pair, MLA's (192, 128) among them).
 2. kernels - holds each kernel against its plain PyTorch version on the
              card at a mid-size shape and at every shape the main paths
              give it: the coherence ticks exactly (int32); RMSNorm in
@@ -35,7 +35,10 @@ Phases, each printing JSON lines:
              kv_len = L); flash attention also non-causal at the
              context cells' encoder and cross shapes (Lq != Lk), ragged
              and with Lq > Lk, with its row statistics held to
-             ``LSE_REL``; bf16 flash attention, flash decode, the WKV
+             ``LSE_REL``; flash and decode at MLA's (192, 128) head-dim
+             pair at deepseek-v2-lite's shapes, flash in bf16 and fp32
+             (SDPA's time where a fused backend takes Ev != E, else
+             none); bf16 flash attention, flash decode, the WKV
              scan (fp32 and bf16), the MESI tick (every shape and
              strategy) and the chunk tick (both shapes) launched
              ``REPEATS`` more times at each shape after every timing,
@@ -171,7 +174,20 @@ Phases, each printing JSON lines:
              encoder walked layer by layer first) within 1e-2, and, as
              controls, no context and another seed's each moving every
              row's prefill logits by more than ``CONTEXT_NOISE`` times
-             the row's kernel-vs-plain distance.
+             the row's kernel-vs-plain distance.  Then
+             ``serve_deepseek``, the same workload on
+             deepseek-v2-lite-16b at its registered width (27 MLA layers,
+             d 2048, 16 heads with a q / k head of 192 and a v head of
+             128 over a latent cache of rank 512, 64 experts top 6 with 2
+             shared, the first layer dense, vocab 102400, bf16, 15.71 B):
+             82 rmsnorm per forward (the latent's kv_norm a third a
+             layer), 27 flash_attention per prefill, 27 decode_attention
+             per step, gemma-2b's gates scaled by the depth (2.5e-2 /
+             3e-2) with the plain route on the kernel route's experts
+             and the flips counted, each layer's
+             share (its dense first layer an unstacked prefix) within
+             1e-2, and what expanding the latent cache costs a decode
+             step (``mla_expansion``).
 8. train   - training of gemma-2b and of rwkv6-1.6b at their registered
              widths (random weights from ``SEED``, bf16, 2.51 B / 1.60 B
              parameters) on 4 x 2048-token batches of the port's
@@ -193,7 +209,12 @@ Phases, each printing JSON lines:
              moved as in phase 7: 144 flash_attention (72 recomputed, 96
              non-causal) and 72 flash_attention_bwd (48 non-causal) a
              step, no rmsnorm, every encoder and cross leaf's gradient
-             non-zero.  Then ``run_training`` on the card at
+             non-zero.  Then deepseek-v2-lite-16b cut to its dense first
+             layer (``TRAIN_DEEPSEEK``: MLA at the (192, 128) pair and
+             the dense feed-forward at 10944, 0.50 B): 7 rmsnorm, 4
+             rmsnorm_bwd, 2 flash_attention and 1 flash_attention_bwd a
+             step, every MLA leaf's gradient non-zero.  Then
+             ``run_training`` on the card at
              qwen3-1.7b's smoke config, crashed at step 25 and resumed
              from 20 with the uninterrupted run's losses, and the training
              CLI for 3 steps.  The backward kernels are held in phase 2
@@ -202,6 +223,8 @@ Phases, each printing JSON lines:
              the dK/dV pass's head split, and without it where it
              splits; whisper's training shapes, its encoder's and cross
              attention's non-causal, and two ragged non-causal ones;
+             deepseek-v2-lite's (4, 16, 16, 2048) at the (192, 128) pair
+             and a ragged fp32 one;
              each pass's device time from
              one profiled call, after phase 8) and ``rmsnorm_bwd`` in
              both cast orders (``RMS_BWD_CASES``: (8192, 2048), the
@@ -236,8 +259,8 @@ times them alone at rwkv6-1.6b's training shape in turns
 for the RMSNorm backward at its two training shapes in both cast
 orders, with each launch's device time (:func:`rmsnorm_bwd_turns`).
 
-Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving, five
-cells) and 8 (training, three cells) are the main paths; each path's kernels' launch counts are
+Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving, six
+cells) and 8 (training, four cells) are the main paths; each path's kernels' launch counts are
 set to 0 just before it and read just after.  Any failed check raises,
 and the script then exits non-zero.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no
@@ -374,10 +397,17 @@ SERVE_MOE = dict(SERVE, arch="olmoe-1b-7b")
 #: 1024 image tokens of vision embeddings
 SERVE_WHISPER = dict(SERVE, arch="whisper-medium")
 SERVE_VLM = dict(SERVE, arch="llama-3.2-vision-90b", n_layers=10)
+#: MLA's serving cell: deepseek-v2-lite-16b at its registered width (27
+#: layers, d 2048, 16 heads with a q / k head of 128 + 64 rope and a v
+#: head of 128 over a latent cache of rank 512, 64 routed experts top 6
+#: of width 1408 with 2 shared, the first layer dense at 10944, vocab
+#: 102400, bf16, 15.71 B), the MoE at its capacity factor 1.25
+SERVE_DEEPSEEK = dict(SERVE, arch="deepseek-v2-lite-16b")
 #: each serving workload's phase name, by arch
 SERVE_PHASES = {"gemma-2b": "serve", "rwkv6-1.6b": "serve_rwkv",
                 "olmoe-1b-7b": "serve_moe", "whisper-medium": "serve_whisper",
-                "llama-3.2-vision-90b": "serve_vlm"}
+                "llama-3.2-vision-90b": "serve_vlm",
+                "deepseek-v2-lite-16b": "serve_deepseek"}
 #: every cross-attention gate is set to this after the init (tanh 0.76):
 #: the reference draws it 0, and tanh(0) = 0 multiplies the context away;
 #: the layernorm scales are drawn as 1 + 0.3 N(0, 1) and every bias as
@@ -409,10 +439,17 @@ TRAIN_RWKV = dict(TRAIN, arch="rwkv6-1.6b")
 #: ``train_4k`` cut to one card; tokens from the port's synthetic
 #: stream, frames N(0, 1) from ``SEED`` (plus the step)
 TRAIN_WHISPER = dict(TRAIN, arch="whisper-medium", seq_len=1024, frames=4096)
+#: deepseek-v2-lite-16b at its registered width cut to its first layer:
+#: MLA and the dense feed-forward at ``dense_d_ff`` 10944 (0.50 B), so the
+#: route check meets no routing near-tie; 4 x 2048 tokens
+TRAIN_DEEPSEEK = dict(TRAIN, arch="deepseek-v2-lite-16b", n_layers=1)
 TRAIN_LOOP = dict(arch="qwen3-1.7b", steps=40, every=10, crash_at=25)
+#: MLA's (q and k, v) head-dim pair: deepseek-v2-lite's 128 + 64 rope, 128
+MLA_DIMS = (192, 128)
 #: the attention backward's shapes in phase ``kernels`` (label, b, Hq,
-#: Hkv, Lq, Lk, D, dtype name, causal): the non-causal ones are whisper
-#: training's encoder and cross-attention and two ragged ones
+#: Hkv, Lq, Lk, D or a (D, Dv) pair, dtype name, causal): the non-causal
+#: ones are whisper training's encoder and cross-attention and two ragged
+#: ones; the pairs deepseek-v2-lite's training shape and a ragged fp32 one
 BWD_CASES = (("mid fp32", 2, 8, 2, 700, 700, 64, "float32", True),
              ("mid bf16", 2, 8, 2, 700, 700, 64, "bfloat16", True),
              ("gemma-2b train", TRAIN["batch"], 8, 1, TRAIN["seq_len"],
@@ -432,7 +469,12 @@ BWD_CASES = (("mid fp32", 2, 8, 2, 700, 700, 64, "float32", True),
              ("ragged non-causal fp32", 2, 8, 2, 700, 333, 64, "float32",
               False),
              ("ragged non-causal bf16", 1, 8, 1, 333, 1001, 256, "bfloat16",
-              False))
+              False),
+             ("deepseek train", TRAIN_DEEPSEEK["batch"], 16, 16,
+              TRAIN_DEEPSEEK["seq_len"], TRAIN_DEEPSEEK["seq_len"], MLA_DIMS,
+              "bfloat16", True),
+             ("ragged mla fp32", 2, 4, 4, 333, 333, MLA_DIMS, "float32",
+              True))
 #: the WKV backward's shapes in phase ``kernels`` (label, b, t, h, dh):
 #: rwkv6-1.6b's training shape and a ragged one (T not a multiple of the
 #: checkpoint spacing, B*H below the SMs)
@@ -499,7 +541,7 @@ TRAIN_LOSS_REL = 1e-4
 ZERO_GRAD_LEAVES = {"/encoder/blocks/mixer/bk": "/encoder/blocks/mixer/bq"}
 ZERO_LEAF_SHARE = 1e-2
 TRAIN_GRAD_REL_L2 = {"gemma-2b": 2e-2, "rwkv6-1.6b": 9e-2,
-                     "whisper-medium": 2e-2}
+                     "whisper-medium": 2e-2, "deepseek-v2-lite-16b": 2e-2}
 #: the same first step of rwkv6-1.6b at its registered width in fp32 (a
 #: batch of 1 x 1024 tokens) on both routes: every gradient leaf within
 #: this relative L2 (reading 2.3e-5: the fp32 kernels sum in other
@@ -539,15 +581,26 @@ WKV_FP32_TOL = 1e-5
 #: the H100 readings recorded in PERF.md: gemma-2b 0.0167 and at most
 #: 0.0191; rwkv6-1.6b 0.0378 and at most 0.0399, where the per-layer
 #: readings show no layer parting the routes (each adds at most 0.0037);
-#: olmoe-1b-7b starts at gemma-2b's
+#: olmoe-1b-7b and the context families start at gemma-2b's;
+#: deepseek-v2-lite-16b's 27 layers take gemma-2b's 18-layer gates times
+#: sqrt(27 / 18) ~ 1.22 (independent per-layer roundings add in
+#: quadrature), rounded up: its readings 0.0207 and at most 0.0235, with
+#: every layer's own share at most 0.0041 and no layer parting the routes
+#: (PERF.md; gemma-2b's 2e-2 failed by 4 % at the prefill)
 LOGITS_REL_L2 = {"gemma-2b": (2e-2, 2.5e-2), "rwkv6-1.6b": (4.5e-2, 5e-2),
                  "olmoe-1b-7b": (2e-2, 2.5e-2),
                  "whisper-medium": (2e-2, 2.5e-2),
-                 "llama-3.2-vision-90b": (2e-2, 2.5e-2)}
+                 "llama-3.2-vision-90b": (2e-2, 2.5e-2),
+                 "deepseek-v2-lite-16b": (2.5e-2, 3e-2)}
 #: relative L2 error allowed for one layer's own share of the routes'
 #: distance (``layer_divergence``'s ``local``; readings at most 0.0015 on
 #: gemma-2b and 0.0037 on rwkv6-1.6b)
 LAYER_REL_L2 = 1e-2
+
+
+def head_dims(dim) -> tuple:
+    """A case's (q and k, v) head dims from one D or a (D, Dv) pair."""
+    return tuple(dim) if isinstance(dim, tuple) else (dim, dim)
 
 
 def emit(obj: dict) -> None:
@@ -743,16 +796,20 @@ def chunk_bound_bytes(inputs, outputs) -> int:
 
 def ptxas_entries(log: str) -> dict:
     """Per kernel entry of an ``nvcc -Xptxas -v`` log (``name<D>`` for a
-    template on the head dim): registers, static shared memory, stack
-    frame and spill bytes."""
+    template on equal head dims, ``name<D,Dv>`` on a pair): registers,
+    static shared memory, stack frame and spill bytes."""
     entries, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            t = re.search(r"\d((?:flash|dq|dkdv)_[a-z0-9]+)I(?:f)?Li(\d+)E",
-                          m.group(1))
+            t = re.search(r"\d((?:flash|dq|dkdv)_[a-z0-9]+)I(?:f)?Li(\d+)E"
+                          r"(?:Li(\d+)E)?", m.group(1))
             plain = re.search(r"\d(dkdv_reduce)E", m.group(1))
-            name = (f"{t.group(1)}<{t.group(2)}>" if t
+            dims = None
+            if t:
+                dims = (t.group(2) if t.group(3) in (None, t.group(2))
+                        else f"{t.group(2)},{t.group(3)}")
+            name = (f"{t.group(1)}<{dims}>" if t
                     else plain.group(1) if plain else m.group(1))
             entries[name] = {}
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -805,17 +862,21 @@ def phase_build(card: str) -> None:
         emit({"phase": "build", "kernel": name, "entries": rows,
               "card": card})
 
+    def entry_dims(dk, dv):
+        return f"{dk}" if dk == dv else f"{dk},{dv}"
+
     entries = ptxas_entries(logs["flash_attention"])
-    for d in HEAD_DIMS:
-        row = entries.get(f"flash_wgmma<{d}>", {})
+    for dk, dv in HEAD_DIMS:
+        name = f"flash_wgmma<{entry_dims(dk, dv)}>"
+        row = entries.get(name, {})
         check(row.get("spill_stores") == 0 == row.get("spill_loads")
               and row.get("stack") == 0,
-              f"flash_wgmma<{d}> compiled without register spills ({row})")
+              f"{name} compiled without register spills ({row})")
     bwd = ptxas_entries(logs["flash_attention_bwd"])
-    for d in HEAD_DIMS:
+    for dk, dv in HEAD_DIMS:
         for entry in ("dq_wgmma", "dkdv_wgmma"):
-            check(f"{entry}<{d}>" in bwd,
-                  f"flash_attention_bwd builds {entry}<{d}>")
+            check(f"{entry}<{entry_dims(dk, dv)}>" in bwd,
+                  f"flash_attention_bwd builds {entry}<{entry_dims(dk, dv)}>")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name, rows in (("flash_attention", entries),
                        ("flash_attention_bwd", None)):
@@ -1182,6 +1243,24 @@ def check_attention(got, exp, dtype, what: str) -> tuple:
     return err, row_err
 
 
+def library_ms(timed, pair: bool):
+    """``timed()``, the time of a ``scaled_dot_product_attention`` call
+    (the yardstick).  At a head-dim pair (Ev != E) only the fused backends
+    are allowed, and None is returned where none of them takes the call:
+    the math backend would materialize the whole score matrix, which is
+    no library kernel to compare with."""
+    if not pair:
+        return timed()
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    with sdpa_kernel(fused):
+        try:
+            return timed()
+        except RuntimeError:
+            return None
+
+
 def attention_pairs(lq: int, lk: int, causal: bool) -> int:
     """Query-key pairs a causal (rows aligned to the last lq keys) or
     full attention computes for one (batch, head)."""
@@ -1219,6 +1298,7 @@ def phase_model_kernels(card: str, rate: float, flops: float,
     wq, wd = wsp.n_heads, wsp.kv_head_dim()
     vlm = serve_config(SERVE_VLM)      # 64 heads, 8 KV heads of 128
     vq, vkv, vd = vlm.n_heads, vlm.n_kv_heads, vlm.kv_head_dim()
+    dsq = get(SERVE_DEEPSEEK["arch"]).n_heads   # 16 MLA heads, group 1
     artifact_len = SERVE["artifacts"] * SERVE["artifact_tokens"]
     wT, vT = _ctx_len(wsp, artifact_len), _ctx_len(vlm, artifact_len)
     P = min(contexts)
@@ -1298,16 +1378,27 @@ def phase_model_kernels(card: str, rate: float, flops: float,
             ("Lq > Lk bf16", 2, 8, 2, 700, 300, 64, bf16, False, True),
             ("mid bf16", 2, 16, 8, 2048, 2048, 128, bf16, True, True),
             ("mid fp32", 1, 8, 2, 1000, 1000, 64, torch.float32, True,
-             True)):
-        q = normal(b, h, lq, dim, dtype=dtype)
-        k, v = (normal(b, g, lk, dim, dtype=dtype) for _ in range(2))
+             True),
+            ("deepseek batched prefill", B, dsq, dsq, P, P, MLA_DIMS, bf16,
+             True, True),
+            ("deepseek agent prefill", 1, dsq, dsq, L1, L1, MLA_DIMS, bf16,
+             True, True),
+            ("deepseek batched prefill fp32", B, dsq, dsq, P, P, MLA_DIMS,
+             torch.float32, True, True),
+            ("deepseek agent prefill fp32", 1, dsq, dsq, L1, L1, MLA_DIMS,
+             torch.float32, True, False)):
+        dk, dv = head_dims(dim)
+        q = normal(b, h, lq, dk, dtype=dtype)
+        k = normal(b, g, lk, dk, dtype=dtype)
+        v = normal(b, g, lk, dv, dtype=dtype)
         out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err, row_err = check_attention(
             out, plain_attention(q, k, v, causal), dtype,
             f"flash_attention ({label})")
         row = {"phase": "kernels", "kernel": "flash_attention",
-               "case": label, "shape": [b, h, g, lq, lk, dim],
+               "case": label, "shape": [b, h, g, lq, lk, dk]
+               + ([dv] if dv != dk else []),
                "causal": causal, "dtype": str(dtype).split(".")[-1],
                "max_abs_err": err, "max_row_err": row_err, "card": card}
         if not causal:
@@ -1324,16 +1415,18 @@ def phase_model_kernels(card: str, rate: float, flops: float,
             emit(row)
             continue
         args = lambda: (q, k, v, causal)   # noqa: E731
-        work = 4 * b * h * dim * attention_pairs(lq, lk, causal)
-        bound = max(size(q, k, v, out) / rate, work / flops) * 1e3
+        work = 2 * (dk + dv) * b * h * attention_pairs(lq, lk, causal)
+        rate_ops = flops if dtype == bf16 else fp32_flops
+        bound = max(size(q, k, v, out) / rate, work / rate_ops) * 1e3
         dev_ms, host_ms = device_ms(flash_attention, args, 5)
         row.update({
             "ms": median_ms(flash_attention, args, 5),
             "device_ms": dev_ms, "host_ms": host_ms,
             "plain_ms": median_ms(plain_attention, args, 3),
-            "library_ms": median_ms(
+            "library_ms": library_ms(lambda: median_ms(
                 lambda a, b_, c, m: F.scaled_dot_product_attention(
                     a, b_, c, is_causal=m, enable_gqa=True), args, 5),
+                dk != dv),
             "bound_ms": bound, "bound_by": "operations"})
         row["tflops"] = work / (row["device_ms"] * 1e-3) / 1e12
         emit(row)
@@ -1359,9 +1452,15 @@ def phase_model_kernels(card: str, rate: float, flops: float,
             ("vlm batched decode", B, vq, vkv, P + steps, vd, bf16, "steps"),
             ("vlm cross decode", B, vq, vkv, vT, vd, bf16, "full"),
             ("mid bf16", 8, 16, 8, 2048, 128, bf16, "ragged"),
-            ("mid fp32", 4, 8, 2, 777, 64, torch.float32, "ragged")):
-        q = normal(b, h, dim, dtype=dtype)
-        kc, vc = (normal(b, g, L, dim, dtype=dtype) for _ in range(2))
+            ("mid fp32", 4, 8, 2, 777, 64, torch.float32, "ragged"),
+            ("deepseek batched decode", B, dsq, dsq, P + steps, MLA_DIMS,
+             bf16, "steps"),
+            ("mla mid fp32", 4, dsq, dsq, 777, MLA_DIMS, torch.float32,
+             "ragged")):
+        dk, dv = head_dims(dim)
+        q = normal(b, h, dk, dtype=dtype)
+        kc = normal(b, g, L, dk, dtype=dtype)
+        vc = normal(b, g, L, dv, dtype=dtype)
         if lens_kind == "ragged":
             cases = [torch.randint(1, L + 1, (b,), generator=gen,
                                    device="cuda", dtype=torch.int32)]
@@ -1382,21 +1481,23 @@ def phase_model_kernels(card: str, rate: float, flops: float,
         mask = (torch.arange(L, device="cuda")[None, None, None, :]
                 < lens[:, None, None, None])
         valid = int(lens.sum())
-        moved = (2 * valid * g * dim * kc.element_size() + size(q, out)
+        moved = ((dk + dv) * valid * g * kc.element_size() + size(q, out)
                  + lens.numel() * 4)
         dev_ms, host_ms = device_ms(decode_attention, args, 10)
         row = {"phase": "kernels", "kernel": "decode_attention",
-               "case": label, "shape": [b, h, g, L, dim],
+               "case": label, "shape": [b, h, g, L, dk]
+               + ([dv] if dv != dk else []),
                "dtype": str(dtype).split(".")[-1], "kv_lens_checked":
                len(cases), "max_abs_err": err, "max_row_err": row_err,
                "ms": median_ms(decode_attention, args, 10),
                "device_ms": dev_ms, "host_ms": host_ms,
                "plain_ms": median_ms(decode_attention_plain, args, 3),
-               "library_ms": median_ms(
+               "library_ms": library_ms(lambda: median_ms(
                    lambda a, b_, c, n: F.scaled_dot_product_attention(
                        a[:, :, None], b_, c, attn_mask=mask,
-                       enable_gqa=True), args, 10),
-               "bound_ms": max(moved / rate, 4 * h * dim * valid / flops)
+                       enable_gqa=True), args, 10), dk != dv),
+               "bound_ms": max(moved / rate, 2 * h * (dk + dv) * valid
+                               / (flops if dtype == bf16 else fp32_flops))
                * 1e3, "bound_by": "bytes", "card": card}
         emit(row)
         if dtype == bf16:
@@ -2668,22 +2769,22 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     """Launches of each model kernel over ``prefills`` prefills (each with
     a context where the model has cross layers) and ``steps`` decode
     steps: per forward one rmsnorm per norm of an rmsnorm model (norm1
-    and norm2 of each layer, a cross sublayer's norm, rwkv's ln_x, the
-    final norm; a prefill's encoder adds two a layer and its final norm;
-    a layernorm model launches none) and one attention kernel per
-    attention (self, cross mixer, cross sublayer) - flash attention per
-    prefill, the encoder's layers too, and decode attention per step - or
-    the WKV scan in both."""
+    and norm2 of each layer, a cross sublayer's norm, rwkv's ln_x, MLA's
+    kv_norm of the latent, the final norm; a prefill's encoder adds two a
+    layer and its final norm; a layernorm model launches none) and one
+    attention kernel per attention (self, MLA, cross mixer, cross
+    sublayer) - flash attention per prefill, the encoder's layers too,
+    and decode attention per step - or the WKV scan in both."""
     from repro_torch.models.transformer import layer_specs
     specs = layer_specs(cfg)
     mixers = [spec.mixer for spec in specs]
     forwards = prefills + steps
-    n_rwkv = mixers.count("rwkv")
-    n_attn = mixers.count("attn") + mixers.count("cross") + sum(
+    n_rwkv, n_mla = mixers.count("rwkv"), mixers.count("mla")
+    n_attn = mixers.count("attn") + n_mla + mixers.count("cross") + sum(
         spec.cross for spec in specs)
     enc = cfg.encoder_layers
     norms = (2 * cfg.n_layers + sum(spec.cross for spec in specs) + n_rwkv
-             + 1) * forwards + (2 * enc + 1) * prefills * bool(enc)
+             + n_mla + 1) * forwards + (2 * enc + 1) * prefills * bool(enc)
     return {"rmsnorm": norms if cfg.norm == "rmsnorm" else 0,
             "flash_attention": (n_attn + enc) * prefills,
             "decode_attention": n_attn * steps,
@@ -2835,7 +2936,62 @@ def phase_serve(card: str, serve=SERVE) -> dict:
                   f"logits by more than {CONTEXT_NOISE} times its route "
                   f"distance ({ratios})")
     serve_profile(card, system, params, context=context)
+    if cfg.mla is not None:
+        mla_expansion(card, cfg, params, n, P + steps,
+                      decode_s / steps * 1e3 if steps else None, phase)
     return {name: count for name, count in launches.items() if count}
+
+
+def mla_expansion(card: str, cfg, params, batch: int, length: int,
+                  step_ms, phase: str) -> None:
+    """What expanding MLA's latent cache costs a decode step (the
+    reference's order, which the port follows): one layer's up-projection
+    of a (batch, length) latent cache into head-major k and v
+    (``attention._mla_expand``), alone by CUDA events, times the MLA
+    layers, beside the decode step's time and the decode kernel's own over
+    the expanded cache.  Reading the latent cache directly would drop the
+    expansion and run decode as one group of all heads over a key of
+    rank + rope and a value of rank (ROADMAP.md section 2)."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import layer_specs
+    m, h = cfg.mla, cfg.n_heads
+    layer = (params["prefix_0"] if "prefix_0" in params else
+             tree_map(lambda a: a[0], params["blocks"]["sub0"]))["mixer"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(layer["wo"].dtype)
+
+    ckv, kpe = normal(batch, length, m.kv_lora_rank), normal(
+        batch, length, m.qk_rope_head_dim)
+    expand_ms, expand_host = device_ms(
+        lambda c, r: attn._mla_expand(layer, cfg, c, r), lambda: (ckv, kpe),
+        10)
+    k, v = attn._mla_expand(layer, cfg, ckv, kpe)
+    dk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = normal(batch, h, dk)
+    lens = torch.full((batch,), length, dtype=torch.int32, device="cuda")
+    attend_ms = device_ms(lambda *a: decode_attention(*a, scale=dk ** -0.5),
+                          lambda: (q, k, v, lens), 10)[0]
+    layers = [spec.mixer for spec in layer_specs(cfg)].count("mla")
+    emit({"phase": phase, "what": "mla expansion", "arch": cfg.name,
+          "batch": batch, "cached_tokens": length, "mla_layers": layers,
+          "expand_ms_per_layer": expand_ms,
+          "expand_host_ms_per_layer": expand_host,
+          "expand_ms_per_step": expand_ms * layers,
+          "decode_kernel_ms_per_layer": attend_ms,
+          "decode_step_ms": step_ms,
+          "expand_flops_per_step": 2 * batch * length * m.kv_lora_rank * h
+          * (m.qk_nope_head_dim + m.v_head_dim) * layers,
+          "expanded_bytes_per_step": (k.numel() + v.numel())
+          * k.element_size() * layers,
+          "latent_bytes_per_step": (ckv.numel() + kpe.numel())
+          * ckv.element_size() * layers, "card": card})
+
 
 
 class moe_routes:
@@ -2915,9 +3071,13 @@ def layer_divergence(card: str, system, params, phase: str,
                      / torch.linalg.vector_norm(b))
 
     def layer(i, x, ctx):
-        blk = tree_map(lambda a: a[(i - prefix) // period], params["blocks"])
-        return tf.layer_apply(blk[f"sub{(i - prefix) % period}"], cfg,
-                              specs[i], x, positions=positions,
+        if i < prefix:
+            layer_p = params[f"prefix_{i}"]
+        else:
+            blk = tree_map(lambda a: a[(i - prefix) // period],
+                           params["blocks"])
+            layer_p = blk[f"sub{(i - prefix) % period}"]
+        return tf.layer_apply(layer_p, cfg, specs[i], x, positions=positions,
                               context=ctx)[0]
 
     def row(label, xk, xp, local):
@@ -2926,7 +3086,6 @@ def layer_divergence(card: str, system, params, phase: str,
                 "local": rel(local, xp),
                 "local_last": rel(local[:, -1], xp[:, -1])}
 
-    check(prefix == 0, "layer_divergence walks stacked layers only")
     rows = []
     ctx_k = ctx_p = None if context is None else context.to(
         dtype_of(cfg.dtype))
@@ -3033,20 +3192,26 @@ def phase_train_kernels(card: str, rate: float, flops: float,
     def size(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def library_grad(fn, inputs, dout):
-        """The backward alone of ``fn`` (a PyTorch call): its forward
-        once, then autograd's backward timed with the graph kept."""
-        leaves = [t.detach().requires_grad_(True) for t in inputs]
-        out = fn(*leaves)
-        return lambda: torch.autograd.grad(out, leaves, dout,
-                                           retain_graph=True)
+    def library_grad_ms(fn, inputs, dout, pair=False, reps=3):
+        """The backward alone of ``fn`` (a PyTorch call) timed by
+        ``median_ms``: its forward once, then autograd's backward with the
+        graph kept; at an attention head-dim pair only on a fused backend,
+        else None (``library_ms``)."""
+        def timed():
+            leaves = [t.detach().requires_grad_(True) for t in inputs]
+            out = fn(*leaves)
+            return median_ms(lambda: torch.autograd.grad(
+                out, leaves, dout, retain_graph=True), tuple, reps)
+        return library_ms(timed, pair)
 
     results, repeat_cases = {}, []
     for label, b, h, g, lq, lk, dim, name, causal in BWD_CASES:
         dtype = getattr(torch, name)
-        q = normal(b, h, lq, dim, dtype=dtype)
-        k, v = (normal(b, g, lk, dim, dtype=dtype) for _ in range(2))
-        dout = normal(b, h, lq, dim, dtype=dtype)
+        dk, dv = head_dims(dim)
+        q = normal(b, h, lq, dk, dtype=dtype)
+        k = normal(b, g, lk, dk, dtype=dtype)
+        v = normal(b, g, lk, dv, dtype=dtype)
+        dout = normal(b, h, lq, dv, dtype=dtype)
         # the forward as training launches it: with its row statistics
         fwd, lse = _forward(q, k, v, causal, None, with_lse=True)
         got = flash_attention_bwd(q, k, v, dout, lse, causal)
@@ -3067,10 +3232,11 @@ def phase_train_kernels(card: str, rate: float, flops: float,
                 for n, a, e in zip("qkv", got, exp)]
         del exp
         args = lambda: (q, k, v, dout, lse, causal)   # noqa: E731
-        work = 2.5 * 4 * b * h * dim * attention_pairs(lq, lk, causal)
+        work = 2.5 * 2 * (dk + dv) * b * h * attention_pairs(lq, lk, causal)
         dev_ms, host_ms = device_ms(flash_attention_bwd, args, 3)
         row = {"phase": "kernels", "kernel": "flash_attention_bwd",
-               "case": label, "shape": [b, h, g, lq, lk, dim],
+               "case": label, "shape": [b, h, g, lq, lk, dk]
+               + ([dv] if dv != dk else []),
                "causal": causal, "dtype": str(dtype).split(".")[-1],
                "max_abs_err": max(e[0] for e in errs),
                "rel_l2": [e[1] for e in errs],
@@ -3082,17 +3248,18 @@ def phase_train_kernels(card: str, rate: float, flops: float,
                "device_ms": dev_ms, "host_ms": host_ms,
                "plain_ms": median_ms(lambda *a: attention_bwd_plain(
                    *a[:4], causal), args, 1),
-               "library_ms": median_ms(library_grad(
+               "library_ms": library_grad_ms(
                    lambda a, b_, c: F.scaled_dot_product_attention(
                        a, b_, c, is_causal=causal, enable_gqa=True),
-                   (q, k, v), dout), tuple, 3),
+                   (q, k, v), dout, dk != dv),
                "bound_ms": max(size(q, k, v, dout, lse, *got) / rate,
-                               work / flops) * 1e3,
+                               work / (flops if dtype == bf16
+                                       else fp32_flops)) * 1e3,
                "bound_by": "operations", "card": card}
         row["tflops"] = work / (row["device_ms"] * 1e-3) / 1e12
         if dtype == bf16:
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            row["head_splits"] = bwd_plan(b, h, g, lq, lk, dim,
+            row["head_splits"] = bwd_plan(b, h, g, lq, lk, dk,
                                           sms).head_splits
             if row["head_splits"] > 1:
                 # what the split buys: alone in turns, unsplit and split
@@ -3179,9 +3346,9 @@ def phase_train_kernels(card: str, rate: float, flops: float,
                "device_ms": dev_ms, "host_ms": host_ms,
                "plain_ms": median_ms(functools.partial(
                    rmsnorm_bwd_plain, cast_first=True), args, 3),
-               "library_ms": median_ms(library_grad(
+               "library_ms": library_grad_ms(
                    lambda a, b_: F.rms_norm(a, (width,), b_, 1e-6),
-                   (x, w), dy), tuple, 10),
+                   (x, w), dy, reps=10),
                "bound_ms": (3 * size(x) + 2 * size(w)) / rate * 1e3,
                "bound_by": "bytes",
                "plan": norm_bwd_plan(width, x.element_size(),
@@ -3570,17 +3737,19 @@ def expected_train_launches(cfg, steps: int) -> dict:
     norm; a layernorm model launches none) and mixer kernels (flash
     attention for each self, cross and encoder attention, or the WKV
     scan), the layers' again in the recompute, and one backward launch
-    of each norm and mixer kernel."""
+    of each norm and mixer kernel.  An MLA layer has three norms (norm1,
+    the latent's kv_norm, norm2) and one flash attention."""
     from repro_torch.models.transformer import layer_specs
     specs = layer_specs(cfg)
     mixers = [spec.mixer for spec in specs]
     n_rwkv, n_sub = mixers.count("rwkv"), sum(spec.cross for spec in specs)
+    n_mla = mixers.count("mla")
     layers = mixers.count("attn") + mixers.count("cross") + cfg.encoder_layers
-    n_attn = layers + n_sub
+    n_attn = layers + n_sub + n_mla
     qk = 2 * cfg.use_qk_norm
     # the layers' norms run twice (forward and recompute), the final norms
     # (the model's, the encoder's) once
-    norms = (2 + qk) * layers + (1 + qk) * n_sub + 3 * n_rwkv
+    norms = (2 + qk) * layers + (1 + qk) * n_sub + 3 * n_rwkv + 3 * n_mla
     finals = 1 + bool(cfg.encoder_layers)
     rms = cfg.norm == "rmsnorm"
     return {"rmsnorm": (2 * norms + finals) * steps * rms,
@@ -3626,12 +3795,14 @@ def bwd_passes(card: str) -> None:
              or re.search(r"::(\w+)", kernel))
         return m.group(1) if m else kernel
 
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
     for label, b, h, g, lq, lk, dim, name, causal in BWD_CASES:
         dtype = getattr(torch, name)
-        q, dout = (torch.randn((b, h, lq, dim), generator=gen,
-                               device="cuda").to(dtype) for _ in range(2))
-        k, v = (torch.randn((b, g, lk, dim), generator=gen,
-                            device="cuda").to(dtype) for _ in range(2))
+        dk, dv = head_dims(dim)
+        q, dout = normal(b, h, lq, dk), normal(b, h, lq, dv)
+        k, v = normal(b, g, lk, dk), normal(b, g, lk, dv)
         lse = _forward(q, k, v, causal, None, with_lse=True)[1]
         flash_attention_bwd(q, k, v, dout, lse, causal)  # built and warm
 
@@ -3640,10 +3811,11 @@ def bwd_passes(card: str) -> None:
                     for row in device_profile(lambda: flash_attention_bwd(
                         q, k, v, dout, lse, causal))[2]}
 
-        splits = (bwd_plan(b, h, g, lq, lk, dim, sms).head_splits
+        splits = (bwd_plan(b, h, g, lq, lk, dk, sms).head_splits
                   if dtype == torch.bfloat16 else 1)
         row = {"phase": "kernels", "kernel": "flash_attention_bwd",
-               "case": label, "shape": [b, h, g, lq, lk, dim],
+               "case": label, "shape": [b, h, g, lq, lk, dk]
+               + ([dv] if dv != dk else []),
                "causal": causal, "dtype": name, "head_splits": splits,
                "passes_ms": passes(),
                "card": card}
@@ -3737,12 +3909,13 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     finite = all(bool(torch.isfinite(g).all())
                  for g in tree_leaves(grads_k))
     # every encoder and cross-attention leaf must get a gradient (at the
-    # reference's init, gate 0, each would be exactly 0)
+    # reference's init, gate 0, each would be exactly 0), and every MLA
+    # leaf (a latent or rope path the kernels skipped would leave its
+    # leaves at 0)
+    held = r"/encoder/|/cross/|/gate$" + (r"|/mixer/" if cfg.mla else "")
     silent = [path for path, g in zip(paths, tree_leaves(grads_k))
-              if re.search(r"/encoder/|/cross/|/gate$", path)
-              and not bool(g.any())]
-    context_leaves = sum(bool(re.search(r"/encoder/|/cross/|/gate$", path))
-                         for path in paths)
+              if re.search(held, path) and not bool(g.any())]
+    context_leaves = sum(bool(re.search(held, path)) for path in paths)
     del grads_k, grads_p
     emit({"phase": "train", "what": "route equality", "arch": cfg.name,
           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
@@ -3752,8 +3925,8 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
           **split, "card": card})
     check(finite and bool(torch.isfinite(loss_k)),
           "finite loss and gradients on the kernel route")
-    check(not silent, f"{cfg.name}: every encoder and cross leaf has a "
-          f"non-zero gradient ({silent})")
+    check(not silent, f"{cfg.name}: every encoder, cross and MLA leaf has "
+          f"a non-zero gradient ({silent})")
     check(loss_rel <= TRAIN_LOSS_REL,
           f"{cfg.name} train loss: kernel vs plain {loss_rel} <= "
           f"{TRAIN_LOSS_REL}")
@@ -3792,12 +3965,16 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     step_s = statistics.median(times[1:])
     tokens = b * s
     specs = models.layer_specs(cfg)
-    n_attn = [spec.mixer for spec in specs].count("attn")
+    mixers = [spec.mixer for spec in specs]
+    n_attn = mixers.count("attn") + mixers.count("mla")
     n_cross = sum(spec.cross for spec in specs)
     pairs = (n_attn * attention_pairs(s, s, True)
              + n_cross * attention_pairs(s, frames, False)
              + cfg.encoder_layers * attention_pairs(frames, frames, False))
-    attn = 12 * b * cfg.n_heads * cfg.kv_head_dim() * pairs
+    # the (q and k, v) head dims: MLA's pair or the GQA head's twice
+    dk, dv = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+               cfg.mla.v_head_dim) if cfg.mla else (cfg.kv_head_dim(),) * 2)
+    attn = 6 * (dk + dv) * b * cfg.n_heads * pairs
     model_flops = (6 * (n_params - n_enc) * tokens + 6 * n_enc * b * frames
                    + attn)
     wall, busy, top = device_profile(lambda: step_fn(
@@ -3809,9 +3986,9 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
           "tokens_per_s": tokens / step_s,
           "model_flops_per_step": model_flops,
           "frames": frames or None,
-          "model_flops_formula": "6*N_dec*T + 6*N_enc*B*F + 12*B*Hq*D*("
-                                 "L_attn*causal_pairs(S) + L_cross*S*F + "
-                                 "L_enc*F*F); recompute not counted; the "
+          "model_flops_formula": "6*N_dec*T + 6*N_enc*B*F + 6*(Dqk+Dv)*B*"
+                                 "Hq*(L_attn*causal_pairs(S) + L_cross*S*F"
+                                 " + L_enc*F*F); recompute not counted; the "
                                  "WKV recurrence's flops (about 0.5 % of "
                                  "6*N*T at rwkv6-1.6b) not counted",
           "model_tflops": model_flops / step_s / 1e12,
@@ -4071,14 +4248,15 @@ def main() -> int:
     launches["chunk_tick"] += chunk_diff.chunk_tick_.launches
     lap("service")
 
-    for serve in (SERVE, SERVE_RWKV, SERVE_MOE, SERVE_WHISPER, SERVE_VLM):
+    for serve in (SERVE, SERVE_RWKV, SERVE_MOE, SERVE_WHISPER, SERVE_VLM,
+                  SERVE_DEEPSEEK):
         for fn in model_kernels().values():
             fn.launches = 0
         for name, count in phase_serve(card, serve).items():
             launches[name] = launches.get(name, 0) + count
         torch.cuda.empty_cache()
         lap(SERVE_PHASES[serve["arch"]])
-    for train in (TRAIN, TRAIN_RWKV, TRAIN_WHISPER):
+    for train in (TRAIN, TRAIN_RWKV, TRAIN_WHISPER, TRAIN_DEEPSEEK):
         for name, count in phase_train(card, flops, train).items():
             launches[name] = launches.get(name, 0) + count
         lap(f"train {train['arch']}")

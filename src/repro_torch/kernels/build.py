@@ -42,12 +42,12 @@ KERNELS = {
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", "rmsnorm_bwd_launch",
                     [_P] * 6 + [_I, _I, _F] + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention.cu", "flash_attention_launch",
-                        [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+                        [_P] * 5 + [_I] * 8 + [_F, _I, _P]),
     "flash_attention_bwd": ("flash_attention_bwd.cu",
                             "flash_attention_bwd_launch",
-                            [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]),
+                            [_P] * 10 + [_I] * 8 + [_F, _I, _I, _P]),
     "decode_attention": ("decode_attention.cu", "decode_attention_launch",
-                         [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
+                         [_P] * 7 + [_I] * 6 + [_F, _I, _P]),
     "rwkv6_scan": ("rwkv6_scan.cu", "rwkv6_scan_launch",
                    [_P] * 9 + [_I] * 6 + [_P]),
     "rwkv6_scan_bwd": ("rwkv6_scan_bwd.cu", "rwkv6_scan_bwd_launch",

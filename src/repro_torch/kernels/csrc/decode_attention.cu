@@ -2,14 +2,17 @@
 //
 // Replaces the TPU kernel
 // src/repro/kernels/decode_attention.py::decode_attention_pallas.
-// q (B, Hq, D); k and v caches (B, Hkv, L, D), head-major and contiguous,
-// one type (fp32 or bf16); kv_len (B,) int32 valid lengths, or null for
+// q (B, Hq, D); a key cache (B, Hkv, L, D) and a value cache (B, Hkv, L,
+// Dv), head-major and contiguous, one type (fp32 or bf16); the output
+// (B, Hq, Dv).  The head dims are a template pair <D, Dv>: Dv = D for the
+// GQA models, (192, 128) for MLA's expanded latent cache (group 1, its
+// scale passed by the caller); kv_len (B,) int32 valid lengths, or null for
 // all L.  A length above L masks nothing (min(kv_len[b], L)); a length
 // below 1 gives NaN rows, as the softmax of no logits does.  Query head h
 // reads kv head h / G with G = Hq / Hkv <= 8.
 //
-// Bound: bytes.  Every valid cache row is read once (2 * kv_len * D
-// elements per kv head) against 4 * G * D flops per row; at gemma-2b's
+// Bound: bytes.  Every valid cache row is read once ((D + Dv) kv_len
+// elements per kv head) against 2 G (D + Dv) flops per row; at gemma-2b's
 // batched decode (B 4, Hkv 1, G 8, D 256, L 6176, bf16) that is 25 MB,
 // 7.6 us at 3.35 TB/s.  The TPU kernel walks L in sequence inside one
 // program per (batch, kv head); the H100 needs the cache split across
@@ -53,12 +56,13 @@
 //     never share a ticket.
 //
 // C interface (ctypes):
-//   decode_attention_plan(B, Hq, Hkv, L, D, dtype, int* split_keys,
+//   decode_attention_plan(B, Hq, Hkv, L, D, Dv, dtype, int* split_keys,
 //                         int* n_splits, int* tickets) -> scratch floats
 //                         (int64, < 0 if the shape is refused);
 //   decode_attention_launch(q, k, v, kv_len, out, scratch, tickets, B, Hq,
-//                           Hkv, L, D, scale, dtype, stream);
-// dtype 0 = float32, 1 = bfloat16; D in {32, 64, 128, 256}; q, k, v and
+//                           Hkv, L, D, Dv, scale, dtype, stream);
+// dtype 0 = float32, 1 = bfloat16; (D, Dv) one of (32, 32), (64, 64),
+// (128, 128), (256, 256) and (192, 128); q, k, v and
 // scratch 16-byte aligned; scratch holds the plan's floats and tickets
 // the plan's zeroed uint32 counters, each null when its count is 0.  The
 // launch returns cudaGetLastError() after the launch.
@@ -88,17 +92,21 @@ constexpr int kMaxDevices = 64;
 constexpr int kRingBudget = 104 * 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, int D> struct Cfg {
-  static constexpr int kRow = D * int(sizeof(T)) + 16;   // padded row
-  static constexpr int kTileBytes = kTile * kRow;
-  static constexpr int kStageBytes = 2 * kTileBytes;     // K then V
+// DK: the head dim of q and the key cache; DV: of the value cache and the
+// output
+template <typename T, int DK, int DV> struct Cfg {
+  static constexpr int kRowK = DK * int(sizeof(T)) + 16;  // padded rows
+  static constexpr int kRowV = DV * int(sizeof(T)) + 16;
+  static constexpr int kKTileBytes = kTile * kRowK;
+  static constexpr int kStageBytes = kTile * (kRowK + kRowV);  // K then V
   static constexpr int kFit = kRingBudget / kStageBytes;
   static constexpr int kStages = kFit < 2 ? 2 : (kFit > 6 ? 6 : kFit);
   static constexpr int kRing = kStages * kStageBytes;
-  // the block's partial (m[8], l[8], o[8][D]) and, for fp32, the four
+  // the block's partial (m[8], l[8], o[8][DV]) and, for fp32, the four
   // warps' states it is merged from, over the idle ring
-  static_assert((2 * kGroup + kGroup * D) * 4 +
-                        (sizeof(T) == 4 ? kWarps * (2 + D) * kGroup * 4 : 0) <=
+  static_assert((2 * kGroup + kGroup * DV) * 4 +
+                        (sizeof(T) == 4 ? kWarps * (2 + DV) * kGroup * 4
+                                        : 0) <=
                     kRing,
                 "the partials fit in the ring");
 };
@@ -112,7 +120,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// E consecutive fp32 values at p (shared memory, aligned to their size)
+// E consecutive fp32 values at p (shared memory, aligned to 16 bytes when
+// E is a multiple of 4, else to 8 when E is even)
 template <int E>
 __device__ __forceinline__ void load_slice(const float* p, float (&f)[E]) {
   if constexpr (E % 4 == 0) {
@@ -122,11 +131,15 @@ __device__ __forceinline__ void load_slice(const float* p, float (&f)[E]) {
       f[4 * i] = u.x; f[4 * i + 1] = u.y; f[4 * i + 2] = u.z;
       f[4 * i + 3] = u.w;
     }
-  } else if constexpr (E == 2) {
-    const float2 u = *reinterpret_cast<const float2*>(p);
-    f[0] = u.x; f[1] = u.y;
+  } else if constexpr (E % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      const float2 u = reinterpret_cast<const float2*>(p)[i];
+      f[2 * i] = u.x; f[2 * i + 1] = u.y;
+    }
   } else {
-    f[0] = *p;
+#pragma unroll
+    for (int i = 0; i < E; ++i) f[i] = p[i];
   }
 }
 
@@ -171,38 +184,46 @@ template <typename T> struct Span {
 // tile's rows of K and V (contiguous in the cache) in 16-byte cp.async
 // chunks, the threads taking turns, into the padded rows; each thread's
 // copies arrive on the stage's barrier (count kThreads) when they land.
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void issue_tile(int t, const Span<T>& sp,
                                            unsigned char* ring,
                                            uint64_t* full) {
-  using C = Cfg<T, D>;
-  constexpr int kChunks = D * int(sizeof(T)) / 16;   // a row's chunks
+  using C = Cfg<T, DK, DV>;
+  constexpr int kChunksK = DK * int(sizeof(T)) / 16;   // a row's chunks
+  constexpr int kChunksV = DV * int(sizeof(T)) / 16;
   const int s = t % C::kStages;
   const int first = sp.key0 + t * kTile;
   const int rows = min(kTile, sp.key1 - first);
   const unsigned char* k_src =
-      reinterpret_cast<const unsigned char*>(sp.k + long(first) * D);
+      reinterpret_cast<const unsigned char*>(sp.k + long(first) * DK);
   const unsigned char* v_src =
-      reinterpret_cast<const unsigned char*>(sp.v + long(first) * D);
+      reinterpret_cast<const unsigned char*>(sp.v + long(first) * DV);
   const uint32_t dst = hopper::smem_u32(ring + s * C::kStageBytes);
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const uint32_t at = (i / kChunks) * C::kRow + (i % kChunks) * 16;
+  for (int i = threadIdx.x; i < rows * kChunksK; i += kThreads) {
+    const uint32_t at = (i / kChunksK) * C::kRowK + (i % kChunksK) * 16;
     hopper::cp_async_16(dst + at, k_src + i * 16);
-    hopper::cp_async_16(dst + C::kTileBytes + at, v_src + i * 16);
+    if constexpr (DK == DV)
+      hopper::cp_async_16(dst + C::kKTileBytes + at, v_src + i * 16);
+  }
+  if constexpr (DK != DV) {
+    for (int i = threadIdx.x; i < rows * kChunksV; i += kThreads) {
+      const uint32_t at = (i / kChunksV) * C::kRowV + (i % kChunksV) * 16;
+      hopper::cp_async_16(dst + C::kKTileBytes + at, v_src + i * 16);
+    }
   }
   hopper::cp_async_arrive(hopper::smem_u32(&full[s]));
 }
 
 // The tile loop of bf16 on the tensor cores; leaves the block's partial
-// (m, l over the block's keys, o unnormalised) at bp: m[8], l[8], o[8][D].
-template <int D>
+// (m, l over the block's keys, o unnormalised) at bp: m[8], l[8], o[8][DV].
+template <int DK, int DV>
 __device__ __forceinline__ void tile_loop_mma(
     const __nv_bfloat16* __restrict__ q, const Span<__nv_bfloat16>& sp,
     int G, float scale_log2, unsigned char* ring, uint64_t* full,
     float* bp) {
-  using C = Cfg<__nv_bfloat16, D>;
-  constexpr int kSteps = D / 16;         // k-steps of S = Q K^T
-  constexpr int kBlocks = D / 32;        // 8-column blocks of O a warp
+  using C = Cfg<__nv_bfloat16, DK, DV>;
+  constexpr int kSteps = DK / 16;        // k-steps of S = Q K^T
+  constexpr int kBlocks = DV / 32;       // 8-column blocks of O a warp
   __shared__ __align__(16) uint32_t p_hi[kGroup][kTile / 2 + 4];
   __shared__ __align__(16) uint32_t p_lo[kGroup][kTile / 2 + 4];
   __shared__ float red_max[kWarps][kGroup], red_sum[kWarps][kGroup];
@@ -212,7 +233,7 @@ __device__ __forceinline__ void tile_loop_mma(
   // A of S: row gid of the query group (rows 8-15 are zero)
   uint32_t qa[kSteps][2];
   const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-      q + (long(sp.bh) * G + gid) * D);
+      q + (long(sp.bh) * G + gid) * DK);
 #pragma unroll
   for (int s = 0; s < kSteps; ++s) {
     qa[s][0] = gid < G ? qrow[s * 8 + tig] : 0u;
@@ -223,19 +244,19 @@ __device__ __forceinline__ void tile_loop_mma(
   for (int nb = 0; nb < kBlocks; ++nb)
     o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;   // of head gid
-  const int d_warp = warp * (D / 4);
+  const int d_warp = warp * (DV / 4);
 
   for (int t = 0; t < sp.n_tiles; ++t) {
     const int s = t % C::kStages;
     hopper::mbar_wait(hopper::smem_u32(&full[s]), (t / C::kStages) & 1);
     unsigned char* ks = ring + s * C::kStageBytes;
-    unsigned char* vs = ks + C::kTileBytes;
+    unsigned char* vs = ks + C::kKTileBytes;
     const int valid = min(kTile, sp.key1 - (sp.key0 + t * kTile));
 
     // S for keys 8 warp .. 8 warp + 7: row gid, keys 2 tig and 2 tig + 1
     float sc[4] = {0.f, 0.f, 0.f, 0.f};
     const uint32_t k_row = hopper::smem_u32(
-        ks + (warp * kKeysPerWarp + (lane & 7)) * C::kRow + (lane >> 3) * 16);
+        ks + (warp * kKeysPerWarp + (lane & 7)) * C::kRowK + (lane >> 3) * 16);
 #pragma unroll
     for (int kb = 0; kb < kSteps; kb += 2) {
       uint32_t b[4];
@@ -254,7 +275,7 @@ __device__ __forceinline__ void tile_loop_mma(
     __syncthreads();
     // every warp is past the P V of tile t - 1: its stage may be refilled
     if (t > 0 && t - 1 + C::kStages < sp.n_tiles)
-      issue_tile<__nv_bfloat16, D>(t - 1 + C::kStages, sp, ring, full);
+      issue_tile<__nv_bfloat16, DK, DV>(t - 1 + C::kStages, sp, ring, full);
 
     // the tile's max (finite: it holds a valid key), then P = 2^(S - m)
     float tile_max = red_max[0][gid];
@@ -275,8 +296,8 @@ __device__ __forceinline__ void tile_loop_mma(
     if (valid < kTile) {
       // rows past the valid keys may hold anything; P is 0 there, and
       // 0 * V must be 0
-      uint4* rows = reinterpret_cast<uint4*>(vs + valid * C::kRow);
-      for (int i = threadIdx.x; i < (kTile - valid) * C::kRow / 16;
+      uint4* rows = reinterpret_cast<uint4*>(vs + valid * C::kRowV);
+      for (int i = threadIdx.x; i < (kTile - valid) * C::kRowV / 16;
            i += kThreads)
         rows[i] = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -287,7 +308,7 @@ __device__ __forceinline__ void tile_loop_mma(
     l_run = fmaf(l_run, alpha, tile_sum);
     m_run = m_new;
 
-    // O[:, d_warp .. d_warp + D / 4) = alpha O + (P_hi + P_lo) V
+    // O[:, d_warp .. d_warp + DV / 4) = alpha O + (P_hi + P_lo) V
     uint32_t ah[2][2], al[2][2];
 #pragma unroll
     for (int ksp = 0; ksp < 2; ++ksp) {
@@ -296,7 +317,8 @@ __device__ __forceinline__ void tile_loop_mma(
       al[ksp][0] = p_lo[gid][ksp * 8 + tig];
       al[ksp][1] = p_lo[gid][ksp * 8 + 4 + tig];
     }
-    const uint32_t v_row = hopper::smem_u32(vs + lane * C::kRow + d_warp * 2);
+    const uint32_t v_row =
+        hopper::smem_u32(vs + lane * C::kRowV + d_warp * 2);
 #pragma unroll
     for (int nb = 0; nb < kBlocks; ++nb) {
       o[nb][0] *= alpha;
@@ -317,7 +339,7 @@ __device__ __forceinline__ void tile_loop_mma(
     bp[gid] = m_run;
     bp[kGroup + gid] = l_run;
   }
-  float* bo = bp + 2 * kGroup + gid * D + d_warp + 2 * tig;
+  float* bo = bp + 2 * kGroup + gid * DV + d_warp + 2 * tig;
 #pragma unroll
   for (int nb = 0; nb < kBlocks; ++nb)
     *reinterpret_cast<float2*>(bo + nb * 8) = make_float2(o[nb][0], o[nb][1]);
@@ -325,40 +347,41 @@ __device__ __forceinline__ void tile_loop_mma(
 
 // The tile loop of fp32 on the CUDA cores; leaves the block's partial at
 // bp as tile_loop_mma does.
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ void tile_loop_fp32(const float* __restrict__ q,
                                                const Span<float>& sp, int G,
                                                float scale_log2,
                                                unsigned char* ring,
                                                uint64_t* full, float* bp) {
-  using C = Cfg<float, D>;
-  constexpr int E = D / 32;   // elements of a row per lane
+  using C = Cfg<float, DK, DV>;
+  constexpr int E = DK / 32;    // elements of a q / key row per lane
+  constexpr int EV = DV / 32;   // of a value row and the output
   __shared__ __align__(16) float sp_w[kWarps][kKeysPerWarp][kGroup];
   __shared__ float salpha[kWarps][kGroup];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   // the query group, scaled into the exp2 domain: qv[g][e] = q[g, lane*E+e]
   float qv[kGroup][E];
-  const float* qb = q + long(sp.bh) * G * D + lane * E;
+  const float* qb = q + long(sp.bh) * G * DK + lane * E;
 #pragma unroll
   for (int g = 0; g < kGroup; ++g)
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      qv[g][e] = g < G ? qb[g * D + e] * scale_log2 : 0.f;
-  // lane l keeps (m, l) of head l % 8 and acc[g][e] of o[g, lane*E + e]
+      qv[g][e] = g < G ? qb[g * DK + e] * scale_log2 : 0.f;
+  // lane l keeps (m, l) of head l % 8 and acc[g][e] of o[g, lane*EV + e]
   float m = -INFINITY, lsum = 0.f;
-  float acc[kGroup][E];
+  float acc[kGroup][EV];
 #pragma unroll
   for (int g = 0; g < kGroup; ++g)
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < EV; ++e) acc[g][e] = 0.f;
 
   const int wk0 = warp * kKeysPerWarp;
   for (int t = 0; t < sp.n_tiles; ++t) {
     const int s = t % C::kStages;
     hopper::mbar_wait(hopper::smem_u32(&full[s]), (t / C::kStages) & 1);
     const unsigned char* ks = ring + s * C::kStageBytes;
-    const unsigned char* vs = ks + C::kTileBytes;
+    const unsigned char* vs = ks + C::kKTileBytes;
     const int valid = min(kTile, sp.key1 - (sp.key0 + t * kTile));
     const int wn = min(max(valid - wk0, 0), kKeysPerWarp);  // warp's keys
 
@@ -371,7 +394,7 @@ __device__ __forceinline__ void tile_loop_fp32(const float* __restrict__ q,
         float kf[E];
         if (r * 4 + kk < wn) {
           load_slice<E>(reinterpret_cast<const float*>(
-                            ks + (wk0 + r * 4 + kk) * C::kRow) + lane * E,
+                            ks + (wk0 + r * 4 + kk) * C::kRowK) + lane * E,
                         kf);
         } else {
 #pragma unroll
@@ -410,13 +433,14 @@ __device__ __forceinline__ void tile_loop_fp32(const float* __restrict__ q,
     for (int g = 0; g < kGroup; ++g) {
       const float a = salpha[warp][g];
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] *= a;
+      for (int e = 0; e < EV; ++e) acc[g][e] *= a;
     }
     for (int kk = 0; kk < wn; ++kk) {
-      float vf[E];
-      load_slice<E>(reinterpret_cast<const float*>(vs + (wk0 + kk) * C::kRow) +
-                        lane * E,
-                    vf);
+      float vf[EV];
+      load_slice<EV>(
+          reinterpret_cast<const float*>(vs + (wk0 + kk) * C::kRowV) +
+              lane * EV,
+          vf);
       const float4 pa = *reinterpret_cast<const float4*>(&sp_w[warp][kk][0]);
       const float4 pb = *reinterpret_cast<const float4*>(&sp_w[warp][kk][4]);
       const float p[kGroup] = {pa.x, pa.y, pa.z, pa.w,
@@ -424,15 +448,15 @@ __device__ __forceinline__ void tile_loop_fp32(const float* __restrict__ q,
 #pragma unroll
       for (int g = 0; g < kGroup; ++g)
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p[g], vf[e], acc[g][e]);
+        for (int e = 0; e < EV; ++e) acc[g][e] = fmaf(p[g], vf[e], acc[g][e]);
     }
     __syncthreads();   // every warp is done with stage s (and with sp_w)
     if (t + C::kStages < sp.n_tiles)
-      issue_tile<float, D>(t + C::kStages, sp, ring, full);
+      issue_tile<float, DK, DV>(t + C::kStages, sp, ring, full);
   }
 
   // the four warps' states, over the idle ring after the block's partial
-  float* wm = bp + 2 * kGroup + kGroup * D;
+  float* wm = bp + 2 * kGroup + kGroup * DV;
   float* wl = wm + kWarps * kGroup;
   float* wo = wl + kWarps * kGroup;
   if (lane < kGroup) {
@@ -442,11 +466,11 @@ __device__ __forceinline__ void tile_loop_fp32(const float* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < kGroup; ++g)
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      wo[(warp * kGroup + g) * D + lane * E + e] = acc[g][e];
+    for (int e = 0; e < EV; ++e)
+      wo[(warp * kGroup + g) * DV + lane * EV + e] = acc[g][e];
   __syncthreads();
-  for (int idx = threadIdx.x; idx < kGroup * D; idx += kThreads) {
-    const int g = idx / D;
+  for (int idx = threadIdx.x; idx < kGroup * DV; idx += kThreads) {
+    const int g = idx / DV;
     float mw = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, wm[w * kGroup + g]);
@@ -455,36 +479,36 @@ __device__ __forceinline__ void tile_loop_fp32(const float* __restrict__ q,
     for (int w = 0; w < kWarps; ++w) {
       const float mm = wm[w * kGroup + g];
       const float c = mm == -INFINITY ? 0.f : exp2f(mm - mw);
-      ov = fmaf(c, wo[w * kGroup * D + idx], ov);
+      ov = fmaf(c, wo[w * kGroup * DV + idx], ov);
       lw = fmaf(c, wl[w * kGroup + g], lw);
     }
     bp[2 * kGroup + idx] = ov;
-    if (idx % D == 0) {
+    if (idx % DV == 0) {
       bp[g] = mw;
       bp[kGroup + g] = lw;
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ kv_len,
               T* __restrict__ out, float* __restrict__ part,
               unsigned int* __restrict__ tickets, int G, int L,
               int split_keys, int n_clusters, float scale_log2) {
-  using C = Cfg<T, D>;
+  using C = Cfg<T, DK, DV>;
   extern __shared__ __align__(128) unsigned char ring[];
   __shared__ __align__(8) uint64_t full[C::kStages];
   __shared__ int s_last;
 
   const int split = blockIdx.x;
   const int bh = blockIdx.z * gridDim.y + blockIdx.y;
-  T* out_rows = out + long(bh) * G * D;
+  T* out_rows = out + long(bh) * G * DV;
   const int len = kv_len ? min(kv_len[blockIdx.z], L) : L;
   if (len <= 0) {
     if (split == 0)
-      for (int i = threadIdx.x; i < G * D; i += kThreads)
+      for (int i = threadIdx.x; i < G * DV; i += kThreads)
         out_rows[i] = from_f32<T>(NAN);
     return;
   }
@@ -500,9 +524,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   sp.key0 = min(split * split_keys, len);
   sp.key1 = min(sp.key0 + split_keys, len);
   sp.n_tiles = (sp.key1 - sp.key0 + kTile - 1) / kTile;
-  sp.k = k + long(bh) * L * D;
-  sp.v = v + long(bh) * L * D;
-  float* bp = reinterpret_cast<float*>(ring);   // m[8], l[8], o[8][D]
+  sp.k = k + long(bh) * L * DK;
+  sp.v = v + long(bh) * L * DV;
+  float* bp = reinterpret_cast<float*>(ring);   // m[8], l[8], o[8][DV]
 
   if (sp.n_tiles > 0) {
     if (threadIdx.x == 0) {
@@ -512,23 +536,23 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     for (int t = 0; t < min(C::kStages, sp.n_tiles); ++t)
-      issue_tile<T, D>(t, sp, ring, full);
+      issue_tile<T, DK, DV>(t, sp, ring, full);
     if constexpr (sizeof(T) == 2)
-      tile_loop_mma<D>(q, sp, G, scale_log2, ring, full, bp);
+      tile_loop_mma<DK, DV>(q, sp, G, scale_log2, ring, full, bp);
     else
-      tile_loop_fp32<D>(q, sp, G, scale_log2, ring, full, bp);
+      tile_loop_fp32<DK, DV>(q, sp, G, scale_log2, ring, full, bp);
   } else {   // a block of a live cluster without keys: an empty partial
-    for (int i = threadIdx.x; i < 2 * kGroup + kGroup * D; i += kThreads)
+    for (int i = threadIdx.x; i < 2 * kGroup + kGroup * DV; i += kThreads)
       bp[i] = i < kGroup ? -INFINITY : 0.f;
   }
 
   // the cluster's partials merged through distributed shared memory,
-  // block `rank` of csize taking columns [rank * D / csize, ...)
+  // block `rank` of csize taking columns [rank * DV / csize, ...)
   cluster.sync();
-  const int slice = D / csize;
+  const int slice = DV / csize;
   const int rank = static_cast<int>(cluster.block_rank());
   float* part_o = part;
-  float* part_ml = part + long(gridDim.y) * gridDim.z * n_clusters * G * D;
+  float* part_ml = part + long(gridDim.y) * gridDim.z * n_clusters * G * DV;
   const long cl = long(bh) * n_clusters + cluster_id;   // this cluster
   for (int i = threadIdx.x; i < G * slice; i += kThreads) {
     const int g = i / slice, d = rank * slice + i % slice;
@@ -540,7 +564,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float* rb = cluster.map_shared_rank(bp, j);
         mj[j] = rb[g];
         lj[j] = rb[kGroup + g];
-        oj[j] = rb[2 * kGroup + g * D + d];
+        oj[j] = rb[2 * kGroup + g * DV + d];
         mx = fmaxf(mx, mj[j]);
       }
     }
@@ -554,9 +578,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (n_live == 1) {
-      out_rows[g * D + d] = from_f32<T>(ov / lw);
+      out_rows[g * DV + d] = from_f32<T>(ov / lw);
     } else {
-      part_o[(cl * G + g) * D + d] = ov;
+      part_o[(cl * G + g) * DV + d] = ov;
       if (i % slice == 0)
         *reinterpret_cast<float2*>(
             part_ml + ((cl * csize + rank) * G + g) * 2) =
@@ -585,14 +609,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < n_live; ++c) {
       const float2 ml = __ldcg(reinterpret_cast<const float2*>(
           part_ml + (((cl0 + c) * csize + rank) * G + g) * 2));
-      const float oc = __ldcg(part_o + ((cl0 + c) * G + g) * D + d);
+      const float oc = __ldcg(part_o + ((cl0 + c) * G + g) * DV + d);
       const float m_new = fmaxf(mx, ml.x);
       const float a = exp2f(mx - m_new), b = exp2f(ml.x - m_new);
       ov = fmaf(ov, a, b * oc);
       lw = fmaf(lw, a, b * ml.y);
       mx = m_new;
     }
-    out_rows[g * D + d] = from_f32<T>(ov / lw);
+    out_rows[g * DV + d] = from_f32<T>(ov / lw);
   }
 }
 
@@ -604,13 +628,13 @@ int sm_count(int dev) {
   return counts[dev];
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaLaunchConfig_t config(int blocks_x, int Hkv, int B, int csize,
                           cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks_x, Hkv, B);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Cfg<T, D>::kRing;
+  cfg.dynamicSmemBytes = Cfg<T, DK, DV>::kRing;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = csize;
@@ -628,24 +652,24 @@ struct Room {
   int clusters8, blocks;
 };
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 Room room(int dev) {
   static Room fit[kMaxDevices];
   if (fit[dev].blocks == 0) {
-    if (cudaFuncSetAttribute(decode_kernel<T, D>,
+    if (cudaFuncSetAttribute(decode_kernel<T, DK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Cfg<T, D>::kRing) != cudaSuccess)
+                             Cfg<T, DK, DV>::kRing) != cudaSuccess)
       return Room{0, 0};
     int per_sm = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, decode_kernel<T, D>, kThreads, Cfg<T, D>::kRing) !=
-            cudaSuccess || per_sm <= 0)
+            &per_sm, decode_kernel<T, DK, DV>, kThreads,
+            Cfg<T, DK, DV>::kRing) != cudaSuccess || per_sm <= 0)
       return Room{0, 0};
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg =
-        config<T, D>(kMaxCluster, 1, 1, kMaxCluster, nullptr, &attr);
+        config<T, DK, DV>(kMaxCluster, 1, 1, kMaxCluster, nullptr, &attr);
     int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, decode_kernel<T, D>, &cfg) !=
+    if (cudaOccupancyMaxActiveClusters(&n, decode_kernel<T, DK, DV>, &cfg) !=
             cudaSuccess || n <= 0) {
       cudaGetLastError();   // a failed query is not the launch's error
       n = std::max(1, sm_count(dev) * per_sm / kMaxCluster);
@@ -653,16 +677,6 @@ Room room(int dev) {
     fit[dev] = Room{n, sm_count(dev) * per_sm};
   }
   return fit[dev];
-}
-
-template <typename T>
-Room room(int D, int dev) {
-  switch (D) {
-    case 32: return room<T, 32>(dev);
-    case 64: return room<T, 64>(dev);
-    case 128: return room<T, 128>(dev);
-    default: return room<T, 256>(dev);
-  }
 }
 
 struct Plan {
@@ -675,7 +689,7 @@ struct Plan {
 // clusters of 8 shared out over them; with more pairs than clusters,
 // clusters of 4, 2 or 1 block so that the grid about fills the card once.
 // A split is at least kMinSplitKeys keys where L allows.
-Plan plan_for(int B, int Hq, int Hkv, int L, int D, Room r) {
+Plan plan_for(int B, int Hq, int Hkv, int L, int DV, Room r) {
   const int bh = B * Hkv;
   const int longest = std::max(1, L / kMinSplitKeys);   // splits L allows
   Plan p;
@@ -691,26 +705,26 @@ Plan plan_for(int B, int Hq, int Hkv, int L, int D, Room r) {
   const int splits = p.csize * p.n_clusters;
   p.split_keys = (L + splits - 1) / splits;
   p.floats = p.n_clusters > 1 ? static_cast<long long>(bh) * p.n_clusters *
-                                    (Hq / Hkv) * (D + 2 * p.csize)
+                                    (Hq / Hkv) * (DV + 2 * p.csize)
                               : 0;
   p.tickets = p.n_clusters > 1 ? bh * p.csize : 0;
   return p;
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
            void* out, float* scratch, unsigned int* tickets, int B, int Hq,
            int Hkv, int L, float scale, int dev, cudaStream_t stream) {
-  const Room r = room<T, D>(dev);
+  const Room r = room<T, DK, DV>(dev);
   if (r.blocks == 0) return static_cast<int>(cudaGetLastError());
-  const Plan p = plan_for(B, Hq, Hkv, L, D, r);
+  const Plan p = plan_for(B, Hq, Hkv, L, DV, r);
   if (p.n_clusters > 1 && (scratch == nullptr || tickets == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = config<T, D>(p.n_clusters * p.csize, Hkv, B,
-                                        p.csize, stream, &attr);
+  cudaLaunchConfig_t cfg = config<T, DK, DV>(p.n_clusters * p.csize, Hkv, B,
+                                             p.csize, stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, D>, static_cast<const T*>(q),
+      &cfg, decode_kernel<T, DK, DV>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), kv_len,
       static_cast<T*>(out), scratch, tickets, Hq / Hkv, L, p.split_keys,
       p.n_clusters, scale * kLog2e);
@@ -718,34 +732,45 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the head-dim pairs (D of q and the key cache, Dv of the value cache) the
+// kernel is built for: Dv = D for GQA, (192, 128) for MLA's expanded cache
+#define REPRO_DECODE_PAIRS(X) \
+  X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+
+template <typename T>
+Room room(int D, int Dv, int dev) {
+#define REPRO_ROOM(DK, DV) \
+  if (D == DK && Dv == DV) return room<T, DK, DV>(dev);
+  REPRO_DECODE_PAIRS(REPRO_ROOM)
+#undef REPRO_ROOM
+  return Room{0, 0};
+}
+
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v,
                const int* kv_len, void* out, float* scratch,
                unsigned int* tickets, int B, int Hq, int Hkv, int L, int D,
-               float scale, int dev, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, kv_len, out, scratch, tickets, B, Hq,
-                           Hkv, L, scale, dev, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, kv_len, out, scratch, tickets, B, Hq,
-                           Hkv, L, scale, dev, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, kv_len, out, scratch, tickets, B, Hq,
-                            Hkv, L, scale, dev, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, kv_len, out, scratch, tickets, B, Hq,
-                            Hkv, L, scale, dev, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+               int Dv, float scale, int dev, cudaStream_t stream) {
+#define REPRO_LAUNCH(DK, DV)                                                 \
+  if (D == DK && Dv == DV)                                                   \
+    return launch<T, DK, DV>(q, k, v, kv_len, out, scratch, tickets, B, Hq,  \
+                             Hkv, L, scale, dev, stream);
+  REPRO_DECODE_PAIRS(REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-bool shape_ok(int B, int Hq, int Hkv, int L, int D, int dtype) {
+bool pair_ok(int D, int Dv) {
+#define REPRO_PAIR(DK, DV) if (D == DK && Dv == DV) return true;
+  REPRO_DECODE_PAIRS(REPRO_PAIR)
+#undef REPRO_PAIR
+  return false;
+}
+
+bool shape_ok(int B, int Hq, int Hkv, int L, int D, int Dv, int dtype) {
   return B > 0 && Hkv > 0 && L > 0 && Hq % Hkv == 0 && Hq / Hkv >= 1 &&
          Hq / Hkv <= kGroup && B <= 65535 && Hkv <= 65535 &&
-         (D == 32 || D == 64 || D == 128 || D == 256) &&
-         (dtype == 0 || dtype == 1);
+         pair_ok(D, Dv) && (dtype == 0 || dtype == 1);
 }
 
 int current_device() {
@@ -758,14 +783,15 @@ int current_device() {
 }  // namespace
 
 extern "C" long long decode_attention_plan(int B, int Hq, int Hkv, int L,
-                                           int D, int dtype, int* split_keys,
-                                           int* n_splits, int* tickets) {
+                                           int D, int Dv, int dtype,
+                                           int* split_keys, int* n_splits,
+                                           int* tickets) {
   const int dev = current_device();
-  if (dev < 0 || !shape_ok(B, Hq, Hkv, L, D, dtype)) return -1;
-  const Room r = dtype == 0 ? room<float>(D, dev)
-                            : room<__nv_bfloat16>(D, dev);
+  if (dev < 0 || !shape_ok(B, Hq, Hkv, L, D, Dv, dtype)) return -1;
+  const Room r = dtype == 0 ? room<float>(D, Dv, dev)
+                            : room<__nv_bfloat16>(D, Dv, dev);
   if (r.blocks == 0) return -1;
-  const Plan p = plan_for(B, Hq, Hkv, L, D, r);
+  const Plan p = plan_for(B, Hq, Hkv, L, Dv, r);
   if (split_keys) *split_keys = p.split_keys;
   if (n_splits) *n_splits = p.n_clusters * p.csize;
   if (tickets) *tickets = p.tickets;
@@ -776,11 +802,11 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* kv_len,
                                        void* out, void* scratch,
                                        void* tickets, int B, int Hq, int Hkv,
-                                       int L, int D, float scale, int dtype,
-                                       cudaStream_t stream) {
+                                       int L, int D, int Dv, float scale,
+                                       int dtype, cudaStream_t stream) {
   const int dev = current_device();
   if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!shape_ok(B, Hq, Hkv, L, D, dtype))
+  if (!shape_ok(B, Hq, Hkv, L, D, Dv, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) |
@@ -791,7 +817,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   unsigned int* counters = static_cast<unsigned int*>(tickets);
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, lens, out, part, counters, B, Hq, Hkv,
-                             L, D, scale, dev, stream);
+                             L, D, Dv, scale, dev, stream);
   return dispatch_d<__nv_bfloat16>(q, k, v, lens, out, part, counters, B, Hq,
-                                   Hkv, L, D, scale, dev, stream);
+                                   Hkv, L, D, Dv, scale, dev, stream);
 }

@@ -3,14 +3,18 @@
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_pallas.
-// q (B, Hq, Lq, D), k and v (B, Hkv, Lk, D), all contiguous, one type
-// (fp32 or bf16); query head h reads kv head h / (Hq / Hkv).  Causal rows
-// are the last Lq positions of the Lk-long sequence, as in the TPU
-// kernel.  Online softmax in fp32; the (Lq x Lk) logits never reach
-// device memory.
+// q (B, Hq, Lq, D), k (B, Hkv, Lk, D), v (B, Hkv, Lk, Dv) and the output
+// (B, Hq, Lq, Dv), all contiguous, one type (fp32 or bf16); query head h
+// reads kv head h / (Hq / Hkv).  Causal rows are the last Lq positions of
+// the Lk-long sequence, as in the TPU kernel.  Online softmax in fp32;
+// the (Lq x Lk) logits never reach device memory.  The head dims are a
+// template pair <D, Dv>: Dv = D for the GQA models, and (192, 128) for
+// MLA (deepseek-v2-lite: a q and k head of 128 + 64 rope, a v head of
+// 128), where the key is 3 swizzle chunks wide and the value 2.
 //
-// Bound: operations, 4 * D flops per query-key pair kept (causal: the
-// pairs on or below the diagonal), against 2 * D * 2 bytes per key row.
+// Bound: operations, 2 * (D + Dv) flops per query-key pair kept (causal:
+// the pairs on or below the diagonal), against (D + Dv) * 2 bytes per key
+// row.
 //
 // bf16 (flash_wgmma), the FlashAttention-3 schedule without its
 // intra-warpgroup overlap:
@@ -50,9 +54,10 @@
 //     buffer, each row's log-sum-exp of its scaled logits,
 //     (m + log2 l) ln 2, which the backward (flash_attention_bwd.cu)
 //     reads to recompute P without a second pass over the keys.
-// Shared memory: Q 128 x D, then K and V rings of 64 x D each, bf16:
-// 192 KB at D = 256 (2 stages); 160, 80 and 40 KB at D = 128, 64 and 32
-// (4 stages).
+// Shared memory: Q 128 x D, then K rings of 64 x D and V rings of 64 x Dv,
+// bf16: 192 KB at D = 256 (2 stages); 160, 80 and 40 KB at D = 128, 64 and
+// 32 (4 stages); 208 KB at (192, 128) (4 stages: Q 48 KB, a K stage 24 KB,
+// a V stage 16 KB; O is 64 fp32 registers a thread, as at D = 128).
 //
 // fp32 (flash_fp32) keeps the CUDA-core kernel: one block of 256 threads
 // per 64-row q tile, K and V tiles of 64 keys staged through shared
@@ -63,8 +68,9 @@
 // the plain version refuses.
 //
 // C interface (ctypes): flash_attention_launch(q, k, v, out, lse, B, Hq,
-// Hkv, Lq, Lk, D, causal, scale, dtype, stream) with dtype 0 = float32,
-// 1 = bfloat16 (16-byte aligned pointers) and D in {32, 64, 128, 256};
+// Hkv, Lq, Lk, D, Dv, causal, scale, dtype, stream) with dtype 0 =
+// float32, 1 = bfloat16 (16-byte aligned pointers) and (D, Dv) one of
+// (32, 32), (64, 64), (128, 128), (256, 256) and (192, 128);
 // lse is NULL (serving) or an fp32 (B, Hq, Lq) buffer that receives the
 // natural log-sum-exp of each row's scaled logits (training).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it
@@ -90,24 +96,32 @@ constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+// DK: the head dim of q and k; DV: of v and the output (DV <= DK; both
+// whole swizzle chunks)
+template <int DK, int DV>
 struct Cfg {
-  static constexpr int kSwizzle = D >= 64 ? 128 : 64;  // bytes a tile row
-  static constexpr int kChunkCols = kSwizzle / 2;      // bf16 a tile row
-  static constexpr int kChunks = D / kChunkCols;
+  static_assert(DV <= DK, "the output is staged in the Q tile's rows");
+  static constexpr int kSwizzle = DV >= 64 ? 128 : 64;  // bytes a tile row
+  static constexpr int kChunkCols = kSwizzle / 2;       // bf16 a tile row
+  static constexpr int kQKChunks = DK / kChunkCols;     // of a Q or K row
+  static constexpr int kVChunks = DV / kChunkCols;      // of a V row
+  static_assert(kQKChunks * kChunkCols == DK && kVChunks * kChunkCols == DV,
+                "head dims of whole chunks");
   static constexpr int kStepsPerChunk = kChunkCols / 16;
-  static constexpr int kStages = D == 256 ? 2 : 4;
+  static constexpr int kStages = DK == 256 ? 2 : 4;
   static constexpr uint32_t kDescSwizzle = kSwizzle == 128 ? 1 : 2;
   static constexpr uint32_t kQChunk = kRows * kSwizzle;
   static constexpr uint32_t kKVChunk = kBK * kSwizzle;
-  static constexpr uint32_t kQBytes = kChunks * kQChunk;
-  static constexpr uint32_t kKVBytes = kChunks * kKVChunk;
+  static constexpr uint32_t kQBytes = kQKChunks * kQChunk;
+  static constexpr uint32_t kKBytes = kQKChunks * kKVChunk;
+  static constexpr uint32_t kVBytes = kVChunks * kKVChunk;
   static constexpr uint32_t kKOff = kQBytes;
-  static constexpr uint32_t kVOff = kKOff + kStages * kKVBytes;
-  static constexpr uint32_t kBarOff = kVOff + kStages * kKVBytes;
+  static constexpr uint32_t kVOff = kKOff + kStages * kKBytes;
+  static constexpr uint32_t kBarOff = kVOff + kStages * kVBytes;
   // barriers: Q full, then per stage K full, V full, empty; plus 1 KB to
   // align the base to the swizzle atom
   static constexpr uint32_t kSmem = kBarOff + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kSmem <= 227 * 1024, "fits an SM's shared memory");
 };
 
 // byte offset of 16-byte unit `unit` of row `row` inside one swizzled
@@ -124,14 +138,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreadsWg, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap k_map,
             const __grid_constant__ CUtensorMap v_map,
             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
             int Hq, int Hkv, int Lq, int Lk, int causal, float scale_log2) {
-  using C = Cfg<D>;
+  using C = Cfg<DK, DV>;
   constexpr int S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -170,22 +184,22 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 2 * kWgThreads) {
       hopper::mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-      for (int c = 0; c < C::kChunks; ++c)
+      for (int c = 0; c < C::kQKChunks; ++c)
         hopper::tma_load_3d(q_s + c * C::kQChunk, &q_map, q_full,
                             c * C::kChunkCols, q0, bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % S;
         hopper::mbar_wait(empty(s), ((t / S) & 1) ^ 1);
-        hopper::mbar_expect_tx(k_full(s), C::kKVBytes);
+        hopper::mbar_expect_tx(k_full(s), C::kKBytes);
 #pragma unroll
-        for (int c = 0; c < C::kChunks; ++c)
-          hopper::tma_load_3d(k_s + s * C::kKVBytes + c * C::kKVChunk,
+        for (int c = 0; c < C::kQKChunks; ++c)
+          hopper::tma_load_3d(k_s + s * C::kKBytes + c * C::kKVChunk,
                               &k_map, k_full(s), c * C::kChunkCols, t * kBK,
                               bhk);
-        hopper::mbar_expect_tx(v_full(s), C::kKVBytes);
+        hopper::mbar_expect_tx(v_full(s), C::kVBytes);
 #pragma unroll
-        for (int c = 0; c < C::kChunks; ++c)
-          hopper::tma_load_3d(v_s + s * C::kKVBytes + c * C::kKVChunk,
+        for (int c = 0; c < C::kVChunks; ++c)
+          hopper::tma_load_3d(v_s + s * C::kVBytes + c * C::kKVChunk,
                               &v_map, v_full(s), c * C::kChunkCols, t * kBK,
                               bhk);
       }
@@ -199,9 +213,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
     const int row0 = wg_first + warp * 16 + lane / 4;  // and row0 + 8
     const uint32_t q_wg = q_s + wg * kWgRows * C::kSwizzle;
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    for (int j = 0; j < DV / 2; ++j) o[j] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     hopper::mbar_wait(q_full, 0);
@@ -226,14 +240,14 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
       hopper::mbar_wait(k_full(s), phase);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const int c = kk / C::kStepsPerChunk;  // column chunk
         const uint32_t at = (kk % C::kStepsPerChunk) * 32;
         hopper::wgmma_ss_m64n64(
             sc,
             hopper::make_desc(q_wg + c * C::kQChunk + at, 16,
                               8 * C::kSwizzle, C::kDescSwizzle),
-            hopper::make_desc(k_s + s * C::kKVBytes + c * C::kKVChunk + at,
+            hopper::make_desc(k_s + s * C::kKBytes + c * C::kKVChunk + at,
                               16, 8 * C::kSwizzle, C::kDescSwizzle),
             kk > 0);
       }
@@ -284,7 +298,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < DV / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 
       // O += P_hi V + P_lo V
       hopper::mbar_wait(v_full(s), phase);
@@ -292,14 +306,14 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int ks = 0; ks < kBK / 16; ++ks) {
         const uint64_t desc_v = hopper::make_desc(
-            v_s + s * C::kKVBytes + ks * 16 * C::kSwizzle, C::kKVChunk,
+            v_s + s * C::kVBytes + ks * 16 * C::kSwizzle, C::kKVChunk,
             8 * C::kSwizzle, C::kDescSwizzle);
         const uint32_t a_hi[4] = {p_hi[4 * ks], p_hi[4 * ks + 1],
                                   p_hi[4 * ks + 2], p_hi[4 * ks + 3]};
         const uint32_t a_lo[4] = {p_lo[4 * ks], p_lo[4 * ks + 1],
                                   p_lo[4 * ks + 2], p_lo[4 * ks + 3]};
-        hopper::WgmmaRS<D>::run(o, a_hi, desc_v);
-        hopper::WgmmaRS<D>::run(o, a_lo, desc_v);
+        hopper::WgmmaRS<DV>::run(o, a_hi, desc_v);
+        hopper::WgmmaRS<DV>::run(o, a_lo, desc_v);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -324,7 +338,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
           lse[size_t(bh) * Lq + row0 + 8 * i] = (m[i] + log2f(l[i])) * kLn2;
     }
 #pragma unroll
-    for (int j = 0; j < D / 2; j += 2) {
+    for (int j = 0; j < DV / 2; j += 2) {
       const int i = (j >> 1) & 1;
       const int r = wg * kWgRows + warp * 16 + lane / 4 + 8 * i;
       const int col = 8 * (j >> 2) + 2 * (lane & 3);
@@ -335,9 +349,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
           pack_bf16(o[j] * inv[i], o[j + 1] * inv[i]);
     }
     hopper::named_sync(1 + wg, kWgThreads);
-    constexpr int kUnits = D / 8;  // 16-byte units a row
+    constexpr int kUnits = DV / 8;  // 16-byte units a row
     constexpr int kChunkUnits = C::kChunkCols / 8;
-    __nv_bfloat16* ob = out + size_t(bh) * Lq * D;
+    __nv_bfloat16* ob = out + size_t(bh) * Lq * DV;
     for (int idx = tid; idx < kWgRows * kUnits; idx += kWgThreads) {
       const int r = idx / kUnits, u = idx % kUnits;
       const int q = wg_first + r;
@@ -345,21 +359,23 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
       const uint32_t at =
           (u / kChunkUnits) * C::kQChunk +
           swizzled<C::kSwizzle>(wg * kWgRows + r, u % kChunkUnits);
-      *reinterpret_cast<uint4*>(ob + size_t(q) * D + u * 8) =
+      *reinterpret_cast<uint4*>(ob + size_t(q) * DV + u * 8) =
           *reinterpret_cast<const uint4*>(smem + at);
     }
   }
 }
 
-template <int D>
-bool make_map(CUtensorMap* map, const void* ptr, int L, int heads,
+// a map over (heads, L, cols) bf16 rows, boxes of one swizzle chunk of
+// Cfg<DK, DV> and `rows` rows
+template <int DK, int DV>
+bool make_map(CUtensorMap* map, const void* ptr, int cols, int L, int heads,
               int rows) {
-  using C = Cfg<D>;
-  return hopper::make_map_bf16(map, ptr, D, L, heads, C::kChunkCols, rows,
+  using C = Cfg<DK, DV>;
+  return hopper::make_map_bf16(map, ptr, cols, L, heads, C::kChunkCols, rows,
                                C::kSwizzle);
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int B, int Hq, int Hkv, int Lq, int Lk,
                  int causal, float scale, cudaStream_t stream) {
@@ -367,17 +383,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (n_qt > 65535 || long(B) * Hq > 0x7fffffffL)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q_map, k_map, v_map;
-  if (!make_map<D>(&q_map, q, Lq, B * Hq, kRows) ||
-      !make_map<D>(&k_map, k, Lk, B * Hkv, kBK) ||
-      !make_map<D>(&v_map, v, Lk, B * Hkv, kBK))
+  if (!make_map<DK, DV>(&q_map, q, DK, Lq, B * Hq, kRows) ||
+      !make_map<DK, DV>(&k_map, k, DK, Lk, B * Hkv, kBK) ||
+      !make_map<DK, DV>(&v_map, v, DV, Lk, B * Hkv, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr uint32_t bytes = Cfg<D>::kSmem;
+  constexpr uint32_t bytes = Cfg<DK, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, n_qt), block(kThreadsWg);
-  flash_wgmma<D><<<grid, block, bytes, stream>>>(
+  flash_wgmma<DK, DV><<<grid, block, bytes, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Hq, Hkv,
       Lq, Lk, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -389,39 +405,39 @@ constexpr int kBQ = 64;
 constexpr int kThreads = 256;
 constexpr int kPad = kBK + 1;  // row length of the transposed tiles
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t smem_bytes_fp32() {
   return sizeof(float) *
-         (size_t(2) * D * kPad + size_t(kBK) * D + size_t(kBQ) * kPad);
+         (size_t(2) * DK * kPad + size_t(kBK) * DV + size_t(kBQ) * kPad);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ out,
            float* __restrict__ lse, int Hq, int Hkv, int Lq, int Lk,
            int causal, float scale) {
-  constexpr int C = D / 16;  // output columns per thread
+  constexpr int C = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
-  float* Qt = smem;                 // [D][kPad]: Qt[d][row]
-  float* Kt = Qt + D * kPad;        // [D][kPad]: Kt[d][key]
-  float* Vs = Kt + D * kPad;        // [kBK][D]
-  float* Ps = Vs + kBK * D;         // [kBQ][kPad]
+  float* Qt = smem;                 // [DK][kPad]: Qt[d][row]
+  float* Kt = Qt + DK * kPad;       // [DK][kPad]: Kt[d][key]
+  float* Vs = Kt + DK * kPad;       // [kBK][DV]
+  float* Ps = Vs + kBK * DV;        // [kBQ][kPad]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const float* qb = q + ((long(b) * Hq + h) * Lq) * D;
-  const float* kb = k + ((long(b) * Hkv + hk) * Lk) * D;
-  const float* vb = v + ((long(b) * Hkv + hk) * Lk) * D;
+  const float* qb = q + ((long(b) * Hq + h) * Lq) * DK;
+  const float* kb = k + ((long(b) * Hkv + hk) * Lk) * DK;
+  const float* vb = v + ((long(b) * Hkv + hk) * Lk) * DV;
   const int offset = Lk - Lq;  // q row r sits at key position r + offset
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
+  for (int idx = tid; idx < kBQ * DK; idx += kThreads) {
+    const int r = idx / DK, d = idx - r * DK;
     const int qr = q0 + r;
-    Qt[d * kPad + r] = qr < Lq ? qb[long(qr) * D + d] * scale : 0.f;
+    Qt[d * kPad + r] = qr < Lq ? qb[long(qr) * DK + d] * scale : 0.f;
   }
 
   float acc[4][C];
@@ -443,12 +459,15 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's Kt, Vs and Ps are consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, d = idx - r * D;
+    for (int idx = tid; idx < kBK * DK; idx += kThreads) {
+      const int r = idx / DK, d = idx - r * DK;
       const int kr = k0 + r;
-      const bool in = kr < Lk;
-      Kt[d * kPad + r] = in ? kb[long(kr) * D + d] : 0.f;
-      Vs[r * D + d] = in ? vb[long(kr) * D + d] : 0.f;
+      Kt[d * kPad + r] = kr < Lk ? kb[long(kr) * DK + d] : 0.f;
+    }
+    for (int idx = tid; idx < kBK * DV; idx += kThreads) {
+      const int r = idx / DV, d = idx - r * DV;
+      const int kr = k0 + r;
+      Vs[r * DV + d] = kr < Lk ? vb[long(kr) * DV + d] : 0.f;
     }
     __syncthreads();
 
@@ -458,7 +477,7 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = Qt[d * kPad + ty + 16 * i];
@@ -511,14 +530,14 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * kPad + kk];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float vv = Vs[kk * D + tx + 16 * c];
+        const float vv = Vs[kk * DV + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
       }
     }
   }
 
-  float* ob = out + ((long(b) * Hq + h) * Lq) * D;
+  float* ob = out + ((long(b) * Hq + h) * Lq) * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qr = q0 + ty + 16 * i;
@@ -526,38 +545,38 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      ob[long(qr) * D + tx + 16 * c] = acc[i][c] * inv;
+      ob[long(qr) * DV + tx + 16 * c] = acc[i][c] * inv;
     if (lse != nullptr && tx == 0)
       lse[(long(b) * Hq + h) * Lq + qr] = m_i[i] + logf(l_i[i]);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
                 float* lse, int B, int Hq, int Hkv, int Lq, int Lk,
                 int causal, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes_fp32<D>();
+  constexpr size_t bytes = smem_bytes_fp32<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fp32<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + kBQ - 1) / kBQ, Hq, B), block(kThreads);
-  flash_fp32<D><<<grid, block, bytes, stream>>>(
+  flash_fp32<DK, DV><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, Hkv,
       Lq, Lk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int causal,
            float scale, int dtype, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_fp32<D>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                          scale, stream);
-  return launch_wgmma<D>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                         scale, stream);
+    return launch_fp32<DK, DV>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                               scale, stream);
+  return launch_wgmma<DK, DV>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
+                              scale, stream);
 }
 
 }  // namespace
@@ -565,26 +584,21 @@ int launch(const void* q, const void* k, const void* v, void* out,
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int B, int Hq, int Hkv, int Lq, int Lk,
-                                      int D, int causal, float scale,
+                                      int D, int Dv, int causal, float scale,
                                       int dtype, cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
       (causal && Lq > Lk) || Hq > 65535 || B > 65535 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 32:
-      return launch<32>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                        scale, dtype, stream);
-    case 64:
-      return launch<64>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                        scale, dtype, stream);
-    case 128:
-      return launch<128>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                         scale, dtype, stream);
-    case 256:
-      return launch<256>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                         scale, dtype, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_FLASH_CASE(DK, DV)                                             \
+  if (D == DK && Dv == DV)                                                   \
+    return launch<DK, DV>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,     \
+                          scale, dtype, stream);
+  REPRO_FLASH_CASE(32, 32)
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(128, 128)
+  REPRO_FLASH_CASE(256, 256)
+  REPRO_FLASH_CASE(192, 128)
+#undef REPRO_FLASH_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,10 @@
 """Flash attention (prefill, GQA) and its backward: the CUDA kernels and
 their plain versions.
 
+The head dims are a pair: q and k share one, v and the output have their
+own.  The GQA models run equal dims; MLA (deepseek-v2-lite) runs a key
+of 192 (128 + 64 rope) and a value of 128 (:data:`HEAD_DIMS`).
+
 :func:`flash_attention` launches a kernel of ``csrc/flash_attention.cu``
 for CUDA tensors, which replaces the TPU kernel of the JAX package
 (``flash_attention_pallas``), and runs :func:`attention_plain` for CPU
@@ -34,8 +38,8 @@ from repro_torch.kernels.backend import (FLOAT_CODES, float_code, launch,
 from repro_torch.kernels.backend import sm_count as _sm_count
 from repro_torch.kernels.ref import attention_bwd_plain, attention_plain
 
-#: head dims the kernel is built for
-HEAD_DIMS = (32, 64, 128, 256)
+#: the (q and k, v) head-dim pairs the kernels are built for
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 
 #: keys of a dK/dV block and rows of a q tile in the bf16 backward
 BWD_TILE = 64
@@ -89,17 +93,17 @@ def bwd_plan(b: int, hq: int, hkv: int, lq: int, lk: int, d: int,
 
 def _check(q, k, v) -> int:
     """Raise unless the kernels take q, k, v; returns their type code."""
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError("q must be (B, Hq, Lq, D) and k, v one "
-                         "(B, Hkv, Lk, D) shape")
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError("q must be (B, Hq, Lq, D), k (B, Hkv, Lk, D) and "
+                         "v (B, Hkv, Lk, Dv)")
     b, hq, _, d = q.shape
     hkv = k.shape[1]
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          f"differ in batch or head dim, or Hq % Hkv != 0")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}; the kernel is built for "
-                         f"{HEAD_DIMS}")
+    if (d, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"head dims (D, Dv) = {(d, v.shape[3])}; the "
+                         f"kernel is built for {HEAD_DIMS}")
     return float_code(q, k, v)
 
 
@@ -108,10 +112,10 @@ def _forward(q, k, v, causal: bool, scale, with_lse: bool):
     each row's fp32 log-sum-exp (B, Hq, Lq) (else None)."""
     code = _check(q, k, v)
     b, hq, lq, d = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv, lk, d_v = k.shape[1], k.shape[2], v.shape[3]
     if causal and lq > lk:
         raise ValueError("causal attention needs Lq <= Lk")
-    out = torch.empty_like(q)
+    out = q.new_empty((b, hq, lq, d_v))
     if code == FLOAT_CODES[torch.bfloat16] and any(
             t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("bf16 attention reads its inputs by TMA, which "
@@ -124,7 +128,7 @@ def _forward(q, k, v, causal: bool, scale, with_lse: bool):
     launch("flash_attention", q.get_device(), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(),
            None if lse is None else lse.data_ptr(), b, hq, hkv, lq, lk, d,
-           int(causal), scale, code)
+           d_v, int(causal), scale, code)
     flash_attention.launches += 1
     return out, lse
 
@@ -154,10 +158,11 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Softmax attention of q (B, Hq, Lq, D) over k, v (B, Hkv, Lk, D),
-    query head ``h`` reading kv head ``h // (Hq // Hkv)``; causal rows
-    are the last Lq of Lk positions.  Returns (B, Hq, Lq, D) in q's
-    type.  CUDA tensors (contiguous, one type of fp32 / bf16, D in
+    """Softmax attention of q (B, Hq, Lq, D) over k (B, Hkv, Lk, D) and
+    v (B, Hkv, Lk, Dv), query head ``h`` reading kv head
+    ``h // (Hq // Hkv)``; causal rows are the last Lq of Lk positions;
+    ``scale`` defaults to D ** -0.5.  Returns (B, Hq, Lq, Dv) in q's
+    type.  CUDA tensors (contiguous, one type of fp32 / bf16, (D, Dv) in
     :data:`HEAD_DIMS`, any Lq <= Lk) launch the kernel and add one to
     ``flash_attention.launches``; under grad mode with an input that
     requires a gradient the result carries one, which
@@ -176,7 +181,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None):
     """(dq, dk, dv) of :func:`flash_attention` at q, k, v, whose rows'
     log-sum-exp the forward gave as ``lse`` (fp32 (B, Hq, Lq)), against
-    the output's gradient ``dout``; each in its input's type and shape.
+    the output's gradient ``dout`` (B, Hq, Lq, Dv); each in its input's
+    type and shape.
     CUDA tensors (as the forward takes them, all 16-byte aligned, ``dout``
     contiguous and of q's type) launch the backward kernel (dQ and each
     row's sum of P o dP in one pass, dK and dV in a second) and add one
@@ -187,13 +193,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_bwd_plain(q, k, v, dout, causal, scale)
     code = _check(q, k, v)
     b, hq, lq, d = q.shape
-    hkv, lk = k.shape[1], k.shape[2]
+    hkv, lk, d_v = k.shape[1], k.shape[2], v.shape[3]
     if causal and lq > lk:
         raise ValueError("causal attention needs Lq <= Lk")
     float_code(q, dout)
-    if dout.shape != q.shape:
+    if dout.shape != (b, hq, lq, d_v):
         raise ValueError(f"dout has shape {tuple(dout.shape)}, expected "
-                         f"q's {tuple(q.shape)}")
+                         f"the output's {(b, hq, lq, d_v)}")
     if (lse.shape != (b, hq, lq) or lse.dtype != torch.float32
             or not lse.is_contiguous()):
         raise ValueError(f"lse must be the forward's contiguous fp32 "
@@ -219,8 +225,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
            None if delta is None else delta.data_ptr(),
            None if scratch is None else scratch.data_ptr(), dq.data_ptr(),
-           dk.data_ptr(), dv.data_ptr(), b, hq, hkv, lq, lk, d, int(causal),
-           d ** -0.5 if scale is None else float(scale), splits, code)
+           dk.data_ptr(), dv.data_ptr(), b, hq, hkv, lq, lk, d, d_v,
+           int(causal), d ** -0.5 if scale is None else float(scale), splits,
+           code)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -47,10 +47,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """GQA softmax attention in fp32.
 
-    q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D) with Hq % Hkv == 0; query
-    head ``h`` reads kv head ``h // (Hq // Hkv)``.  Causal rows are the
-    last Lq positions of the Lk-long sequence (Lq <= Lk).  Returns
-    (B, Hq, Lq, D) in q's dtype."""
+    q: (B, Hq, Lq, D); k: (B, Hkv, Lk, D); v: (B, Hkv, Lk, Dv) (any Dv)
+    with Hq % Hkv == 0; query head ``h`` reads kv head
+    ``h // (Hq // Hkv)``.  Causal rows are the last Lq positions of the
+    Lk-long sequence (Lq <= Lk); ``scale`` defaults to D ** -0.5.
+    Returns (B, Hq, Lq, Dv) in q's dtype."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -119,10 +120,11 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """One-token GQA decode in fp32.
 
-    q: (B, Hq, D); caches: (B, Hkv, L, D); kv_len: (B,) valid lengths
-    (None: all L; a row of length 0 is NaN, the softmax of no key, as
-    in ``repro.kernels.ref.decode_attention_ref``).  Returns (B, Hq, D)
-    in q's dtype."""
+    q: (B, Hq, D); caches: keys (B, Hkv, L, D), values (B, Hkv, L, Dv)
+    (any Dv); kv_len: (B,) valid lengths (None: all L; a row of length 0
+    is NaN, the softmax of no key, as in
+    ``repro.kernels.ref.decode_attention_ref``).  Returns (B, Hq, Dv) in
+    q's dtype."""
     b, hq, d = q.shape
     hkv, lmax = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv

@@ -1,6 +1,7 @@
 """GQA / MQA self-attention with qk-norm, for prefill and cached decode,
-the encoder's bidirectional self-attention and cross-attention, with the
-JAX package's names (``repro.models.attention``).
+the encoder's bidirectional self-attention, cross-attention and
+DeepSeek-V2's multi-head latent attention (MLA), with the JAX package's
+names (``repro.models.attention``).
 
 Attention runs through the hand-written kernels (``kernels.ops``):
 
@@ -16,13 +17,23 @@ Attention runs through the hand-written kernels (``kernels.ops``):
 * cross-attention (``cross_attn_apply``): q from x, k/v from the context
   (encoder states or vision embeddings) or from the write-once cross
   cache; non-causal ``flash_attention`` with Lq != Lk for a prompt, and
-  ``decode_attention`` over the whole cross cache for one token.
+  ``decode_attention`` over the whole cross cache for one token;
+* MLA (``mla_apply``): a q head of nope + rope (192 at deepseek-v2-lite)
+  against a key of the latent's up-projection and one rope key shared by
+  every head, a value head of its own width (128); the latent ``c_kv``
+  and the shared rope key are what the cache keeps.  Each call expands
+  the latent into per-head k and v, as the reference does, and runs the
+  kernels at the (192, 128) head-dim pair with the scale
+  (nope + rope) ** -0.5: causal ``flash_attention`` for a prefill from an
+  empty cache and the cache-free forward, ``decode_attention`` over the
+  whole expanded cache (``kv_len = cache_len + 1``) for one token.
 
-The caches are head-major, ``(B, Hkv, Lmax, D)`` per layer (the JAX
-package keeps ``(B, Lmax, Hkv, D)``), so the decode kernel reads them
-without a copy, and they are updated in place.  A cached prefill at a
-non-zero offset is not on this path and raises, as does MLA (ROADMAP.md
-section 1, item 7(b)3).
+The GQA and cross caches are head-major, ``(B, Hkv, Lmax, D)`` per layer
+(the JAX package keeps ``(B, Lmax, Hkv, D)``), so the decode kernel reads
+them without a copy; MLA's latent caches have no head axis and keep the
+reference's ``(B, Lmax, rank)`` and ``(B, Lmax, rope)``.  Caches are
+updated in place.  A cached prefill at a non-zero offset is not on this
+path and raises (ROADMAP.md section 1, item 7(b)5).
 """
 
 from __future__ import annotations
@@ -79,6 +90,23 @@ def _head_major(x):
     return x.transpose(1, 2).contiguous()
 
 
+def _check_prefill_offset(cache, s: int, cache_len) -> None:
+    """A cached prefill (``s > 1``) must start from an empty cache."""
+    if (cache is not None and s > 1
+            and not (isinstance(cache_len, int) and cache_len == 0)):
+        raise NotImplementedError(
+            "a cached prefill at a non-zero offset is not ported "
+            "(ROADMAP.md section 1, item 7(b)5)")
+
+
+def _decode_lengths(cache_len, b: int, device):
+    """A decode step's (B,) int32 write positions (an int for a one-token
+    prompt)."""
+    if isinstance(cache_len, int):
+        return torch.full((b,), cache_len, dtype=torch.int32, device=device)
+    return cache_len
+
+
 def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
               cache_len=None):
     """Self-attention of x (B, s, d) at ``positions`` (1 or B, s).
@@ -91,11 +119,7 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
       Returns ``(y, (k, v))`` with the same cache tensors.
     """
     b, s, _ = x.shape
-    if (cache_kv is not None and s > 1
-            and not (isinstance(cache_len, int) and cache_len == 0)):
-        raise NotImplementedError(
-            "a cached prefill at a non-zero offset is not ported "
-            "(ROADMAP.md section 1, item 7(b)5)")
+    _check_prefill_offset(cache_kv, s, cache_len)
     hd = cfg.kv_head_dim()
     q, k, v = _project_qkv(p, cfg, x)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
@@ -115,9 +139,7 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
             new_cache = (ck, cv)
     else:
         ck, cv = cache_kv
-        if isinstance(cache_len, int):     # a one-token prompt
-            cache_len = torch.full((b,), cache_len, dtype=torch.int32,
-                                   device=x.device)
+        cache_len = _decode_lengths(cache_len, b, x.device)
         rows = torch.arange(b, device=x.device)
         ck[rows, :, cache_len] = k[:, 0]
         cv[rows, :, cache_len] = v[:, 0]
@@ -205,3 +227,93 @@ def cross_attn_apply(p, cfg: ModelConfig, x, context, cached_kv=None):
     y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
     gate = torch.tanh(p["gate"]).to(y.dtype)
     return y * gate, (k, v)
+
+
+# ------------------------------- MLA ---------------------------------
+
+def mla_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """DeepSeek-V2 multi-head latent attention with a full-rank q
+    projection (``q_lora_rank = 0``): the reference's leaves and shapes."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, d, h * qk_head, dtype, device),
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                            dtype, device),
+        "kv_norm": norm_init(m.kv_lora_rank, "rmsnorm", dtype, device),
+        "w_uk": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_head_dim,
+                           dtype, device),
+        "w_uv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, dtype,
+                           device),
+        "wo": dense_init(gen, h * m.v_head_dim, d, dtype, device),
+    }
+
+
+def _mla_expand(p, cfg: ModelConfig, c_kv, k_pe):
+    """The latent stream (B, T, rank) and shared rope key (B, T, rope) as
+    head-major k (B, H, T, nope + rope), the rope key broadcast over the
+    heads after each head's nope part, and v (B, H, T, v_head)."""
+    m = cfg.mla
+    b, t, _ = c_kv.shape
+    h = cfg.n_heads
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, t, h, m.qk_nope_head_dim)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        b, t, h, m.qk_rope_head_dim)], dim=-1)
+    v = (c_kv @ p["w_uv"]).reshape(b, t, h, m.v_head_dim)
+    return _head_major(k), _head_major(v)
+
+
+def mla_apply(p, cfg: ModelConfig, x, positions, cache_ckv=None,
+              cache_len=None):
+    """MLA of x (B, s, d) at ``positions`` (1 or B, s), softmax in fp32
+    at the scale (nope + rope) ** -0.5.
+
+    * ``cache_ckv is None``: causal attention over x alone; returns
+      ``(y, (c_kv, k_pe))``, the normed latent (B, s, rank) and the roped
+      shared key (B, s, rope).
+    * ``cache_ckv = (ckv, kpe)``, (B, Lmax, rank) and (B, Lmax, rope),
+      written in place: with ``s > 1`` a prefill, which needs
+      ``cache_len == 0`` (the int); with ``s == 1`` a decode step at the
+      (B,) positions ``cache_len``, over the whole cache expanded, keys
+      at positions < ``cache_len + 1``.  Returns ``(y, (ckv, kpe))`` with
+      the same cache tensors.
+    """
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    _check_prefill_offset(cache_ckv, s, cache_len)
+    q = (x @ p["w_dq"]).reshape(b, s, h, nope + rope)
+    dkv = x @ p["w_dkv"]
+    c_kv = norm_apply(p["kv_norm"], dkv[..., :rank].contiguous())
+    cos, sin = rope_angles(positions, rope, cfg.rope_theta)
+    q = torch.cat([q[..., :nope], rope_apply(q[..., nope:], cos, sin)],
+                  dim=-1)
+    k_pe = rope_apply(dkv[..., rank:], cos, sin)     # one head, shared
+    scale = (nope + rope) ** -0.5
+
+    if cache_ckv is None or s > 1:
+        k, v = _mla_expand(p, cfg, c_kv, k_pe)
+        out = ops.flash_attention(_head_major(q), k, v, causal=True,
+                                  scale=scale).transpose(1, 2)
+        if cache_ckv is None:
+            new_cache = (c_kv, k_pe)
+        else:
+            ckv, kpe = cache_ckv
+            ckv[:, :s] = c_kv
+            kpe[:, :s] = k_pe
+            new_cache = (ckv, kpe)
+    else:
+        ckv, kpe = cache_ckv
+        cache_len = _decode_lengths(cache_len, b, x.device)
+        rows = torch.arange(b, device=x.device)
+        ckv[rows, cache_len] = c_kv[:, 0]
+        kpe[rows, cache_len] = k_pe[:, 0]
+        k, v = _mla_expand(p, cfg, ckv, kpe)
+        out = ops.decode_attention(q[:, 0].contiguous(), k, v,
+                                   kv_len=cache_len + 1,
+                                   scale=scale)[:, None]
+        new_cache = (ckv, kpe)
+    y = out.reshape(b, s, h * m.v_head_dim) @ p["wo"]
+    return y, new_cache

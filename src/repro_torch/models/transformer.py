@@ -1,7 +1,9 @@
 """Config-driven model assembly in PyTorch, with the JAX package's names
 (``repro.models.transformer``), for the dense family - GQA / MQA
 attention with a GLU feed-forward (gemma, qwen3, yi, command-r's layer
-kind) -, the MoE feed-forward behind GQA attention (olmoe-1b-7b), RWKV6
+kind) -, the MoE feed-forward behind GQA attention (olmoe-1b-7b) or
+behind MLA (deepseek-v2-lite-16b: multi-head latent attention, its
+first layer dense at the MoE config's ``dense_d_ff``), RWKV6
 (an rwkv time-mix with a channel-mix, rwkv6-1.6b) and the two context
 families: llama-3.2-vision's cross-attention layers over vision
 embeddings, and whisper's encoder-decoder (a bidirectional encoder over
@@ -24,13 +26,15 @@ Superblocks run as a Python loop.  Modes:
 The attention cache is head-major, ``(n_super, B, Hkv, Lmax, D)`` per
 stacked layer; an rwkv layer caches its two token-shift vectors ``tm``
 and ``cm`` (B, d) and its fp32 WKV state ``wkv`` (B, H, dh, dh), whatever
-``max_len``; a cross layer caches the projected context as ``xk``/``xv``
+``max_len``; an MLA layer its latent ``ckv`` (B, Lmax, rank) and shared
+rope key ``kpe`` (B, Lmax, rope); a cross layer caches the projected
+context as ``xk``/``xv``
 (``enc_k``/``enc_v`` for whisper's cross sublayer), head-major
 ``(B, Hkv, ctx_len, D)``, written by a prefill with a context and read
 by every later step.  Prefill and decode update the cache in place.  An
 MoE layer's aux loss is summed over the layers into the training loss.
-MLA and mamba wait for their slices of the port (ROADMAP.md section 1,
-item 7(b)3-5).  On the card, training runs through the attention,
+Mamba waits for its slice of the port (ROADMAP.md section 1, item
+7(b)4).  On the card, training runs through the attention,
 RMSNorm and WKV kernels' backward kernels.
 """
 
@@ -54,7 +58,7 @@ from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
                                        norm_init, stack_layers, tree_leaves,
                                        tree_map)
 
-_TODO = "is not ported yet (ROADMAP.md section 1, item 7(b)3-5)"
+_TODO = "is not ported yet (ROADMAP.md section 1, item 7(b)4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +103,7 @@ def split_pattern(specs: list[LayerSpec]) -> tuple[int, int]:
 
 
 def _check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "rwkv", "cross"):
+    if spec.mixer not in ("attn", "mla", "rwkv", "cross"):
         raise NotImplementedError(f"the {spec.mixer!r} mixer {_TODO}")
 
 
@@ -115,6 +119,8 @@ def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
         p["mixer"] = rwkv_mod.rwkv_time_mix_init(gen, cfg, dtype, device)
     elif spec.mixer == "cross":
         p["mixer"] = attn.cross_attn_init(gen, cfg, dtype, device)
+    elif spec.mixer == "mla":
+        p["mixer"] = attn.mla_init(gen, cfg, dtype, device)
     else:
         p["mixer"] = attn.gqa_init(gen, cfg, dtype, device)
     if spec.cross:
@@ -141,8 +147,10 @@ def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
 
 def cache_init_layer(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, ctx_len: int, dtype, device) -> dict:
-    """Empty cache entry for one layer: head-major k/v for attention,
-    the token shifts and WKV state for rwkv, the ``ctx_len``-long
+    """Empty cache entry for one layer: head-major k/v for attention, the
+    latent ``ckv`` and rope key ``kpe`` for MLA (no head axis: the
+    reference's layout), the token shifts and WKV state for rwkv, the
+    ``ctx_len``-long
     projected context of a cross mixer (``xk``/``xv``) and of a cross
     sublayer (``enc_k``/``enc_v``)."""
     _check_spec(cfg, spec)
@@ -158,6 +166,12 @@ def cache_init_layer(cfg: ModelConfig, spec: LayerSpec, batch: int,
         c.update(tm=st.tm_shift, cm=st.cm_shift, wkv=st.wkv)
     elif spec.mixer == "cross":
         c["xk"], c["xv"] = kv(ctx_len)
+    elif spec.mixer == "mla":
+        m = cfg.mla
+        c["ckv"] = torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                               device=device)
+        c["kpe"] = torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                               dtype=dtype, device=device)
     else:
         c["k"], c["v"] = kv(max_len)
     if spec.cross:
@@ -197,6 +211,12 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
             new_cache["wkv"] = cache["wkv"].copy_(wkv_out)
     elif spec.mixer == "cross":
         y = _cross(p["mixer"], cfg, h, context, cache, ("xk", "xv"))
+    elif spec.mixer == "mla":
+        ckv = (cache["ckv"], cache["kpe"]) if build else None
+        y, kv_out = attn.mla_apply(p["mixer"], cfg, h, positions,
+                                   cache_ckv=ckv, cache_len=cache_len)
+        if build:
+            new_cache["ckv"], new_cache["kpe"] = kv_out
     else:
         kv = (cache["k"], cache["v"]) if build else None
         y, kv_out = attn.gqa_apply(p["mixer"], cfg, h, positions,

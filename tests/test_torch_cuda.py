@@ -1535,3 +1535,169 @@ def test_context_model_on_the_card_equals_the_cpu(gen, arch):
     got, exp = out["cuda"][0], out["cpu"][0]
     assert float((got - exp).abs().max()) <= 1e-4 * float(exp.abs().max())
     assert torch.equal(got.argmax(-1), exp.argmax(-1))
+
+
+# --- MLA's head-dim pair: a q / k head of 192 (128 + 64 rope) and a v head
+# --- of 128 (deepseek-v2-lite), forward, backward and decode, each at the
+# --- gates of its equal-dim instances
+
+MLA = (192, 128)
+
+
+def _pair_inputs(gen, b, hq, hkv, lq, lk, dtype):
+    dk, dv = MLA
+    return (_normal(gen, b, hq, lq, dk, dtype=dtype),
+            _normal(gen, b, hkv, lk, dk, dtype=dtype),
+            _normal(gen, b, hkv, lk, dv, dtype=dtype))
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk", [
+    (1, 2, 2, 1, 1),          # one row, one key
+    (2, 16, 16, 70, 70),      # deepseek's heads, ragged tails
+    (1, 4, 2, 33, 130),       # Lq < Lk, group 2
+    (2, 2, 2, 128, 128),      # whole tiles
+    (1, 16, 16, 1000, 1000),  # 8 q blocks, 16 key tiles round the ring
+    (2, 4, 4, 200, 777),      # Lq < Lk, both ragged
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_pair_equals_plain(gen, b, hq, hkv, lq, lk,
+                                               dtype):
+    """The (192, 128) instance, causal and not, at MLA's scale: fp32
+    within 1e-5, bf16 within 1e-2 and the row gate; the output is 128
+    wide."""
+    q, k, v = _pair_inputs(gen, b, hq, hkv, lq, lk, dtype)
+    for causal in (True, False):
+        launches = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal, scale=192 ** -0.5)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == launches + 1
+        assert got.shape == (b, hq, lq, MLA[1])
+        exp = attention_plain(q, k, v, causal=causal, scale=192 ** -0.5)
+        _close(got, exp, dtype, 1e-2)
+        if dtype == torch.bfloat16:
+            assert _bf16_row_err(got, exp) <= 1.0, causal
+
+
+def test_flash_attention_mla_pair_repeated_launches_agree(gen):
+    """Causal bf16 at deepseek's heads over 2048 tokens, 60 launches:
+    every output passes the row gate and equals the first bit for bit (the
+    4-stage K/V ring shared by two warpgroups)."""
+    q, k, v = _pair_inputs(gen, 1, 16, 16, 2048, 2048, torch.bfloat16)
+    exp = attention_plain(q, k, v, causal=True)
+    first = flash_attention(q, k, v, causal=True)
+    for i in range(60):
+        got = flash_attention(q, k, v, causal=True) if i else first
+        assert _bf16_row_err(got, exp) <= 1.0, i
+        assert torch.equal(got, first), i
+
+
+def _pair_grads(gen, b, hq, hkv, lq, lk, dtype, causal=True):
+    from repro_torch.kernels.ref import attention_bwd_plain
+    q, k, v = _pair_inputs(gen, b, hq, hkv, lq, lk, dtype)
+    dout = _normal(gen, b, hq, lq, MLA[1], dtype=dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_bwd.launches == bwd + 1
+    return got, attention_bwd_plain(q, k, v, dout, causal=causal), (
+        q, k, v, dout)
+
+
+@pytest.mark.parametrize("hq,hkv,lq,lk,dtype", [
+    (hq, hkv, lq, lk, dtype)
+    for hq, hkv in ((2, 2), (4, 2), (16, 16))
+    for lq, lk in ((64, 64), (100, 100), (37, 130))
+    for dtype in (torch.float32, torch.bfloat16)]
+    + [(16, 16, 2049, 2049, torch.bfloat16)])
+def test_flash_attention_bwd_mla_pair_equals_plain(gen, hq, hkv, lq, lk,
+                                                   dtype):
+    """dq (192 wide), dk (192) and dv (128) through the autograd route
+    against autograd of the plain version, causal and not: groups 1 and
+    2, whole and ragged tiles, Lq < Lk, and at deepseek's heads one past
+    a 64-key tile."""
+    for causal in (True, False):
+        got, exp, _ = _pair_grads(gen, 1, hq, hkv, lq, lk, dtype, causal)
+        for name, g, e in zip("qkv", got, exp):
+            _grad_gate(g, e, f"d{name}, causal {causal}")
+
+
+def test_flash_attention_bwd_mla_pair_repeats_bit_equal(gen):
+    """deepseek-v2-lite's training shape (4, 16, 16, 2048): the backward
+    launched 50 times more, dq, dk, dv equal to the first bit for bit (no
+    atomics; group 1 never splits its heads)."""
+    from repro_torch.kernels import flash_attention as fa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fa.bwd_plan(4, 16, 16, 2048, 2048, 192, sms).head_splits == 1
+    first, exp, (q, k, v, dout) = _pair_grads(gen, 4, 16, 16, 2048, 2048,
+                                              torch.bfloat16)
+    for name, g, e in zip("qkv", first, exp):
+        _grad_gate(g, e, f"d{name}")
+    _, lse = _lse(q, k, v)
+    for i in range(50):
+        again = flash_attention_bwd(q, k, v, dout, lse)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
+@pytest.mark.parametrize("b,hq,hkv,L", [
+    (4, 16, 16, 6176),        # deepseek's batched decode
+    (3, 4, 4, 100),           # ragged cache
+    (2, 2, 2, 1),             # one key
+    (1, 8, 4, 257),           # group 2
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_mla_pair_equals_plain(gen, b, hq, hkv, L, dtype):
+    """One token over a 192-wide key cache and a 128-wide value cache at
+    MLA's scale, ragged kv_len (1, a split boundary, L) and None."""
+    dk, dv = MLA
+    q = _normal(gen, b, hq, dk, dtype=dtype)
+    kc = _normal(gen, b, hkv, L, dk, dtype=dtype)
+    vc = _normal(gen, b, hkv, L, dv, dtype=dtype)
+    lens = torch.randint(1, L + 1, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    edges = [torch.full((b,), n, dtype=torch.int32, device="cuda")
+             for n in sorted({1, min(64, L), min(65, L), L})]
+    for kv_len in [None, lens] + edges:
+        launches = decode_attention.launches
+        got = decode_attention(q, kc, vc, kv_len, scale=dk ** -0.5)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == launches + 1
+        assert got.shape == (b, hq, dv)
+        exp = decode_attention_plain(q, kc, vc, kv_len, scale=dk ** -0.5)
+        _close(got, exp, dtype, 1e-2)
+        if dtype == torch.bfloat16:
+            assert _bf16_row_err(got, exp) <= 1.0
+
+
+def test_decode_attention_mla_pair_repeated_launches_agree(gen):
+    dk, dv = MLA
+    q = _normal(gen, 4, 16, dk, dtype=torch.bfloat16)
+    kc = _normal(gen, 4, 16, 6176, dk, dtype=torch.bfloat16)
+    vc = _normal(gen, 4, 16, 6176, dv, dtype=torch.bfloat16)
+    lens = torch.tensor([6145, 6150, 6176, 6160], dtype=torch.int32,
+                        device="cuda")
+    first = decode_attention(q, kc, vc, lens)
+    for i in range(50):
+        assert torch.equal(decode_attention(q, kc, vc, lens), first), i
+
+
+def test_unlisted_head_dim_pairs_raise_on_the_card(gen):
+    """A pair the kernels are not built for, (192, 64), raises on CUDA
+    tensors (no launch, no plain version), forward, backward and decode."""
+    q = _normal(gen, 1, 2, 70, 192, dtype=torch.bfloat16)
+    k = _normal(gen, 1, 2, 70, 192, dtype=torch.bfloat16)
+    v = _normal(gen, 1, 2, 70, 64, dtype=torch.bfloat16)
+    before = (flash_attention.launches, flash_attention_bwd.launches,
+              decode_attention.launches)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, v)
+    lse = torch.zeros((1, 2, 70), device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_bwd(q, k, v, _normal(gen, 1, 2, 70, 64,
+                                             dtype=torch.bfloat16), lse)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention(q[:, :, 0].contiguous(), k, v)
+    assert before == (flash_attention.launches, flash_attention_bwd.launches,
+                      decode_attention.launches)

@@ -280,5 +280,3 @@ def test_unported_paths_raise():
     assert torch.equal(plain, with_ctx)
     with pytest.raises(NotImplementedError, match="mamba"):
         ttf.init_params(t_smoke("jamba-1.5-large-398b"), device="meta")
-    with pytest.raises(NotImplementedError, match="'mla' mixer"):
-        ttf.init_params(t_smoke("deepseek-v2-lite-16b"), device="meta")
