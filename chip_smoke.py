@@ -5,12 +5,13 @@
 
 Phases, each printing JSON lines:
 
-1. build   - compiles the nine CUDA kernels from
+1. build   - compiles the thirteen CUDA kernels from
              ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a into
              ``build/repro_torch_kernels/``, one nvcc per source, all at
              once; prints each entry's registers, shared memory and
              spills (none allowed in the entries of ``NO_SPILL``, the WKV
-             scan, both ticks and the three backward kernels, or in the bf16
+             scan, both ticks, Mamba's conv and scan and the five
+             backward kernels, or in the bf16
              wgmma flash kernel at any head dim) and, where ``cuobjdump`` is
              installed, the tensor-core (HGMMA) instructions of the
              machine code of flash and of its backward (at least one
@@ -69,7 +70,16 @@ Phases, each printing JSON lines:
              bit for bit, y in fp32 within 1e-5 of the rms of its head's
              output and in bf16 within one bf16 ulp plus 2**-10 of its
              row's rms; no PyTorch call computes the recurrence, so it has
-             no library time.
+             no library time.  Mamba's causal conv and selective scan at
+             jamba-1.5-large-398b's serving shapes (the batched and the
+             agents' 6144-step prefills at d_inner 16384, the conv reading
+             the x half of the input projection through its row stride;
+             a decode step from a state), a ragged (2, 333, 384) one in
+             both types and the smoke config's: the conv bit for bit or
+             within one ulp of its type (its new state bit for bit), the
+             scan's y and state within 1e-5 of their rms, each beside its
+             bound, the scan also beside its MUFU floor, the conv beside
+             ``F.conv1d`` + ``F.silu``.
 3. scenarios - first the committed goldens on the threefry stream in
              legacy mode: ``tests/golden/scenarios.json`` exactly, then the
              zoo and content goldens with a count of the runs that differ
@@ -85,7 +95,8 @@ Phases, each printing JSON lines:
              access_count at 1024 runs per family without content.
 5. service - the live coherence service on the card: the JAX package's
              service bench grid (32 clients, 6 artifacts of 4096 tokens,
-             40 lockstep rounds, lazy) for each of the seven families
+             lazy; its 40 lockstep rounds cut to 20) for each of the seven
+             families
              (``uniform`` = zipf with skew 0 at V = 0.10) through brokers
              on both decision routes, with and without 64-token chunks,
              plus eager and access_count (k = 3) on ``bursty`` (kernel
@@ -187,7 +198,18 @@ Phases, each printing JSON lines:
              and the flips counted, each layer's
              share (its dense first layer an unstacked prefix) within
              1e-2, and what expanding the latent cache costs a decode
-             step (``mla_expansion``).
+             step (``mla_expansion``).  Then ``serve_jamba``,
+             jamba-1.5-large-398b at its published width cut to its first
+             5 layers (Mamba at 0-3 with d_inner 16384 and d_state 16,
+             attention at 4 with 64 heads and 8 KV heads of 128, the MoE's
+             16 experts top 2 of width 24576 at 1 and 3, dense GLUs of
+             24576, vocab 65536; 24.05 B), every ``conv_b`` drawn as
+             0.1 N(0, 1) and ``d_skip`` as 1 + 0.3 N(0, 1): 11 rmsnorm, 4
+             causal_conv1d and 4 selective_scan per forward, 1
+             flash_attention per prefill, 1 decode_attention per step,
+             gemma-2b's gates with the plain route on the kernel route's
+             experts and the flips counted, each layer's share within
+             1e-2.
 8. train   - training of gemma-2b and of rwkv6-1.6b at their registered
              widths (random weights from ``SEED``, bf16, 2.51 B / 1.60 B
              parameters) on 4 x 2048-token batches of the port's
@@ -214,6 +236,12 @@ Phases, each printing JSON lines:
              the dense feed-forward at 10944, 0.50 B): 7 rmsnorm, 4
              rmsnorm_bwd, 2 flash_attention and 1 flash_attention_bwd a
              step, every MLA leaf's gradient non-zero.  Then
+             jamba-1.5-large-398b cut to its first layer (``TRAIN_JAMBA``:
+             Mamba and the dense feed-forward at 24576, 2.10 B): 5
+             rmsnorm, 3 rmsnorm_bwd, 2 causal_conv1d, 1
+             causal_conv1d_bwd, 2 selective_scan (one recomputed, each
+             writing its state every 8 steps) and 1 selective_scan_bwd a
+             step, every Mamba leaf's gradient non-zero (9 of 9).  Then
              ``run_training`` on the card at
              qwen3-1.7b's smoke config, crashed at step 25 and resumed
              from 20 with the uninterrupted run's losses, and the training
@@ -247,7 +275,15 @@ Phases, each printing JSON lines:
              outputs at most du's B * H * dh float partials plus 1 MiB,
              beside its bound, its issue floor and the plain version (no
              library call computes it), with the checkpointing forward
-             timed against the serving launch.
+             timed against the serving launch; and Mamba's two backward
+             kernels at jamba-1.5-large-398b's training shape (4, 2048,
+             16384, 16; the conv in bf16) and a ragged fp32 one, the
+             scan's from the checkpoints of the forward as training
+             launches it (which equals the serving launch bit for bit)
+             and its device memory beyond its inputs and outputs at most
+             its stated scratch plus 1 MiB, each beside its bound and the
+             plain version, the conv's beside autograd of ``F.conv1d`` +
+             ``F.silu``, 50 more launches bit-equal.
 9. the ``kernels`` line, the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
 
@@ -259,8 +295,8 @@ times them alone at rwkv6-1.6b's training shape in turns
 for the RMSNorm backward at its two training shapes in both cast
 orders, with each launch's device time (:func:`rmsnorm_bwd_turns`).
 
-Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving, six
-cells) and 8 (training, four cells) are the main paths; each path's kernels' launch counts are
+Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving, seven
+cells) and 8 (training, five cells) are the main paths; each path's kernels' launch counts are
 set to 0 just before it and read just after.  Any failed check raises,
 and the script then exits non-zero.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no
@@ -329,7 +365,8 @@ SPIN_CYCLES = 10_000_000
 REPEATS = 50
 #: kernels none of whose entries may spill registers (the build phase)
 NO_SPILL = ("rwkv6_scan", "mesi_tick", "chunk_tick", "flash_attention_bwd",
-            "rmsnorm_bwd", "rwkv6_scan_bwd")
+            "rmsnorm_bwd", "rwkv6_scan_bwd", "causal_conv1d",
+            "causal_conv1d_bwd", "selective_scan", "selective_scan_bwd")
 #: fp32 lanes of an SM on Hopper (the issue floor of the WKV scan)
 FP32_LANES_PER_SM = 128
 #: host-time samples of each piece of a wrapper call (``host_split``)
@@ -359,12 +396,27 @@ REPLACES = {
     "rwkv6_scan_bwd": ("src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
                        "src/repro/models/rwkv6.py:142 rwkv_time_mix_apply's "
                        "chunked scan of _wkv_step (jax.grad)"),
+    # Mamba has no Pallas kernel in the JAX package: these replace its
+    # plain JAX conv and chunked scan, and jax.grad of each
+    "causal_conv1d": ("src/repro_torch/kernels/csrc/causal_conv1d.cu",
+                      "src/repro/models/mamba.py:65 _conv1d_causal"),
+    "causal_conv1d_bwd": ("src/repro_torch/kernels/csrc/causal_conv1d_bwd.cu",
+                          "src/repro/models/mamba.py:65 _conv1d_causal "
+                          "(jax.grad)"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/models/mamba.py:116 mamba_apply's chunked "
+                       "scan of _ssm_step and its skip"),
+    "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+                           "src/repro/models/mamba.py:116 mamba_apply's "
+                           "chunked scan of _ssm_step (jax.grad)"),
 }
 #: the service cell of phase 5: the JAX package's service bench grid
 #: (``benchmarks/service_bench.py``): 32 clients, 6 artifacts of 4096
-#: tokens, 40 lockstep rounds, lazy; the content plane's brokers cut the
-#: artifacts into 64-token chunks
-SERVICE = dict(clients=32, artifacts=6, artifact_tokens=4096, rounds=40,
+#: tokens, lazy, its 40 lockstep rounds halved to 20 (the run's depth cut
+#: so that the hybrid family's phases fit the time limit; every gate is
+#: kept); the content plane's brokers cut the artifacts into 64-token
+#: chunks
+SERVICE = dict(clients=32, artifacts=6, artifact_tokens=4096, rounds=20,
                strategy="lazy", chunk_tokens=64)
 #: the service's workload families and their seeds (the bench's)
 SERVICE_FAMILIES = ("uniform", "bursty", "zipf", "hierarchical", "rag",
@@ -403,11 +455,19 @@ SERVE_VLM = dict(SERVE, arch="llama-3.2-vision-90b", n_layers=10)
 #: of width 1408 with 2 shared, the first layer dense at 10944, vocab
 #: 102400, bf16, 15.71 B), the MoE at its capacity factor 1.25
 SERVE_DEEPSEEK = dict(SERVE, arch="deepseek-v2-lite-16b")
+#: the hybrid family's serving cell: jamba-1.5-large-398b at its registered
+#: width (d 8192, 64 heads with 8 KV heads of 128, Mamba with d_inner 16384,
+#: d_state 16, d_conv 4, dt_rank 512; the MoE's 16 experts top 2 of width
+#: 24576 on the odd layers, the rest dense at 24576; vocab 65536, bf16)
+#: cut to its first ``n_layers`` 5 (Mamba at 0-3, attention at 4, MoE at
+#: 1 and 3: 24.05 B of its 398.6 B, which do not fit 80 GB)
+SERVE_JAMBA = dict(SERVE, arch="jamba-1.5-large-398b", n_layers=5)
 #: each serving workload's phase name, by arch
 SERVE_PHASES = {"gemma-2b": "serve", "rwkv6-1.6b": "serve_rwkv",
                 "olmoe-1b-7b": "serve_moe", "whisper-medium": "serve_whisper",
                 "llama-3.2-vision-90b": "serve_vlm",
-                "deepseek-v2-lite-16b": "serve_deepseek"}
+                "deepseek-v2-lite-16b": "serve_deepseek",
+                "jamba-1.5-large-398b": "serve_jamba"}
 #: every cross-attention gate is set to this after the init (tanh 0.76):
 #: the reference draws it 0, and tanh(0) = 0 multiplies the context away;
 #: the layernorm scales are drawn as 1 + 0.3 N(0, 1) and every bias as
@@ -443,6 +503,10 @@ TRAIN_WHISPER = dict(TRAIN, arch="whisper-medium", seq_len=1024, frames=4096)
 #: MLA and the dense feed-forward at ``dense_d_ff`` 10944 (0.50 B), so the
 #: route check meets no routing near-tie; 4 x 2048 tokens
 TRAIN_DEEPSEEK = dict(TRAIN, arch="deepseek-v2-lite-16b", n_layers=1)
+#: jamba-1.5-large-398b at its registered width cut to its first layer:
+#: Mamba and the dense feed-forward at ``dense_d_ff`` 24576 (2.10 B, half
+#: of it the untied embedding and head); 4 x 2048 tokens
+TRAIN_JAMBA = dict(TRAIN, arch="jamba-1.5-large-398b", n_layers=1)
 TRAIN_LOOP = dict(arch="qwen3-1.7b", steps=40, every=10, crash_at=25)
 #: MLA's (q and k, v) head-dim pair: deepseek-v2-lite's 128 + 64 rope, 128
 MLA_DIMS = (192, 128)
@@ -541,7 +605,8 @@ TRAIN_LOSS_REL = 1e-4
 ZERO_GRAD_LEAVES = {"/encoder/blocks/mixer/bk": "/encoder/blocks/mixer/bq"}
 ZERO_LEAF_SHARE = 1e-2
 TRAIN_GRAD_REL_L2 = {"gemma-2b": 2e-2, "rwkv6-1.6b": 9e-2,
-                     "whisper-medium": 2e-2, "deepseek-v2-lite-16b": 2e-2}
+                     "whisper-medium": 2e-2, "deepseek-v2-lite-16b": 2e-2,
+                     "jamba-1.5-large-398b": 2e-2}
 #: the same first step of rwkv6-1.6b at its registered width in fp32 (a
 #: batch of 1 x 1024 tokens) on both routes: every gradient leaf within
 #: this relative L2 (reading 2.3e-5: the fp32 kernels sum in other
@@ -591,7 +656,8 @@ LOGITS_REL_L2 = {"gemma-2b": (2e-2, 2.5e-2), "rwkv6-1.6b": (4.5e-2, 5e-2),
                  "olmoe-1b-7b": (2e-2, 2.5e-2),
                  "whisper-medium": (2e-2, 2.5e-2),
                  "llama-3.2-vision-90b": (2e-2, 2.5e-2),
-                 "deepseek-v2-lite-16b": (2.5e-2, 3e-2)}
+                 "deepseek-v2-lite-16b": (2.5e-2, 3e-2),
+                 "jamba-1.5-large-398b": (2e-2, 2.5e-2)}
 #: relative L2 error allowed for one layer's own share of the routes'
 #: distance (``layer_divergence``'s ``local``; readings at most 0.0015 on
 #: gemma-2b and 0.0037 on rwkv6-1.6b)
@@ -1076,12 +1142,21 @@ def serving_system(serve=SERVE):
 BIAS_LEAVES = ("bias", "bq", "bk", "bv", "bo", "b_in", "b_out")
 
 
+def needs_awake(cfg) -> bool:
+    """Whether a model's init hides a fault that ``awake_params`` shows:
+    the context families' gates and layernorms, Mamba's conv bias and
+    skip."""
+    return cfg.family in ("vlm", "audio") or cfg.mamba is not None
+
+
 def awake_params(params, cfg) -> dict:
-    """Moves the leaves whose init hides a fault of the context path, in
-    place: every cross-attention ``gate`` to ``CROSS_GATE``, and in a
-    layernorm model every norm scale to 1 + 0.3 N(0, 1) and every bias to
-    0.1 N(0, 1), drawn from ``SEED`` on the params' device.  Returns what
-    it set, for the phase's line."""
+    """Moves the leaves whose init hides a fault of the context path or
+    of Mamba's kernels, in place: every cross-attention ``gate`` to
+    ``CROSS_GATE``; in a layernorm model every norm scale to 1 + 0.3 N(0,
+    1) and every bias to 0.1 N(0, 1); every Mamba ``conv_b`` (init 0: a
+    conv that dropped its bias would pass) to 0.1 N(0, 1) and ``d_skip``
+    (init 1) to 1 + 0.3 N(0, 1), drawn from ``SEED`` on the params'
+    device.  Returns what it set, for the phase's line."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     moved = collections.Counter()
@@ -1101,11 +1176,21 @@ def awake_params(params, cfg) -> dict:
                 leaf.copy_(0.1 * torch.randn(leaf.shape, generator=gen,
                                              device=leaf.device))
                 moved["biases"] += 1
+            elif key == "conv_b":
+                leaf.copy_(0.1 * torch.randn(leaf.shape, generator=gen,
+                                             device=leaf.device))
+                moved["conv_b"] += 1
+            elif key == "d_skip":
+                leaf.copy_(1.0 + 0.3 * torch.randn(
+                    leaf.shape, generator=gen, device=leaf.device))
+                moved["d_skip"] += 1
 
     walk(params)
     return {"cross_gate": CROSS_GATE, "tanh_gate": math.tanh(CROSS_GATE),
             "gates_set": moved["gates"], "scale_leaves_drawn":
-            moved["scales"], "bias_leaves_drawn": moved["biases"]}
+            moved["scales"], "bias_leaves_drawn": moved["biases"],
+            "conv_b_leaves_drawn": moved["conv_b"],
+            "d_skip_leaves_drawn": moved["d_skip"]}
 
 
 def cell_context(cfg, batch: int, length: int, seed: int):
@@ -1507,13 +1592,16 @@ def phase_model_kernels(card: str, rate: float, flops: float,
             results["decode_attention"] = row
     results["rwkv6_scan"], wkv_repeats = check_rwkv6_scan(
         card, rate, fp32_flops, gen, P, L1)
+    mamba_rows, mamba_repeats = check_mamba_kernels(card, rate, fp32_flops,
+                                                    gen, P, L1)
+    results.update(mamba_rows)
     host_split(card)
 
-    # bf16 flash attention, flash decode and the WKV scan launched again
-    # at each shape, after every timing (a burst of launches slows the
-    # kernel timed right after it), each output equal to the first of the
-    # same inputs
-    check_repeats(card, repeat_cases + wkv_repeats)
+    # bf16 flash attention, flash decode, the WKV scan and Mamba's conv and
+    # scan launched again at each shape, after every timing (a burst of
+    # launches slows the kernel timed right after it), each output equal
+    # to the first of the same inputs
+    check_repeats(card, repeat_cases + wkv_repeats + mamba_repeats)
     return results
 
 
@@ -1783,6 +1871,172 @@ def check_rwkv6_scan(card: str, rate: float, fp32_flops: float, gen,
         if label == "batched prefill":
             result = row
     return result, repeats
+
+
+#: MUFU (``ex2``) results an SM issues a clock on Hopper: the selective
+#: scan's issue floor is its exponentials at this rate
+MUFU_PER_SM = 16
+#: fp32 operations per element of the causal conv (four products, four
+#: sums with the bias, SiLU's exp, add and divide) and of its backward
+#: (the pre-activation again, SiLU's derivative, dx's four products and
+#: sums, dw's and db's five multiply-adds); per state element a step of
+#: the selective scan (dt a, dt b, times x, E h, the sum, y's FMA: 7, and
+#: the exp counted as one) and of its backward (the forward's state again
+#: and the reverse step's sixteen)
+CONV_FLOPS, CONV_BWD_FLOPS = 11, 32
+SCAN_FLOPS, SCAN_BWD_FLOPS = 8, 8 + 16
+
+
+def mamba_shapes(P: int, L1: int) -> tuple:
+    """The Mamba kernels' cases of phase ``kernels`` (label, b, t, d_inner,
+    d_state, dtype name, with a state): jamba-1.5-large-398b's serving path
+    (the batched prefill of P steps, one agent's of L1, a decode step from
+    a state) and a ragged shape (d_inner 384, no power of two) in both
+    types, and the smoke config's."""
+    from repro_torch.configs import get
+    m = get(SERVE_JAMBA["arch"])
+    d, n = m.mamba.expand * m.d_model, m.mamba.d_state
+    B = SERVE_JAMBA["agents"]
+    return (("batched prefill", B, P, d, n, "bfloat16", False),
+            ("agent prefill", 1, L1, d, n, "bfloat16", False),
+            ("decode", B, 1, d, n, "bfloat16", True),
+            ("ragged fp32", 2, 333, 384, 16, "float32", True),
+            ("ragged bf16", 2, 333, 384, 16, "bfloat16", True),
+            ("smoke fp32", 2, 64, 256, 8, "float32", False))
+
+
+def mamba_inputs(gen, b: int, t: int, d: int, n: int, dtype, state: bool):
+    """The conv's (x the x half of an input projection, row stride 2d;
+    weights; a bias off its init, 0.1 N(0, 1); a state or None) and the
+    scan's inputs (dt as the model makes it, softplus around its bias's
+    init; a = -(1..n) scaled by exp(0.3 N(0, 1)); b, c, x N(0, 1); d_skip
+    1 + 0.3 N(0, 1); an fp32 state or None)."""
+    import torch
+    import torch.nn.functional as F
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    xz = normal(b, t, 2 * d).to(dtype)
+    conv = (xz[..., :d], (0.3 * normal(4, d)).to(dtype),
+            (0.1 * normal(d)).to(dtype),
+            normal(b, 3, d).to(dtype) if state else None)
+    scan = (F.softplus(normal(b, t, d) - 3.0),
+            -torch.exp(0.3 * normal(d, n)) * torch.arange(1, n + 1,
+                                                           device="cuda"),
+            normal(b, t, n), normal(b, t, n), normal(b, t, d),
+            1 + 0.3 * normal(d), 0.5 * normal(b, d, n) if state else None)
+    return conv, scan
+
+
+def conv_library(x, weight, bias):
+    """The yardstick of the causal conv: ``F.conv1d`` (depthwise, padded
+    by 3 on the left's behalf) and ``F.silu``, one PyTorch call each, on
+    the (B, D, T) view of x, the result viewed back as (B, T, D)."""
+    import torch.nn.functional as F
+    t, d = x.shape[1], x.shape[2]
+    return F.silu(F.conv1d(x.transpose(1, 2), weight.t()[:, None, :], bias,
+                           padding=weight.shape[0] - 1,
+                           groups=d)[..., :t]).transpose(1, 2)
+
+
+def check_mamba_kernels(card: str, rate: float, fp32_flops: float, gen,
+                        P: int, L1: int) -> tuple:
+    """Mamba's two forward kernels against their plain versions at
+    ``mamba_shapes``: the causal conv's output bit for bit or within one
+    ulp of its type (the share of differing elements printed) and its new
+    state bit for bit; the selective scan's y and final state within 1e-5
+    of their rms (whether the state is bit-equal printed).  Each timed
+    alone and through its wrapper beside its bound, the plain version and
+    the library yardstick (the conv's ``conv_library`` without a state;
+    none computes the scan), the scan also beside its issue floor (its
+    exponentials at ``MUFU_PER_SM`` an SM a clock at the card's highest
+    SM clock).  Returns the batched prefill's rows and the cases for
+    ``check_repeats``."""
+    import torch
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_plain)
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_plain)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    results, repeats = {}, []
+
+    def size(*ts):
+        return sum(v.numel() * v.element_size() for v in ts if v is not None)
+
+    for label, b, t, d, n, name, state in mamba_shapes(P, L1):
+        dtype = getattr(torch, name)
+        conv, scan = mamba_inputs(gen, b, t, d, n, dtype, state)
+        out, new = causal_conv1d(*conv)
+        torch.cuda.synchronize()
+        eo, en = causal_conv1d_plain(*conv)
+        check(torch.equal(new, en), f"causal_conv1d new state == plain bit "
+              f"for bit ({label})")
+        ulps = bf16_ulps(out, eo) if dtype == torch.bfloat16 else float(
+            ((out - eo).abs() / torch.ldexp(torch.ones_like(eo), torch.frexp(
+                eo).exponent - 24)).max())
+        check(ulps <= 1.0, f"causal_conv1d ({label}) within one ulp of its "
+              f"plain version ({ulps})")
+        make = lambda: conv   # noqa: E731
+        dev_ms, host_ms = device_ms(causal_conv1d, make, 10)
+        x = conv[0]
+        bytes_ms = (2 * x.numel() * x.element_size() + size(*conv[1:])
+                    + size(new)) / rate * 1e3
+        ops_ms = CONV_FLOPS * x.numel() / fp32_flops * 1e3
+        row = {"phase": "kernels", "kernel": "causal_conv1d", "case": label,
+               "shape": [b, t, d], "dtype": name, "initial_state": state,
+               "x_row_stride": x.stride(1), "state_equal": True,
+               "bit_equal": bool(torch.equal(out, eo)),
+               "differing_share": float((out != eo).float().mean()),
+               "max_abs_err": float((out.float() - eo.float()).abs().max()),
+               "max_ulps": ulps,
+               "ms": median_ms(causal_conv1d, make, 10),
+               "device_ms": dev_ms, "host_ms": host_ms,
+               "plain_ms": median_ms(causal_conv1d_plain, make, 3),
+               "library_ms": None if state else median_ms(
+                   lambda x_, w, b_, s: conv_library(x_, w, b_), make, 10),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "card": card}
+        emit(row)
+        repeats.append(("causal_conv1d", label,
+                        functools.partial(causal_conv1d, *conv), (out, new)))
+        del eo, en, out, new
+        y, s = selective_scan(*scan)
+        torch.cuda.synchronize()
+        ey, es = selective_scan_plain(*scan)
+        errs = [float((g - e).abs().max() / e.square().mean().sqrt())
+                for g, e in ((y, ey), (s, es))]
+        check(max(errs) <= WKV_FP32_TOL, f"selective_scan ({label}) y and "
+              f"state within {WKV_FP32_TOL} of their rms ({errs})")
+        make = lambda: scan   # noqa: E731
+        dev_ms, host_ms = device_ms(selective_scan, make, 5)
+        elems = b * t * d * n
+        bytes_ms = (size(*scan) + size(y, s)) / rate * 1e3
+        ops_ms = (SCAN_FLOPS * elems + 2 * b * t * d) / fp32_flops * 1e3
+        srow = {"phase": "kernels", "kernel": "selective_scan",
+                "case": label, "shape": [b, t, d, n], "dtype": "float32",
+                "initial_state": state,
+                "state_equal": bool(torch.equal(s, es)),
+                "max_abs_err": float((y - ey).abs().max()),
+                "y_err_over_rms": errs[0], "state_err_over_rms": errs[1],
+                "ms": median_ms(selective_scan, make, 5),
+                "device_ms": dev_ms, "host_ms": host_ms,
+                # one call of the plain loop is itself thousands of steps
+                "plain_ms": median_ms(selective_scan_plain, make, 1),
+                "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+                "issue_floor_ms": elems / (MUFU_PER_SM * sms * clock_hz)
+                * 1e3, "card": card}
+        emit(srow)
+        repeats.append(("selective_scan", label,
+                        functools.partial(selective_scan, *scan), (y, s)))
+        del ey, es
+        if label == "batched prefill":
+            results["causal_conv1d"], results["selective_scan"] = row, srow
+    return results, repeats
 
 
 def phase_goldens(card: str) -> None:
@@ -2693,6 +2947,34 @@ def plain_wkv():
     return PlainWKV
 
 
+@functools.lru_cache(maxsize=None)
+def plain_ssm():
+    """The selective scan's plain version as an autograd function whose
+    backward is the plain reverse recurrence
+    (``ref.selective_scan_bwd_plain``, held to autograd of the plain scan
+    by the CPU tests): ``plain_route``'s, as ``plain_wkv``."""
+    import torch
+    from repro_torch.kernels import ref
+
+    class PlainSSM(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, dt, a, b, c, x, d_skip, initial_state):
+            ctx.save_for_backward(dt, a, b, c, x, d_skip, initial_state)
+            ctx.set_materialize_grads(False)
+            return ref.selective_scan_plain(dt, a, b, c, x, d_skip,
+                                            initial_state)
+
+        @staticmethod
+        def backward(ctx, dy, dstate):
+            dt, a, b, c, x, d_skip, s0 = ctx.saved_tensors
+            dy = torch.zeros_like(dt) if dy is None else dy
+            ddt, da, db, dc, dx, dds, ds0 = ref.selective_scan_bwd_plain(
+                dt, a, b, c, x, d_skip, s0, dy, dstate)
+            return ddt, da, db, dc, dx, dds, None if s0 is None else ds0
+
+    return PlainSSM
+
+
 #: logits of one piece of ``plain_attention`` at most (4 GB in fp32)
 PLAIN_ATTENTION_PIECE = 2 ** 30
 
@@ -2725,15 +3007,17 @@ class plain_route:
     points (``repro_torch.kernels.ops``, and the RMSNorm wrapper that the
     models' ``norm_apply`` calls in its cast-first order) run their plain
     versions, on CUDA tensors too - the reference the serve and train
-    phases hold the kernel route to (the WKV scan's backward its plain
-    reverse recurrence, ``plain_wkv``).  The port itself has no such
-    switch."""
+    phases hold the kernel route to (the WKV scan's and the selective
+    scan's backward their plain reverse recurrences, ``plain_wkv`` and
+    ``plain_ssm``; the causal conv's autograd of its plain version).  The
+    port itself has no such switch."""
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
         from repro_torch.kernels import rmsnorm as norm
         self.saved = (ops.rmsnorm, ops.flash_attention, ops.decode_attention,
-                      ops.rwkv6_scan, norm.rmsnorm)
+                      ops.rwkv6_scan, ops.causal_conv1d, ops.selective_scan,
+                      norm.rmsnorm)
         ops.rmsnorm = lambda x, w, eps=1e-6, block_rows=128: \
             ref.rmsnorm_plain(x, w, eps)
         norm.rmsnorm = lambda x, w, eps=1e-6, cast_first=False: (
@@ -2745,13 +3029,18 @@ class plain_route:
             block_k=256: ref.decode_attention_plain(q, kc, vc, kv_len, scale)
         ops.rwkv6_scan = lambda r, k, v, w, bonus, initial_state=None, \
             chunk=64: plain_wkv().apply(r, k, v, w, bonus, initial_state)
+        ops.causal_conv1d = ref.causal_conv1d_plain
+        ops.selective_scan = lambda dt, a, b, c, x, d_skip, \
+            initial_state=None: plain_ssm().apply(dt, a, b, c, x, d_skip,
+                                                  initial_state)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
         from repro_torch.kernels import rmsnorm as norm
         (ops.rmsnorm, ops.flash_attention, ops.decode_attention,
-         ops.rwkv6_scan, norm.rmsnorm) = self.saved
+         ops.rwkv6_scan, ops.causal_conv1d, ops.selective_scan,
+         norm.rmsnorm) = self.saved
         return False
 
 
@@ -2760,9 +3049,13 @@ def model_kernels():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.causal_conv1d import causal_conv1d
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.selective_scan import selective_scan
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-            "decode_attention": decode_attention, "rwkv6_scan": rwkv6_scan}
+            "decode_attention": decode_attention, "rwkv6_scan": rwkv6_scan,
+            "causal_conv1d": causal_conv1d,
+            "selective_scan": selective_scan}
 
 
 def expected_launches(cfg, prefills: int, steps: int) -> dict:
@@ -2774,7 +3067,8 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     layer and its final norm; a layernorm model launches none) and one
     attention kernel per attention (self, MLA, cross mixer, cross
     sublayer) - flash attention per prefill, the encoder's layers too,
-    and decode attention per step - or the WKV scan in both."""
+    and decode attention per step - or the WKV scan, or Mamba's causal
+    conv and selective scan, in both."""
     from repro_torch.models.transformer import layer_specs
     specs = layer_specs(cfg)
     mixers = [spec.mixer for spec in specs]
@@ -2788,7 +3082,9 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     return {"rmsnorm": norms if cfg.norm == "rmsnorm" else 0,
             "flash_attention": (n_attn + enc) * prefills,
             "decode_attention": n_attn * steps,
-            "rwkv6_scan": n_rwkv * forwards}
+            "rwkv6_scan": n_rwkv * forwards,
+            "causal_conv1d": mixers.count("mamba") * forwards,
+            "selective_scan": mixers.count("mamba") * forwards}
 
 
 def phase_serve(card: str, serve=SERVE) -> dict:
@@ -2812,8 +3108,7 @@ def phase_serve(card: str, serve=SERVE) -> dict:
     cfg = system.cfg
     phase = SERVE_PHASES[serve["arch"]]
     params, init_s = sync_time(lambda: models.init_params(cfg, seed=SEED))
-    awake = awake_params(params, cfg) if cfg.family in ("vlm", "audio") \
-        else None
+    awake = awake_params(params, cfg) if needs_awake(cfg) else None
     n_params = models.params_count(params)
     n = len(system.agents)
     contexts = [len(system.context_tokens(i)) for i in range(n)]
@@ -3360,7 +3655,9 @@ def phase_train_kernels(card: str, rate: float, flops: float,
             results["rmsnorm_bwd"] = row
     row, wkv_repeats = check_rwkv6_scan_bwd(card, rate, fp32_flops, gen)
     results["rwkv6_scan_bwd"] = row
-    check_repeats(card, repeat_cases + wkv_repeats)
+    mamba_rows, mamba_repeats = check_mamba_bwd(card, rate, fp32_flops, gen)
+    results.update(mamba_rows)
+    check_repeats(card, repeat_cases + wkv_repeats + mamba_repeats)
     return results
 
 
@@ -3456,6 +3753,143 @@ def check_rwkv6_scan_bwd(card: str, rate: float, fp32_flops: float,
             result = row
     return result, repeats
 
+
+
+def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
+    """Mamba's two backward kernels against their plain versions at
+    jamba-1.5-large-398b's training shape (4, 2048, 16384, 16; the conv in
+    bf16) and a ragged one (2, 333, 384, 16 in fp32, with a state and the
+    new or final state's gradient), every output within the gates of
+    ``check_grad``.  The selective scan's from the checkpoints of the
+    forward as training launches it, whose y and final state must equal
+    the serving launch's bit for bit, and its device memory beyond its
+    inputs and outputs at most its stated scratch
+    (``selective_scan.bwd_scratch_floats``) plus 1 MiB.  Each timed alone
+    and through its wrapper beside its bound, the plain version and, for
+    the conv, autograd of ``conv_library`` (none computes the scan's); the
+    scan's issue floor is its two exponentials a state element a step, and
+    the checkpointing forward is timed against the serving launch, in
+    turns.  Returns the training shape's rows and the cases for
+    ``check_repeats``."""
+    import torch
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d_bwd,
+                                                   causal_conv1d_bwd_plain)
+    from repro_torch.kernels.selective_scan import (
+        CKPT, bwd_scratch_floats, selective_scan, selective_scan_bwd,
+        selective_scan_bwd_plain, selective_scan_checkpoints)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    cfg = serve_config(TRAIN_JAMBA)
+    d, n = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+    results, repeats = {}, []
+
+    def size(*ts):
+        return sum(v.numel() * v.element_size() for v in ts if v is not None)
+
+    for label, b, t, d_, n_, name, state in (
+            ("jamba train", TRAIN_JAMBA["batch"], TRAIN_JAMBA["seq_len"], d,
+             n, "bfloat16", False),
+            ("ragged", 2, 333, 384, 16, "float32", True)):
+        dtype = getattr(torch, name)
+        conv, scan = mamba_inputs(gen, b, t, d_, n_, dtype, state)
+        dout = torch.randn((b, t, d_), generator=gen, device="cuda").to(dtype)
+        dnew = (torch.randn((b, 3, d_), generator=gen, device="cuda")
+                .to(dtype) if state else None)
+        got = causal_conv1d_bwd(*conv, dout, dnew)
+        torch.cuda.synchronize()
+        exp = causal_conv1d_bwd_plain(*conv, dout, dnew)
+        errs = [check_grad(g, e, f"causal_conv1d_bwd {k} ({label})")
+                for k, g, e in zip(("dx", "dw", "db", "dstate"), got, exp)]
+        del exp
+        make = lambda: conv + (dout, dnew)   # noqa: E731
+        dev_ms, host_ms = device_ms(causal_conv1d_bwd, make, 5)
+        x = conv[0]
+        bytes_ms = (3 * x.numel() * x.element_size() + size(*conv[1:], dnew)
+                    + size(*got[1:])) / rate * 1e3
+        ops_ms = CONV_BWD_FLOPS * x.numel() / fp32_flops * 1e3
+        row = {"phase": "kernels", "kernel": "causal_conv1d_bwd",
+               "case": label, "shape": [b, t, d_], "dtype": name,
+               "initial_state": state,
+               "max_abs_err": max(e[0] for e in errs),
+               "rel_l2": [e[1] for e in errs],
+               "ms": median_ms(causal_conv1d_bwd, make, 5),
+               "device_ms": dev_ms, "host_ms": host_ms,
+               "plain_ms": median_ms(causal_conv1d_bwd_plain, make, 1),
+               "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "card": card}
+        if not state:
+            leaves = [v.detach().requires_grad_(True) for v in conv[:3]]
+            out = conv_library(*leaves)
+            row["library_ms"] = median_ms(lambda: torch.autograd.grad(
+                out, leaves, dout, retain_graph=True), tuple, 5)
+            del leaves, out
+        emit(row)
+        repeats.append(("causal_conv1d_bwd", label, functools.partial(
+            causal_conv1d_bwd, *conv, dout, dnew), got))
+        del got
+
+        y, s = selective_scan(*scan)
+        y2, s2, ckpt = selective_scan_checkpoints(*scan)
+        check(torch.equal(y, y2) and torch.equal(s, s2),
+              f"selective_scan's checkpointing launch == its serving launch "
+              f"bit for bit ({label})")
+        del y, s, y2, s2
+        dy = torch.randn((b, t, d_), generator=gen, device="cuda")
+        ds = (0.5 * torch.randn((b, d_, n_), generator=gen, device="cuda")
+              if state else None)
+        args = scan[:6] + (ckpt, dy, ds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = selective_scan_bwd(*args)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - before
+                 - sum(g.numel() * g.element_size() for g in got))
+        scratch = 4 * bwd_scratch_floats(b, t, d_, n_)
+        check(extra <= scratch + (1 << 20),
+              f"selective_scan_bwd ({label}) takes {extra} bytes beyond its "
+              f"inputs and outputs, its scratch {scratch}")
+        exp = selective_scan_bwd_plain(*scan, dy, ds)
+        errs = [check_grad(g, e, f"selective_scan_bwd {k} ({label})")
+                for k, g, e in zip(("ddt", "da", "db", "dc", "dx", "dd_skip",
+                                    "dstate0"), got, exp)]
+        del exp
+        make = lambda: args   # noqa: E731
+        dev_ms, host_ms = device_ms(selective_scan_bwd, make, 5)
+        elems = b * t * d_ * n_
+        bytes_ms = (size(*args) + size(*got)) / rate * 1e3
+        ops_ms = SCAN_BWD_FLOPS * elems / fp32_flops * 1e3
+        turns = {}
+        for ckpts in (False, True, True, False):
+            fn = selective_scan_checkpoints if ckpts else selective_scan
+            turns.setdefault(ckpts, []).append(
+                device_ms(fn, lambda: scan, 5)[0])
+        srow = {"phase": "kernels", "kernel": "selective_scan_bwd",
+                "case": label, "shape": [b, t, d_, n_], "dtype": "float32",
+                "checkpoint_every": CKPT, "extra_bytes": extra,
+                "scratch_bytes": scratch,
+                "max_abs_err": max(e[0] for e in errs),
+                "rel_l2": [e[1] for e in errs],
+                "ms": median_ms(selective_scan_bwd, make, 5),
+                "device_ms": dev_ms, "host_ms": host_ms,
+                "plain_ms": median_ms(lambda *a: selective_scan_bwd_plain(
+                    *scan, dy, ds), make, 1),
+                "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+                "issue_floor_ms": 2 * elems / (MUFU_PER_SM * sms * clock_hz)
+                * 1e3,
+                "forward_device_ms": turns[False],
+                "forward_checkpointed_device_ms": turns[True],
+                "card": card}
+        emit(srow)
+        repeats.append(("selective_scan_bwd", label, functools.partial(
+            selective_scan_bwd, *args), got))
+        if label == "jamba train":
+            results["causal_conv1d_bwd"] = row
+            results["selective_scan_bwd"] = srow
+    return results, repeats
 
 
 #: rounds of a turns run (each the sources in order, then reversed) and
@@ -3722,11 +4156,19 @@ def train_kernels():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_bwd)
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_bwd)
     return {"rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
             "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
-            "rwkv6_scan": rwkv6_scan, "rwkv6_scan_bwd": rwkv6_scan_bwd}
+            "rwkv6_scan": rwkv6_scan, "rwkv6_scan_bwd": rwkv6_scan_bwd,
+            "causal_conv1d": causal_conv1d,
+            "causal_conv1d_bwd": causal_conv1d_bwd,
+            "selective_scan": selective_scan,
+            "selective_scan_bwd": selective_scan_bwd}
 
 
 def expected_train_launches(cfg, steps: int) -> dict:
@@ -3738,18 +4180,20 @@ def expected_train_launches(cfg, steps: int) -> dict:
     attention for each self, cross and encoder attention, or the WKV
     scan), the layers' again in the recompute, and one backward launch
     of each norm and mixer kernel.  An MLA layer has three norms (norm1,
-    the latent's kv_norm, norm2) and one flash attention."""
+    the latent's kv_norm, norm2) and one flash attention; a Mamba layer two
+    norms, its causal conv and its selective scan."""
     from repro_torch.models.transformer import layer_specs
     specs = layer_specs(cfg)
     mixers = [spec.mixer for spec in specs]
     n_rwkv, n_sub = mixers.count("rwkv"), sum(spec.cross for spec in specs)
-    n_mla = mixers.count("mla")
+    n_mla, n_mamba = mixers.count("mla"), mixers.count("mamba")
     layers = mixers.count("attn") + mixers.count("cross") + cfg.encoder_layers
     n_attn = layers + n_sub + n_mla
     qk = 2 * cfg.use_qk_norm
     # the layers' norms run twice (forward and recompute), the final norms
     # (the model's, the encoder's) once
-    norms = (2 + qk) * layers + (1 + qk) * n_sub + 3 * n_rwkv + 3 * n_mla
+    norms = ((2 + qk) * layers + (1 + qk) * n_sub + 3 * n_rwkv + 3 * n_mla
+             + 2 * n_mamba)
     finals = 1 + bool(cfg.encoder_layers)
     rms = cfg.norm == "rmsnorm"
     return {"rmsnorm": (2 * norms + finals) * steps * rms,
@@ -3757,7 +4201,11 @@ def expected_train_launches(cfg, steps: int) -> dict:
             "flash_attention": 2 * n_attn * steps,
             "flash_attention_bwd": n_attn * steps,
             "rwkv6_scan": 2 * n_rwkv * steps,
-            "rwkv6_scan_bwd": n_rwkv * steps}
+            "rwkv6_scan_bwd": n_rwkv * steps,
+            "causal_conv1d": 2 * n_mamba * steps,
+            "causal_conv1d_bwd": n_mamba * steps,
+            "selective_scan": 2 * n_mamba * steps,
+            "selective_scan_bwd": n_mamba * steps}
 
 
 def phase_bwd_passes() -> None:
@@ -3868,8 +4316,7 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = models.init_params(cfg, seed=SEED)
-    awake = awake_params(params, cfg) if cfg.family in ("vlm", "audio") \
-        else None
+    awake = awake_params(params, cfg) if needs_awake(cfg) else None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = models.params_count(params)
@@ -3912,7 +4359,8 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
     # reference's init, gate 0, each would be exactly 0), and every MLA
     # leaf (a latent or rope path the kernels skipped would leave its
     # leaves at 0)
-    held = r"/encoder/|/cross/|/gate$" + (r"|/mixer/" if cfg.mla else "")
+    held = r"/encoder/|/cross/|/gate$" + (
+        r"|/mixer/" if cfg.mla or cfg.mamba else "")
     silent = [path for path, g in zip(paths, tree_leaves(grads_k))
               if re.search(held, path) and not bool(g.any())]
     context_leaves = sum(bool(re.search(held, path)) for path in paths)
@@ -3925,8 +4373,8 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
           **split, "card": card})
     check(finite and bool(torch.isfinite(loss_k)),
           "finite loss and gradients on the kernel route")
-    check(not silent, f"{cfg.name}: every encoder, cross and MLA leaf has "
-          f"a non-zero gradient ({silent})")
+    check(not silent, f"{cfg.name}: every encoder, cross, MLA and Mamba "
+          f"leaf has a non-zero gradient ({silent})")
     check(loss_rel <= TRAIN_LOSS_REL,
           f"{cfg.name} train loss: kernel vs plain {loss_rel} <= "
           f"{TRAIN_LOSS_REL}")
@@ -4007,6 +4455,10 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
           # batch sum of du
           "wkv_passes": [r for r in top if re.search(
               r"wkv_kernel|wkv_bwd_kernel|wkv_bwd_du", r["name"])],
+          # Mamba's: the conv and the scan, their backward kernels and
+          # the backward's fixed-order sums
+          "mamba_passes": [r for r in top if re.search(
+              r"conv_kernel|conv_bwd|scan_kernel|scan_bwd", r["name"])],
           "card": card})
     del params, opt_state, batches, step_fn
     torch.cuda.empty_cache()
@@ -4249,14 +4701,15 @@ def main() -> int:
     lap("service")
 
     for serve in (SERVE, SERVE_RWKV, SERVE_MOE, SERVE_WHISPER, SERVE_VLM,
-                  SERVE_DEEPSEEK):
+                  SERVE_DEEPSEEK, SERVE_JAMBA):
         for fn in model_kernels().values():
             fn.launches = 0
         for name, count in phase_serve(card, serve).items():
             launches[name] = launches.get(name, 0) + count
         torch.cuda.empty_cache()
         lap(SERVE_PHASES[serve["arch"]])
-    for train in (TRAIN, TRAIN_RWKV, TRAIN_WHISPER, TRAIN_DEEPSEEK):
+    for train in (TRAIN, TRAIN_RWKV, TRAIN_WHISPER, TRAIN_DEEPSEEK,
+                  TRAIN_JAMBA):
         for name, count in phase_train(card, flops, train).items():
             launches[name] = launches.get(name, 0) + count
         lap(f"train {train['arch']}")

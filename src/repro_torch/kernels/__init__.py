@@ -6,12 +6,15 @@ held to):
   * ``chunk_tick`` - batched chunk-diff / delta-coherence tick (content
                      plane; consumes mesi_tick's per-agent miss output)
   * ``rmsnorm``, ``flash_attention``, ``decode_attention``,
-    ``rwkv6_scan``   - the model kernels of the serving path, public
-                     through ``kernels.ops`` with the JAX package's
-                     signatures; the backward kernels of rmsnorm,
-                     flash attention and the WKV scan beside their
-                     forwards (``rmsnorm_bwd``, ``flash_attention_bwd``,
-                     ``rwkv6_scan_bwd``)
+    ``rwkv6_scan``, ``causal_conv1d``, ``selective_scan``
+                   - the model kernels of the serving path, public
+                     through ``kernels.ops`` (the first four with the JAX
+                     package's signatures); the backward kernels of
+                     rmsnorm, flash attention, the WKV scan, the causal
+                     conv and the selective scan beside their forwards
+                     (``rmsnorm_bwd``, ``flash_attention_bwd``,
+                     ``rwkv6_scan_bwd``, ``causal_conv1d_bwd``,
+                     ``selective_scan_bwd``)
 
 Sources live in ``csrc/``; ``build`` compiles them with nvcc at first
 use.

@@ -92,6 +92,13 @@ def float_code(*tensors: torch.Tensor) -> int:
     return code
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the backward kernels read
+    their gradients (one may arrive as a view at an odd offset)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def launch(name: str, index: int, *args) -> None:
     """Launches kernel ``name`` (its C entry in ``build.KERNELS``) with
     ``args`` and the current stream of CUDA device ``index``, on that

@@ -52,6 +52,15 @@ KERNELS = {
                    [_P] * 9 + [_I] * 6 + [_P]),
     "rwkv6_scan_bwd": ("rwkv6_scan_bwd.cu", "rwkv6_scan_bwd_launch",
                        [_P] * 15 + [_I] * 5 + [_P]),
+    "causal_conv1d": ("causal_conv1d.cu", "causal_conv1d_launch",
+                      [_P] * 6 + [_I] * 6 + [_P]),
+    "causal_conv1d_bwd": ("causal_conv1d_bwd.cu", "causal_conv1d_bwd_launch",
+                          [_P] * 11 + [_I] * 6 + [_P]),
+    "selective_scan": ("selective_scan.cu", "selective_scan_launch",
+                       [_P] * 10 + [_I] * 4 + [_P]),
+    "selective_scan_bwd": ("selective_scan_bwd.cu",
+                           "selective_scan_bwd_launch",
+                           [_P] * 17 + [_I] * 4 + [_P]),
 }
 
 _LIBS: dict = {}

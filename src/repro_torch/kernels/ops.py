@@ -15,12 +15,18 @@ the signature and do not change the result:
   group of value columns), the columns split by shape so the heads fill
   the SMs, each thread holding a tile of the state (8 x 2 values in a
   whole head of 64, 4 x 2 in a split one);
+* ``causal_conv1d`` runs a thread per (batch row, 16 bytes of channels,
+  tile of steps); ``selective_scan`` a thread per (batch row, channel)
+  walking the whole sequence, whatever the JAX model's ``chunk`` (which
+  it checks itself);
 * the MESI tick runs a group of lanes per simulation (a direct path
   where n or m exceeds 32), whatever ``block_sims`` says.
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels.causal_conv1d import (
+    causal_conv1d as _causal_conv1d)
 from repro_torch.kernels.decode_attention import (
     decode_attention as _decode_attention)
 from repro_torch.kernels.flash_attention import (
@@ -28,6 +34,8 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.mesi_transition import mesi_tick as _mesi_tick
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_scan
+from repro_torch.kernels.selective_scan import (
+    selective_scan as _selective_scan)
 
 
 def rmsnorm(x, weight, eps: float = 1e-6, block_rows: int = 128):
@@ -51,6 +59,18 @@ def rwkv6_scan(r, k, v, w, bonus, initial_state=None, chunk: int = 64):
     """The RWKV6 WKV recurrence; returns (y, final state)
     (``kernels/rwkv6_scan.py``)."""
     return _rwkv6_scan(r, k, v, w, bonus, initial_state)
+
+
+def causal_conv1d(x, weight, bias, state=None):
+    """Mamba's depthwise causal conv and SiLU; returns (out, new state)
+    (``kernels/causal_conv1d.py``)."""
+    return _causal_conv1d(x, weight, bias, state)
+
+
+def selective_scan(dt, a, b, c, x, d_skip, initial_state=None):
+    """Mamba's selective scan with its skip; returns (y, final state)
+    (``kernels/selective_scan.py``)."""
+    return _selective_scan(dt, a, b, c, x, d_skip, initial_state)
 
 
 def mesi_tick(state, version, last_sync, reads_since_fetch, acts, arts,

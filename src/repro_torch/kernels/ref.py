@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the model kernels: RMSNorm, flash attention
-(prefill), flash decode and the RWKV6 WKV recurrence, and of the three
-backward kernels: RMSNorm's and attention's, which are autograd of the
-forward versions here, and the WKV recurrence's, an explicit reverse
-recurrence (:func:`rwkv6_scan_bwd_plain`).
+(prefill), flash decode, the RWKV6 WKV recurrence, and Mamba's causal
+conv and selective scan, and of their backward kernels: RMSNorm's and
+attention's, which are autograd of the forward versions here, and the
+WKV recurrence's, the causal conv's and the selective scan's, explicit
+reverse passes (:func:`rwkv6_scan_bwd_plain`,
+:func:`causal_conv1d_bwd_plain`, :func:`selective_scan_bwd_plain`).
 
 Each is the function its CUDA kernel computes, in fp32 whatever the
 input type, written for clarity: the kernel wrappers run them for
@@ -20,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -231,3 +234,160 @@ def rwkv6_scan_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         g = w_t[..., :, None] * g + r_t[..., :, None] * dy_t[..., None, :]
     return (grads["r"].to(r.dtype), grads["k"].to(r.dtype),
             grads["v"].to(r.dtype), grads["w"].to(r.dtype), du, g)
+
+
+def _conv_pad(x: torch.Tensor, width: int,
+              state: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (B, T, D) behind its ``width - 1`` preceding rows: the conv
+    state, or zeros without one (B, T + width - 1, D) in x's type."""
+    pad = (torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,
+                       device=x.device)
+           if state is None else state.to(x.dtype))
+    return torch.cat([pad, x], dim=1)
+
+
+def _conv_pre(xp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              t: int) -> torch.Tensor:
+    """The conv's pre-activation, each product and sum a torch op in the
+    input type: ``((xp_0 w_0 + xp_1 w_1) + ...) + bias``."""
+    y = xp[:, 0:t] * weight[0]
+    for i in range(1, weight.shape[0]):
+        y = y + xp[:, i:i + t] * weight[i]
+    return y + bias
+
+
+def causal_conv1d_plain(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor,
+                        state: Optional[torch.Tensor] = None):
+    """Mamba's depthwise causal conv over time, then SiLU.
+
+    x: (B, T, D), any strides; weight (K, D) (K taps, the last one on the
+    current step); bias (D); state (B, K - 1, D), the K - 1 inputs before
+    x, or None (zeros).  As the JAX package's ``_conv1d_causal``: the
+    shifted products and their sum in x's type, op by op, the bias, then
+    ``F.silu``.  Returns (out (B, T, D) in x's type, the new state (B, K - 1,
+    D): the last K - 1 rows of the state followed by x)."""
+    k, t = weight.shape[0], x.shape[1]
+    xp = _conv_pad(x, k, state)
+    return F.silu(_conv_pre(xp, weight, bias, t)), xp[:, t:].contiguous()
+
+
+def causal_conv1d_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor,
+                            state: Optional[torch.Tensor],
+                            dout: torch.Tensor,
+                            dstate_out: Optional[torch.Tensor] = None):
+    """The gradients of :func:`causal_conv1d_plain` against the output's
+    gradient ``dout`` and the new state's ``dstate_out`` (None: zeros), in
+    fp32.  With xp the padded input and g = dout * silu'(pre-activation)
+    (the pre-activation in the forward's own rounding)::
+
+        dxp[p] = sum_i w_i g[p - i]  (0 <= p - i < T), plus dstate_out
+                 on the last K - 1 rows
+        dw_i = sum_{b, t} xp[t + i] g[t],   dbias = sum_{b, t} g[t]
+
+    Returns (dx (B, T, D) in x's type, dweight, dbias in theirs, the
+    state's gradient (B, K - 1, D) in x's type)."""
+    k, t = weight.shape[0], x.shape[1]
+    xp = _conv_pad(x, k, state)
+    u = _conv_pre(xp, weight, bias, t).float()
+    s = torch.sigmoid(u)
+    g = dout.float() * (s * (1 + u * (1 - s)))
+    w32, xp32 = weight.float(), xp.float()
+    dxp = torch.zeros(xp.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        dxp[:, i:i + t] += w32[i] * g
+    if dstate_out is not None:
+        dxp[:, t:] += dstate_out.float()
+    dw = torch.stack([(xp32[:, i:i + t] * g).sum((0, 1)) for i in range(k)])
+    return (dxp[:, k - 1:].to(x.dtype), dw.to(weight.dtype),
+            g.sum((0, 1)).to(bias.dtype), dxp[:, :k - 1].to(x.dtype))
+
+
+def selective_scan_plain(dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, x: torch.Tensor,
+                         d_skip: torch.Tensor,
+                         initial_state: Optional[torch.Tensor] = None):
+    """Mamba's selective scan, one step at a time, in fp32.
+
+    dt, x: (B, T, D); a (D, N); b, c (B, T, N); d_skip (D); initial_state
+    (B, D, N) or None (zeros).  Per step, in the JAX package's order
+    (``repro.models.mamba._ssm_step``), each a torch op of its own::
+
+        h = exp(dt_t a) * h + (dt_t b_t) x_t
+        y_t = sum_n h c_t
+
+    then ``y + x * d_skip``.  Returns (y (B, T, D), final state (B, D, N)),
+    both fp32."""
+    f32 = torch.float32
+    dt32, x32, b32, c32 = (v.to(f32) for v in (dt, x, b, c))
+    a32 = a.to(f32)
+    h = (torch.zeros((dt.shape[0], dt.shape[2], a.shape[1]), dtype=f32,
+                     device=dt.device)
+         if initial_state is None else initial_state.to(f32))
+    ys = []
+    for i in range(dt.shape[1]):
+        dt_i = dt32[:, i, :, None]
+        h = (torch.exp(dt_i * a32) * h
+             + dt_i * b32[:, i, None, :] * x32[:, i, :, None])
+        ys.append(torch.einsum("bdn,bn->bd", h, c32[:, i]))
+    return torch.stack(ys, dim=1) + x32 * d_skip.to(f32), h
+
+
+def selective_scan_bwd_plain(dt: torch.Tensor, a: torch.Tensor,
+                             b: torch.Tensor, c: torch.Tensor,
+                             x: torch.Tensor, d_skip: torch.Tensor,
+                             initial_state: Optional[torch.Tensor],
+                             dy: torch.Tensor,
+                             dstate: Optional[torch.Tensor] = None):
+    """The gradients of :func:`selective_scan_plain` as an explicit
+    reverse recurrence, in fp32.
+
+    With P_t the state before step t (P_0 the initial state), E_t =
+    exp(dt_t a), h_t = E_t P_t + (dt_t b_t) x_t and G the gradient of the
+    state after step t (``dstate``, or zeros, after the last), for t = T
+    .. 1 in the reverse order::
+
+        G_t = G + dy_t c_t,   L_t = G_t P_t E_t
+        ddt_t = sum_n (L_t a + G_t b_t x_t),  dx_t = sum_n G_t dt_t b_t
+                + dy_t d_skip
+        db_t = sum_d G_t dt_t x_t,   dc_t = sum_d dy_t h_t
+        da += L_t dt_t,   dd_skip += dy_t x_t,   G = G_t E_t
+
+    da and dd_skip summed over the batch too.  Returns (ddt, da (D, N),
+    db, dc, dx, dd_skip (D), the initial state's gradient (B, D, N)).  It
+    keeps every state of the forward, so it is the kernel's reference,
+    not a route of the model."""
+    f32 = torch.float32
+    dt32, x32, b32, c32, dy32 = (v.to(f32) for v in (dt, x, b, c, dy))
+    a32, ds32 = a.to(f32), d_skip.to(f32)
+    bsz, t, d = dt.shape
+    h = (torch.zeros((bsz, d, a.shape[1]), dtype=f32, device=dt.device)
+         if initial_state is None else initial_state.to(f32))
+    states = []                      # P_t, the forward's own roundings
+    for i in range(t):
+        states.append(h)
+        dt_i = dt32[:, i, :, None]
+        h = (torch.exp(dt_i * a32) * h
+             + dt_i * b32[:, i, None, :] * x32[:, i, :, None])
+    g = (torch.zeros_like(h) if dstate is None
+         else dstate.to(f32).clone())
+    ddt, dx = torch.empty_like(dt32), torch.empty_like(dt32)
+    db, dc = torch.empty_like(b32), torch.empty_like(b32)
+    da = torch.zeros_like(a32)
+    for i in reversed(range(t)):
+        dt_i, x_i, dy_i = (v[:, i, :, None] for v in (dt32, x32, dy32))
+        b_i, c_i = b32[:, i, None, :], c32[:, i, None, :]
+        p = states[i]
+        e = torch.exp(dt_i * a32)
+        dtb = dt_i * b_i
+        h_i = e * p + dtb * x_i
+        gt = g + dy_i * c_i
+        lg = gt * p * e
+        dc[:, i] = (dy_i * h_i).sum(1)
+        db[:, i] = (gt * (dt_i * x_i)).sum(1)
+        ddt[:, i] = (lg * a32).sum(-1) + (gt * b_i).sum(-1) * x_i[..., 0]
+        dx[:, i] = (gt * dtb).sum(-1) + dy_i[..., 0] * ds32
+        da += (lg * dt_i).sum(0)
+        g = gt * e
+    return ddt, da, db, dc, dx, (dy32 * x32).sum((0, 1)), g

@@ -25,8 +25,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.backend import FLOAT_CODES, float_code, launch, \
-    use_kernel
+from repro_torch.kernels.backend import FLOAT_CODES, aligned, float_code, \
+    launch, use_kernel
 from repro_torch.kernels.ref import rwkv6_scan_bwd_plain, rwkv6_scan_plain
 
 #: head sizes the kernel is built for: the smoke configs' and
@@ -114,13 +114,6 @@ def _forward(r, k, v, w, bonus, initial_state, every: Optional[int]):
     return y, state, ckpt
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned, as the backward kernel reads
-    it (a gradient may arrive as a view at an odd offset)."""
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
-
-
 class _WKVScan(torch.autograd.Function):
     """The WKV recurrence under autograd: the checkpointing forward, then
     :func:`rwkv6_scan_bwd`.  Both route by device, so on CPU tensors this
@@ -139,9 +132,9 @@ class _WKVScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstate):
         r, k, v, w, bonus, ckpt = ctx.saved_tensors
-        dy = torch.zeros_like(r) if dy is None else _aligned(dy)
+        dy = torch.zeros_like(r) if dy is None else aligned(dy)
         if dstate is not None:
-            dstate = _aligned(dstate)
+            dstate = aligned(dstate)
         dr, dk, dv, dw, du, ds0 = rwkv6_scan_bwd(r, k, v, w, bonus, ckpt,
                                                  dy, dstate)
         return (dr, dk, dv, dw, du.to(bonus.dtype),

@@ -1,6 +1,6 @@
 """Config-driven model zoo in PyTorch (the dense family, the MoE
-feed-forward and RWKV6 so far), with the JAX package's names and
-parameter trees."""
+feed-forward, MLA, RWKV6, Mamba's hybrid and the context families),
+with the JAX package's names and parameter trees."""
 
 from repro_torch.models.transformer import (init_params, forward_train,
                                             prefill, decode_step,

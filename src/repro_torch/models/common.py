@@ -39,6 +39,15 @@ def _normal(gen, shape, std: float, dtype, device) -> torch.Tensor:
     return (x * std).to(dtype)
 
 
+def _uniform(gen, shape, lo: float, hi: float, device) -> torch.Tensor:
+    """U(lo, hi) in fp32; empty on ``meta``."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    x = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return lo + (hi - lo) * x
+
+
 def dense_init(gen, d_in: int, d_out: int, dtype, device,
                scale: float = 1.0) -> torch.Tensor:
     return _normal(gen, (d_in, d_out), scale / math.sqrt(d_in), dtype,

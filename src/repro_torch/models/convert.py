@@ -23,7 +23,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     tree does: ``cfg.dtype`` for most, fp32 for the leaves a model keeps
     in fp32 inside a bf16 model (rwkv6's decay, bonus and mixing
     coefficients, the cross-attention's 0-d ``gate``, stacked to one
-    a layer); ``ml_dtypes.bfloat16`` becomes ``torch.bfloat16``.
+    a layer, mamba's ``dt_bias``, ``a_log`` and ``d_skip``);
+    ``ml_dtypes.bfloat16`` becomes ``torch.bfloat16``.
     A leaf of another type than those two raises ``TypeError``."""
     dev = resolve_device(device)
     allowed = {torch.float32, dtype_of(cfg.dtype)}

@@ -26,8 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RWKVConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import (_normal, dense_init, norm_apply,
-                                       norm_init)
+from repro_torch.models.common import (_normal, _uniform, dense_init,
+                                       norm_apply, norm_init)
 
 
 class RWKVState(NamedTuple):
@@ -40,15 +40,6 @@ def _dims(cfg: ModelConfig):
     r: RWKVConfig = cfg.rwkv
     n_heads = cfg.d_model // r.head_size
     return r, n_heads, r.head_size
-
-
-def _uniform(gen, shape, lo: float, hi: float, device) -> torch.Tensor:
-    """U(lo, hi) in fp32; empty on ``meta``."""
-    device = torch.device(device)
-    if device.type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    x = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
-    return lo + (hi - lo) * x
 
 
 def rwkv_time_mix_init(gen, cfg: ModelConfig, dtype, device) -> dict:

@@ -4,7 +4,10 @@ attention with a GLU feed-forward (gemma, qwen3, yi, command-r's layer
 kind) -, the MoE feed-forward behind GQA attention (olmoe-1b-7b) or
 behind MLA (deepseek-v2-lite-16b: multi-head latent attention, its
 first layer dense at the MoE config's ``dense_d_ff``), RWKV6
-(an rwkv time-mix with a channel-mix, rwkv6-1.6b) and the two context
+(an rwkv time-mix with a channel-mix, rwkv6-1.6b), the hybrid family
+(jamba: Mamba mixers with one attention layer in ``attn_period``, the
+MoE on every ``layer_stride``-th layer, the rest dense at
+``dense_d_ff``) and the two context
 families: llama-3.2-vision's cross-attention layers over vision
 embeddings, and whisper's encoder-decoder (a bidirectional encoder over
 stub frame embeddings, each decoder layer a cross-attention sublayer
@@ -25,17 +28,18 @@ Superblocks run as a Python loop.  Modes:
 
 The attention cache is head-major, ``(n_super, B, Hkv, Lmax, D)`` per
 stacked layer; an rwkv layer caches its two token-shift vectors ``tm``
-and ``cm`` (B, d) and its fp32 WKV state ``wkv`` (B, H, dh, dh), whatever
-``max_len``; an MLA layer its latent ``ckv`` (B, Lmax, rank) and shared
-rope key ``kpe`` (B, Lmax, rope); a cross layer caches the projected
-context as ``xk``/``xv``
-(``enc_k``/``enc_v`` for whisper's cross sublayer), head-major
+and ``cm`` (B, d) and its fp32 WKV state ``wkv`` (B, H, dh, dh), and a
+mamba layer its conv state ``conv`` (B, d_conv - 1, d_inner) in the
+model type and its fp32 scan state ``ssm`` (B, d_inner, d_state),
+whatever ``max_len``; an MLA layer its latent ``ckv`` (B, Lmax, rank)
+and shared rope key ``kpe`` (B, Lmax, rope); a cross layer caches the
+projected context as ``xk``/``xv`` (``enc_k``/``enc_v`` for whisper's
+cross sublayer), head-major
 ``(B, Hkv, ctx_len, D)``, written by a prefill with a context and read
 by every later step.  Prefill and decode update the cache in place.  An
 MoE layer's aux loss is summed over the layers into the training loss.
-Mamba waits for its slice of the port (ROADMAP.md section 1, item
-7(b)4).  On the card, training runs through the attention,
-RMSNorm and WKV kernels' backward kernels.
+On the card, training runs through the attention, RMSNorm, WKV, causal
+conv and selective scan kernels' backward kernels.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
@@ -57,8 +62,6 @@ from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
                                        mlp_apply, mlp_init, norm_apply,
                                        norm_init, stack_layers, tree_leaves,
                                        tree_map)
-
-_TODO = "is not ported yet (ROADMAP.md section 1, item 7(b)4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,16 +105,10 @@ def split_pattern(specs: list[LayerSpec]) -> tuple[int, int]:
     return best if best is not None else (n, 1)
 
 
-def _check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "mla", "rwkv", "cross"):
-        raise NotImplementedError(f"the {spec.mixer!r} mixer {_TODO}")
-
-
 # ----------------------------- layer ---------------------------------
 
 def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
                device) -> dict:
-    _check_spec(cfg, spec)
     rwkv = spec.mixer == "rwkv"
     p = {"norm1": norm_init(cfg.d_model, cfg.norm, dtype, device,
                             cfg.use_bias)}
@@ -121,6 +118,8 @@ def layer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype,
         p["mixer"] = attn.cross_attn_init(gen, cfg, dtype, device)
     elif spec.mixer == "mla":
         p["mixer"] = attn.mla_init(gen, cfg, dtype, device)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba_mod.mamba_init(gen, cfg, dtype, device)
     else:
         p["mixer"] = attn.gqa_init(gen, cfg, dtype, device)
     if spec.cross:
@@ -150,10 +149,9 @@ def cache_init_layer(cfg: ModelConfig, spec: LayerSpec, batch: int,
     """Empty cache entry for one layer: head-major k/v for attention, the
     latent ``ckv`` and rope key ``kpe`` for MLA (no head axis: the
     reference's layout), the token shifts and WKV state for rwkv, the
-    ``ctx_len``-long
+    conv and scan states for mamba, the ``ctx_len``-long
     projected context of a cross mixer (``xk``/``xv``) and of a cross
     sublayer (``enc_k``/``enc_v``)."""
-    _check_spec(cfg, spec)
 
     def kv(length):
         shape = (batch, cfg.n_kv_heads, length, cfg.kv_head_dim())
@@ -164,6 +162,9 @@ def cache_init_layer(cfg: ModelConfig, spec: LayerSpec, batch: int,
     if spec.mixer == "rwkv":
         st = rwkv_mod.rwkv_state_init(cfg, batch, dtype, device)
         c.update(tm=st.tm_shift, cm=st.cm_shift, wkv=st.wkv)
+    elif spec.mixer == "mamba":
+        st = mamba_mod.mamba_state_init(cfg, batch, dtype, device)
+        c.update(conv=st.conv, ssm=st.ssm)
     elif spec.mixer == "cross":
         c["xk"], c["xv"] = kv(ctx_len)
     elif spec.mixer == "mla":
@@ -197,7 +198,6 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
                 context=None, cache=None, cache_len=None):
     """Returns (x, new_cache, aux_loss); the cache is updated in
     place."""
-    _check_spec(cfg, spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict[str, Any] = {}
     build = cache is not None
@@ -209,6 +209,13 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
         if build:
             new_cache["tm"] = cache["tm"].copy_(tm_out)
             new_cache["wkv"] = cache["wkv"].copy_(wkv_out)
+    elif spec.mixer == "mamba":
+        st = (mamba_mod.MambaState(cache["conv"], cache["ssm"]) if build
+              else None)
+        y, st_out = mamba_mod.mamba_apply(p["mixer"], cfg, h, st)
+        if build:
+            new_cache["conv"] = cache["conv"].copy_(st_out.conv)
+            new_cache["ssm"] = cache["ssm"].copy_(st_out.ssm)
     elif spec.mixer == "cross":
         y = _cross(p["mixer"], cfg, h, context, cache, ("xk", "xv"))
     elif spec.mixer == "mla":

@@ -1701,3 +1701,185 @@ def test_unlisted_head_dim_pairs_raise_on_the_card(gen):
         decode_attention(q[:, :, 0].contiguous(), k, v)
     assert before == (flash_attention.launches, flash_attention_bwd.launches,
                       decode_attention.launches)
+
+
+# ------------------------------------------------------------------ Mamba
+# The causal conv: the output equal to its plain version bit for bit in
+# bf16 and within one ulp of its type in fp32 (the kernel and PyTorch's
+# SiLU both take x / (1 + expf(-x)); the share of differing elements is
+# printed), the new state bit for bit.  The selective scan: y and the
+# final state within 1e-5 of their rms.  The backward kernels at the
+# backward gates above, 50 more launches bit-equal (no atomics).
+
+from repro_torch.kernels.causal_conv1d import (  # noqa: E402
+    causal_conv1d, causal_conv1d_bwd, causal_conv1d_bwd_plain,
+    causal_conv1d_plain)
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    selective_scan, selective_scan_bwd, selective_scan_bwd_plain,
+    selective_scan_checkpoints, selective_scan_plain)
+
+#: (B, T, d_inner, d_state, with a state): the smoke config's shape, a
+#: ragged one (d_inner 384, not a power of two), a decode step of jamba
+#: from a state, jamba's training shape
+MAMBA_SHAPES = [(2, 64, 256, 8, False), (2, 333, 384, 16, True),
+                (4, 1, 16384, 16, True), (4, 2048, 16384, 16, False)]
+
+
+def _conv_case(gen, b, t, d, dtype, state):
+    """x as the x half of an input projection (row stride 2d), the
+    weights, a bias off its init, a state or None."""
+    xz = _normal(gen, b, t, 2 * d, dtype=dtype)
+    return (xz[..., :d], (_normal(gen, 4, d) * 0.3).to(dtype),
+            (_normal(gen, d) * 0.1).to(dtype),
+            _normal(gen, b, 3, d, dtype=dtype) if state else None)
+
+
+def _ulp_err(got, exp):
+    """max |got - exp| in ulps of exp's type at exp."""
+    e = exp.float()
+    bits = 8 if exp.dtype == torch.bfloat16 else 24
+    ulp = torch.ldexp(torch.ones_like(e), torch.frexp(e).exponent - bits)
+    return float(((got.float() - e).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("b,t,d,n,state", MAMBA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_conv1d_kernel_equals_plain(gen, b, t, d, n, state, dtype):
+    args = _conv_case(gen, b, t, d, dtype, state)
+    launches = causal_conv1d.launches
+    out, new = causal_conv1d(*args)
+    torch.cuda.synchronize()
+    assert causal_conv1d.launches == launches + 1
+    eo, en = causal_conv1d_plain(*args)
+    assert out.dtype == dtype and out.shape == eo.shape
+    assert torch.equal(new, en)
+    share = float((out != eo).float().mean())
+    print(f"conv {dtype} {(b, t, d)}: differing share {share}")
+    assert _ulp_err(out, eo) <= 1.0
+
+
+@pytest.mark.parametrize("b,t,d,n,state", MAMBA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_conv1d_bwd_equals_plain(gen, b, t, d, n, state, dtype):
+    x, w, bias, st = _conv_case(gen, b, t, d, dtype, state)
+    dout = _normal(gen, b, t, d, dtype=dtype)
+    dnew = _normal(gen, b, 3, d, dtype=dtype) if state else None
+    launches = causal_conv1d_bwd.launches
+    got = causal_conv1d_bwd(x, w, bias, st, dout, dnew)
+    torch.cuda.synchronize()
+    assert causal_conv1d_bwd.launches == launches + 1
+    exp = causal_conv1d_bwd_plain(x, w, bias, st, dout, dnew)
+    for name, g, e in zip(("dx", "dw", "db", "dstate"), got, exp):
+        _grad_gate(g, e, name)
+
+
+def test_causal_conv1d_bwd_repeated_launches_agree(gen):
+    x, w, bias, st = _conv_case(gen, 4, 2048, 16384, torch.bfloat16, False)
+    dout = _normal(gen, 4, 2048, 16384, dtype=torch.bfloat16)
+    first = causal_conv1d_bwd(x, w, bias, st, dout)
+    for i in range(50):
+        again = causal_conv1d_bwd(x, w, bias, st, dout)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
+def _scan_case(gen, b, t, d, n, state):
+    """dt as the model makes it (softplus around its bias's init), a =
+    -(1..n) scaled, b, c, x N(0, 1), d_skip around 1, a state or None."""
+    dt = torch.nn.functional.softplus(_normal(gen, b, t, d) - 3.0)
+    a = -torch.exp(_normal(gen, d, n) * 0.3) * torch.arange(
+        1, n + 1, device="cuda")
+    return (dt, a, _normal(gen, b, t, n), _normal(gen, b, t, n),
+            _normal(gen, b, t, d), 1 + 0.3 * _normal(gen, d),
+            _normal(gen, b, d, n) * 0.5 if state else None)
+
+
+def _rms_err(got, exp):
+    return float((got - exp).abs().max() / exp.square().mean().sqrt())
+
+
+@pytest.mark.parametrize("b,t,d,n,state", MAMBA_SHAPES)
+def test_selective_scan_kernel_equals_plain(gen, b, t, d, n, state):
+    args = _scan_case(gen, b, t, d, n, state)
+    launches = selective_scan.launches
+    y, s = selective_scan(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == launches + 1
+    ey, es = selective_scan_plain(*args)
+    print(f"scan {(b, t, d, n)}: state bit-equal {torch.equal(s, es)}")
+    assert _rms_err(y, ey) <= 1e-5 and _rms_err(s, es) <= 1e-5
+
+
+@pytest.mark.parametrize("b,t,d,n,state", MAMBA_SHAPES)
+def test_selective_scan_checkpoints_and_bwd_equal_plain(gen, b, t, d, n,
+                                                        state):
+    """The checkpointing forward's y and state bit-equal to the serving
+    launch's, then the backward from its checkpoints against the plain
+    reverse recurrence, with the final state's gradient."""
+    args = _scan_case(gen, b, t, d, n, state)
+    y, s = selective_scan(*args)
+    y2, s2, ck = selective_scan_checkpoints(*args)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    dy, dstate = _normal(gen, b, t, d), _normal(gen, b, d, n) * 0.5
+    launches = selective_scan_bwd.launches
+    got = selective_scan_bwd(*args[:6], ck, dy, dstate)
+    torch.cuda.synchronize()
+    assert selective_scan_bwd.launches == launches + 1
+    exp = selective_scan_bwd_plain(*args, dy, dstate)
+    for name, g, e in zip(("ddt", "da", "db", "dc", "dx", "dd_skip",
+                           "dstate0"), got, exp):
+        _grad_gate(g, e, name)
+
+
+def test_selective_scan_bwd_repeated_launches_agree(gen):
+    args = _scan_case(gen, 4, 2048, 16384, 16, False)
+    _, _, ck = selective_scan_checkpoints(*args)
+    dy = _normal(gen, 4, 2048, 16384)
+    first = selective_scan_bwd(*args[:6], ck, dy)
+    for i in range(50):
+        again = selective_scan_bwd(*args[:6], ck, dy)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
+def test_mamba_kernels_refuse_what_they_are_not_built_for(gen):
+    """d_state 4, d_inner 200 (no multiple of 128) and bf16 scan inputs
+    raise on CUDA tensors, with no launch; a conv width 3 too."""
+    before = selective_scan.launches, causal_conv1d.launches
+    for n, d in ((4, 256), (16, 200)):
+        with pytest.raises(ValueError):
+            selective_scan(*_scan_case(gen, 1, 5, d, n, False))
+    args = [v.to(torch.bfloat16) for v in _scan_case(gen, 1, 5, 128, 8,
+                                                     False)[:6]]
+    with pytest.raises(TypeError):
+        selective_scan(*args)
+    x, w, bias, _ = _conv_case(gen, 1, 5, 64, torch.float32, False)
+    with pytest.raises(ValueError):
+        causal_conv1d(x, w[:3], bias)
+    assert before == (selective_scan.launches, causal_conv1d.launches)
+
+
+def test_mamba_layer_on_the_card_equals_the_cpu(gen):
+    """jamba's smoke Mamba layer (fp32) forward and backward through the
+    four kernels against the same layer on the CPU (the plain versions
+    under autograd): the output, both states and every gradient leaf."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mamba
+    cfg = smoke_config("jamba-1.5-large-398b")
+    p = mamba.mamba_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         torch.float32, "cuda")
+    p["conv_b"] = 0.1 * _normal(gen, *p["conv_b"].shape)
+    p["d_skip"] = 1 + 0.3 * _normal(gen, *p["d_skip"].shape)
+    x = _normal(gen, 2, 64, cfg.d_model)
+    dy = _normal(gen, 2, 64, cfg.d_model)
+    outs = {}
+    counts = lambda: (causal_conv1d.launches, selective_scan.launches,  # noqa: E731
+                      causal_conv1d_bwd.launches, selective_scan_bwd.launches)
+    before = counts()
+    for dev in ("cuda", "cpu"):
+        leaves = {k: v.detach().to(dev).requires_grad_(True)
+                  for k, v in p.items()}
+        y, st = mamba.mamba_apply(leaves, cfg, x.to(dev))
+        grads = torch.autograd.grad(y, list(leaves.values()), dy.to(dev))
+        outs[dev] = [y, st.conv, st.ssm, *grads]
+    assert counts() == tuple(c + 1 for c in before)
+    for got, exp in zip(outs["cuda"], outs["cpu"]):
+        _grad_gate(got.detach().cpu(), exp.detach(), "leaf")

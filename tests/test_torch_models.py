@@ -91,7 +91,8 @@ def _prefill_and_decode(arch, b, s):
     assert tcache["length"].tolist() == [s + steps] * b
 
 
-@pytest.mark.parametrize("arch", ARCHS + [RWKV] + CONTEXT)
+@pytest.mark.parametrize("arch", ARCHS + [RWKV] + CONTEXT
+                         + ["jamba-1.5-large-398b"])
 def test_param_tree_matches_reference(arch):
     """Same key names and leaf shapes; the meta device allocates
     nothing."""
@@ -278,5 +279,11 @@ def test_unported_paths_raise():
         "tokens": tokens, "labels": tokens,
         "vision_embeds": torch.randn((1, 3, tc.d_model))})
     assert torch.equal(plain, with_ctx)
-    with pytest.raises(NotImplementedError, match="mamba"):
-        ttf.init_params(t_smoke("jamba-1.5-large-398b"), device="meta")
+    # the hybrid family initialises: jamba's smoke config, 7 Mamba layers
+    # and its one attention layer (at offset 4 of the period 8)
+    jamba = t_smoke("jamba-1.5-large-398b")
+    mixers = [spec.mixer for spec in ttf.layer_specs(jamba)]
+    assert mixers.count("mamba") == 7 and mixers.count("attn") == 1
+    assert mixers.index("attn") == 4
+    tp = ttf.init_params(jamba, device="meta")
+    assert all(v.device.type == "meta" for v in _flat(tp).values())
