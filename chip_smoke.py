@@ -77,9 +77,16 @@ Phases, each printing JSON lines:
              a decode step from a state), a ragged (2, 333, 384) one in
              both types and the smoke config's: the conv bit for bit or
              within one ulp of its type (its new state bit for bit), the
-             scan's y and state within 1e-5 of their rms, each beside its
-             bound, the scan also beside its MUFU floor, the conv beside
-             ``F.conv1d`` + ``F.silu``.
+             scan's fp32 mode's y and state within 1e-5 of their rms, its
+             gated mode (dt's softplus and the SiLU gate fused, in the
+             model type, on the conv's output) within one ulp of the
+             unfused chain it replaces and its state bit for bit, within
+             1e-5 of the plain state's rms; and a long-memory case (dt =
+             1e-3, a = -1 and -16 over 6144 steps) for both modes.  Each
+             beside its bound, the scan also beside its MUFU floor (the
+             gated mode's with its four MUFU operations a channel a step)
+             and the gated mode beside the unfused chain's time, the conv
+             beside ``F.conv1d`` + ``F.silu``.
 3. scenarios - first the committed goldens on the threefry stream in
              legacy mode: ``tests/golden/scenarios.json`` exactly, then the
              zoo and content goldens with a count of the runs that differ
@@ -284,7 +291,9 @@ Phases, each printing JSON lines:
              its stated scratch plus 1 MiB, each beside its bound and the
              plain version, the conv's beside autograd of ``F.conv1d`` +
              ``F.silu``, 50 more launches bit-equal.
-9. the ``kernels`` line, the card's name and power limit, and the final
+9. the ``kernels`` line (``selective_scan``'s row is its gated mode,
+   which the serving paths launch, with its fp32 mode's under
+   ``fp32_mode``), the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --wkv-bwd-turns SRC...`` builds each given
@@ -294,6 +303,13 @@ times them alone at rwkv6-1.6b's training shape in turns
 (:func:`wkv_bwd_turns`); ``--rmsnorm-bwd-turns SRC...`` does the same
 for the RMSNorm backward at its two training shapes in both cast
 orders, with each launch's device time (:func:`rmsnorm_bwd_turns`).
+``--mamba-turns ROOT...`` runs each tree's own Mamba kernel checks and
+its two jamba cells from its root, in turns (:func:`mamba_turns`).
+``--sass KERNEL SRC...`` builds each given source of ``causal_conv1d`` or
+``selective_scan`` the same way and counts its machine code's
+instructions by opcode in the loop that writes the output, per output
+element (the conv) or per exponential, i.e. per state element a step
+(the scan's fp32 mode) (:func:`sass_counts`).
 
 Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving, seven
 cells) and 8 (training, five cells) are the main paths; each path's kernels' launch counts are
@@ -405,7 +421,8 @@ REPLACES = {
                           "(jax.grad)"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/models/mamba.py:116 mamba_apply's chunked "
-                       "scan of _ssm_step and its skip"),
+                       "scan of _ssm_step and its skip (:144); serving "
+                       "also dt's softplus (:82) and the SiLU gate (:145)"),
     "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
                            "src/repro/models/mamba.py:116 mamba_apply's "
                            "chunked scan of _ssm_step (jax.grad)"),
@@ -1885,6 +1902,17 @@ MUFU_PER_SM = 16
 #: and the reverse step's sixteen)
 CONV_FLOPS, CONV_BWD_FLOPS = 11, 32
 SCAN_FLOPS, SCAN_BWD_FLOPS = 8, 8 + 16
+#: what the gated scan adds a channel a step: MUFU operations (softplus's
+#: exp and log, SiLU's exp and reciprocal) and fp32 operations (the bias,
+#: softplus's exp, add and log, SiLU's exp, add and divide, the product)
+GATED_MUFU, GATED_FLOPS = 4, 8
+#: MUFU operations an output of the causal conv (SiLU's exp and
+#: reciprocal)
+CONV_MUFU = 2
+
+
+#: (B, T, d_inner, d_state) of ``check_long_memory``
+LONG_MEMORY = (1, 6144, 512, 16)
 
 
 def mamba_shapes(P: int, L1: int) -> tuple:
@@ -1929,6 +1957,88 @@ def mamba_inputs(gen, b: int, t: int, d: int, n: int, dtype, state: bool):
     return conv, scan
 
 
+def gated_inputs(gen, scan, x):
+    """The gated scan's inputs beside ``scan``'s a, b, c, d_skip and
+    state: dt's raw projection 0.5 N(0, 1) in x's type, its bias at its
+    init (the inverse softplus of U(1e-3, 1e-1)), x (the conv's output)
+    and z, the z half of an input projection (row stride 2d)."""
+    import torch
+    b, t, d = x.shape
+    raw = (0.5 * torch.randn((b, t, d), generator=gen, device="cuda")).to(
+        x.dtype)
+    dt0 = 1e-3 + (1e-1 - 1e-3) * torch.rand(d, generator=gen, device="cuda")
+    z = torch.randn((b, t, 2 * d), generator=gen, device="cuda").to(
+        x.dtype)[..., d:]
+    return (raw, torch.log(torch.expm1(dt0)), scan[1], scan[2], scan[3], x,
+            z, scan[5], scan[6])
+
+
+def unfused_gated(dt_raw, dt_bias, a, b, c, x, z, d_skip, state=None):
+    """What the gated scan replaces: the scan kernel's fp32 mode between
+    the torch ops of ``models/mamba.py``'s autograd chain (dt's softplus,
+    the casts, the SiLU gate)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.selective_scan import selective_scan
+    y, h = selective_scan(F.softplus(dt_raw.to(torch.float32) + dt_bias), a,
+                          b, c, x.to(torch.float32), d_skip, state)
+    return y.to(x.dtype) * F.silu(z), h
+
+
+def ulp_err(got, exp) -> float:
+    """Largest |got - exp| in ulps of exp's type at exp."""
+    import torch
+    e = exp.float()
+    bits = 8 if exp.dtype == torch.bfloat16 else 24
+    ulp = torch.ldexp(torch.ones_like(e), torch.frexp(e).exponent - bits)
+    return float(((got.float() - e).abs() / ulp).max())
+
+
+def rms_err(got, exp) -> float:
+    return float((got.float() - exp.float()).abs().max()
+                 / exp.float().square().mean().sqrt())
+
+
+def check_long_memory(card: str, gen) -> None:
+    """The case that catches a biased exponential: dt = 1e-3 (its init's
+    floor) with a = -1 and -16 (states that remember ~1000 and ~60
+    steps) over 6144 steps, one batch row of 512 channels (four lanes a
+    channel): both modes' y or output and state against their plain
+    versions, within 1e-5 of the rms (the gated output in fp32, where a
+    bf16 rounding would hide a drift)."""
+    import torch
+    from repro_torch.kernels.ref import (selective_scan_gated_plain,
+                                         selective_scan_plain)
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_gated)
+    b, t, d, n = LONG_MEMORY
+    a = torch.where(torch.arange(n, device="cuda") % 2 == 0, -1.0,
+                    -16.0).expand(d, n).contiguous()
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    bm, cm, x = normal(b, t, n), normal(b, t, n), normal(b, t, d)
+    dskip = 1 + 0.3 * normal(d)
+    dt = torch.full((b, t, d), 1e-3, device="cuda")
+    y, s = selective_scan(dt, a, bm, cm, x, dskip)
+    ey, es = selective_scan_plain(dt, a, bm, cm, x, dskip)
+    # softplus(0 + bias) = 1e-3 up to the bias's rounding
+    bias = torch.full((d,), math.log(math.expm1(1e-3)), device="cuda")
+    z = normal(b, t, 2 * d)[..., d:]
+    g = (torch.zeros_like(x), bias, a, bm, cm, x, z, dskip)
+    go, gs = selective_scan_gated(*g)
+    po, ps = selective_scan_gated_plain(*g)
+    errs = {"y": rms_err(y, ey), "state": rms_err(s, es),
+            "gated_out": rms_err(go, po), "gated_state": rms_err(gs, ps)}
+    emit({"phase": "kernels", "kernel": "selective_scan",
+          "case": "long memory", "shape": [b, t, d, n], "dt": 1e-3,
+          "a": [-1.0, -16.0], "err_over_rms": errs, "card": card})
+    check(max(errs.values()) <= WKV_FP32_TOL,
+          f"selective_scan's long-memory case within {WKV_FP32_TOL} of "
+          f"its rms in both modes ({errs})")
+
+
 def conv_library(x, weight, bias):
     """The yardstick of the causal conv: ``F.conv1d`` (depthwise, padded
     by 3 on the left's behalf) and ``F.silu``, one PyTorch call each, on
@@ -1956,11 +2066,14 @@ def check_mamba_kernels(card: str, rate: float, fp32_flops: float, gen,
     import torch
     from repro_torch.kernels.causal_conv1d import (causal_conv1d,
                                                    causal_conv1d_plain)
-    from repro_torch.kernels.selective_scan import (selective_scan,
+    from repro_torch.kernels.ref import selective_scan_gated_plain
+    from repro_torch.kernels.selective_scan import (plan, selective_scan,
+                                                    selective_scan_gated,
                                                     selective_scan_plain)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = max_sm_clock_hz()
     results, repeats = {}, []
+    check_long_memory(card, gen)
 
     def size(*ts):
         return sum(v.numel() * v.element_size() for v in ts if v is not None)
@@ -1973,9 +2086,7 @@ def check_mamba_kernels(card: str, rate: float, fp32_flops: float, gen,
         eo, en = causal_conv1d_plain(*conv)
         check(torch.equal(new, en), f"causal_conv1d new state == plain bit "
               f"for bit ({label})")
-        ulps = bf16_ulps(out, eo) if dtype == torch.bfloat16 else float(
-            ((out - eo).abs() / torch.ldexp(torch.ones_like(eo), torch.frexp(
-                eo).exponent - 24)).max())
+        ulps = ulp_err(out, eo)
         check(ulps <= 1.0, f"causal_conv1d ({label}) within one ulp of its "
               f"plain version ({ulps})")
         make = lambda: conv   # noqa: E731
@@ -1984,8 +2095,16 @@ def check_mamba_kernels(card: str, rate: float, fp32_flops: float, gen,
         bytes_ms = (2 * x.numel() * x.element_size() + size(*conv[1:])
                     + size(new)) / rate * 1e3
         ops_ms = CONV_FLOPS * x.numel() / fp32_flops * 1e3
+        vec = 16 // x.element_size()
+        sass_per, sass_ms = sass_issue(
+            "causal_conv1d", r"conv_kernelI13__nv_bfloat16E" if vec == 8
+            else r"conv_kernelIfE", "STG.E.128", x.numel() // vec, sms,
+            clock_hz)
         row = {"phase": "kernels", "kernel": "causal_conv1d", "case": label,
                "shape": [b, t, d], "dtype": name, "initial_state": state,
+               "issue_floor_ms": CONV_MUFU * x.numel()
+               / (MUFU_PER_SM * sms * clock_hz) * 1e3,
+               "sass_per_value": sass_per / vec, "sass_issue_ms": sass_ms,
                "x_row_stride": x.stride(1), "state_equal": True,
                "bit_equal": bool(torch.equal(out, eo)),
                "differing_share": float((out != eo).float().mean()),
@@ -2002,22 +2121,27 @@ def check_mamba_kernels(card: str, rate: float, fp32_flops: float, gen,
         emit(row)
         repeats.append(("causal_conv1d", label,
                         functools.partial(causal_conv1d, *conv), (out, new)))
-        del eo, en, out, new
+        del eo, en, new
+        elems = b * t * d * n
         y, s = selective_scan(*scan)
         torch.cuda.synchronize()
         ey, es = selective_scan_plain(*scan)
-        errs = [float((g - e).abs().max() / e.square().mean().sqrt())
-                for g, e in ((y, ey), (s, es))]
+        errs = [rms_err(y, ey), rms_err(s, es)]
         check(max(errs) <= WKV_FP32_TOL, f"selective_scan ({label}) y and "
               f"state within {WKV_FP32_TOL} of their rms ({errs})")
         make = lambda: scan   # noqa: E731
         dev_ms, host_ms = device_ms(selective_scan, make, 5)
-        elems = b * t * d * n
         bytes_ms = (size(*scan) + size(y, s)) / rate * 1e3
         ops_ms = (SCAN_FLOPS * elems + 2 * b * t * d) / fp32_flops * 1e3
+        lanes = plan(b, d, sms)
+        sass_per, sass_ms = sass_issue(
+            "selective_scan", rf"scan_kernelIfLb0ELi{n}ELi{lanes}EE",
+            "MUFU.EX2", elems, sms, clock_hz)
         srow = {"phase": "kernels", "kernel": "selective_scan",
-                "case": label, "shape": [b, t, d, n], "dtype": "float32",
-                "initial_state": state,
+                "mode": "fp32", "case": label, "shape": [b, t, d, n],
+                "dtype": "float32", "initial_state": state,
+                "lanes": lanes, "sass_per_exp": sass_per,
+                "sass_issue_ms": sass_ms,
                 "state_equal": bool(torch.equal(s, es)),
                 "max_abs_err": float((y - ey).abs().max()),
                 "y_err_over_rms": errs[0], "state_err_over_rms": errs[1],
@@ -2034,8 +2158,62 @@ def check_mamba_kernels(card: str, rate: float, fp32_flops: float, gen,
         repeats.append(("selective_scan", label,
                         functools.partial(selective_scan, *scan), (y, s)))
         del ey, es
+        # the gated mode, on the conv's output
+        g = gated_inputs(gen, scan, out)
+        go, gs = selective_scan_gated(*g)
+        torch.cuda.synchronize()
+        co, cs = unfused_gated(*g)
+        ulps = ulp_err(go, co)
+        check(ulps <= 1.0 and torch.equal(gs, cs),
+              f"selective_scan_gated ({label}) within one ulp of the "
+              f"unfused chain ({ulps}) and its state bit for bit")
+        po, ps = selective_scan_gated_plain(*g)
+        state_err = rms_err(gs, ps)
+        check(state_err <= WKV_FP32_TOL, f"selective_scan_gated ({label}) "
+              f"state within {WKV_FP32_TOL} of its rms ({state_err})")
+        make = lambda: g   # noqa: E731
+        dev_ms, host_ms = device_ms(selective_scan_gated, make, 5)
+        bytes_ms = (size(*g) + size(go, gs)) / rate * 1e3
+        ops_ms = (SCAN_FLOPS * elems + (2 + GATED_FLOPS) * b * t * d) \
+            / fp32_flops * 1e3
+        # softplus's and SiLU's expf are MUFU.EX2s of the loop too
+        io = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+        sass_per, sass_ms = sass_issue(
+            "selective_scan", rf"scan_kernelI{io}Lb1ELi{n}ELi{lanes}EE",
+            "MUFU.EX2", elems + 2 * b * t * d, sms, clock_hz)
+        grow = {"phase": "kernels", "kernel": "selective_scan",
+                "mode": "gated", "case": label, "shape": [b, t, d, n],
+                "dtype": name, "initial_state": state, "lanes": lanes,
+                "sass_per_exp": sass_per, "sass_issue_ms": sass_ms,
+                "z_row_stride": g[6].stride(1),
+                "bit_equal_to_unfused": bool(torch.equal(go, co)),
+                "differing_share_unfused": float((go != co).float().mean()),
+                "max_ulps_unfused": ulps,
+                "max_abs_err": float((go.float() - po.float()).abs().max()),
+                "max_ulps_plain": ulp_err(go, po),
+                "differing_share_plain": float((go != po).float().mean()),
+                "state_err_over_rms": state_err,
+                "ms": median_ms(selective_scan_gated, make, 5),
+                "device_ms": dev_ms, "host_ms": host_ms,
+                "unfused_ms": device_ms(unfused_gated, make, 5)[0],
+                "plain_ms": median_ms(selective_scan_gated_plain, make, 1),
+                "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+                "issue_floor_ms": (elems + GATED_MUFU * b * t * d)
+                / (MUFU_PER_SM * sms * clock_hz) * 1e3, "card": card}
+        emit(grow)
+        repeats.append(("selective_scan_gated", label,
+                        functools.partial(selective_scan_gated, *g),
+                        (go, gs)))
+        del co, cs, po, ps, out
         if label == "batched prefill":
-            results["causal_conv1d"], results["selective_scan"] = row, srow
+            # the serving paths launch the gated mode (training the fp32)
+            grow["fp32_mode"] = {k: srow[k] for k in (
+                "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+                "bound_by", "issue_floor_ms", "sass_issue_ms",
+                "max_abs_err")}
+            results["causal_conv1d"], results["selective_scan"] = row, grow
     return results, repeats
 
 
@@ -3017,7 +3195,7 @@ class plain_route:
         from repro_torch.kernels import rmsnorm as norm
         self.saved = (ops.rmsnorm, ops.flash_attention, ops.decode_attention,
                       ops.rwkv6_scan, ops.causal_conv1d, ops.selective_scan,
-                      norm.rmsnorm)
+                      ops.selective_scan_gated, norm.rmsnorm)
         ops.rmsnorm = lambda x, w, eps=1e-6, block_rows=128: \
             ref.rmsnorm_plain(x, w, eps)
         norm.rmsnorm = lambda x, w, eps=1e-6, cast_first=False: (
@@ -3033,6 +3211,7 @@ class plain_route:
         ops.selective_scan = lambda dt, a, b, c, x, d_skip, \
             initial_state=None: plain_ssm().apply(dt, a, b, c, x, d_skip,
                                                   initial_state)
+        ops.selective_scan_gated = ref.selective_scan_gated_plain
         return self
 
     def __exit__(self, *exc):
@@ -3040,7 +3219,7 @@ class plain_route:
         from repro_torch.kernels import rmsnorm as norm
         (ops.rmsnorm, ops.flash_attention, ops.decode_attention,
          ops.rwkv6_scan, ops.causal_conv1d, ops.selective_scan,
-         norm.rmsnorm) = self.saved
+         ops.selective_scan_gated, norm.rmsnorm) = self.saved
         return False
 
 
@@ -3772,7 +3951,8 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
     turns.  Returns the training shape's rows and the cases for
     ``check_repeats``."""
     import torch
-    from repro_torch.kernels.causal_conv1d import (causal_conv1d_bwd,
+    from repro_torch.kernels.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_bwd,
                                                    causal_conv1d_bwd_plain)
     from repro_torch.kernels.selective_scan import (
         CKPT, bwd_scratch_floats, selective_scan, selective_scan_bwd,
@@ -3810,6 +3990,13 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
         row = {"phase": "kernels", "kernel": "causal_conv1d_bwd",
                "case": label, "shape": [b, t, d_], "dtype": name,
                "initial_state": state,
+               # the forward as training launches it
+               "forward_device_ms": device_ms(causal_conv1d,
+                                              lambda: conv, 5)[0],
+               "forward_bound_ms": (2 * x.numel() * x.element_size()
+                                    + size(*conv[1:])) / rate * 1e3,
+               "forward_issue_floor_ms": CONV_MUFU * x.numel()
+               / (MUFU_PER_SM * sms * clock_hz) * 1e3,
                "max_abs_err": max(e[0] for e in errs),
                "rel_l2": [e[1] for e in errs],
                "ms": median_ms(causal_conv1d_bwd, make, 5),
@@ -3882,6 +4069,8 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
                 * 1e3,
                 "forward_device_ms": turns[False],
                 "forward_checkpointed_device_ms": turns[True],
+                "forward_issue_floor_ms": elems
+                / (MUFU_PER_SM * sms * clock_hz) * 1e3,
                 "card": card}
         emit(srow)
         repeats.append(("selective_scan_bwd", label, functools.partial(
@@ -3930,6 +4119,149 @@ def build_variants(kernel: str, sources) -> list:
         check(proc.returncode == 0, f"{src} builds:\n{log}")
         variants.append((src, ctypes.CDLL(str(lib)), ptxas_entries(log)))
     return variants
+
+
+def sass_loop(instructions, unit: str) -> tuple:
+    """Per opcode, the instructions of the loop body (the span of a
+    backward branch) that holds the most ``unit`` instructions (its
+    tightest such span), and that count.  ``instructions`` are
+    ``(address, text)`` pairs of one function of ``cuobjdump -sass``."""
+    def opcode(text):
+        words = text.split()
+        return words[1] if words[0].startswith("@") else words[0]
+
+    best = None
+    for addr, text in instructions:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [opcode(t) for a, t in instructions
+                if int(m.group(1), 16) <= a <= addr]
+        units = sum(op.startswith(unit) for op in body)
+        if units and (best is None or (units, -len(body)) > best[0]):
+            best = ((units, -len(body)), body)
+    if best is None:
+        return {}, 0
+    return dict(collections.Counter(best[1])), best[0][0]
+
+
+@functools.lru_cache(maxsize=None)
+def sass_functions(library: str) -> dict:
+    """A library's machine code (``cuobjdump -sass``): per function's
+    mangled name, its ``(address, text)`` instructions."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", library], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def sass_issue(kernel: str, pattern: str, unit: str, units_run: int,
+               sms: int, clock_hz: float) -> tuple:
+    """The built ``kernel``'s instance matching ``pattern``: the
+    instructions of its output loop (:func:`sass_loop`) per ``unit``
+    instruction, and the ms that ``units_run`` such units take to issue
+    at ``FP32_LANES_PER_SM`` thread-instructions an SM a clock.  A static
+    count: branches not taken (a division's slow path) count too."""
+    from repro_torch.kernels import build
+    funcs = sass_functions(str(build.library_path(kernel)))
+    match = [f for f in funcs if re.search(pattern, f)]
+    check(len(match) == 1, f"one {kernel} instance matches {pattern}")
+    ops, units = sass_loop(funcs[match[0]], unit)
+    per = sum(ops.values()) / units
+    return per, per * units_run / (FP32_LANES_PER_SM * sms * clock_hz) * 1e3
+
+
+#: ``--sass``'s instances of each kernel: (name, the function's mangled
+#: name pattern, the loop's unit instruction, model values a unit)
+SASS_INSTANCES = {
+    "causal_conv1d": (("bf16", r"conv_kernelI13__nv_bfloat16E", "STG.E.128",
+                       8),
+                      ("fp32", r"conv_kernelIfE", "STG.E.128", 4)),
+    "selective_scan": (("fp32 mode, d_state 16, 1 lane",
+                        r"scan_kernelI(?:fLb0E)?Li16E(?:Li1E)?E",
+                        "MUFU.EX2", 1),),
+}
+
+
+def sass_counts(card: str, kernel: str, sources) -> None:
+    """``chip_smoke.py --sass KERNEL SRC...``: each source built by
+    :func:`build_variants`, then, per instance of ``SASS_INSTANCES``, the
+    instructions of its output loop (:func:`sass_loop`) per output element
+    (the conv: a 16-byte store is 8 bf16 or 4 fp32 values) or per
+    exponential (the scan): every opcode, and conversions (``F2F``,
+    ``F2FP``), fp32 FMA-pipe operations (``FFMA``, ``FMUL``, ``FADD``),
+    packed half operations (``HFMA2``, ``HMUL2``, ``HADD2``) and ``MUFU``
+    summed apart.  Static counts of the machine code, not a profile."""
+    for src, lib, entries in build_variants(kernel, sources):
+        funcs = sass_functions(lib._name)
+        for label, pattern, unit, values in SASS_INSTANCES[kernel]:
+            match = [f for f in funcs if re.search(pattern, f)]
+            check(len(match) == 1, f"{source_name(src)}: one {kernel} "
+                  f"instance matches {pattern} ({match})")
+            ops, units = sass_loop(funcs[match[0]], unit)
+            check(units > 0, f"{source_name(src)}: {label}'s output loop")
+            per = {op: n / (units * values) for op, n in sorted(ops.items())}
+
+            def total(*prefixes):
+                return sum(v for op, v in per.items()
+                           if op.split(".")[0] in prefixes)
+
+            emit({"phase": "sass", "kernel": kernel,
+                  "source": source_name(src), "instance": label,
+                  "loop_units": units, "unit": unit, "per_value": per,
+                  "conversions": total("F2F", "F2FP"),
+                  "fp32_fma_pipe": total("FFMA", "FMUL", "FADD"),
+                  "packed_half": total("HFMA2", "HMUL2", "HADD2"),
+                  "mufu": total("MUFU"), "all": sum(per.values()),
+                  "ptxas": entries, "card": card})
+
+
+#: one turn of ``--mamba-turns``, run in a child process from a tree's
+#: root with that tree's own ``chip_smoke``
+MAMBA_TURN = """
+import sys
+import torch
+sys.path.insert(0, "src")
+import chip_smoke as cs
+card = cs.card_line()
+gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+cs.check_mamba_kernels(card, cs.memory_rate(card), cs.fp32_rate(card), gen,
+                       6144, 6144)
+for fn in cs.model_kernels().values():
+    fn.launches = 0
+cs.phase_serve(card, cs.SERVE_JAMBA)
+cs.phase_train(card, cs.bf16_rate(card), cs.TRAIN_JAMBA)
+"""
+
+
+def mamba_turns(card: str, roots) -> None:
+    """``chip_smoke.py --mamba-turns ROOT...``: each tree's own Mamba
+    kernel checks (``check_mamba_kernels`` at jamba's serving shapes)
+    and its two jamba cells (``serve_jamba`` and jamba's first-layer
+    training) in a child process from the tree's root, in turns (the
+    roots in order, then reversed), every line the child prints that is
+    a JSON object re-emitted with its turn and root.  The kernels build
+    at first use in each tree."""
+    order = list(roots) + list(roots)[::-1]
+    for turn, root in enumerate(order):
+        proc = subprocess.run([sys.executable, "-c", MAMBA_TURN],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=1200)
+        check(proc.returncode == 0, f"{root} turn {turn}: "
+              f"{proc.stdout[-1500:]}{proc.stderr[-1500:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                emit(dict(json.loads(line), turn=turn, root=root))
 
 
 def in_turns(calls, turns) -> list:
@@ -4652,6 +4984,12 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--rmsnorm-bwd-turns"]:
         rmsnorm_bwd_turns(card, sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--mamba-turns"]:
+        mamba_turns(card, sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--sass"]:
+        sass_counts(card, sys.argv[2], sys.argv[3:])
         return 0
     if sys.argv[1:2] == ["--wkv-bwd-turns"]:
         args = sys.argv[2:]

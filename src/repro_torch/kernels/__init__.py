@@ -6,7 +6,8 @@ held to):
   * ``chunk_tick`` - batched chunk-diff / delta-coherence tick (content
                      plane; consumes mesi_tick's per-agent miss output)
   * ``rmsnorm``, ``flash_attention``, ``decode_attention``,
-    ``rwkv6_scan``, ``causal_conv1d``, ``selective_scan``
+    ``rwkv6_scan``, ``causal_conv1d``, ``selective_scan`` (and its
+    gated mode ``selective_scan_gated``)
                    - the model kernels of the serving path, public
                      through ``kernels.ops`` (the first four with the JAX
                      package's signatures); the backward kernels of

@@ -57,7 +57,7 @@ KERNELS = {
     "causal_conv1d_bwd": ("causal_conv1d_bwd.cu", "causal_conv1d_bwd_launch",
                           [_P] * 11 + [_I] * 6 + [_P]),
     "selective_scan": ("selective_scan.cu", "selective_scan_launch",
-                       [_P] * 10 + [_I] * 4 + [_P]),
+                       [_P] * 12 + [_I] * 9 + [_P]),
     "selective_scan_bwd": ("selective_scan_bwd.cu",
                            "selective_scan_bwd_launch",
                            [_P] * 17 + [_I] * 4 + [_P]),

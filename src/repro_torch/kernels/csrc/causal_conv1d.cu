@@ -12,22 +12,31 @@
 // (4, D), b (D), the states (B, 3, D), out (B, T, D), all one type.
 //
 // Bound.  Bytes: x read once and out written once (plus the weights and
-// the states): 2 * B*T*D values.  The arithmetic is a few operations per
-// value, far below the card's rate, so the kernel is bound by bytes; in
-// plain PyTorch the same conv is four or more full passes over (B, T, D).
+// the states): 2 * B*T*D values, 0.481 ms at (4, 6144, 16384) bf16 on an
+// H100.  The plain version rounds every product and sum to the input type
+// one by one; done in fp32 that is nine float -> bf16 -> float round trips
+// an output (3.6 G conversions at that shape), and conversions issue at a
+// fraction of the FMA rate, so a design rounding in fp32 spends most of
+// its time on them.  SiLU's expf and IEEE division add ~20 instructions an
+// output.
 //
 // Design.  A thread owns 16 bytes of channels (8 bf16 or 4 fp32) of one
 // batch row over a tile of kTile steps: it keeps the three inputs before
-// its current step in registers, reads each row of x once with one 16-byte
-// load (neighbouring threads on neighbouring channels, so a warp reads 512
-// contiguous bytes a row) and writes out the same way; the three rows
-// before its tile are read again by it (3 / kTile more bytes).  Every
-// product, sum and the bias are rounded to the input type one by one, as
-// the plain version's torch ops are (__fmul_rn / __fadd_rn, so nvcc does not
-// contract them into FMAs), and SiLU is x / (1 + expf(-x)) in fp32, rounded
-// once, so the output equals the plain version's.  The threads of the first
-// tile write the new state, after reading its rows, so state_in may equal
-// state_out.
+// its current step in registers, reads kAhead rows of x at a time, all
+// issued before any is used (a 16-byte load each, neighbouring threads on
+// neighbouring channels, so a warp reads 512 contiguous bytes a row), and
+// writes out the same way; the three rows before its tile are read again
+// by it (3 / kTile more bytes).  bf16 runs on packed pairs: each product
+// and sum is one mul.rn.bf16x2 / add.rn.bf16x2, two channels an
+// instruction and one rounding each, which is the plain version's rounding
+// (a product of two bf16 values is exact in fp32, and so is their sum
+// unless their exponents lie more than 16 apart, when the smaller lies
+// below half an ulp of the larger and both roundings return the larger);
+// the explicit .rn keeps ptxas from contracting them into FMAs.  fp32
+// rounds each product and sum with __fmul_rn / __fadd_rn.  SiLU is x / (1
+// + expf(-x)) in fp32, rounded once, as torch's.  So the output equals the
+// plain version's.  The threads of the first tile write the new state,
+// after reading its rows, so state_in may equal state_out.
 //
 // C interface (ctypes): causal_conv1d_launch(x, w, b, state_in, out,
 // state_out, B, T, D, x_batch_stride, x_row_stride, dtype, stream); dtype
@@ -38,47 +47,80 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kTaps = 4;       // d_conv
 constexpr int kTile = 64;      // steps a thread
+constexpr int kAhead = 8;      // rows of x a thread has in flight
 constexpr int kThreads = 128;  // threads a block
 
-__device__ __forceinline__ float rnd(float v, float) { return v; }
-__device__ __forceinline__ float rnd(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+// 16 bytes of T as four 32-bit words
+struct Row {
+  uint32_t w[4];
+};
 
-// 16 bytes of T as floats
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  out[0] = q.x; out[1] = q.y; out[2] = q.z; out[3] = q.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+__device__ __forceinline__ Row load16(const void* p) {
   const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const unsigned words[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    __nv_bfloat162 h;
-    *reinterpret_cast<unsigned*>(&h) = words[e];
-    const float2 f = __bfloat1622float2(h);
-    out[2 * e] = f.x; out[2 * e + 1] = f.y;
-  }
+  return Row{{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ void store16(void* p, const Row& v) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
 }
 
-// floats to 16 bytes of T (round to nearest even)
-__device__ __forceinline__ void store16(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+// F.silu in fp32, as torch computes it
+__device__ __forceinline__ float silu(float v) {
+  return __fdiv_rn(v, __fadd_rn(1.f, expf(-v)));
 }
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
-  unsigned words[4];
+
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// one output row of 16 bytes from the window xp[t .. t+3] (p0 .. p3), the
+// taps w[0..3] and the bias, all 16-byte rows of T
+__device__ __forceinline__ Row conv_row(const Row (&w)[kTaps],
+                                        const Row& bias, const Row& p0,
+                                        const Row& p1, const Row& p2,
+                                        const Row& p3, __nv_bfloat16) {
+  Row o;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-    words[e] = *reinterpret_cast<unsigned*>(&h);
+  for (int k = 0; k < 4; ++k) {
+    uint32_t y = mul2(p0.w[k], w[0].w[k]);
+    y = add2(y, mul2(p1.w[k], w[1].w[k]));
+    y = add2(y, mul2(p2.w[k], w[2].w[k]));
+    y = add2(y, mul2(p3.w[k], w[3].w[k]));
+    y = add2(y, bias.w[k]);
+    const __nv_bfloat162 r = __floats2bfloat162_rn(
+        silu(__uint_as_float(y << 16)),
+        silu(__uint_as_float(y & 0xffff0000u)));
+    o.w[k] = *reinterpret_cast<const uint32_t*>(&r);
   }
-  *reinterpret_cast<uint4*>(p) = make_uint4(words[0], words[1], words[2],
-                                            words[3]);
+  return o;
+}
+__device__ __forceinline__ Row conv_row(const Row (&w)[kTaps],
+                                        const Row& bias, const Row& p0,
+                                        const Row& p1, const Row& p2,
+                                        const Row& p3, float) {
+  auto f = [](uint32_t v) { return __uint_as_float(v); };
+  Row o;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float y = __fmul_rn(f(p0.w[k]), f(w[0].w[k]));
+    y = __fadd_rn(y, __fmul_rn(f(p1.w[k]), f(w[1].w[k])));
+    y = __fadd_rn(y, __fmul_rn(f(p2.w[k]), f(w[2].w[k])));
+    y = __fadd_rn(y, __fmul_rn(f(p3.w[k]), f(w[3].w[k])));
+    o.w[k] = __float_as_uint(silu(__fadd_rn(y, f(bias.w[k]))));
+  }
+  return o;
 }
 
 template <typename T>
@@ -93,59 +135,48 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tile = blockIdx.y, b = blockIdx.z;
   const int t0 = tile * kTile, t1 = min(t0 + kTile, T_len);
   const T* xb = x + b * sb + c0;
-  const T zero_tag = T();
+  const T tag = T();
 
-  float wv[kTaps][V], bv[V];
+  Row wv[kTaps];
 #pragma unroll
-  for (int i = 0; i < kTaps; ++i) load16(w + static_cast<long long>(i) * D
-                                         + c0, wv[i]);
-  load16(bias + c0, bv);
+  for (int i = 0; i < kTaps; ++i)
+    wv[i] = load16(w + static_cast<long long>(i) * D + c0);
+  const Row bv = load16(bias + c0);
 
   // padded row p of xp: x's row p - 3, or the state's row p
-  auto load_xp = [&](int p, float* dst) {
-    if (p >= kTaps - 1) {
-      load16(xb + (p - (kTaps - 1)) * st, dst);
-    } else if (state_in != nullptr) {
-      load16(state_in + (static_cast<long long>(b) * (kTaps - 1) + p) * D
-             + c0, dst);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) dst[e] = 0.f;
-    }
+  auto load_xp = [&](int p) {
+    if (p >= kTaps - 1) return load16(xb + (p - (kTaps - 1)) * st);
+    if (state_in != nullptr)
+      return load16(state_in + (static_cast<long long>(b) * (kTaps - 1) + p)
+                    * D + c0);
+    return Row{{0u, 0u, 0u, 0u}};
   };
 
-  float win[kTaps - 1][V];   // xp[t .. t+2] before step t
+  Row win[kTaps - 1];   // xp[t .. t+2] before step t
 #pragma unroll
-  for (int j = 0; j < kTaps - 1; ++j) load_xp(t0 + j, win[j]);
+  for (int j = 0; j < kTaps - 1; ++j) win[j] = load_xp(t0 + j);
   // the new state's rows, read before any is written
-  float keep[kTaps - 1][V];
+  Row keep[kTaps - 1];
   if (tile == 0) {
 #pragma unroll
-    for (int j = 0; j < kTaps - 1; ++j) load_xp(T_len + j, keep[j]);
+    for (int j = 0; j < kTaps - 1; ++j) keep[j] = load_xp(T_len + j);
   }
 
   T* ob = out + static_cast<long long>(b) * T_len * D + c0;
-  for (int t = t0; t < t1; ++t) {
-    float cur[V], o[V];
-    load16(xb + t * st, cur);
+  for (int t = t0; t < t1; t += kAhead) {
+    Row rows[kAhead];
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      float y = rnd(__fmul_rn(win[0][e], wv[0][e]), zero_tag);
-      y = rnd(__fadd_rn(y, rnd(__fmul_rn(win[1][e], wv[1][e]), zero_tag)),
-              zero_tag);
-      y = rnd(__fadd_rn(y, rnd(__fmul_rn(win[2][e], wv[2][e]), zero_tag)),
-              zero_tag);
-      y = rnd(__fadd_rn(y, rnd(__fmul_rn(cur[e], wv[3][e]), zero_tag)),
-              zero_tag);
-      y = rnd(__fadd_rn(y, bv[e]), zero_tag);
-      o[e] = __fdiv_rn(y, __fadd_rn(1.f, expf(-y)));
-    }
-    store16(ob + static_cast<long long>(t) * D, o);
+    for (int u = 0; u < kAhead; ++u)
+      if (t + u < t1) rows[u] = load16(xb + (t + u) * st);
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      win[0][e] = win[1][e];
-      win[1][e] = win[2][e];
-      win[2][e] = cur[e];
+    for (int u = 0; u < kAhead; ++u) {
+      if (t + u < t1) {
+        store16(ob + static_cast<long long>(t + u) * D,
+                conv_row(wv, bv, win[0], win[1], win[2], rows[u], tag));
+        win[0] = win[1];
+        win[1] = win[2];
+        win[2] = rows[u];
+      }
     }
   }
   if (tile == 0) {

@@ -16,9 +16,9 @@ the signature and do not change the result:
   the SMs, each thread holding a tile of the state (8 x 2 values in a
   whole head of 64, 4 x 2 in a split one);
 * ``causal_conv1d`` runs a thread per (batch row, 16 bytes of channels,
-  tile of steps); ``selective_scan`` a thread per (batch row, channel)
-  walking the whole sequence, whatever the JAX model's ``chunk`` (which
-  it checks itself);
+  tile of steps); ``selective_scan`` and ``selective_scan_gated`` 1, 2
+  or 4 lanes per (batch row, channel) walking the whole sequence,
+  whatever the JAX model's ``chunk`` (which it checks itself);
 * the MESI tick runs a group of lanes per simulation (a direct path
   where n or m exceeds 32), whatever ``block_sims`` says.
 """
@@ -35,7 +35,8 @@ from repro_torch.kernels.mesi_transition import mesi_tick as _mesi_tick
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_scan
 from repro_torch.kernels.selective_scan import (
-    selective_scan as _selective_scan)
+    selective_scan as _selective_scan,
+    selective_scan_gated as _selective_scan_gated)
 
 
 def rmsnorm(x, weight, eps: float = 1e-6, block_rows: int = 128):
@@ -71,6 +72,15 @@ def selective_scan(dt, a, b, c, x, d_skip, initial_state=None):
     """Mamba's selective scan with its skip; returns (y, final state)
     (``kernels/selective_scan.py``)."""
     return _selective_scan(dt, a, b, c, x, d_skip, initial_state)
+
+
+def selective_scan_gated(dt_raw, dt_bias, a, b, c, x, z, d_skip,
+                         initial_state=None):
+    """Mamba's scan with dt's softplus before it and the SiLU gate after,
+    in the model type; returns (gated output, final state)
+    (``kernels/selective_scan.py``)."""
+    return _selective_scan_gated(dt_raw, dt_bias, a, b, c, x, z, d_skip,
+                                 initial_state)
 
 
 def mesi_tick(state, version, last_sync, reads_since_fetch, acts, arts,

@@ -334,6 +334,22 @@ def selective_scan_plain(dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return torch.stack(ys, dim=1) + x32 * d_skip.to(f32), h
 
 
+def selective_scan_gated_plain(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
+                               a: torch.Tensor, b: torch.Tensor,
+                               c: torch.Tensor, x: torch.Tensor,
+                               z: torch.Tensor, d_skip: torch.Tensor,
+                               initial_state: Optional[torch.Tensor] = None):
+    """The selective scan between its projections, as the JAX package's
+    ``mamba_apply`` runs it, each a torch op of its own: dt =
+    ``F.softplus(dt_raw in fp32 + dt_bias)``, :func:`selective_scan_plain`
+    on x in fp32, then ``y`` cast to x's type times ``F.silu(z)``.  Returns
+    (the gated output in x's type, final state (B, D, N) fp32)."""
+    dt = F.softplus(dt_raw.to(torch.float32) + dt_bias)
+    y, h = selective_scan_plain(dt, a, b, c, x.to(torch.float32), d_skip,
+                                initial_state)
+    return y.to(x.dtype) * F.silu(z), h
+
+
 def selective_scan_bwd_plain(dt: torch.Tensor, a: torch.Tensor,
                              b: torch.Tensor, c: torch.Tensor,
                              x: torch.Tensor, d_skip: torch.Tensor,

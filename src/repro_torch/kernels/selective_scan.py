@@ -2,18 +2,22 @@
 plain versions.
 
 :func:`selective_scan` launches the kernel of ``csrc/selective_scan.cu``
-(a thread per (batch row, channel) holding the channel's d_state fp32
-states in registers and walking the sequence; a block's 128 channels
-share each step's b and c, staged in shared memory; the skip
-``y + x * d_skip`` fused) for CUDA tensors and runs
-:func:`selective_scan_plain` for CPU tensors.  It replaces the JAX
-package's chunked ``lax.scan`` of ``repro.models.mamba._ssm_step`` (and
-its skip), which no Pallas kernel covers: walked step by step on the
-card it would be thousands of launches a layer.
+in its fp32 mode (a block per (batch row, 128 channels), a channel's
+d_state fp32 states split over 1, 2 or 4 lanes by :func:`plan`, the
+steps staged 8 at a time through shared memory; the skip ``y + x *
+d_skip`` fused) for CUDA tensors and runs :func:`selective_scan_plain`
+for CPU tensors.  :func:`selective_scan_gated` launches the same kernel
+in its gated mode, which also takes dt's softplus from its raw
+projection and bias and gates the output with ``silu(z)``, reading and
+writing the model type: what the model runs when no input needs a
+gradient (prefill and decode).  They replace the JAX package's chunked
+``lax.scan`` of ``repro.models.mamba._ssm_step`` (and its skip), which
+no Pallas kernel covers: walked step by step on the card it would be
+thousands of launches a layer.
 
-Under autograd on the card the forward launch also writes the fp32 state
-every :data:`CKPT` steps (:func:`selective_scan_checkpoints`), and the
-backward launches ``csrc/selective_scan_bwd.cu``
+Under autograd on the card the fp32 forward launch also writes the fp32
+state every :data:`CKPT` steps (:func:`selective_scan_checkpoints`), and
+the backward launches ``csrc/selective_scan_bwd.cu``
 (:func:`selective_scan_bwd`): per chunk, in the reverse order, it
 recomputes the chunk's states from its checkpoint into shared memory and
 carries the state's gradient back; db and dc (sums over the channels)
@@ -27,8 +31,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.backend import aligned, launch, use_kernel
+from repro_torch.kernels.backend import (aligned, float_code, launch,
+                                         sm_count, use_kernel)
 from repro_torch.kernels.ref import (selective_scan_bwd_plain,
+                                     selective_scan_gated_plain,
                                      selective_scan_plain)
 
 #: the state sizes the kernels are built for: the smoke config's and
@@ -36,6 +42,12 @@ from repro_torch.kernels.ref import (selective_scan_bwd_plain,
 STATE_SIZES = (8, 16)
 #: channels of a block: d_inner must be a multiple of it
 BLOCK_CHANNELS = 128
+#: the lanes a channel's states may be split over (``plan``)
+LANE_SPLITS = (1, 2, 4)
+#: threads an SM that :func:`plan` asks of the grid: four warps a
+#: scheduler, less an eighth (jamba's batched prefill, 4 x 16384
+#: channels on 132 SMs, reads 3.9 warps a scheduler at one lane)
+WANT_THREADS_PER_SM = 448
 #: steps between two state checkpoints of the forward under autograd (the
 #: backward holds a chunk's states in shared memory, CKPT * d_state * 128
 #: floats a block); they take B * ceil(T / CKPT) * D * N * 4 bytes, twice
@@ -44,15 +56,30 @@ BLOCK_CHANNELS = 128
 CKPT = 8
 
 __all__ = ["selective_scan", "selective_scan_plain",
+           "selective_scan_gated", "selective_scan_gated_plain",
            "selective_scan_checkpoints", "selective_scan_bwd",
-           "selective_scan_bwd_plain", "bwd_scratch_floats", "STATE_SIZES",
-           "BLOCK_CHANNELS", "CKPT"]
+           "selective_scan_bwd_plain", "bwd_scratch_floats", "plan",
+           "STATE_SIZES", "BLOCK_CHANNELS", "LANE_SPLITS", "CKPT"]
 
 
-def _check(dt, a, b, c, x, d_skip, initial_state) -> None:
-    """Raise unless the kernels take these tensors: fp32, contiguous,
-    16-byte aligned, d_state in :data:`STATE_SIZES` and d_inner a multiple
-    of :data:`BLOCK_CHANNELS`."""
+def plan(b: int, d: int, sms: int) -> int:
+    """The lanes a channel's states are split over at batch ``b`` and
+    d_inner ``d`` on a card of ``sms`` SMs: the fewest of
+    :data:`LANE_SPLITS` whose grid gives :data:`WANT_THREADS_PER_SM`
+    threads an SM (fewer lanes repeat less of a step's work), else the
+    most.  One lane at jamba's batch 4, four at one agent's prefill."""
+    for lanes in LANE_SPLITS:
+        if b * d * lanes >= WANT_THREADS_PER_SM * sms:
+            return lanes
+    return LANE_SPLITS[-1]
+
+
+def _check(dt, a, b, c, x, d_skip, initial_state,
+           io_dtype=torch.float32) -> None:
+    """Raise unless the kernels take these tensors: dt and x of
+    ``io_dtype``, the rest fp32, all contiguous and 16-byte aligned,
+    d_state in :data:`STATE_SIZES` and d_inner a multiple of
+    :data:`BLOCK_CHANNELS`."""
     if dt.ndim != 3 or dt.shape != x.shape:
         raise ValueError(f"dt {tuple(dt.shape)} and x {tuple(x.shape)} must "
                          f"share one (B, T, D) shape")
@@ -72,33 +99,52 @@ def _check(dt, a, b, c, x, d_skip, initial_state) -> None:
         if v is not None and tuple(v.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(v.shape)}, expected "
                              f"{shape}")
-    inputs = [v for v in (dt, a, b, c, x, d_skip, initial_state)
-              if v is not None]
-    if any(v.dtype != torch.float32 for v in inputs):
-        raise TypeError(f"the selective scan kernels take fp32 inputs (the "
-                        f"model casts them so), got "
-                        f"{sorted({str(v.dtype) for v in inputs})}")
-    if any(not v.is_contiguous() or v.data_ptr() % 16 for v in inputs):
+    fp32 = [v for v in (a, b, c, d_skip, initial_state) if v is not None]
+    if (dt.dtype != io_dtype or x.dtype != io_dtype
+            or any(v.dtype != torch.float32 for v in fp32)):
+        raise TypeError(f"the selective scan kernels take dt and x in "
+                        f"{io_dtype} and the rest in fp32 (the model casts "
+                        f"them so), got dt {dt.dtype}, x {x.dtype}, "
+                        f"{sorted({str(v.dtype) for v in fp32})}")
+    if any(not v.is_contiguous() or v.data_ptr() % 16
+           for v in [dt, x] + fp32):
         raise ValueError("the selective scan kernels take contiguous, "
                          "16-byte aligned tensors")
 
 
-def _forward(dt, a, b, c, x, d_skip, initial_state, checkpoints: bool):
-    """One launch of the forward kernel: (y, final state, checkpoints or
-    None)."""
-    _check(dt, a, b, c, x, d_skip, initial_state)
-    bsz, t, d = dt.shape
+def _launch(dt, dt_bias, a, b, c, x, z, d_skip, initial_state, y, ckpt,
+            code: int):
+    """One launch of the forward kernel, fp32 (``dt_bias`` None) or gated;
+    returns the final state."""
+    bsz, t, d = x.shape
     n = a.shape[1]
-    y = torch.empty_like(dt)
-    state = torch.empty((bsz, d, n), dtype=torch.float32, device=dt.device)
-    ckpt = (torch.empty((bsz, -(-t // CKPT), d, n), dtype=torch.float32,
-                        device=dt.device) if checkpoints else None)
-    launch("selective_scan", dt.get_device(), dt.data_ptr(), a.data_ptr(),
-           b.data_ptr(), c.data_ptr(), x.data_ptr(), d_skip.data_ptr(),
+    device = x.get_device()
+    state = torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+    launch("selective_scan", device, dt.data_ptr(),
+           None if dt_bias is None else dt_bias.data_ptr(), a.data_ptr(),
+           b.data_ptr(), c.data_ptr(), x.data_ptr(),
+           None if z is None else z.data_ptr(), d_skip.data_ptr(),
            None if initial_state is None else initial_state.data_ptr(),
            y.data_ptr(), state.data_ptr(),
-           None if ckpt is None else ckpt.data_ptr(), bsz, t, d, n)
+           None if ckpt is None else ckpt.data_ptr(), bsz, t, d, n,
+           plan(bsz, d, sm_count(device)),
+           0 if z is None else z.stride(0), 0 if z is None else z.stride(1),
+           int(dt_bias is not None), code)
     selective_scan.launches += 1
+    return state
+
+
+def _forward(dt, a, b, c, x, d_skip, initial_state, checkpoints: bool):
+    """One launch of the fp32 forward kernel: (y, final state,
+    checkpoints or None)."""
+    _check(dt, a, b, c, x, d_skip, initial_state)
+    bsz, t, d = dt.shape
+    y = torch.empty_like(dt)
+    ckpt = (torch.empty((bsz, -(-t // CKPT), d, a.shape[1]),
+                        dtype=torch.float32, device=dt.device)
+            if checkpoints else None)
+    state = _launch(dt, None, a, b, c, x, None, d_skip, initial_state, y,
+                    ckpt, 0)
     return y, state, ckpt
 
 
@@ -150,6 +196,64 @@ def selective_scan(dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return _SelectiveScan.apply(dt, a, b, c, x, d_skip, initial_state)
     y, state, _ = _forward(dt, a, b, c, x, d_skip, initial_state, False)
     return y, state
+
+
+def _check_gated(dt_raw, dt_bias, a, b, c, x, z, d_skip,
+                 initial_state) -> int:
+    """Raise unless the gated mode takes these tensors: dt_raw, x and z
+    (B, T, D) of one model type (bf16 or fp32), dt_raw and x contiguous,
+    z with a unit channel stride and 16-byte aligned rows; the rest as
+    :func:`_check`.  Returns the type code."""
+    code = float_code(x)
+    _check(dt_raw, a, b, c, x, d_skip, initial_state, x.dtype)
+    d = x.shape[2]
+    if z.shape != x.shape or z.dtype != x.dtype:
+        raise TypeError(f"z {tuple(z.shape)} {z.dtype} must match x "
+                        f"{tuple(x.shape)} {x.dtype}")
+    vec = 16 // z.element_size()
+    if (z.stride(2) != 1 or z.stride(1) % vec or z.stride(0) % vec
+            or z.stride(0) >= 2 ** 31 or z.data_ptr() % 16):
+        raise ValueError(f"the gated scan reads z with a unit channel "
+                         f"stride and 16-byte aligned rows, got strides "
+                         f"{z.stride()}")
+    if (dt_bias.shape != (d,) or dt_bias.dtype != torch.float32
+            or not dt_bias.is_contiguous() or dt_bias.data_ptr() % 16):
+        raise ValueError(f"dt_bias must be a contiguous, aligned fp32 "
+                         f"({d},), got {tuple(dt_bias.shape)} "
+                         f"{dt_bias.dtype}")
+    return code
+
+
+def selective_scan_gated(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
+                         a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                         x: torch.Tensor, z: torch.Tensor,
+                         d_skip: torch.Tensor,
+                         initial_state: Optional[torch.Tensor] = None):
+    """Mamba's scan between its projections, as the model runs it when no
+    input needs a gradient: dt = softplus(dt_raw + dt_bias) in fp32, the
+    scan of :func:`selective_scan` on x in fp32, then ``y`` cast to x's
+    type times ``silu(z)``.  dt_raw, x, z (B, T, D) in the model type
+    (bf16 or fp32; z may be the strided half of the input projection),
+    dt_bias (D) and the rest fp32.  Returns (the gated output (B, T, D) in
+    x's type, final state (B, D, N) fp32).  CUDA tensors launch the
+    kernel's gated mode and add one to ``selective_scan.launches``; under
+    grad mode with an input that requires a gradient they raise (the
+    model takes :func:`selective_scan` then).  CPU tensors run
+    :func:`selective_scan_gated_plain`."""
+    inputs = (dt_raw, dt_bias, a, b, c, x, z, d_skip) + (
+        () if initial_state is None else (initial_state,))
+    if not use_kernel(*inputs):
+        return selective_scan_gated_plain(dt_raw, dt_bias, a, b, c, x, z,
+                                          d_skip, initial_state)
+    if torch.is_grad_enabled() and any(v.requires_grad for v in inputs):
+        raise NotImplementedError("the gated scan has no backward: under "
+                                  "autograd run selective_scan")
+    code = _check_gated(dt_raw, dt_bias, a, b, c, x, z, d_skip,
+                        initial_state)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    state = _launch(dt_raw, dt_bias, a, b, c, x, z, d_skip, initial_state,
+                    out, None, code)
+    return out, state
 
 
 def _checkpoints_plain(dt, a, b, c, x, d_skip, initial_state):

@@ -8,13 +8,18 @@ projection plus a bias), b and c (d_state each); the selective scan
 ``h = exp(dt a) h + dt b x``, ``y = sum_n h c + x d_skip`` with a =
 -exp(a_log); then ``(y * silu(z)) @ w_out``.
 
-The conv runs through ``kernels.ops.causal_conv1d`` and the scan through
-``kernels.ops.selective_scan``, each a hand-written kernel on the card
-(prefill and decode alike; under autograd their backward kernels);
-:func:`_ssm_step` is the plain recurrence step the tests hold them to.
-The casts follow the JAX package: the conv in the model type, dt, b, c
-and the scan in fp32 (``dt_bias``, ``a_log`` and ``d_skip`` are fp32
-leaves of a bf16 model), y cast back before the gate.  A prompt longer
+The conv runs through ``kernels.ops.causal_conv1d``, a hand-written
+kernel on the card.  The scan runs through
+``kernels.ops.selective_scan_gated`` when no input needs a gradient
+(prefill and decode): one launch that also takes dt's softplus and the
+SiLU gate, reading and writing the model type.  Under autograd it runs
+the JAX package's chain: dt's softplus, ``kernels.ops.selective_scan``
+on fp32 inputs (its backward a kernel too), the cast and the gate as
+torch ops; the two give the same bits.  :func:`_ssm_step` is the plain
+recurrence step the tests hold them to.  The casts follow the JAX
+package: the conv in the model type, dt, b, c and the scan in fp32
+(``dt_bias``, ``a_log`` and ``d_skip`` are fp32 leaves of a bf16 model),
+y cast back before the gate.  A prompt longer
 than the config's ``chunk`` must be a multiple of it, as the JAX model's
 chunked scan requires; decode carries the conv state (the last d_conv -
 1 inputs, model type) and the fp32 scan state, O(1) a token.
@@ -75,16 +80,22 @@ def _conv1d_causal(p, cfg: ModelConfig, x, conv_state=None):
     return ops.causal_conv1d(x, p["conv_w"], p["conv_b"], conv_state)
 
 
-def _selective_params(p, cfg: ModelConfig, xc):
-    """xc: (B, T, d_inner) post-conv -> (dt, b_t, c_t), fp32."""
+def _projections(p, cfg: ModelConfig, xc):
+    """xc: (B, T, d_inner) post-conv -> (dt's projection (B, T, d_inner)
+    in xc's type, b_t, c_t fp32)."""
     m, _, dt_rank = _dims(cfg)
     f32 = torch.float32
     dbc = xc @ p["w_x_dbc"]
-    dt = F.softplus((dbc[..., :dt_rank] @ p["w_dt"]).to(f32)
-                    + p["dt_bias"])                      # (B, T, d_inner)
     b_t = dbc[..., dt_rank:dt_rank + m.d_state].to(f32).contiguous()
     c_t = dbc[..., dt_rank + m.d_state:].to(f32).contiguous()
-    return dt, b_t, c_t
+    return dbc[..., :dt_rank] @ p["w_dt"], b_t, c_t
+
+
+def _selective_params(p, cfg: ModelConfig, xc):
+    """xc: (B, T, d_inner) post-conv -> (dt, b_t, c_t), fp32."""
+    dt_raw, b_t, c_t = _projections(p, cfg, xc)
+    return (F.softplus(dt_raw.to(torch.float32) + p["dt_bias"]), b_t,
+            c_t)
 
 
 def _ssm_step(a, h, dt_t, b_t, c_t, x_t):
@@ -111,12 +122,18 @@ def mamba_apply(p, cfg: ModelConfig, x, state: MambaState | None = None):
     xs, z = xz[..., :d_inner], xz[..., d_inner:]
     xc, new_conv = _conv1d_causal(p, cfg, xs,
                                   None if state is None else state.conv)
-    dt, b_t, c_t = _selective_params(p, cfg, xc)
-    y, h = ops.selective_scan(dt, a, b_t, c_t, xc.to(torch.float32),
-                              p["d_skip"],
-                              None if state is None else state.ssm)
-    y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
-    return y, MambaState(conv=new_conv, ssm=h)
+    ssm = () if state is None else (state.ssm,)
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (x, *p.values(), *(state or ()))):
+        dt, b_t, c_t = _selective_params(p, cfg, xc)
+        y, h = ops.selective_scan(dt, a, b_t, c_t, xc.to(torch.float32),
+                                  p["d_skip"], *ssm)
+        y = y.to(x.dtype) * F.silu(z)
+    else:
+        dt_raw, b_t, c_t = _projections(p, cfg, xc)
+        y, h = ops.selective_scan_gated(dt_raw, p["dt_bias"], a, b_t, c_t,
+                                        xc, z, p["d_skip"], *ssm)
+    return y @ p["w_out"], MambaState(conv=new_conv, ssm=h)
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, dtype,

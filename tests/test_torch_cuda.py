@@ -9,6 +9,7 @@ installed:
 
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -1708,15 +1709,21 @@ def test_unlisted_head_dim_pairs_raise_on_the_card(gen):
 # bf16 and within one ulp of its type in fp32 (the kernel and PyTorch's
 # SiLU both take x / (1 + expf(-x)); the share of differing elements is
 # printed), the new state bit for bit.  The selective scan: y and the
-# final state within 1e-5 of their rms.  The backward kernels at the
-# backward gates above, 50 more launches bit-equal (no atomics).
+# final state within 1e-5 of their rms; its gated mode within one ulp of
+# the unfused chain it replaces (the fp32 mode between mamba.py's torch
+# ops; bit for bit expected, the share that differs printed), its state
+# bit for bit the fp32 mode's.  The backward kernels at the backward gates
+# above, 50 more launches bit-equal (no atomics).
 
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import selective_scan as scan_mod  # noqa: E402
 from repro_torch.kernels.causal_conv1d import (  # noqa: E402
     causal_conv1d, causal_conv1d_bwd, causal_conv1d_bwd_plain,
     causal_conv1d_plain)
+from repro_torch.kernels.ref import selective_scan_gated_plain  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan, selective_scan_bwd, selective_scan_bwd_plain,
-    selective_scan_checkpoints, selective_scan_plain)
+    selective_scan_checkpoints, selective_scan_gated, selective_scan_plain)
 
 #: (B, T, d_inner, d_state, with a state): the smoke config's shape, a
 #: ragged one (d_inner 384, not a power of two), a decode step of jamba
@@ -1742,7 +1749,13 @@ def _ulp_err(got, exp):
     return float(((got.float() - e).abs() / ulp).max())
 
 
-@pytest.mark.parametrize("b,t,d,n,state", MAMBA_SHAPES)
+#: the conv's packed path at its edges besides ``MAMBA_SHAPES``: a tile
+#: shorter than the rows a thread has in flight, a 64-step tile and 6 more
+#: steps on 17 threads' worth of channels, from a state
+CONV_EDGES = [(1, 7, 128, 0, True), (3, 70, 136, 0, True)]
+
+
+@pytest.mark.parametrize("b,t,d,n,state", MAMBA_SHAPES + CONV_EDGES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_causal_conv1d_kernel_equals_plain(gen, b, t, d, n, state, dtype):
     args = _conv_case(gen, b, t, d, dtype, state)
@@ -1830,6 +1843,144 @@ def test_selective_scan_checkpoints_and_bwd_equal_plain(gen, b, t, d, n,
         _grad_gate(g, e, name)
 
 
+def _gated_case(gen, b, t, d, n, state, dtype):
+    """The gated mode's inputs: dt's raw projection 0.5 N(0, 1) and its
+    bias at its init (the inverse softplus of U(1e-3, 1e-1)), x and z
+    (z the strided half of an input projection) in ``dtype``, a, b, c,
+    d_skip and the state as ``_scan_case``."""
+    _, a, bm, cm, _, dskip, st = _scan_case(gen, b, t, d, n, state)
+    dt0 = 1e-3 + (1e-1 - 1e-3) * torch.rand(d, generator=gen, device="cuda")
+    z = _normal(gen, b, t, 2 * d, dtype=dtype)[..., d:]
+    return ((0.5 * _normal(gen, b, t, d)).to(dtype),
+            torch.log(torch.expm1(dt0)), a, bm, cm,
+            _normal(gen, b, t, d, dtype=dtype), z, dskip, st)
+
+
+def _unfused(raw, bias, a, bm, cm, x, z, dskip, st):
+    """The chain the gated mode replaces: the fp32 mode between the torch
+    ops of ``models/mamba.py`` (softplus, the casts, the SiLU gate)."""
+    y, h = selective_scan(torch.nn.functional.softplus(raw.float() + bias),
+                          a, bm, cm, x.float(), dskip, st)
+    return y.to(x.dtype) * torch.nn.functional.silu(z), h
+
+
+def _gated_checked(args):
+    """One gated launch against the unfused chain (within one ulp, bit for
+    bit expected; the state bit for bit) and against the plain chain (the
+    state within 1e-5 of its rms); returns the output and state."""
+    launches = selective_scan.launches
+    out, s = selective_scan_gated(*args)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == launches + 1
+    co, cs = _unfused(*args)
+    po, ps = selective_scan_gated_plain(*args)
+    x = args[5]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"gated {tuple(x.shape)} {x.dtype} lanes "
+          f"{scan_mod.plan(x.shape[0], x.shape[2], sms)}: differing share "
+          f"vs unfused {float((out != co).float().mean())}, vs plain max "
+          f"ulps {_ulp_err(out, po)}")
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert _ulp_err(out, co) <= 1.0 and torch.equal(s, cs)
+    assert _rms_err(s, ps) <= 1e-5
+    return out, s
+
+
+@pytest.mark.parametrize("b,t,d,n,state", MAMBA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_gated_equals_the_unfused_chain(gen, b, t, d, n,
+                                                       state, dtype):
+    _gated_checked(_gated_case(gen, b, t, d, n, state, dtype))
+
+
+#: (B, T, d_inner, d_state, with a state) at each lane split's edges: one
+#: stage short of a full one in one block, a ragged tail over three
+#: blocks at d_state 8, exactly one stage, a decode step from a state
+LANE_EDGES = [(1, 5, 128, 16, False), (2, 17, 384, 8, True),
+              (3, 8, 256, 16, True), (2, 1, 128, 8, True)]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("b,t,d,n,state", LANE_EDGES)
+def test_selective_scan_every_lane_split(gen, monkeypatch, lanes, b, t, d,
+                                         n, state):
+    """Both modes with the channel's states forced onto 1, 2 or 4 lanes:
+    the fp32 mode against the plain scan, the gated mode against its
+    chain; the states equal whatever the split."""
+    monkeypatch.setattr(scan_mod, "plan", lambda *_: lanes)
+    args = _scan_case(gen, b, t, d, n, state)
+    y, s = selective_scan(*args)
+    ey, es = selective_scan_plain(*args)
+    assert _rms_err(y, ey) <= 1e-5 and _rms_err(s, es) <= 1e-5
+    _, gs = _gated_checked(_gated_case(gen, b, t, d, n, state,
+                                       torch.bfloat16))
+    monkeypatch.setattr(scan_mod, "plan", lambda *_: 1)
+    assert torch.equal(selective_scan(*args)[1], s)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_selective_scan_long_memory(gen, monkeypatch, lanes):
+    """dt = 1e-3 (its init's floor) and a = -1 and -16 over 6144 steps:
+    states that remember ~1000 steps, where a biased exponential would
+    drift by ~1e-4 of the rms.  Both modes against their plain versions
+    within 1e-5 (the gated one in fp32)."""
+    monkeypatch.setattr(scan_mod, "plan", lambda *_: lanes)
+    b, t, d, n = 1, 6144, 256, 16
+    a = torch.where(torch.arange(n, device="cuda") % 2 == 0, -1.0,
+                    -16.0).expand(d, n).contiguous()
+    bm, cm, x = _normal(gen, b, t, n), _normal(gen, b, t, n), _normal(
+        gen, b, t, d)
+    dskip = 1 + 0.3 * _normal(gen, d)
+    dt = torch.full((b, t, d), 1e-3, device="cuda")
+    y, s = selective_scan(dt, a, bm, cm, x, dskip)
+    ey, es = selective_scan_plain(dt, a, bm, cm, x, dskip)
+    assert _rms_err(y, ey) <= 1e-5 and _rms_err(s, es) <= 1e-5
+    bias = torch.full((d,), math.log(math.expm1(1e-3)), device="cuda")
+    g = (torch.zeros_like(x), bias, a, bm, cm, x,
+         _normal(gen, b, t, 2 * d)[..., d:], dskip)
+    go, gs = selective_scan_gated(*g)
+    po, ps = selective_scan_gated_plain(*g)
+    assert _rms_err(go, po) <= 1e-5 and _rms_err(gs, ps) <= 1e-5
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_selective_scan_state_in_may_be_state_out(gen, gated):
+    """The C entry with one buffer as the initial and the final state (a
+    decode step's update in place): the same y and state as two
+    buffers."""
+    b, t, d, n = 2, 19, 384, 16
+    if gated:
+        raw, bias, a, bm, cm, x, z, dskip, st = _gated_case(
+            gen, b, t, d, n, True, torch.bfloat16)
+        y, s = selective_scan_gated(raw, bias, a, bm, cm, x, z, dskip, st)
+    else:
+        raw, a, bm, cm, x, dskip, st = _scan_case(gen, b, t, d, n, True)
+        bias = z = None
+        y, s = selective_scan(raw, a, bm, cm, x, dskip, st)
+    inplace, y2 = st.clone(), torch.empty_like(y)
+    lanes = scan_mod.plan(b, d, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    err = build.kernel("selective_scan")(
+        raw.data_ptr(), None if bias is None else bias.data_ptr(),
+        a.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
+        None if z is None else z.data_ptr(), dskip.data_ptr(),
+        inplace.data_ptr(), y2.data_ptr(), inplace.data_ptr(), None, b, t,
+        d, n, lanes, 0 if z is None else z.stride(0),
+        0 if z is None else z.stride(1), int(gated), int(gated),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(y2, y) and torch.equal(inplace, s)
+
+
+def test_selective_scan_gated_repeated_launches_agree(gen):
+    args = _gated_case(gen, 1, 2048, 16384, 16, True, torch.bfloat16)
+    first = selective_scan_gated(*args)
+    for i in range(50):
+        again = selective_scan_gated(*args)
+        assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
 def test_selective_scan_bwd_repeated_launches_agree(gen):
     args = _scan_case(gen, 4, 2048, 16384, 16, False)
     _, _, ck = selective_scan_checkpoints(*args)
@@ -1854,6 +2005,19 @@ def test_mamba_kernels_refuse_what_they_are_not_built_for(gen):
     x, w, bias, _ = _conv_case(gen, 1, 5, 64, torch.float32, False)
     with pytest.raises(ValueError):
         causal_conv1d(x, w[:3], bias)
+    # the gated mode: fp32 dt_raw beside bf16 x, a z view off 16 bytes,
+    # d_state 12
+    raw, dtb, a, bm, cm, x, z, dskip, st = _gated_case(
+        gen, 1, 5, 128, 8, False, torch.bfloat16)
+    with pytest.raises(TypeError):
+        selective_scan_gated(raw.float(), dtb, a, bm, cm, x, z, dskip)
+    xz = _normal(gen, 1, 5, 2 * 128 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        selective_scan_gated(raw, dtb, a, bm, cm, x, xz[..., 129:257],
+                             dskip)
+    g12 = _gated_case(gen, 1, 5, 128, 12, False, torch.bfloat16)
+    with pytest.raises(ValueError):
+        selective_scan_gated(*g12)
     assert before == (selective_scan.launches, causal_conv1d.launches)
 
 
@@ -1883,3 +2047,32 @@ def test_mamba_layer_on_the_card_equals_the_cpu(gen):
     assert counts() == tuple(c + 1 for c in before)
     for got, exp in zip(outs["cuda"], outs["cpu"]):
         _grad_gate(got.detach().cpu(), exp.detach(), "leaf")
+
+
+def test_mamba_layer_serving_on_the_card_equals_the_cpu(gen):
+    """The same layer with no input needing a gradient, a prefill then a
+    decode step from its state: one conv and one gated scan launch each
+    (no backward), the outputs and states against the CPU's plain
+    chain."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mamba
+    cfg = smoke_config("jamba-1.5-large-398b")
+    p = mamba.mamba_init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         torch.float32, "cuda")
+    p["conv_b"] = 0.1 * _normal(gen, *p["conv_b"].shape)
+    p["d_skip"] = 1 + 0.3 * _normal(gen, *p["d_skip"].shape)
+    x = _normal(gen, 2, 64, cfg.d_model)
+    step = _normal(gen, 2, 1, cfg.d_model)
+    outs = {}
+    before = (causal_conv1d.launches, selective_scan.launches,
+              selective_scan_bwd.launches)
+    for dev in ("cuda", "cpu"):
+        leaves = {k: v.to(dev) for k, v in p.items()}
+        y, st = mamba.mamba_apply(leaves, cfg, x.to(dev))
+        y1, st1 = mamba.mamba_apply(leaves, cfg, step.to(dev), st)
+        outs[dev] = [y, st.conv, st.ssm, y1, st1.conv, st1.ssm]
+    assert (causal_conv1d.launches, selective_scan.launches,
+            selective_scan_bwd.launches) == (before[0] + 2, before[1] + 2,
+                                             before[2])
+    for got, exp in zip(outs["cuda"], outs["cpu"]):
+        _grad_gate(got.cpu(), exp, "serving")

@@ -45,7 +45,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import selective_scan as scan_mod  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     causal_conv1d_bwd_plain, causal_conv1d_plain, selective_scan_bwd_plain,
-    selective_scan_plain)
+    selective_scan_gated_plain, selective_scan_plain)
 from repro_torch.models import mamba as tmamba  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.runtime import steps as tsteps  # noqa: E402
@@ -358,6 +358,126 @@ def test_backward_scratch_sizes(b, t, d, n):
     assert scan_mod.bwd_scratch_floats(b, t, d, n) == (
         d // 128 * b * t * 2 * n + b * d * (n + 1))
     assert conv_mod.bwd_scratch_floats(b, t, d) == b * -(-t // 128) * 5 * d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_gated_plain_is_the_chain_it_replaces(dtype, with_state):
+    """``selective_scan_gated_plain`` on the layer's own projections equals
+    the chain ``mamba_apply`` ran before it took the gated entry
+    (``_selective_params``, the fp32 scan, the cast and the SiLU gate) bit
+    for bit, and ``mamba_apply`` without a gradient equals the layer
+    built from that chain."""
+    _, tc, _, tp = _layer(seed=7)
+    tp = {k: v.to(dtype) if k not in ("dt_bias", "a_log", "d_skip") else v
+          for k, v in tp.items()}
+    _, d_inner, _ = tmamba._dims(tc)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_normal(rng, 2, 16, tc.d_model)).to(dtype)
+    st = (tmamba.MambaState(*(torch.from_numpy(v) for v in _state(
+        rng, 2, d_inner, tc.mamba.d_state))) if with_state else None)
+    if st is not None:
+        st = tmamba.MambaState(st.conv.to(dtype), st.ssm)
+    a = -torch.exp(tp["a_log"])
+    xz = x @ tp["w_in"]
+    xc, new_conv = tmamba._conv1d_causal(tp, tc, xz[..., :d_inner],
+                                         None if st is None else st.conv)
+    z = xz[..., d_inner:]
+    ssm = () if st is None else (st.ssm,)
+    dt, b_t, c_t = tmamba._selective_params(tp, tc, xc)
+    y, h = selective_scan_plain(dt, a, b_t, c_t, xc.to(torch.float32),
+                                tp["d_skip"], *ssm)
+    chain = y.to(dtype) * torch.nn.functional.silu(z)
+    dt_raw, b2, c2 = tmamba._projections(tp, tc, xc)
+    got, gh = selective_scan_gated_plain(dt_raw, tp["dt_bias"], a, b2, c2,
+                                         xc, z, tp["d_skip"], *ssm)
+    assert got.dtype == dtype
+    assert torch.equal(got, chain) and torch.equal(gh, h)
+    out, new = tmamba.mamba_apply(tp, tc, x, st)
+    assert torch.equal(out, chain @ tp["w_out"])
+    assert torch.equal(new.ssm, h) and torch.equal(new.conv, new_conv)
+
+
+def _count_scan_routes(monkeypatch):
+    """Count ``mamba_apply``'s calls of the fp32 scan and the gated one,
+    each running as before."""
+    calls = {"scan": 0, "gated": 0}
+
+    def counted(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(ops, "selective_scan",
+                        counted("scan", ops.selective_scan))
+    monkeypatch.setattr(ops, "selective_scan_gated",
+                        counted("gated", ops.selective_scan_gated))
+    return calls
+
+
+@pytest.mark.parametrize("needs", ["nothing", "a leaf, under no_grad",
+                                   "a leaf", "x", "the scan state"])
+def test_mamba_apply_takes_the_gated_scan_unless_a_gradient_is_needed(
+        monkeypatch, needs):
+    """The gated entry whenever no input needs a gradient (serving, a
+    leaf that requires one under ``torch.no_grad``); the fp32 scan under
+    autograd, whichever input requires it."""
+    calls = _count_scan_routes(monkeypatch)
+    _, tc, _, tp = _layer(seed=2)
+    _, d_inner, _ = tmamba._dims(tc)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_normal(rng, 2, 16, tc.d_model))
+    st = tmamba.MambaState(*(torch.from_numpy(v) for v in _state(
+        rng, 2, d_inner, tc.mamba.d_state)))
+    if needs in ("a leaf", "a leaf, under no_grad"):
+        tp = dict(tp, dt_bias=tp["dt_bias"].clone().requires_grad_(True))
+    if needs == "x":
+        x.requires_grad_(True)
+    if needs == "the scan state":
+        st = tmamba.MambaState(st.conv, st.ssm.clone().requires_grad_(True))
+    if needs == "a leaf, under no_grad":
+        with torch.no_grad():
+            y, _ = tmamba.mamba_apply(tp, tc, x, st)
+    else:
+        y, _ = tmamba.mamba_apply(tp, tc, x, st)
+    gated = needs in ("nothing", "a leaf, under no_grad")
+    assert calls == {"scan": int(not gated), "gated": int(gated)}
+    assert y.requires_grad == (not gated)
+
+
+@pytest.mark.parametrize("b,d,sms,lanes", [
+    (4, 16384, 132, 1),   # jamba's batched prefill and decode: 3.9 warps
+    (2, 16384, 132, 2),
+    (1, 16384, 132, 4),   # one agent's prefill: four lanes a channel
+    (2, 256, 132, 4),     # the smoke config: as many as there are
+    (1, 512, 1, 1)])
+def test_lane_plan(b, d, sms, lanes):
+    assert scan_mod.plan(b, d, sms) == lanes
+
+
+def test_gated_scan_checks_refuse_what_the_kernel_does_not_take():
+    """The gated mode's input checks, which a CUDA tensor meets before
+    its launch: dt_raw of another type than x, z off 16 bytes, d_state
+    12 and a dt_bias of another width raise."""
+    rng = np.random.default_rng(4)
+    b, t, d, n = 1, 5, 128, 8
+
+    def f(*shape):
+        return torch.from_numpy(_normal(rng, *shape))
+
+    bf = torch.bfloat16
+    xz = f(b, t, 2 * d + 8).to(bf)
+    args = dict(dt_raw=f(b, t, d).to(bf), dt_bias=f(d), a=-f(d, n).abs(),
+                b=f(b, t, n), c=f(b, t, n), x=f(b, t, d).to(bf),
+                z=xz[..., d:2 * d], d_skip=f(d), initial_state=None)
+    assert scan_mod._check_gated(**args) == 1
+    for change, error in ((dict(dt_raw=args["dt_raw"].float()), TypeError),
+                          (dict(z=xz[..., d + 1:2 * d + 1]), ValueError),
+                          (dict(a=-f(d, 12).abs()), ValueError),
+                          (dict(dt_bias=f(d + 8)), ValueError)):
+        with pytest.raises(error):
+            scan_mod._check_gated(**dict(args, **change))
 
 
 def _through_functions(monkeypatch):

@@ -85,9 +85,9 @@ def test_package_exports_match(ref, port):
 
 
 #: the port's ops entries with no counterpart in ``repro.kernels.ops``:
-#: Mamba's conv and scan, kernels on the card where the reference runs
-#: plain JAX (``repro.models.mamba``)
-PORT_ONLY_OPS = {"causal_conv1d", "selective_scan"}
+#: Mamba's conv and scan (and the scan's gated mode), kernels on the card
+#: where the reference runs plain JAX (``repro.models.mamba``)
+PORT_ONLY_OPS = {"causal_conv1d", "selective_scan", "selective_scan_gated"}
 
 
 def test_ops_entry_points_match():
