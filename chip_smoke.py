@@ -3934,6 +3934,22 @@ def check_rwkv6_scan_bwd(card: str, rate: float, fp32_flops: float,
 
 
 
+def mamba_bwd_occupancy(kernel: str, *key) -> dict:
+    """A Mamba backward kernel's registers a thread, blocks an SM, threads
+    a block and shared bytes a block on the card, from its occupancy
+    entry (``selective_scan_bwd_occupancy(N, out)``,
+    ``causal_conv1d_bwd_occupancy(dtype, out)``)."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = (ctypes.c_int * 4)()
+    err = build.entry(kernel, f"{kernel}_occupancy",
+                      [ctypes.c_int] * len(key) + [ctypes.c_void_p])(
+        *key, ctypes.addressof(out))
+    check(err == 0, f"{kernel}'s occupancy query (CUDA error {err})")
+    return dict(zip(("registers", "blocks_per_sm", "threads", "smem_bytes"),
+                    out))
+
+
 def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
     """Mamba's two backward kernels against their plain versions at
     jamba-1.5-large-398b's training shape (4, 2048, 16384, 16; the conv in
@@ -3945,10 +3961,13 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
     inputs and outputs at most its stated scratch
     (``selective_scan.bwd_scratch_floats``) plus 1 MiB.  Each timed alone
     and through its wrapper beside its bound, the plain version and, for
-    the conv, autograd of ``conv_library`` (none computes the scan's); the
-    scan's issue floor is its two exponentials a state element a step, and
-    the checkpointing forward is timed against the serving launch, in
-    turns.  Returns the training shape's rows and the cases for
+    the conv, autograd of ``conv_library`` (none computes the scan's);
+    beside them each kernel's registers a thread, blocks an SM and waves
+    (``mamba_bwd_occupancy``), its MUFU floor (the scan's one exponential
+    a state element a step, the conv's exponential and reciprocal a
+    value) and its machine code's issue time (``sass_issue``); the
+    checkpointing forward is timed against the serving launch, in turns.
+    Returns the training shape's rows and the cases for
     ``check_repeats``."""
     import torch
     from repro_torch.kernels.causal_conv1d import (causal_conv1d,
@@ -3965,6 +3984,9 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
 
     def size(*ts):
         return sum(v.numel() * v.element_size() for v in ts if v is not None)
+
+    def mufu_ms(units):
+        return units / (MUFU_PER_SM * sms * clock_hz) * 1e3
 
     for label, b, t, d_, n_, name, state in (
             ("jamba train", TRAIN_JAMBA["batch"], TRAIN_JAMBA["seq_len"], d,
@@ -3987,9 +4009,20 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
         bytes_ms = (3 * x.numel() * x.element_size() + size(*conv[1:], dnew)
                     + size(*got[1:])) / rate * 1e3
         ops_ms = CONV_BWD_FLOPS * x.numel() / fp32_flops * 1e3
+        io = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+        sass_per, sass_ms = sass_issue(
+            "causal_conv1d_bwd", rf"conv_bwd_kernelI{io}E", "MUFU.EX2",
+            x.numel(), sms, clock_hz)
+        occ = mamba_bwd_occupancy("causal_conv1d_bwd", int(
+            dtype == torch.bfloat16))
+        vec = 4 // x.element_size()
+        blocks = -(-d_ // (vec * occ["threads"])) * -(-t // 128) * b
         row = {"phase": "kernels", "kernel": "causal_conv1d_bwd",
                "case": label, "shape": [b, t, d_], "dtype": name,
-               "initial_state": state,
+               "initial_state": state, **occ,
+               "waves": blocks / (occ["blocks_per_sm"] * sms),
+               "mufu_floor_ms": mufu_ms(CONV_MUFU * x.numel()),
+               "sass_per_value": sass_per, "sass_issue_ms": sass_ms,
                # the forward as training launches it
                "forward_device_ms": device_ms(causal_conv1d,
                                               lambda: conv, 5)[0],
@@ -4047,6 +4080,10 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
         elems = b * t * d_ * n_
         bytes_ms = (size(*args) + size(*got)) / rate * 1e3
         ops_ms = SCAN_BWD_FLOPS * elems / fp32_flops * 1e3
+        occ = mamba_bwd_occupancy("selective_scan_bwd", n_)
+        sass_per, sass_ms = sass_issue(
+            "selective_scan_bwd", rf"scan_bwd_kernelILi{n_}EE", "MUFU.EX2",
+            elems, sms, clock_hz)
         turns = {}
         for ckpts in (False, True, True, False):
             fn = selective_scan_checkpoints if ckpts else selective_scan
@@ -4055,7 +4092,9 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
         srow = {"phase": "kernels", "kernel": "selective_scan_bwd",
                 "case": label, "shape": [b, t, d_, n_], "dtype": "float32",
                 "checkpoint_every": CKPT, "extra_bytes": extra,
-                "scratch_bytes": scratch,
+                "scratch_bytes": scratch, **occ,
+                "waves": (d_ // 128) * b / (occ["blocks_per_sm"] * sms),
+                "sass_per_state_step": sass_per, "sass_issue_ms": sass_ms,
                 "max_abs_err": max(e[0] for e in errs),
                 "rel_l2": [e[1] for e in errs],
                 "ms": median_ms(selective_scan_bwd, make, 5),
@@ -4065,12 +4104,10 @@ def check_mamba_bwd(card: str, rate: float, fp32_flops: float, gen) -> tuple:
                 "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
-                "issue_floor_ms": 2 * elems / (MUFU_PER_SM * sms * clock_hz)
-                * 1e3,
+                "mufu_floor_ms": mufu_ms(elems),
                 "forward_device_ms": turns[False],
                 "forward_checkpointed_device_ms": turns[True],
-                "forward_issue_floor_ms": elems
-                / (MUFU_PER_SM * sms * clock_hz) * 1e3,
+                "forward_issue_floor_ms": mufu_ms(elems),
                 "card": card}
         emit(srow)
         repeats.append(("selective_scan_bwd", label, functools.partial(
@@ -4190,6 +4227,14 @@ SASS_INSTANCES = {
     "selective_scan": (("fp32 mode, d_state 16, 1 lane",
                         r"scan_kernelI(?:fLb0E)?Li16E(?:Li1E)?E",
                         "MUFU.EX2", 1),),
+    # a unit is an exponential: one a value of the conv, one a state
+    # element a step of the scan (two in its earlier design, which kept a
+    # chunk's states in shared memory)
+    "causal_conv1d_bwd": (("bf16", r"conv_bwd_kernelI13__nv_bfloat16E",
+                           "MUFU.EX2", 1),
+                          ("fp32", r"conv_bwd_kernelIfE", "MUFU.EX2", 1)),
+    "selective_scan_bwd": (("d_state 16", r"scan_bwd_kernelILi16EE",
+                            "MUFU.EX2", 1),),
 }
 
 
@@ -4226,6 +4271,55 @@ def sass_counts(card: str, kernel: str, sources) -> None:
                   "ptxas": entries, "card": card})
 
 
+def mamba_bwd_variants(card: str, kernel: str, sources) -> None:
+    """``chip_smoke.py --mamba-bwd-variants KERNEL SRC...``: each source
+    of ``causal_conv1d_bwd`` or ``selective_scan_bwd`` with this tree's
+    C interface (a probe variant) in turns by :func:`variants_in_turns`
+    at jamba-1.5-large-398b's training shape, the conv in bf16."""
+    import torch
+    from repro_torch.kernels.causal_conv1d import bwd_scratch_floats as cbs
+    from repro_torch.kernels.ref import (causal_conv1d_bwd_plain,
+                                         selective_scan_bwd_plain)
+    from repro_torch.kernels.selective_scan import (
+        bwd_scratch_floats, selective_scan_checkpoints)
+    cfg = serve_config(TRAIN_JAMBA)
+    b, t = TRAIN_JAMBA["batch"], TRAIN_JAMBA["seq_len"]
+    d, n = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    conv, scan = mamba_inputs(gen, b, t, d, n, torch.bfloat16, False)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "causal_conv1d_bwd":
+        x, w, bias, _ = conv
+        dout = torch.randn((b, t, d), generator=gen,
+                           device="cuda").to(x.dtype)
+        outs = [torch.empty_like(dout), torch.empty((4, d), device="cuda"),
+                torch.empty(d, device="cuda"),
+                torch.empty((b, 3, d), dtype=x.dtype, device="cuda")]
+        scratch = torch.empty(cbs(b, t, d), device="cuda")
+        args = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), None,
+                dout.data_ptr(), None, *(o.data_ptr() for o in outs),
+                scratch.data_ptr(), b, t, d, x.stride(0), x.stride(1), 1,
+                stream)
+        variants_in_turns(card, "mamba_bwd_variants", kernel, sources, args,
+                          outs, causal_conv1d_bwd_plain(x, w, bias, None,
+                                                        dout),
+                          shape=[b, t, d])
+        return
+    _, _, ckpt = selective_scan_checkpoints(*scan)
+    dy = torch.randn((b, t, d), generator=gen, device="cuda")
+    dt, a, bm, cm, x, dskip, _ = scan
+    outs = [torch.empty_like(dt), torch.empty_like(a), torch.empty_like(bm),
+            torch.empty_like(cm), torch.empty_like(dt),
+            torch.empty_like(dskip), torch.empty((b, d, n), device="cuda")]
+    scratch = torch.empty(bwd_scratch_floats(b, t, d, n), device="cuda")
+    args = (*(v.data_ptr() for v in (dt, a, bm, cm, x, dskip, ckpt, dy)),
+            None, *(o.data_ptr() for o in outs), scratch.data_ptr(), b, t, d,
+            n, stream)
+    variants_in_turns(card, "mamba_bwd_variants", kernel, sources, args,
+                      outs, selective_scan_bwd_plain(*scan, dy),
+                      shape=[b, t, d, n])
+
+
 #: one turn of ``--mamba-turns``, run in a child process from a tree's
 #: root with that tree's own ``chip_smoke``
 MAMBA_TURN = """
@@ -4237,6 +4331,7 @@ card = cs.card_line()
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
 cs.check_mamba_kernels(card, cs.memory_rate(card), cs.fp32_rate(card), gen,
                        6144, 6144)
+cs.check_mamba_bwd(card, cs.memory_rate(card), cs.fp32_rate(card), gen)
 for fn in cs.model_kernels().values():
     fn.launches = 0
 cs.phase_serve(card, cs.SERVE_JAMBA)
@@ -4246,8 +4341,8 @@ cs.phase_train(card, cs.bf16_rate(card), cs.TRAIN_JAMBA)
 
 def mamba_turns(card: str, roots) -> None:
     """``chip_smoke.py --mamba-turns ROOT...``: each tree's own Mamba
-    kernel checks (``check_mamba_kernels`` at jamba's serving shapes)
-    and its two jamba cells (``serve_jamba`` and jamba's first-layer
+    kernel checks (``check_mamba_kernels`` at jamba's serving shapes,
+    ``check_mamba_bwd`` at its training shape) and its two jamba cells (``serve_jamba`` and jamba's first-layer
     training) in a child process from the tree's root, in turns (the
     roots in order, then reversed), every line the child prints that is
     a JSON object re-emitted with its turn and root.  The kernels build
@@ -4296,30 +4391,62 @@ def source_name(src: pathlib.Path) -> str:
         src)
 
 
-def wkv_bwd_turns(card: str, sources, shape=None) -> None:
-    """``chip_smoke.py --wkv-bwd-turns [--shape B,T,H,DH] SRC...``: each
-    WKV backward source built by :func:`build_variants`, then launched
-    through its C entry alone at rwkv6-1.6b's training shape,
-    ``WKV_BWD_CASES[0]`` (or ``shape``), fp32, checkpoints ``CKPT`` steps
-    apart, in turns (:func:`in_turns`, ``WKV_TURNS``).  Each source's
-    first launch is held to the plain reverse recurrence and its max-abs
-    error over each gradient's largest magnitude printed (a probe with
-    parts switched off computes wrong sums, so nothing here is gated).
-    Prints a row a source: its ptxas lines, turn times and median."""
+def variants_in_turns(card: str, phase: str, kernel: str, sources, args,
+                      outs, expected, extra=None, **shown) -> None:
+    """Each source of ``kernel`` (this tree's, an earlier tree's, or a
+    probe variant of either, with this tree's C interface) built by
+    :func:`build_variants`, then launched through its C entry on ``args``
+    (writing ``outs``) in turns (:func:`in_turns`, ``WKV_TURNS``).  Each
+    source's first launch is held to ``expected`` and its max-abs error
+    over each output's largest magnitude printed (a probe with parts
+    switched off computes wrong sums, so nothing here is gated).  Prints
+    a row a source: the kernel, ``shown``, its ptxas lines,
+    ``extra(library)``'s keys, turn times and median."""
     import ctypes
     import torch
     from repro_torch.kernels import build
+    _, symbol, argtypes = build.KERNELS[kernel]
+    entries = []
+    for src, so, ptxas in build_variants(kernel, sources):
+        fn = getattr(so, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        entries.append((src, so, fn, ptxas))
+
+    def run(fn) -> None:
+        err = fn(*args)
+        check(err == 0, f"launch failed: CUDA error {err}")
+
+    errs = []
+    for _, _, fn, _ in entries:
+        for o in outs:
+            o.fill_(float("nan"))
+        run(fn)
+        torch.cuda.synchronize()
+        errs.append([float((g.float() - e.float()).abs().max()
+                           / e.float().abs().max())
+                     for g, e in zip(outs, expected)])
+    del expected
+    times = in_turns([functools.partial(run, fn) for _, _, fn, _ in entries],
+                     WKV_TURNS)
+    for (src, so, _, ptxas), err, ms in zip(entries, errs, times):
+        emit({"phase": phase, "kernel": kernel, "source": source_name(src),
+              **shown, "ptxas": ptxas, **(extra(so) if extra else {}),
+              "max_abs_err_over_max": err, "turn_ms": ms,
+              "median_ms": statistics.median(ms), "card": card})
+
+
+def wkv_bwd_turns(card: str, sources, shape=None) -> None:
+    """``chip_smoke.py --wkv-bwd-turns [--shape B,T,H,DH] SRC...``: each
+    WKV backward source in turns by :func:`variants_in_turns` at
+    rwkv6-1.6b's training shape, ``WKV_BWD_CASES[0]`` (or ``shape``),
+    fp32, checkpoints ``CKPT`` steps apart, against the plain reverse
+    recurrence; a row a source with its resident blocks an SM where its
+    library reports them."""
+    import torch
     from repro_torch.kernels.ref import rwkv6_scan_bwd_plain
     from repro_torch.kernels.rwkv6_scan import CKPT, rwkv6_scan_checkpoints
     b, t, h, dh = shape or WKV_BWD_CASES[0][1:]
-    entries = []
-    for src, so, ptxas in build_variants("rwkv6_scan_bwd", sources):
-        fn = so.rwkv6_scan_bwd_launch
-        fn.argtypes = build.KERNELS["rwkv6_scan_bwd"][2]
-        fn.restype = ctypes.c_int
-        resident = (so.rwkv6_scan_bwd_resident(dh, CKPT)
-                    if hasattr(so, "rwkv6_scan_bwd_resident") else None)
-        entries.append((src, fn, ptxas, resident))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     r, k, v, dy = (torch.randn((b, t, h, dh), generator=gen, device="cuda")
                    for _ in range(4))
@@ -4336,35 +4463,18 @@ def wkv_bwd_turns(card: str, sources, shape=None) -> None:
     scratch = torch.empty((dh // 16) * b * t * h * dh + b * h * dh,
                           device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    dr, dk, dv, dw, du, ds0 = outs
+    args = (*(x.data_ptr() for x in (r, k, v, w, bonus, ckpt, dy, ds)),
+            *(o.data_ptr() for o in outs), scratch.data_ptr(), b, t, h, dh,
+            CKPT, stream)
 
-    def run(fn) -> None:
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 bonus.data_ptr(), ckpt.data_ptr(), dy.data_ptr(),
-                 ds.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 dw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
-                 scratch.data_ptr(), b, t, h, dh, CKPT, stream)
-        check(err == 0, f"launch failed: CUDA error {err}")
+    def resident(so) -> dict:
+        return {"resident_blocks": so.rwkv6_scan_bwd_resident(dh, CKPT)
+                if hasattr(so, "rwkv6_scan_bwd_resident") else None}
 
-    exp = rwkv6_scan_bwd_plain(r, k, v, w, bonus, s0, dy, ds)
-    errs = []
-    for _, fn, _, _ in entries:
-        for o in outs:
-            o.fill_(float("nan"))
-        run(fn)
-        torch.cuda.synchronize()
-        errs.append([float((g - e).abs().max() / e.abs().max())
-                     for g, e in zip(outs, exp)])
-    del exp
-    times = in_turns([functools.partial(run, fn) for _, fn, _, _ in entries],
-                     WKV_TURNS)
-    for (src, _, ptxas, resident), err, ms in zip(entries, errs, times):
-        emit({"phase": "wkv_bwd_turns", "source": source_name(src),
-              "shape": [b, t, h, dh], "checkpoint_every": CKPT,
-              "ptxas": ptxas, "resident_blocks": resident,
-              "max_abs_err_over_max": err,
-              "turn_ms": ms, "median_ms": statistics.median(ms),
-              "card": card})
+    variants_in_turns(card, "wkv_bwd_turns", "rwkv6_scan_bwd", sources, args,
+                      outs, rwkv6_scan_bwd_plain(r, k, v, w, bonus, s0, dy,
+                                                 ds),
+                      resident, shape=[b, t, h, dh], checkpoint_every=CKPT)
 
 
 #: the most blocks the earlier design of ``rmsnorm_bwd`` (per-block
@@ -4871,6 +4981,177 @@ def train_route_split(card: str) -> None:
         del grads
 
 
+#: kernel names of the step profile by kind: matrix products, the port's
+#: hand-written kernels, and the rest (PyTorch's elementwise passes,
+#: reductions and copies)
+STEP_KINDS = (("matmul", r"gemm|cutlass|xmma|nvjet|sm90_"),
+              ("port kernel", r"conv_kernel|conv_bwd|scan_kernel|scan_bwd|"
+                              r"rms|flash|dq_|dkdv|decode_kernel"),
+              ("elementwise and other", r""))
+
+
+def step_kind(name: str) -> str:
+    return next(kind for kind, pattern in STEP_KINDS
+                if re.search(pattern, name))
+
+
+def split_profile(fn, ranges=()) -> dict:
+    """``fn()`` under the torch profiler: the wall and busy ms, the device
+    ms of each kernel kind (``STEP_KINDS``), the top 12 kernels by device
+    time, and for each ``record_function`` range named in ``ranges`` the
+    device ms of the kernels inside the span the profiler mirrors it to
+    on the device's timeline (in a step, a range around a forward
+    function holds its forward only: autograd runs the backward
+    later)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation]
+    spans = {name: [(ev.time_range.start, ev.time_range.end)
+                    for ev in events if ev.device_type == DeviceType.CUDA
+                    and ev.is_user_annotation and ev.name == name]
+             for name in ranges}
+    kinds, by_range = collections.Counter(), collections.Counter()
+    for ev in kernels:
+        us = ev.time_range.end - ev.time_range.start
+        kinds[step_kind(ev.name)] += us / 1e3
+        for name, s in spans.items():
+            if any(a <= ev.time_range.start < b for a, b in s):
+                by_range[name] += us / 1e3
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and not ev.is_user_annotation
+                   and ev.self_device_time_total > 0), reverse=True)
+    return {"wall_ms": wall * 1e3,
+            "busy_ms": sum(kinds.values()), "by_kind_ms": dict(kinds),
+            "ranges_ms": {n: by_range[n] for n in ranges},
+            "range_spans": {n: len(s) for n, s in spans.items()},
+            "top": [{"name": k[:70], "device_ms": us / 1e3, "calls": c,
+                     "kind": step_kind(k)} for us, k, c in rows[:12]]}
+
+
+def jamba_step_split(card: str) -> None:
+    """``chip_smoke.py --jamba-step-split``: where jamba-1.5-large-398b's
+    first-layer training step (``TRAIN_JAMBA``) spends its device time.
+    One profiled step with ``record_function`` ranges around AdamW's
+    update (``adamw.apply_updates``: all of it), the loss head
+    (``transformer._chunked_ce``) and the Mamba chain
+    (``mamba.mamba_apply``: their forward, and the forward recomputed by
+    the checkpoints), then each part's forward and backward profiled
+    alone: AdamW's update, the loss head on the final hidden states
+    (norm's output), the Mamba layer from its input (its forward twice,
+    as the checkpointed step runs it).  Each profile gives its kernels'
+    ms by kind and its top kernels, so each row of the step's profile
+    can be traced to its source."""
+    import torch
+    from torch.profiler import record_function
+    from repro_torch import models
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw, init_state
+    from repro_torch.runtime import steps as step_factories
+
+    train = TRAIN_JAMBA
+    cfg = serve_config(train)
+    params = models.init_params(cfg, seed=SEED)
+    awake_params(params, cfg)
+    b, s = train["batch"], train["seq_len"]
+    stream = SyntheticLMStream(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=s, global_batch=b,
+                                          seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in stream.batch_at(0).items()}
+    opt_cfg = AdamWConfig()
+    opt_state = init_state(opt_cfg, params)
+    step_fn = step_factories.make_train_step(cfg, opt_cfg)
+    for _ in range(2):
+        params, opt_state, _ = step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+
+    originals = {"adamw": (adamw, "apply_updates"),
+                 "loss": (transformer, "_chunked_ce"),
+                 "mamba": (mamba_mod, "mamba_apply")}
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr) in originals.items()}
+    try:
+        for name, (mod, attr) in originals.items():
+            setattr(mod, attr, ranged(name, saved[name]))
+        step = split_profile(lambda: step_fn(params, opt_state, batch),
+                             tuple(originals))
+    finally:
+        for name, (mod, attr) in originals.items():
+            setattr(mod, attr, saved[name])
+
+    _, grads = step_factories.value_and_grad(params, cfg, batch)
+    parts = {"adamw update": split_profile(lambda: adamw.apply_updates(
+        opt_cfg, params, grads, opt_state))}
+    del grads
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    h = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(
+        params["final_norm"]["scale"].dtype)
+    head = [params["embed"] if cfg.tie_embeddings else params["lm_head"]]
+
+    def loss_part():
+        x = h.detach().requires_grad_(True)
+        for p in head:
+            p.requires_grad_(True)
+        loss = transformer._chunked_ce(params, cfg, x, batch["labels"])
+        torch.autograd.grad(loss, [x] + head)
+        for p in head:
+            p.requires_grad_(False)
+
+    parts["loss head, forward and backward"] = split_profile(loss_part)
+
+    def find_mixer(tree):
+        if isinstance(tree, dict):
+            if "a_log" in tree:
+                return tree
+            for v in tree.values():
+                got = find_mixer(v)
+                if got is not None:
+                    return got
+        return None
+
+    mixer = find_mixer(params)
+    if mixer["a_log"].ndim == 3:   # stacked layers: the first
+        mixer = {k: v[0] for k, v in mixer.items()}
+    leaves = {k: v.detach().requires_grad_(True) for k, v in mixer.items()}
+    dy = torch.randn_like(h)
+
+    def mamba_part():
+        x = h.detach().requires_grad_(True)
+        mamba_mod.mamba_apply(leaves, cfg, x)   # the checkpoint's pass
+        y, _ = mamba_mod.mamba_apply(leaves, cfg, x)
+        torch.autograd.grad(y, [x] + list(leaves.values()), dy)
+
+    parts["mamba layer, forward twice and backward"] = split_profile(
+        mamba_part)
+    emit({"phase": "jamba step split", "arch": cfg.name,
+          "batch": b, "seq_len": s,
+          "params": models.params_count(params), "step": step,
+          "parts": parts, "card": card})
+
+
 def route_equality_fp32(card: str, train) -> None:
     """``train``'s model at its registered width in fp32 (``TRAIN_FP32``'s
     batch, random weights from ``SEED``): the first step's gradients on
@@ -4982,11 +5263,17 @@ def main() -> int:
     if sys.argv[1:] == ["--train-route-split"]:
         train_route_split(card)
         return 0
+    if sys.argv[1:] == ["--jamba-step-split"]:
+        jamba_step_split(card)
+        return 0
     if sys.argv[1:2] == ["--rmsnorm-bwd-turns"]:
         rmsnorm_bwd_turns(card, sys.argv[2:])
         return 0
     if sys.argv[1:2] == ["--mamba-turns"]:
         mamba_turns(card, sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--mamba-bwd-variants"]:
+        mamba_bwd_variants(card, sys.argv[2], sys.argv[3:])
         return 0
     if sys.argv[1:2] == ["--sass"]:
         sass_counts(card, sys.argv[2], sys.argv[3:])

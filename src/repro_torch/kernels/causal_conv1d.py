@@ -12,10 +12,13 @@ covers: in plain PyTorch the conv is four or more passes over the
 half of the input projection).
 
 Under autograd on the card its backward launches
-``csrc/causal_conv1d_bwd.cu`` (:func:`causal_conv1d_bwd`): dx and the
-state's gradient by threads of the same layout, and the weight's and
-bias's gradients as per-tile partials that a second kernel sums in a
-fixed order (no atomics).
+``csrc/causal_conv1d_bwd.cu`` (:func:`causal_conv1d_bwd`): a thread per
+(batch row, 4 bytes of channels, tile of :data:`BWD_TILE` steps) walks
+its tile backwards with its rows of x and dout streaming through a ring
+in shared memory, recomputes the pre-activation as the forward does,
+writes dx and the state's gradient, and leaves the weight's and bias's
+gradients as per-tile partials that a second kernel sums in a fixed
+order (no atomics).
 """
 
 from __future__ import annotations

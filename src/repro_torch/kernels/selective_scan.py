@@ -18,11 +18,12 @@ thousands of launches a layer.
 Under autograd on the card the fp32 forward launch also writes the fp32
 state every :data:`CKPT` steps (:func:`selective_scan_checkpoints`), and
 the backward launches ``csrc/selective_scan_bwd.cu``
-(:func:`selective_scan_bwd`): per chunk, in the reverse order, it
-recomputes the chunk's states from its checkpoint into shared memory and
+(:func:`selective_scan_bwd`): two channels a thread, a channel pair's
+states over 8 lanes; per chunk, in the reverse order, it recomputes the
+chunk's states and exponentials from its checkpoint into registers and
 carries the state's gradient back; db and dc (sums over the channels)
-and da and dd_skip (sums over the batch) leave per-block partials that a
-second kernel sums in a fixed order (no atomics).
+and da and dd_skip (sums over the batch) leave per-block partials that
+a second kernel sums in a fixed order (no atomics).
 """
 
 from __future__ import annotations
@@ -49,10 +50,10 @@ LANE_SPLITS = (1, 2, 4)
 #: channels on 132 SMs, reads 3.9 warps a scheduler at one lane)
 WANT_THREADS_PER_SM = 448
 #: steps between two state checkpoints of the forward under autograd (the
-#: backward holds a chunk's states in shared memory, CKPT * d_state * 128
-#: floats a block); they take B * ceil(T / CKPT) * D * N * 4 bytes, twice
-#: an fp32 (B, T, D) tensor at d_state 16, alive from a layer's forward to
-#: its backward.  The results do not depend on it.
+#: backward holds a chunk's states and exponentials in registers, 2 * CKPT
+#: floats a state a lane); they take B * ceil(T / CKPT) * D * N * 4 bytes,
+#: twice an fp32 (B, T, D) tensor at d_state 16, alive from a layer's
+#: forward to its backward.  The results do not depend on it.
 CKPT = 8
 
 __all__ = ["selective_scan", "selective_scan_plain",
@@ -308,9 +309,10 @@ def selective_scan_bwd(dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     and the final state's ``dstate`` (None: zeros).  Returns (ddt, da
     (D, N), db, dc (B, T, N), dx, dd_skip (D), the initial state's gradient
     (B, D, N)), all fp32.  CUDA tensors launch the backward kernel (two
-    kernels: the reverse recurrence, then the fixed order sums of the
-    partials) and add one to ``selective_scan_bwd.launches``; CPU tensors
-    run :func:`selective_scan_bwd_plain` from the first checkpoint."""
+    kernels: the reverse recurrence, a channel pair's states over 8
+    lanes, then the fixed order sums of the partials) and add one to
+    ``selective_scan_bwd.launches``; CPU tensors run
+    :func:`selective_scan_bwd_plain` from the first checkpoint."""
     extra = () if dstate is None else (dstate,)
     if not use_kernel(dt, a, b, c, x, d_skip, checkpoints, dy, *extra):
         return selective_scan_bwd_plain(dt, a, b, c, x, d_skip,

@@ -1713,7 +1713,7 @@ def test_unlisted_head_dim_pairs_raise_on_the_card(gen):
 # the unfused chain it replaces (the fp32 mode between mamba.py's torch
 # ops; bit for bit expected, the share that differs printed), its state
 # bit for bit the fp32 mode's.  The backward kernels at the backward gates
-# above, 50 more launches bit-equal (no atomics).
+# above at d_state 8 and 16, 50 more launches bit-equal (no atomics).
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import selective_scan as scan_mod  # noqa: E402
@@ -1771,7 +1771,14 @@ def test_causal_conv1d_kernel_equals_plain(gen, b, t, d, n, state, dtype):
     assert _ulp_err(out, eo) <= 1.0
 
 
-@pytest.mark.parametrize("b,t,d,n,state", MAMBA_SHAPES)
+#: the conv backward at its edges besides ``MAMBA_SHAPES`` and
+#: ``CONV_EDGES``: fewer steps than its ring of rows in flight and than
+#: the 3 rows past a tile, one tile and 2 steps from a state
+CONV_BWD_EDGES = [(2, 2, 128, 0, True), (1, 130, 384, 0, True)]
+
+
+@pytest.mark.parametrize("b,t,d,n,state",
+                         MAMBA_SHAPES + CONV_EDGES + CONV_BWD_EDGES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_causal_conv1d_bwd_equals_plain(gen, b, t, d, n, state, dtype):
     x, w, bias, st = _conv_case(gen, b, t, d, dtype, state)
@@ -1786,12 +1793,17 @@ def test_causal_conv1d_bwd_equals_plain(gen, b, t, d, n, state, dtype):
         _grad_gate(g, e, name)
 
 
-def test_causal_conv1d_bwd_repeated_launches_agree(gen):
-    x, w, bias, st = _conv_case(gen, 4, 2048, 16384, torch.bfloat16, False)
-    dout = _normal(gen, 4, 2048, 16384, dtype=torch.bfloat16)
-    first = causal_conv1d_bwd(x, w, bias, st, dout)
+@pytest.mark.parametrize("b,t,d,state,dtype", [
+    (4, 2048, 16384, False, torch.bfloat16),   # jamba's training shape
+    (2, 333, 384, True, torch.float32)])
+def test_causal_conv1d_bwd_repeated_launches_agree(gen, b, t, d, state,
+                                                    dtype):
+    x, w, bias, st = _conv_case(gen, b, t, d, dtype, state)
+    dout = _normal(gen, b, t, d, dtype=dtype)
+    dnew = _normal(gen, b, 3, d, dtype=dtype) if state else None
+    first = causal_conv1d_bwd(x, w, bias, st, dout, dnew)
     for i in range(50):
-        again = causal_conv1d_bwd(x, w, bias, st, dout)
+        again = causal_conv1d_bwd(x, w, bias, st, dout, dnew)
         assert all(torch.equal(a, f) for a, f in zip(again, first)), i
 
 
@@ -1981,14 +1993,78 @@ def test_selective_scan_gated_repeated_launches_agree(gen):
         assert all(torch.equal(a, f) for a, f in zip(again, first)), i
 
 
-def test_selective_scan_bwd_repeated_launches_agree(gen):
-    args = _scan_case(gen, 4, 2048, 16384, 16, False)
+@pytest.mark.parametrize("b,t,d,n,state", [
+    (4, 2048, 16384, 16, False),   # jamba's training shape
+    (1, 333, 384, 8, True)])
+def test_selective_scan_bwd_repeated_launches_agree(gen, b, t, d, n, state):
+    args = _scan_case(gen, b, t, d, n, state)
     _, _, ck = selective_scan_checkpoints(*args)
-    dy = _normal(gen, 4, 2048, 16384)
-    first = selective_scan_bwd(*args[:6], ck, dy)
+    dy = _normal(gen, b, t, d)
+    ds = _normal(gen, b, d, n) if state else None
+    first = selective_scan_bwd(*args[:6], ck, dy, ds)
     for i in range(50):
-        again = selective_scan_bwd(*args[:6], ck, dy)
+        again = selective_scan_bwd(*args[:6], ck, dy, ds)
         assert all(torch.equal(a, f) for a, f in zip(again, first)), i
+
+
+#: (B, T, d_inner, with a state) of the scan backward's edges: one chunk
+#: short of a full one in one block, a ragged tail over three blocks of
+#: one batch row, exactly two chunks
+BWD_EDGES = [(1, 5, 128, True), (1, 333, 384, True), (3, 16, 256, False)]
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("b,t,d,state", BWD_EDGES)
+def test_selective_scan_bwd_edges(gen, n, b, t, d, state):
+    """The backward at d_state 8 (a state a channel a lane) and 16 (two)
+    at its edges, against the plain reverse recurrence, with the final
+    state's gradient."""
+    args = _scan_case(gen, b, t, d, n, state)
+    _, _, ck = selective_scan_checkpoints(*args)
+    dy, dstate = _normal(gen, b, t, d), _normal(gen, b, d, n) * 0.5
+    got = selective_scan_bwd(*args[:6], ck, dy, dstate)
+    exp = selective_scan_bwd_plain(*args, dy, dstate)
+    for name, g, e in zip(("ddt", "da", "db", "dc", "dx", "dd_skip",
+                           "dstate0"), got, exp):
+        _grad_gate(g, e, f"{name}, d_state {n}")
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_selective_scan_bwd_long_memory(gen, n):
+    """The backward over 6144 steps at dt = 1e-3 with a = -1 and -16
+    (gradients carried back ~1000 and ~60 steps), from a state and with
+    the final state's gradient, against the plain reverse recurrence."""
+    b, t, d = 1, 6144, 256
+    a = torch.where(torch.arange(n, device="cuda") % 2 == 0, -1.0,
+                    -16.0).expand(d, n).contiguous()
+    dt = torch.full((b, t, d), 1e-3, device="cuda")
+    args = (dt, a, _normal(gen, b, t, n), _normal(gen, b, t, n),
+            _normal(gen, b, t, d), 1 + 0.3 * _normal(gen, d),
+            _normal(gen, b, d, n))
+    _, _, ck = selective_scan_checkpoints(*args)
+    dy, dstate = _normal(gen, b, t, d), _normal(gen, b, d, n)
+    got = selective_scan_bwd(*args[:6], ck, dy, dstate)
+    exp = selective_scan_bwd_plain(*args, dy, dstate)
+    for name, g, e in zip(("ddt", "da", "db", "dc", "dx", "dd_skip",
+                           "dstate0"), got, exp):
+        _grad_gate(g, e, f"{name}, d_state {n}")
+
+
+@pytest.mark.parametrize("b,t,d,n", [(4, 2048, 16384, 16), (2, 333, 384, 8)])
+def test_selective_scan_bwd_memory_is_its_scratch(gen, b, t, d, n):
+    """The backward's device memory beyond its inputs and outputs: at
+    most its stated scratch (``bwd_scratch_floats``) plus 1 MiB."""
+    args = _scan_case(gen, b, t, d, n, False)
+    _, _, ck = selective_scan_checkpoints(*args)
+    dy = _normal(gen, b, t, d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = selective_scan_bwd(*args[:6], ck, dy)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - before
+             - sum(g.numel() * g.element_size() for g in got))
+    assert extra <= 4 * scan_mod.bwd_scratch_floats(b, t, d, n) + (1 << 20)
 
 
 def test_mamba_kernels_refuse_what_they_are_not_built_for(gen):

@@ -190,3 +190,16 @@ def test_library_path_follows_every_shared_header(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("flash_attention").name != names[-1]
 
+
+
+@pytest.mark.parametrize("name", sorted(build.KERNELS))
+def test_c_entry_takes_the_arguments_its_wrapper_passes(name):
+    """Each kernel's C entry, as its source defines it, takes as many
+    parameters as ``build.KERNELS`` gives ctypes (a count off by one
+    would shift every argument after it, with no error from ctypes)."""
+    source, symbol, argtypes = build.KERNELS[name]
+    text = (build._CSRC / source).read_text()
+    start = text.index(f'extern "C" int {symbol}(') + len(
+        f'extern "C" int {symbol}(')
+    params = text[start:text.index(")", start)]
+    assert len(params.split(",")) == len(argtypes), (name, params)
