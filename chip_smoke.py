@@ -39,7 +39,14 @@ Phases, each printing JSON lines:
              ``LSE_REL``; flash and decode at MLA's (192, 128) head-dim
              pair at deepseek-v2-lite's shapes, flash in bf16 and fp32
              (SDPA's time where a fused backend takes Ev != E, else
-             none); bf16 flash attention, flash decode, the WKV
+             none); flash at per-row offsets (``FLASH_OFFSET_CASES``:
+             the continued prefills of gemma-2b, deepseek-v2-lite and
+             jamba, 4096 rows at 0, 1024, 1793, 2048 over a cache of
+             6176, and a ragged one) in bf16 and fp32 within flash's
+             gates, its offset-0 row bit for bit today's causal call
+             over the first s keys, 50 repeats bit-equal, beside its
+             bound (no library call takes a per-row offset); bf16 flash
+             attention, flash decode, the WKV
              scan (fp32 and bf16), the MESI tick (every shape and
              strategy) and the chunk tick (both shapes) launched
              ``REPEATS`` more times at each shape after every timing,
@@ -156,7 +163,22 @@ Phases, each printing JSON lines:
              one at a time on both routes, each layer's own share of
              their distance <= 1e-2.  Profiles one batched prefill
              (top device operations, flash attention's share) and eight
-             decode steps.
+             decode steps.  Then a continued prefill (``CONTINUE_OFFSETS``,
+             also in ``serve_deepseek`` and ``serve_jamba``): row b's
+             cache filled by a one-row prefill of its request's first o_b
+             tokens, then one batched cached prefill of the next 4096 at
+             ``cache_len = o`` through ``_run_layers``: exactly one
+             flash_attention launch per attention layer (counted apart
+             from the phase's launch gate), each row's last-position
+             logits within the cell's prefill limit of a one-row
+             one-shot prefill of its o_b + 4096 tokens and of the same
+             continued prefill on the plain route, every attention cache
+             row in [0, o_b + 4096) within 1e-2 of the one-shot
+             prefill's, layer by layer; its tokens/s.  Every serve and
+             train phase prints an ``analytic`` line (not gated): the
+             port's ``analytic_cost`` at one card for its cell, the
+             roofline bound on this card, the measured time's share of
+             it and ``model_flops_for``'s share of the bf16 peak.
 7. serve_rwkv - the same serving workload on rwkv6-1.6b at its
              registered width (24 layers, d 2048, 32 heads of 64,
              channel-mix 7168, vocab 65536, bf16) with random weights from
@@ -341,14 +363,6 @@ SEED = 20260305
 PUBLISHED = {"A": 0.950, "B": 0.923, "C": 0.883, "D": 0.842}
 PUBLISHED_TOLERANCE = 0.025
 
-#: device-memory rate by H100 variant, bytes/s, from NVIDIA's data sheets.
-H100_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
-#: dense bf16 tensor-core rate by H100 variant, flop/s (data sheets)
-H100_BF16_FLOPS = {"PCIe": 756e12, "NVL": 835e12, "SXM": 989e12}
-#: fp32 rate of the CUDA cores (outside the tensor cores) by H100
-#: variant, flop/s (data sheets)
-H100_FP32_FLOPS = {"PCIe": 51e12, "NVL": 60e12, "SXM": 67e12}
-
 #: mid-size, then every shape the main paths give the kernel: the four
 #: scenarios' batch, the eager/access_count fleets, the service's
 #: decisions (B = n + 1 prefix simulations: n = 32 clients, the staged
@@ -479,6 +493,50 @@ SERVE_DEEPSEEK = dict(SERVE, arch="deepseek-v2-lite-16b")
 #: cut to its first ``n_layers`` 5 (Mamba at 0-3, attention at 4, MoE at
 #: 1 and 3: 24.05 B of its 398.6 B, which do not fit 80 GB)
 SERVE_JAMBA = dict(SERVE, arch="jamba-1.5-large-398b", n_layers=5)
+#: the continued prefill of phases ``serve``, ``serve_deepseek`` and
+#: ``serve_jamba``: row b's cache filled by a one-row prefill of its
+#: request's first o_b tokens, then one batched cached prefill of the next
+#: ``CONTINUE_TOKENS`` at ``cache_len = o`` (the batch's cache is the
+#: batched request's, P + 32 = 6176 long); 1793 lies off every key tile,
+#: and jamba's Mamba layers take prompts only in multiples of their scan
+#: chunk (128), as the reference asserts, so its third row starts at 1792
+CONTINUE_TOKENS = 4096
+CONTINUE_OFFSETS = {"gemma-2b": (1024, 1536, 1793, 2048),
+                    "deepseek-v2-lite-16b": (1024, 1536, 1793, 2048),
+                    "jamba-1.5-large-398b": (1024, 1536, 1792, 2048)}
+#: every attention cache row in [0, o_b + CONTINUE_TOKENS) of the continued
+#: prefill against the one-shot prefill's, layer by layer (relative L2)
+CONTINUE_CACHE_REL_L2 = 1e-2
+#: the MoE capacity factor at which an MoE cell's continued prefill is
+#: held to its one-shot prefill.  At the cell's own 1.25 an expert drops
+#: the pairs past its capacity, and which pairs it drops depends on every
+#: token of the call, so the two are different functions (deepseek's
+#: caches parted from the one-shot prefill's by 0.13 after its first MoE
+#: layer); at this factor no pair drops in either (checked on the routes
+#: dispatched), and the two are the same function.  With random routers
+#: one of deepseek's 64 experts takes ~8x its capacity at 1.25, nearly
+#: every token (so 11: a capacity over every token); jamba's busiest of 16
+#: takes 1.02x at 1.25 and 0.42x at 3, which fits the card beside its
+#: weights (its experts are 24576 wide)
+CONTINUE_DROP_FREE = {"deepseek-v2-lite-16b": 11.0,
+                      "jamba-1.5-large-398b": 3.0}
+#: the batched request's cache: its prompt (3 artifacts of 2048 tokens)
+#: and its 32 decode steps
+SERVE_CACHE = SERVE["artifacts"] * SERVE["artifact_tokens"] \
+    + SERVE["decode_steps"]
+#: flash at per-row offsets in phase ``kernels`` (label, b, Hq, Hkv, s,
+#: Lk, D or a (D, Dv) pair, offsets): the three continued prefills'
+#: attention (gemma-2b's MQA at 256, deepseek-v2-lite's MLA pair,
+#: jamba's GQA at 128) over the batched request's cache, rows at 0, 1024,
+#: 1793 and 2048, and a ragged one over a cache of 1000
+FLASH_OFFSET_CASES = (
+    ("gemma-2b continued prefill", 4, 8, 1, CONTINUE_TOKENS, SERVE_CACHE,
+     256, (0, 1024, 1793, 2048)),
+    ("deepseek continued prefill", 4, 16, 16, CONTINUE_TOKENS, SERVE_CACHE,
+     (192, 128), (0, 1024, 1793, 2048)),
+    ("jamba continued prefill", 4, 64, 8, CONTINUE_TOKENS, SERVE_CACHE,
+     128, (0, 1024, 1793, 2048)),
+    ("ragged", 2, 4, 2, 333, 1000, 64, (0, 667)))
 #: each serving workload's phase name, by arch
 SERVE_PHASES = {"gemma-2b": "serve", "rwkv6-1.6b": "serve_rwkv",
                 "olmoe-1b-7b": "serve_moe", "whisper-medium": "serve_whisper",
@@ -711,25 +769,23 @@ def max_sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
-def _variant_rate(name: str, table: dict, what: str) -> float:
-    if "H100" not in name:
-        raise RuntimeError(f"no {what} on record for {name!r}")
-    for variant, rate in table.items():
-        if variant in name:
-            return rate
-    return table["SXM"]   # "H100 80GB HBM3" is the SXM part
-
-
 def memory_rate(name: str) -> float:
-    return _variant_rate(name, H100_BYTES_PER_S, "memory rate")
+    """The card's device-memory bytes/s (``launch/roofline.py``'s table,
+    by H100 variant)."""
+    from repro_torch.launch import roofline
+    return roofline.memory_rate(name)
 
 
 def bf16_rate(name: str) -> float:
-    return _variant_rate(name, H100_BF16_FLOPS, "bf16 rate")
+    """The card's dense bf16 tensor-core flop/s (``launch/roofline.py``)."""
+    from repro_torch.launch import roofline
+    return roofline.bf16_rate(name)
 
 
 def fp32_rate(name: str) -> float:
-    return _variant_rate(name, H100_FP32_FLOPS, "fp32 rate")
+    """The card's fp32 CUDA-core flop/s (``launch/roofline.py``)."""
+    from repro_torch.launch import roofline
+    return roofline.fp32_rate(name)
 
 
 def median_ms(fn, make_args, reps: int) -> float:
@@ -1372,6 +1428,83 @@ def attention_pairs(lq: int, lk: int, causal: bool) -> int:
     return sum(min(lk, r + off + 1) for r in range(lq))
 
 
+def offset_pairs(s: int, offsets, kv_len, lk: int) -> int:
+    """Query-key pairs of a causal attention of s rows at per-row offsets
+    over keys below min(kv_len, Lk), summed over the batch rows: what the
+    kernel computes for this call's data (one head)."""
+    return sum(min(o + r + 1, min(n, lk)) for o, n in zip(offsets, kv_len)
+               for r in range(s))
+
+
+def check_flash_offsets(card: str, rate: float, flops: float,
+                        fp32_flops: float, gen) -> list:
+    """Flash at per-row offsets (``FLASH_OFFSET_CASES``, the continued
+    prefills' over the batched request's cache), bf16 and fp32: against
+    its plain version at flash's gates, over a cache whose rows past
+    kv_len are random too (masked, never seen); the row at offset 0 bit
+    for bit today's causal call over its first s keys (the same tiles in
+    the same order); timed alone, by events and on the host beside its
+    bound (2 (D + Dv) flops a kept pair; q, the output, and K / V rows
+    below kv_len read once) and the plain version (no library call takes
+    a per-row causal offset).  Returns the repeat cases."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def fn(q, k, v, q_offset, kv_len):
+        return flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                               kv_len=kv_len)
+
+    def plain(q, k, v, q_offset, kv_len):
+        return plain_attention(q, k, v, True, None, q_offset, kv_len)
+
+    repeats = []
+    for label, b, h, g, s, lk, dim, offsets in FLASH_OFFSET_CASES:
+        dk, dv = head_dims(dim)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                    for shape in ((b, h, s, dk), (b, g, lk, dk)))
+            v = torch.randn((b, g, lk, dv), generator=gen,
+                            device="cuda").to(dtype)
+            off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+            lens = off + s
+            out = fn(q, k, v, off, lens)
+            torch.cuda.synchronize()
+            what = f"flash_attention at offsets ({label}, {dtype})"
+            err, row_err = check_attention(out, plain(q, k, v, off, lens),
+                                           dtype, what)
+            zero = offsets.index(0)
+            today = flash_attention(*(t[zero:zero + 1, :, :s].contiguous()
+                                      for t in (q, k, v)), causal=True)
+            check(torch.equal(out[zero:zero + 1], today),
+                  f"{what}: the row at offset 0 is today's causal call over "
+                  f"its first {s} keys, bit for bit")
+            lens_host = [o + s for o in offsets]
+            work = 2 * (dk + dv) * h * offset_pairs(s, offsets, lens_host, lk)
+            moved = ((q.numel() + out.numel()
+                      + sum(min(n, lk) for n in lens_host) * g * (dk + dv))
+                     * q.element_size() + 2 * 4 * b)
+            ops_s = work / (flops if dtype == torch.bfloat16 else fp32_flops)
+            args = lambda: (q, k, v, off, lens)   # noqa: E731
+            dev_ms, host_ms = device_ms(fn, args, 5)
+            row = {"phase": "kernels", "kernel": "flash_attention",
+                   "case": f"offsets {label}", "shape": [b, h, g, s, lk, dk]
+                   + ([dv] if dv != dk else []), "q_offset": list(offsets),
+                   "kv_len": lens_host, "causal": True,
+                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                   "max_row_err": row_err, "offset_zero_bit_equal": True,
+                   "ms": median_ms(fn, args, 5), "device_ms": dev_ms,
+                   "host_ms": host_ms, "plain_ms": median_ms(plain, args, 3),
+                   "library_ms": None,
+                   "bound_ms": max(moved / rate, ops_s) * 1e3,
+                   "bound_by": ("operations" if ops_s > moved / rate
+                                else "bytes"),
+                   "tflops": work / (dev_ms * 1e-3) / 1e12, "card": card}
+            emit(row)
+            repeats.append(("flash_attention", f"offsets {label} {dtype}",
+                            functools.partial(fn, q, k, v, off, lens), out))
+    return repeats
+
+
 def phase_model_kernels(card: str, rate: float, flops: float,
                         fp32_flops: float, contexts: list) -> dict:
     """The four model kernels against their plain versions at the
@@ -1538,6 +1671,7 @@ def phase_model_kernels(card: str, rate: float, flops: float,
                                                    causal=causal), out))
         if label == "batched prefill":
             results["flash_attention"] = row
+    repeat_cases += check_flash_offsets(card, rate, flops, fp32_flops, gen)
 
     # --- decode: the batched request's steps (kv_len P + 1 .. P + 32 over
     # a cache of P + 32, as the path gives them), a ragged mid shape
@@ -3157,25 +3291,28 @@ def plain_ssm():
 PLAIN_ATTENTION_PIECE = 2 ** 30
 
 
-def plain_attention(q, k, v, causal=True, scale=None):
+def plain_attention(q, k, v, causal=True, scale=None, q_offset=None,
+                    kv_len=None):
     """``ref.attention_plain`` in pieces of batch rows and KV heads (each
-    with its query heads), each piece at most ``PLAIN_ATTENTION_PIECE``
-    logits: every row is computed as the whole call computes it, without
-    the whole call's (B, Hq, Lq, Lk) fp32 logits (38.7 GB at the vlm's
-    self-attention)."""
+    with its query heads, and its row's ``q_offset`` and ``kv_len``), each
+    piece at most ``PLAIN_ATTENTION_PIECE`` logits: every row is computed
+    as the whole call computes it, without the whole call's
+    (B, Hq, Lq, Lk) fp32 logits (38.7 GB at the vlm's self-attention)."""
     import torch
     from repro_torch.kernels import ref
     b, hq, lq, _ = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     group = hq // hkv
     if b * hq * lq * lk <= PLAIN_ATTENTION_PIECE:
-        return ref.attention_plain(q, k, v, causal, scale)
+        return ref.attention_plain(q, k, v, causal, scale, q_offset, kv_len)
     heads = max(1, min(hkv, PLAIN_ATTENTION_PIECE // (group * lq * lk)))
     rows = []
     for i in range(b):
+        off, lens = (None if t is None else t[i:i + 1]
+                     for t in (q_offset, kv_len))
         rows.append(torch.cat([ref.attention_plain(
             q[i:i + 1, h * group:(h + heads) * group], k[i:i + 1, h:h + heads],
-            v[i:i + 1, h:h + heads], causal, scale)
+            v[i:i + 1, h:h + heads], causal, scale, off, lens)
             for h in range(0, hkv, heads)], dim=1))
     return torch.cat(rows, dim=0)
 
@@ -3202,7 +3339,8 @@ class plain_route:
             ref.rmsnorm_cast_first_plain if cast_first
             else ref.rmsnorm_plain)(x, w, eps)
         ops.flash_attention = lambda q, k, v, causal=True, scale=None, \
-            block_q=128, block_k=128: plain_attention(q, k, v, causal, scale)
+            block_q=128, block_k=128, q_offset=None, kv_len=None: \
+            plain_attention(q, k, v, causal, scale, q_offset, kv_len)
         ops.decode_attention = lambda q, kc, vc, kv_len=None, scale=None, \
             block_k=256: ref.decode_attention_plain(q, kc, vc, kv_len, scale)
         ops.rwkv6_scan = lambda r, k, v, w, bonus, initial_state=None, \
@@ -3264,6 +3402,249 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
             "rwkv6_scan": n_rwkv * forwards,
             "causal_conv1d": mixers.count("mamba") * forwards,
             "selective_scan": mixers.count("mamba") * forwards}
+
+
+def analytic_line(card: str, phase: str, cfg, what: str, kind: str,
+                  batch: int, seq_len: int, measured_s: float) -> None:
+    """Prints (does not gate) the port's cost model for a cell at one
+    card: ``analytic_cost(cfg, shape, n_chips=1, tp=1)`` (GFLOPs, HBM
+    bytes, the dominant term), the roofline bound of ``build_report`` on
+    this card, the measured time's share of it, and ``model_flops_for``'s
+    share of the card's bf16 peak.  ``seq_len`` is the reference's
+    nominal length (whisper's decoder takes a quarter of it)."""
+    from repro_torch.configs import ShapeConfig, n_active_params
+    from repro_torch.launch.analytic import analytic_cost
+    from repro_torch.launch.roofline import build_report, model_flops_for
+    shape = ShapeConfig(f"{phase} {what}", seq_len, batch, kind)
+    cost = analytic_cost(cfg, shape, n_chips=1, tp=1)
+    model = model_flops_for(cfg, shape, n_active_params(cfg))
+    rep = build_report(arch=cfg.name, shape=shape.name, mesh_name="1xH100",
+                       n_chips=1, analytic=cost, model_flops=model,
+                       card=card)
+    emit({"phase": phase, "what": f"analytic {what}", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "kind": kind, "batch": batch,
+          "seq_len": seq_len, "analytic_gflops": rep.analytic_gflops,
+          "hbm_gbytes": rep.analytic_hbm_gbytes_dev,
+          "flops_by_part": cost.flops_by_part,
+          "bytes_by_part": cost.bytes_by_part, "dominant": rep.dominant,
+          "compute_ms": rep.compute_s * 1e3, "memory_ms": rep.memory_s * 1e3,
+          "bound_ms": rep.bound_time_s * 1e3, "measured_ms": measured_s * 1e3,
+          "bound_share": rep.bound_time_s / measured_s,
+          "model_gflops": rep.model_gflops,
+          "model_flops_share": model / measured_s / bf16_rate(card),
+          "card": card})
+
+
+def copy_row(dst: dict, src: dict, b: int, stacked: bool = False) -> None:
+    """Row 0 of a one-row cache ``src`` into row ``b`` of ``dst`` (the
+    stacked superblocks' leaves carry the layer axis first)."""
+    for key, leaf in src.items():
+        if isinstance(leaf, dict):
+            copy_row(dst[key], leaf, b, stacked or key == "blocks")
+        elif stacked:
+            dst[key][:, b] = leaf[:, 0]
+        else:
+            dst[key][b] = leaf[0]
+
+
+def continued_prefill(params, cfg, tokens, cache, offsets):
+    """One batched cached prefill of ``tokens`` (B, s) at per-row
+    ``offsets`` (B,) int32 through ``_run_layers``, positions ``offsets +
+    arange(s)``: the last position's logits (B, V), the cache updated in
+    place."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import norm_apply
+    x = tf._embed_tokens(params, cfg, tokens)
+    positions = offsets[:, None] + torch.arange(tokens.shape[1],
+                                                device=tokens.device)
+    x, cache, _ = tf._run_layers(params, cfg, x, positions=positions,
+                                 cache=cache, cache_len=offsets)
+    x = norm_apply(params["final_norm"], x[:, -1:].contiguous(), cfg.norm)
+    return tf._logits(params, cfg, x)[:, 0], cache
+
+
+#: the cache leaves of attention layers (GQA head-major K / V, MLA's
+#: latent and rope key), time on the second axis from the end
+ATTENTION_LEAVES = ("k", "v", "ckv", "kpe")
+
+
+def attention_cache_rel(got: dict, want: dict, b: int, rows: int,
+                        stacked: bool = False, path: str = "") -> dict:
+    """Per attention layer and leaf, the relative L2 distance of row
+    ``b``'s cache positions [0, rows) in ``got`` from row 0's in the
+    one-row cache ``want``."""
+    import torch
+    out = {}
+    for key, leaf in got.items():
+        name = f"{path}/{key}"
+        if isinstance(leaf, dict):
+            out.update(attention_cache_rel(leaf, want[key], b, rows,
+                                           stacked or key == "blocks", name))
+        elif key in ATTENTION_LEAVES:
+            pairs = ([(leaf[i, b], want[key][i, 0])
+                      for i in range(leaf.shape[0])] if stacked
+                     else [(leaf[b], want[key][0])])
+            for i, (g, w) in enumerate(pairs):
+                g, w = (t[..., :rows, :].float() for t in (g, w))
+                out[f"{name}[{i}]" if stacked else name] = float(
+                    torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w))
+    return out
+
+
+def offset_cache(params, cfg, tokens, offsets, lmax: int) -> dict:
+    """A batch cache of ``lmax`` whose row b holds a one-row prefill of
+    ``tokens[b, :offsets[b]]`` (each row's Mamba and RWKV states are the
+    states after exactly its own tokens)."""
+    from repro_torch import models
+    cache = models.init_cache(cfg, len(offsets), lmax)
+    for b, o in enumerate(offsets):
+        one = models.init_cache(cfg, 1, lmax)
+        models.prefill(params, cfg, tokens[b:b + 1, :o], one)
+        copy_row(cache, one, b)
+    return cache
+
+
+def load_over_capacity(routes, m) -> float:
+    """The largest share of its capacity that any expert's load takes in
+    the recorded MoE routings (each (tokens, k), one dispatch slice):
+    above 1, pairs past the capacity were dropped."""
+    import torch
+    worst = 0.0
+    for idx in routes:
+        cap = max(int(m.capacity_factor * m.top_k * idx.shape[0]
+                      / m.n_experts), m.top_k)
+        counts = torch.bincount(idx.reshape(-1), minlength=m.n_experts)
+        worst = max(worst, int(counts.max()) / cap)
+    return worst
+
+
+def continue_prefill_check(card: str, system, params, serve,
+                           phase: str) -> None:
+    """The serve phase's continued prefill (``CONTINUE_OFFSETS``): each
+    row's cache filled by a one-row prefill of its request's first o_b
+    tokens and copied into row b of a batch cache of P + 32, then one
+    batched cached prefill of the next ``CONTINUE_TOKENS`` at
+    ``cache_len = o``.  Gates: exactly one flash_attention launch per
+    attention layer; each row's last-position logits within the cell's
+    prefill limit (``LOGITS_REL_L2``) of the same continued prefill on
+    the plain route (from the same cache, on the kernel route's expert
+    choices, as the phase's other checks run it) and of a one-row
+    one-shot prefill of its o_b + s tokens on the kernel route; every
+    attention cache row in [0, o_b + s) within ``CONTINUE_CACHE_REL_L2``
+    of the one-shot prefill's, layer by layer.  An MoE cell is compared
+    with its one-shot prefill at ``CONTINUE_DROP_FREE`` (no pair dropped
+    in any routing of either, checked on the routes dispatched), as the
+    two are different functions at its capacity factor, and the one-shot
+    prefill takes the continued run's expert choices (``moe_routes``:
+    the tokens whose top-k set it would choose otherwise, near-ties
+    between two batch shapes, are counted apart).  Prints the readings
+    and the continued prefill's tokens/s."""
+    import torch
+    from repro_torch import models
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.common import tree_map
+
+    cfg = system.cfg
+    offsets = CONTINUE_OFFSETS[serve["arch"]]
+    s, n = CONTINUE_TOKENS, len(offsets)
+    contexts = [system.context_tokens(i) for i in range(n)]
+    P = min(len(c) for c in contexts)
+    lmax = P + serve["decode_steps"]
+    check(max(offsets) + s <= P, f"{cfg.name}: the continued prefill's "
+          f"tokens lie inside the request ({max(offsets)} + {s} <= {P})")
+    tokens = torch.tensor([c[:P] for c in contexts], dtype=torch.int64,
+                          device="cuda")
+    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    nxt = torch.stack([tokens[b, o:o + s] for b, o in enumerate(offsets)])
+    n_attn = sum(spec.mixer in ("attn", "mla")
+                 for spec in models.layer_specs(cfg))
+    cache = offset_cache(params, cfg, tokens, offsets, lmax)
+    start = tree_map(torch.clone, cache)
+    before = flash_attention.launches
+    with moe_routes() as kernel_routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = continued_prefill(params, cfg, nxt, cache, off)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launched = flash_attention.launches - before
+    with plain_route(), moe_routes(kernel_routes.routes):
+        plain, _ = continued_prefill(params, cfg, nxt, start, off)
+    del start
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).float())
+                     / torch.linalg.vector_norm(b.float()))
+
+    route_rel = [rel(logits[b], plain[b]) for b in range(n)]
+    del plain
+    # the one-shot comparison, an MoE cell at its drop-free factor
+    free, loads = cfg, {}
+    if cfg.moe is not None:
+        loads["cell"] = load_over_capacity(kernel_routes.routes, cfg.moe)
+        free = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=CONTINUE_DROP_FREE[serve["arch"]]))
+        del cache
+        torch.cuda.empty_cache()
+    with moe_routes() as free_routes:
+        if free is not cfg:
+            cache = offset_cache(params, free, tokens, offsets, lmax)
+            logits, cache = continued_prefill(params, free, nxt, cache, off)
+    # the routings recorded: each row's prefill, layer by layer, then the
+    # continued prefill's (n * s tokens, row-major); row b's one-shot
+    # prefill takes the concatenation of its rows' choices
+    n_moe = sum(spec.moe for spec in models.layer_specs(cfg))
+    routes = free_routes.routes
+    dispatched, shot_rel, cache_rel, flips = list(routes), [], {}, []
+    for b, o in enumerate(offsets):
+        forced = [torch.cat([routes[b * n_moe + i],
+                             routes[n * n_moe + i][b * s:(b + 1) * s]])
+                  for i in range(n_moe)]
+        dispatched += forced
+        one = models.init_cache(cfg, 1, lmax)
+        with moe_routes(forced) as own:
+            shot, one = models.prefill(params, free,
+                                       tokens[b:b + 1, :o + s], one)
+        flips.append(sum(flipped_tokens(a, c)
+                         for a, c in zip(own.routes, forced)))
+        shot_rel.append(rel(logits[b], shot[0, -1]))
+        for name, r in attention_cache_rel(cache, one, b, o + s).items():
+            cache_rel[name] = max(cache_rel.get(name, 0.0), r)
+        del one
+    if free is not cfg:
+        loads["drop_free"] = load_over_capacity(dispatched, free.moe)
+    limit = LOGITS_REL_L2[serve["arch"]][0]
+    emit({"phase": phase, "what": "continued prefill", "arch": cfg.name,
+          "offsets": list(offsets), "tokens": s, "cache_len": lmax,
+          "seconds": secs, "tokens_per_s": n * s / secs,
+          "flash_attention_launches": launched, "attention_layers": n_attn,
+          "plain_route_rel_l2": route_rel, "one_shot_rel_l2": shot_rel,
+          "one_shot_capacity_factor": (free.moe.capacity_factor
+                                       if free.moe else None),
+          "moe_load_over_capacity": loads or None,
+          "one_shot_flipped_tokens": flips if n_moe else None,
+          "limit": limit,
+          "cache_rel_l2_by_layer": cache_rel,
+          "cache_rel_l2_max": max(cache_rel.values()), "card": card})
+    check(launched == n_attn,
+          f"{cfg.name} continued prefill: {launched} flash_attention "
+          f"launches == {n_attn}, one per attention layer")
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: finite continued-prefill logits")
+    check(max(route_rel) <= limit,
+          f"{cfg.name} continued prefill, kernel vs plain route: relative "
+          f"L2 {route_rel} <= {limit}")
+    check(loads.get("drop_free", 0.0) <= 1.0,
+          f"{cfg.name}: no MoE pair dropped at the one-shot comparison's "
+          f"capacity factor ({loads})")
+    check(max(shot_rel) <= limit,
+          f"{cfg.name} continued prefill vs one-shot prefill: relative L2 "
+          f"{shot_rel} <= {limit}")
+    check(max(cache_rel.values()) <= CONTINUE_CACHE_REL_L2,
+          f"{cfg.name} continued prefill's attention caches vs the one-shot "
+          f"prefill's: {max(cache_rel.values())} <= {CONTINUE_CACHE_REL_L2}")
 
 
 def phase_serve(card: str, serve=SERVE) -> dict:
@@ -3413,6 +3794,15 @@ def phase_serve(card: str, serve=SERVE) -> dict:
     if cfg.mla is not None:
         mla_expansion(card, cfg, params, n, P + steps,
                       decode_s / steps * 1e3 if steps else None, phase)
+    # the reference's nominal length: whisper's decoder takes a quarter
+    nominal = 4 * P if cfg.family == "audio" else P
+    analytic_line(card, phase, cfg, "batched prefill", "prefill", n,
+                  nominal, pre_s)
+    if steps:
+        analytic_line(card, phase, cfg, "decode step", "decode", n,
+                      P + steps, decode_s / steps)
+    if serve["arch"] in CONTINUE_OFFSETS:
+        continue_prefill_check(card, system, params, serve, phase)
     return {name: count for name, count in launches.items() if count}
 
 
@@ -4869,6 +5259,10 @@ def phase_train(card: str, flops: float, train=TRAIN) -> dict:
                    + attn)
     wall, busy, top = device_profile(lambda: step_fn(
         params, opt_state, batches[0]))
+    # the reference's nominal length: whisper's frames (its decoder takes a
+    # quarter of them)
+    analytic_line(card, "train", cfg, "step", "train", b, frames or s,
+                  step_s)
     emit({"phase": "train", "arch": cfg.name, "params": n_params,
           "dtype": cfg.dtype, "init_seconds": init_s, "batch": b,
           "seq_len": s, "steps": train["steps"], "losses": losses,

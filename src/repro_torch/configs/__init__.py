@@ -7,7 +7,8 @@ from repro_torch.configs.base import (ModelConfig, MoEConfig, MLAConfig,
                                       SHAPES, VisionStubConfig,
                                       AudioStubConfig)
 from repro_torch.configs.registry import (ARCHS, get, register,
-                                          smoke_config, n_params_analytic,
+                                          smoke_config, input_specs,
+                                          shapes_for, n_params_analytic,
                                           n_active_params)
 from repro_torch.configs.coherence import (CoherenceConfig, CoherenceCore,
                                            ServiceLayer, ShardTopology,
@@ -16,8 +17,8 @@ from repro_torch.configs.coherence import (CoherenceConfig, CoherenceCore,
 __all__ = [
     "ModelConfig", "MoEConfig", "MLAConfig", "MambaConfig", "RWKVConfig",
     "ShapeConfig", "SHAPES", "VisionStubConfig", "AudioStubConfig",
-    "ARCHS", "get", "register", "smoke_config", "n_params_analytic",
-    "n_active_params",
+    "ARCHS", "get", "register", "smoke_config", "input_specs",
+    "shapes_for", "n_params_analytic", "n_active_params",
     "CoherenceConfig", "CoherenceCore", "ServiceLayer", "ShardTopology",
     "shard_of_artifact",
 ]

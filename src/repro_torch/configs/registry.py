@@ -1,6 +1,7 @@
-"""Architecture registry: ``--arch <id>`` lookup and reduced smoke
-configs.  The same configurations as the JAX package's registry; the
-dry-run's ``input_specs`` waits for the port's dry-run tooling.
+"""Architecture registry: ``--arch <id>`` lookup, reduced smoke configs,
+the assigned shapes of each arch (``shapes_for``) and meta-device
+``input_specs`` (no allocation).  The same configurations as the JAX
+package's registry.
 """
 
 from __future__ import annotations
@@ -8,9 +9,12 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 from repro_torch.configs.base import (MambaConfig, MLAConfig,
                                       ModelConfig, MoEConfig, RWKVConfig,
-                                      VisionStubConfig, AudioStubConfig)
+                                      SHAPES, ShapeConfig, VisionStubConfig,
+                                      AudioStubConfig)
 
 ARCHS: dict[str, ModelConfig] = {}
 
@@ -164,6 +168,54 @@ def smoke_config(name: str) -> ModelConfig:
                                name=f"{full.name}-smoke")
 
 
+# ----------------------------- input specs ----------------------------
+
+def token_dtype():
+    return torch.int32
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """``torch.empty(..., device="meta")`` stand-ins for every model input
+    of this (arch x shape) cell, with the reference's shapes and dtypes
+    (int32 tokens, bf16 context), allocating nothing.
+
+    train:   {tokens, labels [, vision_embeds | frames]}
+    prefill: {tokens [, vision_embeds | frames]}
+    decode:  {token, cache}, the cache as ``init_cache(...,
+             device="meta")`` builds it in the port's layout: every
+             attention K / V leaf (``k``, ``v``, ``xk``, ``xv``,
+             ``enc_k``, ``enc_v``) head-major, (..., Hkv, L, D) where the
+             reference keeps (..., L, Hkv, D); every other leaf (MLA's
+             ``ckv`` / ``kpe``, the rwkv and Mamba states, ``length``) as
+             the reference's.
+    """
+    from repro_torch.models import transformer as tf
+
+    b, s = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+
+    def meta(*dims, dtype=torch.bfloat16):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    def tok(bb, ss):
+        return meta(bb, ss, dtype=token_dtype())
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": tok(b, _dec_len(cfg, s))}
+        if shape.kind == "train":
+            specs["labels"] = tok(b, _dec_len(cfg, s))
+        if cfg.family == "vlm":
+            specs["vision_embeds"] = meta(b, cfg.vision.n_image_tokens, d)
+        if cfg.family == "audio":
+            specs["frames"] = meta(b, s, d)
+        return specs
+
+    # decode: one new token against a seq_len-deep cache
+    ctx = _ctx_len(cfg, s)
+    return {"token": tok(b, 1),
+            "cache": tf.init_cache(cfg, b, s, ctx_len=ctx, device="meta")}
+
+
 def _dec_len(cfg: ModelConfig, s: int) -> int:
     """Decoder-token length for a nominal seq_len (enc-dec split)."""
     if cfg.family == "audio":
@@ -178,6 +230,17 @@ def _ctx_len(cfg: ModelConfig, s: int) -> int:
     if cfg.family == "audio":
         return min(s, 4096)
     return 0
+
+
+def shapes_for(cfg: ModelConfig) -> list[ShapeConfig]:
+    """The assigned shape set for this arch, with documented skips:
+    long_500k only for sub-quadratic archs (SSM/hybrid)."""
+    out = []
+    for shp in SHAPES.values():
+        if shp.name == "long_500k" and not cfg.sub_quadratic:
+            continue  # full-attention arch: documented skip
+        out.append(shp)
+    return out
 
 
 def n_params_analytic(cfg: ModelConfig) -> int:

@@ -42,7 +42,7 @@ KERNELS = {
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", "rmsnorm_bwd_launch",
                     [_P] * 6 + [_I, _I, _F] + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention.cu", "flash_attention_launch",
-                        [_P] * 5 + [_I] * 8 + [_F, _I, _P]),
+                        [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
     "flash_attention_bwd": ("flash_attention_bwd.cu",
                             "flash_attention_bwd_launch",
                             [_P] * 10 + [_I] * 8 + [_F, _I, _I, _P]),

@@ -6,15 +6,23 @@
 // q (B, Hq, Lq, D), k (B, Hkv, Lk, D), v (B, Hkv, Lk, Dv) and the output
 // (B, Hq, Lq, Dv), all contiguous, one type (fp32 or bf16); query head h
 // reads kv head h / (Hq / Hkv).  Causal rows are the last Lq positions of
-// the Lk-long sequence, as in the TPU kernel.  Online softmax in fp32;
+// the Lk-long sequence, as in the TPU kernel, or, for a cached prefill at
+// an offset (the reference's _sdpa_block with a per-row q_offset and
+// kv_len, src/repro/models/attention.py:76), row r of batch row b sits at
+// q_offset[b] + r, and keys at >= kv_len[b] are masked (causal or not):
+// both int32 (B,) in device memory, read once by each block, never by
+// the host; the K / V tensor maps stay over the whole cache (Lk = Lmax),
+// and key tiles past min(Lk, kv_len[b]) or past a tile's last row are
+// neither loaded nor computed.  Online softmax in fp32;
 // the (Lq x Lk) logits never reach device memory.  The head dims are a
 // template pair <D, Dv>: Dv = D for the GQA models, and (192, 128) for
 // MLA (deepseek-v2-lite: a q and k head of 128 + 64 rope, a v head of
 // 128), where the key is 3 swizzle chunks wide and the value 2.
 //
 // Bound: operations, 2 * (D + Dv) flops per query-key pair kept (causal:
-// the pairs on or below the diagonal), against (D + Dv) * 2 bytes per key
-// row.
+// the pairs on or below the diagonal; with offsets, sum over b and r of
+// min(q_offset[b] + r + 1, kv_len[b])), against (D + Dv) * 2 bytes per key
+// row (with offsets, the rows below kv_len[b] of each KV head).
 //
 // bf16 (flash_wgmma), the FlashAttention-3 schedule without its
 // intra-warpgroup overlap:
@@ -38,8 +46,10 @@
 //     wgmma.m64n64k16 (bf16 in, fp32 out, both operands K-major from
 //     shared memory), scaled by scale * log2(e) in fp32, then the online
 //     softmax on the accumulator's registers (row max and sum over the
-//     four lanes of a row; masks only on tiles that cross Lk or the
-//     diagonal; key tiles past a warpgroup's last row are skipped);
+//     four lanes of a row; masks only on tiles that cross the key bound
+//     (Lk, or kv_len[b]) or the diagonal; key tiles past a warpgroup's
+//     last row are skipped; a tile's keys past the bound are loaded from
+//     the cache as they are and get P = 0);
 //   * O += P V by wgmma with A = P from registers (the S accumulator's
 //     layout is the A fragment's) and B = V from shared memory, MN-major
 //     (the transpose bit).  P enters as two bf16 terms, P_hi =
@@ -67,12 +77,15 @@
 // type code alone chooses it: an fp32 product on the tensor cores is TF32 (10 mantissa bits), which the fp32 limit of 1e-5 against
 // the plain version refuses.
 //
-// C interface (ctypes): flash_attention_launch(q, k, v, out, lse, B, Hq,
-// Hkv, Lq, Lk, D, Dv, causal, scale, dtype, stream) with dtype 0 =
+// C interface (ctypes): flash_attention_launch(q, k, v, out, lse,
+// q_offset, kv_len, B, Hq, Hkv, Lq, Lk, D, Dv, causal, scale, dtype,
+// stream) with dtype 0 =
 // float32, 1 = bfloat16 (16-byte aligned pointers) and (D, Dv) one of
 // (32, 32), (64, 64), (128, 128), (256, 256) and (192, 128);
 // lse is NULL (serving) or an fp32 (B, Hq, Lq) buffer that receives the
-// natural log-sum-exp of each row's scaled logits (training).
+// natural log-sum-exp of each row's scaled logits (training); q_offset and
+// kv_len are each NULL or an int32 (B,) device buffer (NULL: the rows sit
+// at Lk - Lq + r, and every key up to Lk is seen).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments it
 // does not take.
 
@@ -144,6 +157,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap k_map,
             const __grid_constant__ CUtensorMap v_map,
             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+            const int* __restrict__ q_offset, const int* __restrict__ kv_len,
             int Hq, int Hkv, int Lq, int Lk, int causal, float scale_log2) {
   using C = Cfg<DK, DV>;
   constexpr int S = C::kStages;
@@ -161,10 +175,16 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int q0 = qt * kRows;
   const int bh = blockIdx.x;  // b * Hq + h
   const int bhk = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const int off = Lk - Lq;  // q row r sits at key position r + off
-  int n_tiles = (Lk + kBK - 1) / kBK;
+  // q row r sits at key position r + off; keys at >= kv_end are masked.
+  // The producer and the consumers count the same tiles from these two
+  // values, or the ring would wait on a stage that never lands
+  const int off = q_offset != nullptr ? q_offset[bh / Hq] : Lk - Lq;
+  const int kv_end =
+      kv_len != nullptr ? max(0, min(Lk, kv_len[bh / Hq])) : Lk;
+  int n_tiles = (kv_end + kBK - 1) / kBK;
   if (causal)
-    n_tiles = min(n_tiles, (min(q0 + kRows, Lq) - 1 + off) / kBK + 1);
+    n_tiles = max(0, min(n_tiles,
+                         (min(q0 + kRows, Lq) - 1 + off) / kBK + 1));
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -257,7 +277,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
 
       // online softmax on the accumulator's registers: element j is row
       // row0 + 8 ((j >> 1) & 1), key k0 + 8 (j >> 2) + 2 (lane & 3) + (j & 1)
-      const bool masked = k0 + kBK > Lk ||
+      const bool masked = k0 + kBK > kv_end ||
                           (causal && k0 + kBK - 1 > wg_first + off);
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
@@ -265,7 +285,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap q_map,
         if (masked) {
           const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
           const int row = row0 + 8 * ((j >> 1) & 1);
-          if (kpos >= Lk || (causal && kpos > row + off)) x = -INFINITY;
+          if (kpos >= kv_end || (causal && kpos > row + off)) x = -INFINITY;
         }
         sc[j] = x;
       }
@@ -377,8 +397,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int cols, int L, int heads,
 
 template <int DK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 float* lse, int B, int Hq, int Hkv, int Lq, int Lk,
-                 int causal, float scale, cudaStream_t stream) {
+                 float* lse, const int* q_offset, const int* kv_len, int B,
+                 int Hq, int Hkv, int Lq, int Lk, int causal, float scale,
+                 cudaStream_t stream) {
   const int n_qt = (Lq + kRows - 1) / kRows;
   if (n_qt > 65535 || long(B) * Hq > 0x7fffffffL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -394,8 +415,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, n_qt), block(kThreadsWg);
   flash_wgmma<DK, DV><<<grid, block, bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Hq, Hkv,
-      Lq, Lk, causal, scale * kLog2e);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, q_offset,
+      kv_len, Hq, Hkv, Lq, Lk, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -415,7 +436,8 @@ template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ out,
-           float* __restrict__ lse, int Hq, int Hkv, int Lq, int Lk,
+           float* __restrict__ lse, const int* __restrict__ q_offset,
+           const int* __restrict__ kv_len, int Hq, int Hkv, int Lq, int Lk,
            int causal, float scale) {
   constexpr int C = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -432,7 +454,9 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + ((long(b) * Hq + h) * Lq) * DK;
   const float* kb = k + ((long(b) * Hkv + hk) * Lk) * DK;
   const float* vb = v + ((long(b) * Hkv + hk) * Lk) * DV;
-  const int offset = Lk - Lq;  // q row r sits at key position r + offset
+  // q row r sits at key position r + offset; keys at >= kv_end are masked
+  const int offset = q_offset != nullptr ? q_offset[b] : Lk - Lq;
+  const int kv_end = kv_len != nullptr ? max(0, min(Lk, kv_len[b])) : Lk;
 
   for (int idx = tid; idx < kBQ * DK; idx += kThreads) {
     const int r = idx / DK, d = idx - r * DK;
@@ -450,10 +474,10 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
-  int n_tiles = (Lk + kBK - 1) / kBK;
+  int n_tiles = (kv_end + kBK - 1) / kBK;
   if (causal) {
     const int last_row = min(q0 + kBQ, Lq) - 1;
-    n_tiles = min(n_tiles, (last_row + offset) / kBK + 1);
+    n_tiles = max(0, min(n_tiles, (last_row + offset) / kBK + 1));
   }
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -462,12 +486,12 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < kBK * DK; idx += kThreads) {
       const int r = idx / DK, d = idx - r * DK;
       const int kr = k0 + r;
-      Kt[d * kPad + r] = kr < Lk ? kb[long(kr) * DK + d] : 0.f;
+      Kt[d * kPad + r] = kr < kv_end ? kb[long(kr) * DK + d] : 0.f;
     }
     for (int idx = tid; idx < kBK * DV; idx += kThreads) {
       const int r = idx / DV, d = idx - r * DV;
       const int kr = k0 + r;
-      Vs[r * DV + d] = kr < Lk ? vb[long(kr) * DV + d] : 0.f;
+      Vs[r * DV + d] = kr < kv_end ? vb[long(kr) * DV + d] : 0.f;
     }
     __syncthreads();
 
@@ -497,7 +521,7 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        valid[j] = kpos < Lk && (!causal || kpos <= qpos);
+        valid[j] = kpos < kv_end && (!causal || kpos <= qpos);
         if (valid[j]) row_max = fmaxf(row_max, s[i][j]);
       }
 #pragma unroll
@@ -553,8 +577,9 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DK, int DV>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                float* lse, int B, int Hq, int Hkv, int Lq, int Lk,
-                int causal, float scale, cudaStream_t stream) {
+                float* lse, const int* q_offset, const int* kv_len, int B,
+                int Hq, int Hkv, int Lq, int Lk, int causal, float scale,
+                cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes_fp32<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fp32<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -563,37 +588,39 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Lq + kBQ - 1) / kBQ, Hq, B), block(kThreads);
   flash_fp32<DK, DV><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, Hkv,
-      Lq, Lk, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, q_offset,
+      kv_len, Hq, Hkv, Lq, Lk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int causal,
-           float scale, int dtype, cudaStream_t stream) {
+           float* lse, const int* q_offset, const int* kv_len, int B, int Hq,
+           int Hkv, int Lq, int Lk, int causal, float scale, int dtype,
+           cudaStream_t stream) {
   if (dtype == 0)
-    return launch_fp32<DK, DV>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                               scale, stream);
-  return launch_wgmma<DK, DV>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,
-                              scale, stream);
+    return launch_fp32<DK, DV>(q, k, v, out, lse, q_offset, kv_len, B, Hq,
+                               Hkv, Lq, Lk, causal, scale, stream);
+  return launch_wgmma<DK, DV>(q, k, v, out, lse, q_offset, kv_len, B, Hq,
+                              Hkv, Lq, Lk, causal, scale, stream);
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
+                                      const int* q_offset, const int* kv_len,
                                       int B, int Hq, int Hkv, int Lq, int Lk,
                                       int D, int Dv, int causal, float scale,
                                       int dtype, cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Lq <= 0 || Lk <= 0 ||
-      (causal && Lq > Lk) || Hq > 65535 || B > 65535 ||
-      (dtype != 0 && dtype != 1))
+      ((causal || q_offset != nullptr) && Lq > Lk) || Hq > 65535 ||
+      B > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FLASH_CASE(DK, DV)                                             \
   if (D == DK && Dv == DV)                                                   \
-    return launch<DK, DV>(q, k, v, out, lse, B, Hq, Hkv, Lq, Lk, causal,     \
-                          scale, dtype, stream);
+    return launch<DK, DV>(q, k, v, out, lse, q_offset, kv_len, B, Hq, Hkv,   \
+                          Lq, Lk, causal, scale, dtype, stream);
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(64, 64)
   REPRO_FLASH_CASE(128, 128)

@@ -13,7 +13,11 @@ cores (wgmma on 128-row q tiles, K/V fed by TMA through a ring in shared
 memory, online fp32 softmax, P fed as two bf16 terms so the product
 keeps fp32-grade P), fp32 on the CUDA cores (FA-2 schedule, 64-row q
 tiles), since a tensor-core fp32 product is TF32.  Both skip causal
-tiles past the diagonal and mask ragged lengths.
+tiles past the diagonal and mask ragged lengths.  A cached prefill at an
+offset passes ``q_offset`` and ``kv_len`` (each int32 (B,) on the
+device): row ``r`` of batch row ``b`` then sits at ``q_offset[b] + r``
+and keys at ``>= kv_len[b]`` are masked, read by the kernel from device
+memory (no host read), over K / V as long as the whole cache.
 
 When grad mode is on and an input requires a gradient, the CUDA route
 goes through an autograd function: its forward launches the same kernel
@@ -107,7 +111,23 @@ def _check(q, k, v) -> int:
     return float_code(q, k, v)
 
 
-def _forward(q, k, v, causal: bool, scale, with_lse: bool):
+def _row_pointer(name: str, t, q) -> Optional[int]:
+    """The device pointer of a per-row ``q_offset`` or ``kv_len`` (None
+    stays None); raises unless it is a contiguous int32 (B,) tensor on
+    q's device."""
+    if t is None:
+        return None
+    b = q.shape[0]
+    if (t.dtype != torch.int32 or tuple(t.shape) != (b,)
+            or not t.is_contiguous() or t.device != q.device):
+        raise ValueError(f"{name} must be a contiguous int32 ({b},) tensor "
+                         f"on {q.device}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
+    return t.data_ptr()
+
+
+def _forward(q, k, v, causal: bool, scale, with_lse: bool, q_offset=None,
+             kv_len=None):
     """One launch of the forward kernel: the output and, ``with_lse``,
     each row's fp32 log-sum-exp (B, Hq, Lq) (else None)."""
     code = _check(q, k, v)
@@ -115,6 +135,10 @@ def _forward(q, k, v, causal: bool, scale, with_lse: bool):
     hkv, lk, d_v = k.shape[1], k.shape[2], v.shape[3]
     if causal and lq > lk:
         raise ValueError("causal attention needs Lq <= Lk")
+    if q_offset is not None and lq > lk:
+        raise ValueError("per-row query offsets need Lq <= Lk")
+    offsets = _row_pointer("q_offset", q_offset, q)
+    lengths = _row_pointer("kv_len", kv_len, q)
     out = q.new_empty((b, hq, lq, d_v))
     if code == FLOAT_CODES[torch.bfloat16] and any(
             t.data_ptr() % 16 for t in (q, k, v, out)):
@@ -127,8 +151,8 @@ def _forward(q, k, v, causal: bool, scale, with_lse: bool):
     scale = d ** -0.5 if scale is None else float(scale)
     launch("flash_attention", q.get_device(), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(),
-           None if lse is None else lse.data_ptr(), b, hq, hkv, lq, lk, d,
-           d_v, int(causal), scale, code)
+           None if lse is None else lse.data_ptr(), offsets, lengths, b, hq,
+           hkv, lq, lk, d, d_v, int(causal), scale, code)
     flash_attention.launches += 1
     return out, lse
 
@@ -156,24 +180,40 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: Optional[torch.Tensor] = None,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Softmax attention of q (B, Hq, Lq, D) over k (B, Hkv, Lk, D) and
     v (B, Hkv, Lk, Dv), query head ``h`` reading kv head
-    ``h // (Hq // Hkv)``; causal rows are the last Lq of Lk positions;
-    ``scale`` defaults to D ** -0.5.  Returns (B, Hq, Lq, Dv) in q's
-    type.  CUDA tensors (contiguous, one type of fp32 / bf16, (D, Dv) in
-    :data:`HEAD_DIMS`, any Lq <= Lk) launch the kernel and add one to
+    ``h // (Hq // Hkv)``; causal rows are the last Lq of Lk positions,
+    or, with ``q_offset`` (B,), row ``r`` of batch row ``b`` sits at
+    ``q_offset[b] + r`` (a cached prefill over a cache of Lk positions);
+    ``kv_len`` (B,) masks the keys at ``>= kv_len[b]`` (their rows of the
+    cache must be finite: they enter as P = 0); ``scale`` defaults to
+    D ** -0.5.  Returns (B, Hq, Lq, Dv) in q's type.  CUDA tensors
+    (contiguous, one type of fp32 / bf16, (D, Dv) in :data:`HEAD_DIMS`,
+    any Lq <= Lk; ``q_offset`` and ``kv_len`` contiguous int32 on q's
+    device, read by the kernel) launch the kernel and add one to
     ``flash_attention.launches``; under grad mode with an input that
     requires a gradient the result carries one, which
-    :func:`flash_attention_bwd` computes.  CPU tensors run
+    :func:`flash_attention_bwd` computes, and with per-row offsets or
+    lengths the call raises ``NotImplementedError`` (the backward kernel
+    takes neither: no path trains through a cache).  CPU tensors run
     :func:`attention_plain`."""
-    if not use_kernel(q, k, v):
-        return attention_plain(q, k, v, causal=causal, scale=scale)
+    rows = tuple(t for t in (q_offset, kv_len) if t is not None)
+    if not use_kernel(q, k, v, *rows):
+        return attention_plain(q, k, v, causal=causal, scale=scale,
+                               q_offset=q_offset, kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if rows:
+            raise NotImplementedError(
+                "flash_attention with per-row offsets or lengths has no "
+                "backward kernel: training runs the cache-free prefill "
+                "(ROADMAP.md section 2)")
         return _FlashAttention.apply(q, k, v, causal, scale)
-    return _forward(q, k, v, causal, scale, with_lse=False)[0]
+    return _forward(q, k, v, causal, scale, with_lse=False,
+                    q_offset=q_offset, kv_len=kv_len)[0]
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -45,9 +45,13 @@ def rmsnorm(x, weight, eps: float = 1e-6, block_rows: int = 128):
 
 
 def flash_attention(q, k, v, causal: bool = True, scale=None,
-                    block_q: int = 128, block_k: int = 128):
-    """GQA prefill attention (``kernels/flash_attention.py``)."""
-    return _flash_attention(q, k, v, causal=causal, scale=scale)
+                    block_q: int = 128, block_k: int = 128, q_offset=None,
+                    kv_len=None):
+    """GQA prefill attention (``kernels/flash_attention.py``); a cached
+    prefill at an offset passes per-row ``q_offset`` and ``kv_len``,
+    which ``repro``'s entry lacks (its model masks in ``_sdpa``)."""
+    return _flash_attention(q, k, v, causal=causal, scale=scale,
+                            q_offset=q_offset, kv_len=kv_len)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len=None, scale=None,

@@ -45,16 +45,41 @@ def rmsnorm_cast_first_plain(x: torch.Tensor, weight: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
+def _attention_mask(lq: int, lk: int, causal: bool, q_offset, kv_len,
+                    device):
+    """The keys each query row may not see, broadcastable over
+    (B, Hq, Lq, Lk), or None where every key is seen.  Causal rows sit at
+    ``q_offset[b] + r`` (None: at ``Lk - Lq + r``, the last Lq positions);
+    keys at ``>= kv_len[b]`` are masked whatever ``causal`` says."""
+    masked = None
+    if causal:
+        kpos = torch.arange(lk, device=device)[None, :]
+        qpos = torch.arange(lq, device=device)[:, None]
+        if q_offset is None:
+            masked = kpos > qpos + (lk - lq)
+        else:
+            masked = kpos > q_offset[:, None, None, None] + qpos
+    if kv_len is not None:
+        beyond = (torch.arange(lk, device=device)
+                  >= kv_len[:, None, None, None])
+        masked = beyond if masked is None else masked | beyond
+    return masked
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: Optional[torch.Tensor] = None,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GQA softmax attention in fp32.
 
     q: (B, Hq, Lq, D); k: (B, Hkv, Lk, D); v: (B, Hkv, Lk, Dv) (any Dv)
     with Hq % Hkv == 0; query head ``h`` reads kv head
     ``h // (Hq // Hkv)``.  Causal rows are the last Lq positions of the
-    Lk-long sequence (Lq <= Lk); ``scale`` defaults to D ** -0.5.
-    Returns (B, Hq, Lq, Dv) in q's dtype."""
+    Lk-long sequence (Lq <= Lk), or, with ``q_offset`` (B,) int32, row
+    ``r`` of batch row ``b`` sits at position ``q_offset[b] + r`` (a
+    cached prefill, as ``repro``'s ``_sdpa_block``); ``kv_len`` (B,)
+    int32 masks the keys at ``>= kv_len[b]``.  ``scale`` defaults to
+    D ** -0.5.  Returns (B, Hq, Lq, Dv) in q's dtype."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -63,28 +88,30 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kg = torch.repeat_interleave(k.to(torch.float32), group, dim=1)
     vg = torch.repeat_interleave(v.to(torch.float32), group, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q32, kg)
-    if causal:
-        qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
-        kpos = torch.arange(lk, device=q.device)[None, :]
-        logits = logits.masked_fill(kpos > qpos, float("-inf"))
+    masked = _attention_mask(lq, lk, causal, q_offset, kv_len, q.device)
+    if masked is not None:
+        logits = logits.masked_fill(masked, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vg).to(q.dtype)
 
 
 def attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
                         causal: bool = True,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        q_offset: Optional[torch.Tensor] = None,
+                        kv_len: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """The natural log-sum-exp over keys of each row's scaled logits, fp32
-    (B, Hq, Lq): what the forward kernel writes for its backward."""
+    (B, Hq, Lq): what the forward kernel writes for its backward; rows
+    placed and keys masked as in :func:`attention_plain`."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else scale
     kg = torch.repeat_interleave(k.to(torch.float32), hq // hkv, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32) * scale, kg)
-    if causal:
-        qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
-        kpos = torch.arange(lk, device=q.device)[None, :]
-        logits = logits.masked_fill(kpos > qpos, float("-inf"))
+    masked = _attention_mask(lq, lk, causal, q_offset, kv_len, q.device)
+    if masked is not None:
+        logits = logits.masked_fill(masked, float("-inf"))
     return torch.logsumexp(logits, dim=-1)
 
 

@@ -9,6 +9,12 @@ Attention runs through the hand-written kernels (``kernels.ops``):
   ``transformer.prefill`` passes) and the cache-free forward: causal
   ``flash_attention`` over the fresh q/k/v, whose k/v are then written
   into the cache;
+* a cached prefill at an offset (``s > 1`` with a (B,) ``cache_len``, or
+  an int other than 0): the new k/v are written at each row's offset,
+  clamped as the reference's ``dynamic_update_slice`` clamps it (start
+  ``min(cache_len[b], Lmax - s)``), then causal ``flash_attention`` over
+  the whole cache with ``q_offset = cache_len`` and
+  ``kv_len = cache_len + s``;
 * decode (``s == 1``): the new k/v are written at each row's
   ``cache_len``, then ``decode_attention`` reads the cache with
   ``kv_len = cache_len + 1``;
@@ -26,14 +32,15 @@ Attention runs through the hand-written kernels (``kernels.ops``):
   kernels at the (192, 128) head-dim pair with the scale
   (nope + rope) ** -0.5: causal ``flash_attention`` for a prefill from an
   empty cache and the cache-free forward, ``decode_attention`` over the
-  whole expanded cache (``kv_len = cache_len + 1``) for one token.
+  whole expanded cache (``kv_len = cache_len + 1``) for one token, and
+  causal ``flash_attention`` over the whole expanded cache at per-row
+  offsets for a cached prefill at an offset.
 
 The GQA and cross caches are head-major, ``(B, Hkv, Lmax, D)`` per layer
 (the JAX package keeps ``(B, Lmax, Hkv, D)``), so the decode kernel reads
 them without a copy; MLA's latent caches have no head axis and keep the
 reference's ``(B, Lmax, rank)`` and ``(B, Lmax, rope)``.  Caches are
-updated in place.  A cached prefill at a non-zero offset is not on this
-path and raises (ROADMAP.md section 1, item 7(b)5).
+updated in place.
 """
 
 from __future__ import annotations
@@ -90,13 +97,10 @@ def _head_major(x):
     return x.transpose(1, 2).contiguous()
 
 
-def _check_prefill_offset(cache, s: int, cache_len) -> None:
-    """A cached prefill (``s > 1``) must start from an empty cache."""
-    if (cache is not None and s > 1
-            and not (isinstance(cache_len, int) and cache_len == 0)):
-        raise NotImplementedError(
-            "a cached prefill at a non-zero offset is not ported "
-            "(ROADMAP.md section 1, item 7(b)5)")
+def _from_empty(cache_len) -> bool:
+    """Whether a cached prefill starts from an empty cache: ``cache_len``
+    is the int 0, what ``transformer.prefill`` passes."""
+    return isinstance(cache_len, int) and cache_len == 0
 
 
 def _decode_lengths(cache_len, b: int, device):
@@ -107,6 +111,16 @@ def _decode_lengths(cache_len, b: int, device):
     return cache_len
 
 
+def _offset_rows(cache_len, b: int, s: int, lmax: int, device):
+    """A cached prefill's (B,) int32 offsets and the (B, s) cache
+    positions its s new rows are written to: from ``min(cache_len[b],
+    Lmax - s)``, as ``jax.lax.dynamic_update_slice`` clamps the start so
+    that the update fits (the reference's ``_scatter_time``)."""
+    lens = _decode_lengths(cache_len, b, device).to(torch.int32)
+    start = lens.clamp(0, lmax - s)
+    return lens, start[:, None] + torch.arange(s, device=device)
+
+
 def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
               cache_len=None):
     """Self-attention of x (B, s, d) at ``positions`` (1 or B, s).
@@ -114,19 +128,20 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
     * ``cache_kv is None``: causal attention over x alone; returns
       ``(y, (k, v))`` with k, v head-major.
     * ``cache_kv = (k, v)``, each (B, Hkv, Lmax, D), written in place:
-      with ``s > 1`` a prefill, which needs ``cache_len == 0`` (the int);
-      with ``s == 1`` a decode step at the (B,) positions ``cache_len``.
+      with ``s > 1`` and ``cache_len == 0`` (the int) a prefill from an
+      empty cache; with ``s > 1`` and a (B,) ``cache_len`` a cached
+      prefill at per-row offsets over the whole cache; with ``s == 1`` a
+      decode step at the (B,) positions ``cache_len``.
       Returns ``(y, (k, v))`` with the same cache tensors.
     """
     b, s, _ = x.shape
-    _check_prefill_offset(cache_kv, s, cache_len)
     hd = cfg.kv_head_dim()
     q, k, v = _project_qkv(p, cfg, x)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = rope_apply(q, cos, sin)
     k = rope_apply(k, cos, sin)
 
-    if cache_kv is None or s > 1:
+    if cache_kv is None or (s > 1 and _from_empty(cache_len)):
         k_hm, v_hm = _head_major(k), _head_major(v)
         out = ops.flash_attention(_head_major(q), k_hm, v_hm, causal=True)
         out = out.transpose(1, 2)                       # (B, s, Hq, D)
@@ -137,6 +152,16 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
             ck[:, :, :s] = k_hm
             cv[:, :, :s] = v_hm
             new_cache = (ck, cv)
+    elif s > 1:
+        ck, cv = cache_kv
+        lens, at = _offset_rows(cache_len, b, s, ck.shape[2], x.device)
+        rows = torch.arange(b, device=x.device)[:, None]
+        ck[rows, :, at] = k
+        cv[rows, :, at] = v
+        out = ops.flash_attention(_head_major(q), ck, cv, causal=True,
+                                  q_offset=lens,
+                                  kv_len=lens + s).transpose(1, 2)
+        new_cache = (ck, cv)
     else:
         ck, cv = cache_kv
         cache_len = _decode_lengths(cache_len, b, x.device)
@@ -273,17 +298,18 @@ def mla_apply(p, cfg: ModelConfig, x, positions, cache_ckv=None,
       ``(y, (c_kv, k_pe))``, the normed latent (B, s, rank) and the roped
       shared key (B, s, rope).
     * ``cache_ckv = (ckv, kpe)``, (B, Lmax, rank) and (B, Lmax, rope),
-      written in place: with ``s > 1`` a prefill, which needs
-      ``cache_len == 0`` (the int); with ``s == 1`` a decode step at the
-      (B,) positions ``cache_len``, over the whole cache expanded, keys
-      at positions < ``cache_len + 1``.  Returns ``(y, (ckv, kpe))`` with
-      the same cache tensors.
+      written in place: with ``s > 1`` and ``cache_len == 0`` (the int) a
+      prefill from an empty cache; with ``s > 1`` and a (B,)
+      ``cache_len`` a cached prefill at per-row offsets over the whole
+      cache expanded, keys at positions < ``cache_len + s``; with
+      ``s == 1`` a decode step at the (B,) positions ``cache_len``, over
+      the whole cache expanded, keys at positions < ``cache_len + 1``.
+      Returns ``(y, (ckv, kpe))`` with the same cache tensors.
     """
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
     nope, rope, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
-    _check_prefill_offset(cache_ckv, s, cache_len)
     q = (x @ p["w_dq"]).reshape(b, s, h, nope + rope)
     dkv = x @ p["w_dkv"]
     c_kv = norm_apply(p["kv_norm"], dkv[..., :rank].contiguous())
@@ -293,7 +319,7 @@ def mla_apply(p, cfg: ModelConfig, x, positions, cache_ckv=None,
     k_pe = rope_apply(dkv[..., rank:], cos, sin)     # one head, shared
     scale = (nope + rope) ** -0.5
 
-    if cache_ckv is None or s > 1:
+    if cache_ckv is None or (s > 1 and _from_empty(cache_len)):
         k, v = _mla_expand(p, cfg, c_kv, k_pe)
         out = ops.flash_attention(_head_major(q), k, v, causal=True,
                                   scale=scale).transpose(1, 2)
@@ -304,6 +330,17 @@ def mla_apply(p, cfg: ModelConfig, x, positions, cache_ckv=None,
             ckv[:, :s] = c_kv
             kpe[:, :s] = k_pe
             new_cache = (ckv, kpe)
+    elif s > 1:
+        ckv, kpe = cache_ckv
+        lens, at = _offset_rows(cache_len, b, s, ckv.shape[1], x.device)
+        rows = torch.arange(b, device=x.device)[:, None]
+        ckv[rows, at] = c_kv
+        kpe[rows, at] = k_pe
+        k, v = _mla_expand(p, cfg, ckv, kpe)
+        out = ops.flash_attention(_head_major(q), k, v, causal=True,
+                                  scale=scale, q_offset=lens,
+                                  kv_len=lens + s).transpose(1, 2)
+        new_cache = (ckv, kpe)
     else:
         ckv, kpe = cache_ckv
         cache_len = _decode_lengths(cache_len, b, x.device)

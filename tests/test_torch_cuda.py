@@ -2152,3 +2152,126 @@ def test_mamba_layer_serving_on_the_card_equals_the_cpu(gen):
                                              before[2])
     for got, exp in zip(outs["cuda"], outs["cpu"]):
         _grad_gate(got.cpu(), exp, "serving")
+
+
+# ------------------- flash with per-row offsets (PR 30) -------------------
+
+#: (b, hq, hkv, s, lmax, D or (D, Dv), offsets): chip_smoke.py's kernels
+#: phase's shapes (gemma-2b's, deepseek-v2-lite's and jamba's continued
+#: prefills of 4096 tokens over a cache of 6176, rows at 0, 1024, 1793 -
+#: off every tile boundary - and 2048; a ragged one), then the other
+#: head-dim instances, a cache far longer than kv_len with lengths ending
+#: mid-tile, and a length past the cache (the clamp case's rows)
+OFFSET_CASES = [
+    (4, 8, 1, 4096, 6176, 256, (0, 1024, 1793, 2048)),
+    (4, 16, 16, 4096, 6176, MLA, (0, 1024, 1793, 2048)),
+    (4, 64, 8, 4096, 6176, 128, (0, 1024, 1793, 2048)),
+    (2, 4, 2, 333, 1000, 64, (0, 667)),
+    (2, 4, 2, 100, 4000, 32, (5, 130)),
+    (3, 8, 1, 77, 300, 256, (0, 250, 299)),
+]
+
+
+def _offset_inputs(gen, b, hq, hkv, s, lmax, dim, dtype):
+    dk, dv = dim if isinstance(dim, tuple) else (dim, dim)
+    return (_normal(gen, b, hq, s, dk, dtype=dtype),
+            _normal(gen, b, hkv, lmax, dk, dtype=dtype),
+            _normal(gen, b, hkv, lmax, dv, dtype=dtype))
+
+
+def _plain_offsets(q, k, v, q_offset, kv_len):
+    """``attention_plain`` with offsets a (batch row, KV head) at a time:
+    the whole call's fp32 logits would not fit the card at jamba's
+    shape."""
+    b, hq = q.shape[:2]
+    hkv = k.shape[1]
+    g = hq // hkv
+    out = q.new_empty(q.shape[:3] + (v.shape[3],))
+    for i in range(b):
+        for h in range(hkv):
+            out[i:i + 1, h * g:(h + 1) * g] = attention_plain(
+                q[i:i + 1, h * g:(h + 1) * g], k[i:i + 1, h:h + 1],
+                v[i:i + 1, h:h + 1], causal=True, q_offset=q_offset[i:i + 1],
+                kv_len=kv_len[i:i + 1])
+    return out
+
+
+def _rows(offsets):
+    return torch.tensor(offsets, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,lmax,dim,offsets", OFFSET_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_offsets_equal_plain(gen, b, hq, hkv, s, lmax, dim,
+                                             offsets, dtype):
+    """One launch at per-row offsets, kv_len = offset + s, over a cache of
+    random rows past kv_len too (masked, never seen): fp32 within 1e-5,
+    bf16 within 1e-2 and the row gate."""
+    q, k, v = _offset_inputs(gen, b, hq, hkv, s, lmax, dim, dtype)
+    q_offset = _rows(offsets)
+    kv_len = q_offset + s
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                          kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    exp = _plain_offsets(q, k, v, q_offset, kv_len)
+    _close(got, exp, dtype, 1e-2)
+    if dtype == torch.bfloat16:
+        assert _bf16_row_err(got, exp) <= 1.0
+
+
+@pytest.mark.parametrize("dim", [32, 64, 128, 256, MLA])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_offset_zero_rows_are_todays_call(gen, dim, dtype):
+    """A row at offset 0 with kv_len = s over a longer cache sees the
+    same key tiles in the same order as today's causal call over the
+    first s keys: bit for bit equal (its masked keys enter as P = 0)."""
+    s, lmax = 333, 1000
+    q, k, v = _offset_inputs(gen, 2, 4, 2, s, lmax, dim, dtype)
+    q_offset = torch.tensor([0, 400], dtype=torch.int32, device="cuda")
+    got = flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                          kv_len=q_offset + s)
+    today = flash_attention(q[:1].contiguous(),
+                            k[:1, :, :s].contiguous(),
+                            v[:1, :, :s].contiguous(), causal=True)
+    assert torch.equal(got[:1], today)
+
+
+def test_flash_attention_offsets_repeated_launches_agree(gen):
+    """gemma-2b's continued prefill in bf16, 50 more launches: each output
+    equal to the first bit for bit (the ring's stages counted from the
+    rows' own offsets by producer and consumers alike)."""
+    b, hq, hkv, s, lmax, dim, offsets = OFFSET_CASES[0]
+    q, k, v = _offset_inputs(gen, b, hq, hkv, s, lmax, dim, torch.bfloat16)
+    q_offset = _rows(offsets)
+    kv_len = q_offset + s
+    first = flash_attention(q, k, v, q_offset=q_offset, kv_len=kv_len)
+    for i in range(50):
+        assert torch.equal(flash_attention(q, k, v, q_offset=q_offset,
+                                           kv_len=kv_len), first), i
+
+
+def test_flash_attention_offsets_refuse_what_the_kernel_does_not_take(gen):
+    """Under grad with offsets: ``NotImplementedError`` (no backward
+    kernel takes them); a malformed offset or length tensor, or Lq > Lk
+    with offsets: ``ValueError``; nothing launched."""
+    q, k, v = _offset_inputs(gen, 2, 4, 2, 64, 128, 64, torch.bfloat16)
+    off = torch.tensor([0, 7], dtype=torch.int32, device="cuda")
+    launches = flash_attention.launches
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        flash_attention(q.clone().requires_grad_(True), k, v, q_offset=off,
+                        kv_len=off + 64)
+    for bad in (off.long(), off[:1], torch.tensor([0, 1, 7, 8], device="cuda",
+                                                  dtype=torch.int32)[::2]):
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, q_offset=bad)
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, kv_len=bad)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, q_offset=off.cpu())
+    with pytest.raises(ValueError, match="Lq <= Lk"):
+        flash_attention(q, k[:, :, :32].contiguous(),
+                        v[:, :, :32].contiguous(), causal=False,
+                        q_offset=off)
+    assert flash_attention.launches == launches

@@ -158,14 +158,27 @@ def test_mla_prefill_and_ragged_decode_match_reference():
 
 
 def test_mla_cached_prefill_at_an_offset_raises():
-    jc, tc, _, tl = _mixer()
+    """The call that once raised (a 3-token prompt at offset 2 of an
+    8-long cache) now runs, as the reference's does: the output and both
+    latent caches against ``repro``'s ``mla_apply`` at the same inputs."""
+    jc, tc, jl, tl = _mixer()
     m = tc.mla
-    cache = (torch.zeros((1, 8, m.kv_lora_rank)),
-             torch.zeros((1, 8, m.qk_rope_head_dim)))
-    with pytest.raises(NotImplementedError, match="item 7\\(b\\)5"):
-        tattn.mla_apply(tl, tc, torch.zeros((1, 3, tc.d_model)),
-                        torch.arange(3)[None], cache_ckv=cache,
-                        cache_len=torch.tensor([2], dtype=torch.int32))
+    rng = np.random.default_rng(8)
+    ckv = rng.standard_normal((1, 8, m.kv_lora_rank)).astype(np.float32)
+    kpe = rng.standard_normal((1, 8, m.qk_rope_head_dim)).astype(np.float32)
+    x = _x(jc, 1, 3, 9)
+    pos = 2 + np.arange(3)[None]
+    jy, jcache = jattn.mla_apply(jl, jc, jnp.asarray(x), jnp.asarray(pos),
+                                 cache_ckv=(jnp.asarray(ckv),
+                                            jnp.asarray(kpe)),
+                                 cache_len=jnp.asarray([2], jnp.int32))
+    cache = (torch.from_numpy(ckv.copy()), torch.from_numpy(kpe.copy()))
+    ty, got = tattn.mla_apply(tl, tc, torch.from_numpy(x),
+                              torch.from_numpy(pos), cache_ckv=cache,
+                              cache_len=torch.tensor([2], dtype=torch.int32))
+    assert_allclose(ty.numpy(), np.asarray(jy), **MLA_TOL)
+    for g, w in zip(got, jcache):
+        assert_allclose(g.numpy(), np.asarray(w), **MLA_TOL)
 
 
 def test_mla_cache_keeps_the_reference_layout():

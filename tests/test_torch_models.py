@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from numpy.testing import assert_allclose  # noqa: E402
 
 from repro import models as jm  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
@@ -261,15 +262,33 @@ def test_embed_scale_is_cast_to_the_model_type():
 
 
 def test_unported_paths_raise():
-    tc = t_smoke("gemma-2b")
+    """The cached prefill at an offset that once raised (4 tokens at
+    offset 3 of a 16-long cache) now runs: the output and both caches
+    against ``repro``'s ``gqa_apply`` at the same inputs.  Then training
+    with a context, and the hybrid family's init."""
+    tc, jc = t_smoke("gemma-2b"), j_smoke("gemma-2b")
     params = tm.init_params(tc, seed=0, device="cpu")
     cache = tm.init_cache(tc, 1, 16, device="cpu")
     p = tcommon.tree_map(lambda a: a[0], params["blocks"]["sub0"]["mixer"])
-    x = torch.zeros((1, 4, tc.d_model))
-    kv = (cache["blocks"]["sub0"]["k"][0], cache["blocks"]["sub0"]["v"][0])
-    with pytest.raises(NotImplementedError, match="section 1, item 7"):
-        tattn.gqa_apply(p, tc, x, torch.arange(4)[None], cache_kv=kv,
-                        cache_len=torch.tensor([3]))
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((1, 4, tc.d_model)).astype(np.float32)
+    ck, cv = (cache["blocks"]["sub0"][name][0] for name in ("k", "v"))
+    ck.copy_(torch.from_numpy(rng.standard_normal(
+        tuple(ck.shape)).astype(np.float32)))
+    pos = 3 + np.arange(4)[None]
+    jy, (jk, jv) = jattn.gqa_apply(
+        {k: jnp.asarray(v.numpy()) for k, v in p.items()}, jc,
+        jnp.asarray(x), jnp.asarray(pos),
+        cache_kv=(jnp.asarray(ck.transpose(1, 2).numpy()),
+                  jnp.asarray(cv.transpose(1, 2).numpy())),
+        cache_len=jnp.asarray([3], jnp.int32))
+    ty, (tk, tv) = tattn.gqa_apply(p, tc, torch.from_numpy(x),
+                                   torch.from_numpy(pos), cache_kv=(ck, cv),
+                                   cache_len=torch.tensor([3],
+                                                          dtype=torch.int32))
+    assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    assert_allclose(tk.transpose(1, 2).numpy(), np.asarray(jk), **TOL)
+    assert_allclose(tv.transpose(1, 2).numpy(), np.asarray(jv), **TOL)
     # training with a context runs: a model without cross layers ignores
     # the vision embeddings, as the reference does
     tokens = torch.randint(0, tc.vocab_size, (1, 4))

@@ -79,7 +79,8 @@ def test_every_port_module_is_checked():
                    "launch/service.py", "optim/adamw.py",
                    "data/pipeline.py", "checkpoint/checkpoint.py",
                    "runtime/steps.py", "runtime/train_loop.py",
-                   "launch/train.py"):
+                   "launch/train.py", "launch/analytic.py",
+                   "launch/roofline.py"):
         assert any(n.endswith(module) for n in names), module
 
 
