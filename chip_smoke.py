@@ -385,6 +385,9 @@ SCENARIO_RUNS = 4096
 #: 1980 MHz): it must outlast the wrapper's host work, and on a busy host
 #: ``mesi_tick``'s wrapper can take more than 1 ms
 SPIN_CYCLES = 10_000_000
+#: how many times a spin is doubled and its work run again when the host's
+#: work outlasted it (a host busy with other work) before a timing fails
+SPIN_DOUBLINGS = 5
 #: launches of bf16 flash attention, flash decode, the WKV scan and the
 #: MESI tick at each checked shape that must equal the first bit for bit
 #: (flash's K/V ring is shared by two warpgroups, so a stage overwritten
@@ -806,45 +809,58 @@ def median_ms(fn, make_args, reps: int) -> float:
     return statistics.median(times)
 
 
+def behind_spin(queue, cycles: int) -> tuple:
+    """``queue()`` run on the host while a spin kernel of ``cycles`` GPU
+    cycles holds the stream, so that nothing it queues starts before the
+    host has queued all of it.  Returns ``queue()``'s result and its host
+    time in ms.  Where the host's work outlasted the spin, the timing is
+    not kept: the queued work finishes, and ``queue()`` runs again behind
+    a spin twice as long, at most ``SPIN_DOUBLINGS`` times before it
+    fails."""
+    import torch
+    for doubling in range(SPIN_DOUBLINGS + 1):
+        torch.cuda.synchronize()
+        held, released = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+        held.record()
+        torch.cuda._sleep(cycles << doubling)
+        released.record()
+        t0 = time.perf_counter()
+        out = queue()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        released.synchronize()
+        if held.elapsed_time(released) > host_ms:
+            return out, host_ms
+    raise AssertionError(f"the host's work ({host_ms} ms) outlasted a spin "
+                         f"kernel of {cycles << SPIN_DOUBLINGS} cycles")
+
+
 def device_ms(fn, make_args, reps: int) -> tuple:
     """Median device time of ``fn(*make_args())`` alone over ``reps``
     calls, and the host time of one call (the wrapper's work until its
-    launches are queued): a spin kernel queued first holds the stream
-    while the host runs the wrapper, so the CUDA events bracket the
-    kernel's device work and none of the host's.  The host time is the
-    mean over ``reps`` calls queued back to back behind one spin, as a
-    decode step queues them.  Checks that each spin outlasted the host's
-    work."""
+    launches are queued): each call is queued behind a spin kernel
+    (:func:`behind_spin`), so the CUDA events bracket the kernel's device
+    work and none of the host's.  The host time is the mean over ``reps``
+    calls queued back to back behind one spin, as a decode step queues
+    them."""
     import torch
-    times = []
-    for _ in range(reps):
-        args = make_args()
-        held, start, end = (torch.cuda.Event(enable_timing=True)
-                            for _ in range(3))
-        held.record()
-        torch.cuda._sleep(SPIN_CYCLES)
-        t0 = time.perf_counter()
+
+    def bracketed(args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         fn(*args)
         end.record()
-        queued_ms = (time.perf_counter() - t0) * 1e3
+        return start, end
+
+    times = []
+    for _ in range(reps):
+        args = make_args()
+        (start, end), _ = behind_spin(lambda: bracketed(args), SPIN_CYCLES)
         end.synchronize()
-        check(held.elapsed_time(start) > queued_ms,
-              "the spin kernel outlasted the wrapper's host work")
         times.append(start.elapsed_time(end))
     calls = [make_args() for _ in range(reps)]
-    held, released = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    held.record()
-    torch.cuda._sleep(SPIN_CYCLES * reps)
-    released.record()
-    t0 = time.perf_counter()
-    for args in calls:
-        fn(*args)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    released.synchronize()
-    check(held.elapsed_time(released) > host_ms,
-          "the spin kernel outlasted the wrappers' host work")
+    _, host_ms = behind_spin(lambda: [fn(*args) for args in calls],
+                             SPIN_CYCLES * reps)
     torch.cuda.synchronize()
     return statistics.median(times), host_ms / reps
 
@@ -1758,23 +1774,12 @@ def phase_model_kernels(card: str, rate: float, flops: float,
 
 def host_us(fn) -> float:
     """Mean host time of ``fn()`` over ``HOST_SPLIT_CALLS`` calls back to
-    back behind one spin kernel, in microseconds."""
+    back behind one spin kernel (:func:`behind_spin`), in microseconds."""
     import torch
+    _, ms = behind_spin(lambda: [fn() for _ in range(HOST_SPLIT_CALLS)],
+                        SPIN_CYCLES * 4)
     torch.cuda.synchronize()
-    held, released = (torch.cuda.Event(enable_timing=True)
-                      for _ in range(2))
-    held.record()
-    torch.cuda._sleep(SPIN_CYCLES * 4)
-    released.record()
-    t0 = time.perf_counter()
-    for _ in range(HOST_SPLIT_CALLS):
-        fn()
-    us = (time.perf_counter() - t0) / HOST_SPLIT_CALLS * 1e6
-    released.synchronize()
-    check(held.elapsed_time(released) * 1e3 > us * HOST_SPLIT_CALLS,
-          "the spin kernel outlasted the host work")
-    torch.cuda.synchronize()
-    return us
+    return ms / HOST_SPLIT_CALLS * 1e3
 
 
 def chunk_host_split(card: str) -> None:

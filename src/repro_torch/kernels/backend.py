@@ -5,10 +5,12 @@
   the port never moves to the CPU on its own.  Tests pass
   ``device="cpu"``.
 * A kernel wrapper launches its CUDA kernel for tensors on a CUDA device
-  and runs the kernel's plain PyTorch version for tensors on the CPU.
-  Nothing else selects between the two: there is no fallback from the
-  kernel to the plain version and no switch that forces the plain
-  version on the card.
+  and runs the kernel's plain PyTorch version for tensors on the CPU,
+  and for tensors on the ``meta`` device, which hold shapes only and
+  compute nothing (the dry-run counts a step's FLOPs on them).  Nothing
+  else selects between the two: there is no fallback from the kernel to
+  the plain version and no switch that forces the plain version on the
+  card.
 """
 
 from __future__ import annotations
@@ -30,16 +32,17 @@ def resolve_device(device=None) -> torch.device:
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when the tensors lie on a CUDA device (launch the kernel),
-    False when they lie on the CPU (run the plain version).  Mixed or
-    other devices raise.  (Tensor flags, not ``device`` objects: the
-    wrappers' host time is part of every call.)"""
+    False when they all lie on the CPU or all on ``meta`` (run the plain
+    version).  Mixed or other devices raise.  (Tensor flags, not
+    ``device`` objects: the wrappers' host time is part of every
+    call.)"""
     cuda = cpu = 0
     for t in tensors:
         cuda += t.is_cuda
         cpu += t.is_cpu
     if cuda == len(tensors):
         return True
-    if cpu == len(tensors):
+    if cpu == len(tensors) or all(t.is_meta for t in tensors):
         return False
     raise ValueError(f"kernel inputs must all lie on one CUDA device or "
                      f"all on the CPU, got "

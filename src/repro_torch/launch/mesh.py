@@ -1,19 +1,89 @@
-"""Authority-shard placement on one card.
+"""Device meshes: the JAX package's pod meshes over a
+``torch.distributed`` world, and the authority shards' streams on one
+card.
 
-The JAX package pins each of the sharded authority plane's K brokers
-to its own device (``repro.launch.mesh.shard_devices``), so every
-shard's micro-batch decision runs as its own device program.  The port
-runs on one H100 and gives each shard its own CUDA stream on that card
-instead: every shard's directory is allocated on its stream and every
-one of its decisions (batch upload, ticks, read-back) is queued there.
-The JAX module's pod meshes have no counterpart here yet.
+* :func:`make_production_mesh`, :func:`make_host_mesh` and
+  :func:`make_sweep_mesh` give a ``torch.distributed.device_mesh.
+  DeviceMesh`` with the reference's shape and axis names, built by
+  ``init_device_mesh`` over the process group that is initialized (on
+  CUDA unless the caller asks for the CPU).  Each needs a world of
+  exactly its size and raises without one: a mesh is never shrunk to
+  what the world has.  The 256- and 512-rank meshes exist only as
+  data on one host (in tests, over PyTorch's fake process group).
+* :func:`mesh_axes` is the reference's ``mesh.shape`` mapping ``{axis:
+  size}``; the sharding rules and the dry-run read only that, so they
+  also take a plain mapping.
+* :func:`shard_streams`: the JAX package pins each of the sharded
+  authority plane's K brokers to its own device
+  (``repro.launch.mesh.shard_devices``); the port runs on one H100 and
+  gives each shard its own CUDA stream on that card instead: every
+  shard's directory is allocated on its stream and every one of its
+  decisions (batch upload, ticks, read-back) is queued there.
 """
 
 from __future__ import annotations
 
+import math
+from collections.abc import Mapping
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.backend import resolve_device
+
+#: the pods' mesh shapes and axis names (``repro.launch.mesh``)
+POD_SHAPE, POD_AXES = (16, 16), ("data", "model")
+MULTI_POD_SHAPE, MULTI_POD_AXES = (2, 16, 16), ("pod", "data", "model")
+
+
+def _mesh(shape: tuple, axes: tuple, device=None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the initialized
+    world, which must have exactly ``prod(shape)`` ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = resolve_device(device)
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != need:
+        raise RuntimeError(
+            f"a {dict(zip(axes, shape))} mesh needs a process group of "
+            f"{need} ranks; "
+            + ("none is initialized" if have is None
+               else f"the initialized one has {have}"))
+    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """One pod: (data 16, model 16), 256 ranks.  Two pods: (pod 2,
+    data 16, model 16), 512 ranks; 'pod' is an outer data-parallel
+    axis."""
+    if multi_pod:
+        return _mesh(MULTI_POD_SHAPE, MULTI_POD_AXES, device)
+    return _mesh(POD_SHAPE, POD_AXES, device)
+
+
+def make_host_mesh(device=None):
+    """The one-rank (data 1, model 1) mesh, with the pod's axis names."""
+    return _mesh((1, 1), POD_AXES, device)
+
+
+def make_sweep_mesh(n_devices: Optional[int] = None,
+                    axis_name: str = "runs", device=None):
+    """The 1-D mesh of the fleet sweep over ``n_devices`` ranks (None:
+    the whole world)."""
+    if n_devices is None:
+        import torch.distributed as dist
+        n_devices = dist.get_world_size() if dist.is_initialized() else 0
+    return _mesh((int(n_devices),), (axis_name,), device)
+
+
+def mesh_axes(mesh) -> dict:
+    """``{axis: size}`` of a ``DeviceMesh``, or of a mapping given as
+    one (the reference's ``mesh.shape``)."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def shard_streams(n_shards: int, device=None) -> tuple:

@@ -1,5 +1,5 @@
-"""Roofline terms of one NVIDIA H100, the one-card part of the JAX
-package's ``repro.launch.roofline``.
+"""Roofline terms of one NVIDIA H100, and the JAX package's HLO parsers
+(``repro.launch.roofline``).
 
 Terms (the card's rates, from NVIDIA's data sheets, by H100 variant;
 dense, without sparsity):
@@ -8,18 +8,21 @@ dense, without sparsity):
     memory     = analytic HBM bytes per card / device-memory rate
     collective = collective bytes / NVLink rate each way
 
-On one card there is no collective, so that term is 0 (an empty
-:class:`CollectiveStats`), and no compiled program to take a raw cost
-analysis from, so ``hlo_raw`` is ``{}``.  The reference's HLO parsers
-(``cost_analysis_dict``, ``collective_bytes_from_hlo``,
-``extrapolate_body``) have meaning only across devices and are not
-here.  The rate tables are the one source of the card's rates for the
-port's bounds (``chip_smoke.py`` reads them here).
+The port compiles no XLA program, so the reference's collective bytes
+have no source here: the dry-run keeps an empty :class:`CollectiveStats`
+and says so.  The parsers ``collective_bytes_from_hlo`` and
+``extrapolate_body`` and ``CollectiveStats.combine`` are copied as plain
+Python over HLO text.  ``cost_analysis_dict`` reads no compiled object:
+it counts the FLOPs of one call of a function with
+``torch.utils.flop_counter.FlopCounterMode``.  The rate tables are the
+one source of the card's rates for the port's bounds (``chip_smoke.py``
+reads them here).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 #: device-memory rate by H100 variant, bytes/s (data sheets)
 H100_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -58,11 +61,98 @@ def fp32_rate(name: str) -> float:
     return _variant_rate(name, H100_FP32_FLOPS, "fp32 rate")
 
 
+_DTYPE_BYTES = {
+    "pred": 1, "s4": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2,
+    "s32": 4, "u32": 4, "s64": 8, "u64": 8,
+    "f8e4m3fn": 1, "f8e5m2": 1, "bf16": 2, "f16": 2, "f32": 4, "f64": 8,
+    "c64": 8, "c128": 16,
+}
+
+_SHAPE_RE = re.compile(r"(\w+)\[([\d,]*)\]")
+_OP_TOKEN_RE = re.compile(
+    r"\b(all-gather|all-reduce|reduce-scatter|all-to-all|"
+    r"collective-permute)(?:-start)?\(")
+
+
+def cost_analysis_dict(fn, *args, **kwargs) -> dict:
+    """``{"flops": F}``: the FLOPs ``torch.utils.flop_counter`` counts in
+    one call ``fn(*args, **kwargs)`` (matmuls, attention, convolutions;
+    a multiply-add is 2; a backward the call runs is counted too), and
+    ``"flops:<op>"`` per counted operator."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn(*args, **kwargs)
+    by_op = counter.get_flop_counts().get("Global", {})
+    out = {"flops": float(counter.get_total_flops())}
+    out.update({f"flops:{op}": float(n) for op, n in by_op.items()})
+    return out
+
+
+def _shape_bytes(dtype: str, dims: str) -> int:
+    if dtype not in _DTYPE_BYTES:
+        return 0
+    n = 1
+    for d in dims.split(","):
+        if d:
+            n *= int(d)
+    return n * _DTYPE_BYTES[dtype]
+
+
 @dataclasses.dataclass
 class CollectiveStats:
     total_bytes: int = 0
     by_op: dict = dataclasses.field(default_factory=dict)
     n_ops: int = 0
+
+    def combine(self, other: "CollectiveStats", scale: float = 1.0
+                ) -> "CollectiveStats":
+        by_op = dict(self.by_op)
+        for k, v in other.by_op.items():
+            by_op[k] = by_op.get(k, 0) + int(v * scale)
+        return CollectiveStats(
+            total_bytes=self.total_bytes
+            + int(other.total_bytes * scale),
+            by_op=by_op,
+            n_ops=self.n_ops + other.n_ops)
+
+
+def collective_bytes_from_hlo(hlo_text: str) -> CollectiveStats:
+    """Sum per-device payload bytes of every collective op instance of a
+    partitioned HLO module's text: the result shape(s) between '=' and
+    the op name (all-reduce: the operand; all-gather: the gathered
+    buffer; reduce-scatter: the scattered shard).  Of an async pair
+    only the ``-start`` counts."""
+    stats = CollectiveStats()
+    for line in hlo_text.splitlines():
+        if "=" not in line or "-done(" in line:
+            continue  # async pairs: count the -start only
+        rhs = line.split("=", 1)[1]
+        m = _OP_TOKEN_RE.search(rhs)
+        if not m:
+            continue
+        op = m.group(1)
+        head = rhs[: m.start()]  # result shape(s) precede the op name
+        nbytes = sum(_shape_bytes(dt, dims)
+                     for dt, dims in _SHAPE_RE.findall(head))
+        stats.total_bytes += nbytes
+        stats.n_ops += 1
+        stats.by_op[op] = stats.by_op.get(op, 0) + nbytes
+    return stats
+
+
+def extrapolate_body(c1: CollectiveStats, c2: CollectiveStats,
+                     n_super: int) -> CollectiveStats:
+    """Scan-body correction: programs at 1 and 2 superblocks; (c2 - c1)
+    is one body's collectives, so the full model is c1 + body *
+    (n_super - 1)."""
+    body = CollectiveStats(
+        total_bytes=max(0, c2.total_bytes - c1.total_bytes),
+        by_op={k: max(0, c2.by_op.get(k, 0) - c1.by_op.get(k, 0))
+               for k in set(c1.by_op) | set(c2.by_op)},
+        n_ops=max(0, c2.n_ops - c1.n_ops))
+    return c1.combine(body, scale=float(n_super - 1))
 
 
 @dataclasses.dataclass
@@ -81,7 +171,7 @@ class RooflineReport:
     model_gflops: float            # 6*N_active*D (2*N for inference)
     useful_ratio: float            # model / analytic total
     roofline_fraction: float       # bound_time share vs sum of terms
-    hlo_raw: dict                  # {} on one card: no compiled program
+    hlo_raw: dict                  # the FLOP counter's, where it ran
     bytes_per_device: dict
     collective_by_op: dict
     flops_by_part: dict

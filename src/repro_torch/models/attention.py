@@ -16,8 +16,10 @@ Attention runs through the hand-written kernels (``kernels.ops``):
   the whole cache with ``q_offset = cache_len`` and
   ``kv_len = cache_len + s``;
 * decode (``s == 1``): the new k/v are written at each row's
-  ``cache_len``, then ``decode_attention`` reads the cache with
-  ``kv_len = cache_len + 1``;
+  ``min(cache_len, Lmax - 1)`` (a full cache overwrites its last slot,
+  as the reference's ``dynamic_update_slice`` clamps it), then
+  ``decode_attention`` reads the cache with ``kv_len = cache_len + 1``,
+  which the kernel clamps to Lmax;
 * the encoder (``encoder_attn_apply``): non-causal ``flash_attention``
   over the frames, Lq = Lk;
 * cross-attention (``cross_attn_apply``): q from x, k/v from the context
@@ -165,9 +167,10 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
     else:
         ck, cv = cache_kv
         cache_len = _decode_lengths(cache_len, b, x.device)
+        at = cache_len.clamp(max=ck.shape[2] - 1)
         rows = torch.arange(b, device=x.device)
-        ck[rows, :, cache_len] = k[:, 0]
-        cv[rows, :, cache_len] = v[:, 0]
+        ck[rows, :, at] = k[:, 0]
+        cv[rows, :, at] = v[:, 0]
         out = ops.decode_attention(q[:, 0].contiguous(), ck, cv,
                                    kv_len=cache_len + 1)[:, None]
         new_cache = (ck, cv)
@@ -344,9 +347,10 @@ def mla_apply(p, cfg: ModelConfig, x, positions, cache_ckv=None,
     else:
         ckv, kpe = cache_ckv
         cache_len = _decode_lengths(cache_len, b, x.device)
+        at = cache_len.clamp(max=ckv.shape[1] - 1)
         rows = torch.arange(b, device=x.device)
-        ckv[rows, cache_len] = c_kv[:, 0]
-        kpe[rows, cache_len] = k_pe[:, 0]
+        ckv[rows, at] = c_kv[:, 0]
+        kpe[rows, at] = k_pe[:, 0]
         k, v = _mla_expand(p, cfg, ckv, kpe)
         out = ops.decode_attention(q[:, 0].contiguous(), k, v,
                                    kv_len=cache_len + 1,

@@ -93,10 +93,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Returns (grads scaled to at most ``max_norm`` in global norm, each
-    cast back to its own type, and the norm before clipping)."""
-    norm = global_norm(grads)
+    cast back to its own type, and the norm before clipping).  ``norm``
+    (None: computed from ``grads``) is the global norm when ``grads``
+    hold only a rank's shards of the gradients."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return _map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                 grads), norm
@@ -131,11 +133,15 @@ def _tree_paths(tree, prefix=""):
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
+def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState,
+                  grad_norm=None):
     """One AdamW step, in place: params, ``state.mu`` and ``state.nu``
-    are overwritten.  Returns (params, new state, metrics {lr,
+    are overwritten (a leaf may be a view into a larger param, which is
+    then written through).  ``grad_norm`` (None: computed from
+    ``grads``) is the clip's global norm, given where ``grads`` are a
+    rank's shards.  Returns (params, new state, metrics {lr,
     grad_norm})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

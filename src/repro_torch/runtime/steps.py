@@ -1,35 +1,50 @@
 """Step factories: train / prefill / decode, with the JAX package's names
-(``repro.runtime.steps``), for one device.
+(``repro.runtime.steps``).
 
 The reference returns jitted functions with their shardings; the port
-runs eagerly on one device, so each factory returns the step function
-alone, and only the options that mean something on one device are
-kept: ``compress_grads``, ``donate`` and ``n_microbatches``
-(``zero`` and ``fsdp`` are sharding, ROADMAP.md section 1, item 8).
+runs eagerly, so each factory returns the step function alone.
 Gradients come from ``torch.autograd.grad`` over the param leaves, each
 set to require a gradient; on the card the model's attention and
 RMSNorm run through their backward kernels.  The optimizer updates
 params and moments in place (``optim.apply_updates``), so a step
 returns the trees it was given; that is what ``donate`` means here.
+
+``make_train_step(..., mesh=)`` runs the step data-parallel over a
+``DeviceMesh`` whose 'model' axis is 1 (tensor parallelism is not
+ported: no port layer splits its heads or channels).  Each rank takes
+its ``batch_specs`` slice of the global batch, and the gradients are
+averaged over 'pod' and 'data'.  ``zero`` keeps each AdamW moment only
+as the rank's ``zero_spec`` shard and updates only that shard of the
+param, which is then all-gathered; ``fsdp`` keeps each param as its
+``fsdp_param_specs`` shard, all-gathers it for the forward and backward
+and reduce-scatters its gradient.  :func:`shard_train_state` cuts a
+rank's pieces out of whole trees, :func:`gather_train_state` puts them
+back together.  Without a mesh, or over one rank, the step is the
+one-device step whatever the options.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import adamw
+from repro_torch.runtime import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
 class StepOptions:
+    zero: bool = True                 # ZeRO-1 moment sharding over 'data'
     compress_grads: bool = False      # bf16 gradients + fp32 error feedback
     donate: bool = True               # params and moments updated in place
     n_microbatches: int = 1           # gradient accumulation (memory)
+    fsdp: bool = False                # params over 'data' too (ZeRO-3)
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -68,44 +83,255 @@ def value_and_grad(params, cfg: ModelConfig, batch):
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
+def _grad_of(params, cfg: ModelConfig, batch, nm: int):
+    """(loss, grads) of a batch, or of a batch pre-split into ``nm``
+    microbatches: each microbatch's loss and gradient divided by ``nm``,
+    the gradients summed in fp32."""
+    if nm <= 1:
+        return value_and_grad(params, cfg, batch)
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=tree_leaves(params)[0].device)
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+    for i in range(nm):
+        mb = {k: v[i] for k, v in batch.items()}
+        mb_loss, g = value_and_grad(params, cfg, mb)
+        acc = _add(acc, g, nm)
+        loss = loss + mb_loss / nm
+    return loss, acc
+
+
+def _copied(params, opt_state):
+    """Copies of params and moments (a step without ``donate``)."""
+    return tree_map(torch.clone, params), opt_state._replace(
+        mu=tree_map(torch.clone, opt_state.mu),
+        nu=tree_map(torch.clone, opt_state.nu))
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    options: StepOptions = StepOptions()):
+                    options: StepOptions = StepOptions(), *, mesh=None):
     """fn(params, opt_state, batch) -> (params, opt_state, metrics).
 
     With ``n_microbatches`` > 1 the batch arrives pre-split
     (:func:`microbatch_split`); each microbatch's loss and gradient are
     divided by ``n_microbatches`` and the gradients summed in fp32, as
     the reference does.  With ``donate`` False the step first copies
-    params and moments, so the caller's trees are left as they were."""
+    params and moments, so the caller's trees are left as they were.
+    With a ``mesh`` of more than one rank the step is data-parallel (the
+    module docstring): it takes each rank's pieces of params and moments
+    (:func:`shard_train_state`) and the global batch."""
+    if mesh is not None and math.prod(mesh_axes(mesh).values()) > 1:
+        return _data_parallel_step(cfg, opt_cfg, options, mesh)
     nm = options.n_microbatches
-
-    def grad_of(params, batch):
-        if nm <= 1:
-            return value_and_grad(params, cfg, batch)
-        loss = torch.zeros((), dtype=torch.float32,
-                           device=tree_leaves(params)[0].device)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
-        for i in range(nm):
-            mb = {k: v[i] for k, v in batch.items()}
-            mb_loss, g = value_and_grad(params, cfg, mb)
-            acc = _add(acc, g, nm)
-            loss = loss + mb_loss / nm
-        return loss, acc
 
     def step(params, opt_state, batch):
         if not options.donate:
-            params = tree_map(torch.clone, params)
-            opt_state = opt_state._replace(
-                mu=tree_map(torch.clone, opt_state.mu),
-                nu=tree_map(torch.clone, opt_state.nu))
-        loss, grads = grad_of(params, batch)
+            params, opt_state = _copied(params, opt_state)
+        loss, grads = _grad_of(params, cfg, batch, nm)
         if options.compress_grads and opt_state.error is not None:
             grads, new_err = adamw.compress_grads(grads, opt_state.error)
             opt_state = opt_state._replace(error=new_err)
         params, opt_state, metrics = adamw.apply_updates(
             opt_cfg, params, grads, opt_state)
         metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return step
+
+
+# --------------------------- data parallel ---------------------------
+
+def _data_dim(spec: tuple):
+    """The tensor dim a spec splits over 'data' (None: none)."""
+    for d, entry in enumerate(spec):
+        if "data" in shd.axes_of(entry):
+            return d
+    return None
+
+
+def _shard(x, dim, rank: int, n: int):
+    """Rank ``rank``'s view of ``x`` split n ways along ``dim`` (None:
+    ``x``)."""
+    if dim is None:
+        return x
+    size = x.shape[dim] // n
+    return x.narrow(dim, rank * size, size)
+
+
+def _all_gather(x, dim: int, group, n: int):
+    """The n ranks' shards ``x`` joined along ``dim``."""
+    parts = [torch.empty_like(x) for _ in range(n)]
+    torch.distributed.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _flat(tree) -> dict:
+    return dict(shd.flatten_with_paths(tree))
+
+
+class _Layout:
+    """Where a data-parallel step's pieces live: per param path the dim
+    its param (``fsdp``) and its moments (``zero``) are split over
+    'data' (None: whole), and this rank's place on the mesh."""
+
+    def __init__(self, cfg: ModelConfig, options: StepOptions, mesh):
+        axes = mesh_axes(mesh)
+        if axes.get("model", 1) > 1:
+            raise NotImplementedError(
+                "tensor parallelism ('model' > 1) is not ported: no port "
+                "layer splits its heads or channels")
+        shape = tf.init_params(cfg, device="meta")
+        param = (shd.fsdp_param_specs(shape, axes) if options.fsdp
+                 else shd.param_specs(shape))
+        moment = shd.opt_state_specs(shape, axes, zero=options.zero)
+        self.param_dim = {p: _data_dim(s) for p, s in _flat(param).items()}
+        self.moment_dim = {p: _data_dim(s)
+                           for p, s in _flat(moment).items()}
+        self.axes = axes
+        self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        self.n_data, self.rank = axes["data"], self.coord["data"]
+        self.n_dp = math.prod(axes[a] for a in shd.dp_axes(axes))
+        self.data_group = mesh.get_group("data")
+        self.pod_group = (mesh.get_group("pod") if axes.get("pod", 1) > 1
+                          else None)
+
+    def shard(self, x, dim):
+        return _shard(x, dim, self.rank, self.n_data)
+
+    def gather(self, x, dim):
+        return x if dim is None else _all_gather(x, dim, self.data_group,
+                                                 self.n_data)
+
+    def scattered(self, path) -> bool:
+        """Whether a gradient is reduce-scattered: param and moments
+        split on one dim (``fsdp`` under ``zero``)."""
+        dim = self.param_dim[path]
+        return dim is not None and self.moment_dim[path] == dim
+
+    def local_batch(self, batch, batch_dim: int):
+        """This rank's slice of every batch tensor, as ``batch_specs``
+        splits it (a tensor whose batch does not divide stays whole)."""
+        specs = _flat(shd.batch_specs(batch, self.axes, batch_dim))
+
+        def one(path, x):
+            spec = specs[path]
+            index, n = 0, 1
+            for a in shd.axes_of(spec[batch_dim] if spec else None):
+                index, n = index * self.axes[a] + self.coord[a], \
+                    n * self.axes[a]
+            return _shard(x, batch_dim if n > 1 else None, index, n)
+
+        return shd.unflatten_like(batch, {p: one(p, x) for p, x in
+                                          _flat(batch).items()})
+
+
+def _pieces(cfg, params, opt_state, mesh, options, fn):
+    """``fn(layout, tensor, dim)`` over each param (its ``fsdp`` dim)
+    and each moment (its ``zero`` dim)."""
+    lay = _Layout(cfg, options, mesh)
+
+    def tree(t, dims):
+        return shd.unflatten_like(t, {p: fn(lay, x, dims[p])
+                                      for p, x in _flat(t).items()})
+
+    return (tree(params, lay.param_dim),
+            opt_state._replace(mu=tree(opt_state.mu, lay.moment_dim),
+                               nu=tree(opt_state.nu, lay.moment_dim)))
+
+
+def shard_train_state(cfg: ModelConfig, params, opt_state, mesh,
+                      options: StepOptions = StepOptions()):
+    """This rank's params and AdamW state, cut (as copies) from whole
+    trees that are the same on every rank: each param its
+    ``fsdp_param_specs`` shard under ``fsdp``, else whole; each moment
+    its ``opt_state_specs`` shard under ``zero``, else whole."""
+    return _pieces(cfg, params, opt_state, mesh, options,
+                   lambda lay, x, dim: lay.shard(x, dim).clone())
+
+
+def gather_train_state(cfg: ModelConfig, params, opt_state, mesh,
+                       options: StepOptions = StepOptions()):
+    """Whole params and AdamW state from every rank's pieces (the
+    inverse of :func:`shard_train_state`; a collective)."""
+    return _pieces(cfg, params, opt_state, mesh, options,
+                   lambda lay, x, dim: lay.gather(x, dim))
+
+
+def _data_parallel_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                        options: StepOptions, mesh):
+    """The train step over a data-parallel mesh: every rank calls it
+    with its pieces of params and moments and the global batch."""
+    if options.compress_grads:
+        raise NotImplementedError(
+            "compress_grads is not ported to a data-parallel mesh")
+    lay = _Layout(cfg, options, mesh)
+    dist = torch.distributed
+    nm = options.n_microbatches
+
+    def reduce(path, g):
+        """The gradient averaged over the DP ranks: this rank's shard of
+        it where ``scattered``, else whole."""
+        if lay.pod_group is not None:
+            dist.all_reduce(g, group=lay.pod_group)
+        dim = lay.param_dim[path]
+        if lay.scattered(path):
+            out = torch.empty_like(lay.shard(g, dim))
+            dist.reduce_scatter(out, [c.contiguous() for c in
+                                      g.chunk(lay.n_data, dim)],
+                                group=lay.data_group)
+            g = out
+        else:
+            dist.all_reduce(g, group=lay.data_group)
+        return g / lay.n_dp
+
+    def grad_norm(grads: dict):
+        """The global norm of gradients some of which are shards."""
+        parts = {True: [], False: []}
+        for path, g in grads.items():
+            parts[lay.scattered(path)].append(
+                torch.sum(torch.square(g.to(torch.float32))))
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(grads.values())).device)
+        shards = sum(parts[True], zero)
+        dist.all_reduce(shards, group=lay.data_group)
+        return torch.sqrt(shards + sum(parts[False], zero))
+
+    def step(params, opt_state, batch):
+        if not options.donate:
+            params, opt_state = _copied(params, opt_state)
+        held = _flat(params)
+        full = {p: lay.gather(x, lay.param_dim[p]) for p, x in held.items()}
+        loss, grads = _grad_of(shd.unflatten_like(params, full), cfg,
+                               lay.local_batch(batch, 0 if nm <= 1 else 1),
+                               nm)
+        grads = {p: reduce(p, g) for p, g in _flat(grads).items()}
+        # the update's leaves: each the piece its moments cover
+        upd_p, upd_g = {}, {}
+        for path, p in held.items():
+            pd, md = lay.param_dim[path], lay.moment_dim[path]
+            if pd is None:              # whole param: its moments' piece
+                upd_p[path] = lay.shard(p, md)
+                upd_g[path] = lay.shard(grads[path], md)
+            else:                       # fsdp: the shard, or whole
+                upd_p[path] = p if md is not None else full[path]
+                upd_g[path] = grads[path]
+        norm = (grad_norm(grads) if any(map(lay.scattered, grads))
+                else adamw.global_norm(shd.unflatten_like(params, grads)))
+        _, opt_state, metrics = adamw.apply_updates(
+            opt_cfg, shd.unflatten_like(params, upd_p),
+            shd.unflatten_like(params, upd_g), opt_state, grad_norm=norm)
+        with torch.no_grad():
+            for path, p in held.items():
+                pd, md = lay.param_dim[path], lay.moment_dim[path]
+                if pd is None and md is not None:     # ZeRO: re-gather
+                    p.copy_(lay.gather(lay.shard(p, md), md))
+                elif pd is not None and md is None:   # fsdp, whole moments
+                    p.copy_(lay.shard(full[path], pd))
+        loss = loss.clone()
+        for group in (lay.pod_group, lay.data_group):
+            if group is not None:
+                dist.all_reduce(loss, group=group)
+        metrics["loss"] = loss / lay.n_dp
         return params, opt_state, metrics
 
     return step

@@ -52,6 +52,14 @@ def test_imports_neither_jax_nor_the_jax_package(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, module)
 
 
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_torch_testing(path):
+    """``torch.testing`` (and its fake process group) is for tests only."""
+    for module in _imported_modules(path):
+        assert not module.startswith("torch.testing"), (path, module)
+
+
 def test_every_port_module_is_checked():
     names = {p.relative_to(PORT_FILES[0].parents[0]).as_posix()
              for p in PORT_FILES}
@@ -80,7 +88,8 @@ def test_every_port_module_is_checked():
                    "data/pipeline.py", "checkpoint/checkpoint.py",
                    "runtime/steps.py", "runtime/train_loop.py",
                    "launch/train.py", "launch/analytic.py",
-                   "launch/roofline.py"):
+                   "launch/roofline.py", "runtime/sharding.py",
+                   "launch/dryrun.py"):
         assert any(n.endswith(module) for n in names), module
 
 
@@ -126,6 +135,7 @@ def _trace(chunk_tokens: int = 0):
     lambda: oracle.check_trace(*_trace()),
     lambda: oracle.check_content_trace(*_trace(chunk_tokens=4)),
     lambda: mesh.shard_streams(2),
+    lambda: mesh.make_host_mesh(),
     lambda: connect(n_agents=2, artifacts=("a", "b"), shards=2),
     lambda: connect(n_agents=2, artifacts=("a",)),
     lambda: ShardedCoherenceBroker(CoherenceConfig.make(2, ("a",), hosts=2)),
@@ -145,7 +155,7 @@ def _trace(chunk_tokens: int = 0):
         "rwkv6_init_cache", "rwkv6_serve_cli", "batch_decider",
         "broker", "episode_key", "oracle_kernel_leg",
         "oracle_content_kernel_leg", "check_trace", "check_content_trace",
-        "shard_streams", "connect_sharded", "connect_single",
+        "shard_streams", "host_mesh", "connect_sharded", "connect_single",
         "sharded_broker", "sharded_portal", "service_cli",
         "run_training", "train_cli"])
 def test_entry_points_default_to_cuda(no_card, entry):
@@ -161,7 +171,9 @@ def test_device_resolution(no_card):
 
 def test_routing_rule():
     cpu = torch.zeros(2)
+    meta = torch.zeros(2, device="meta")
     assert backend.use_kernel(cpu, cpu) is False
+    assert backend.use_kernel(meta, meta) is False
     with pytest.raises(ValueError, match="one CUDA device"):
         backend.use_kernel(cpu, torch.zeros(2, device="meta"))
 

@@ -268,6 +268,73 @@ def test_mla_apply_at_offsets_matches_reference(b, s, lmax, offsets):
         assert_allclose(g.numpy(), np.asarray(w), **MLA_TOL)
 
 
+#: a decode step whose second row's cache is full (``cache_len`` = Lmax):
+#: the reference writes that row's token at Lmax - 1, as
+#: ``dynamic_update_slice`` clamps the start, and attends to every key
+FULL_B, FULL_LMAX, FULL_LENS = 2, 8, (3, 8)
+
+
+def _check_full_cache_write(got, want, old, tol):
+    """A decode step's cache (B, Lmax, ...) in the reference's layout:
+    the token written at row 0's ``cache_len`` and at row 1's clamped
+    slot Lmax - 1, within ``tol`` of the reference's projection, and
+    every other slot the input's, bit for bit."""
+    written = [(0, FULL_LENS[0]), (1, FULL_LMAX - 1)]
+    kept = np.ones(got.shape[:2], bool)
+    for row, slot in written:
+        kept[row, slot] = False
+        assert not np.array_equal(got[row, slot], old[row, slot])
+        assert_allclose(got[row, slot], want[row, slot], **tol)
+    assert np.array_equal(got[kept], old[kept])
+    assert np.array_equal(want[kept], old[kept])
+
+
+def test_gqa_decode_at_a_full_cache_matches_reference():
+    jc, tc, jp, tp = _pair("gemma-2b")
+    jl, tl = _first_layer(jp, jax.tree.map), _first_layer(tp, tree_map)
+    hkv, hd = jc.n_kv_heads, jc.kv_head_dim()
+    rng = np.random.default_rng(8)
+    ck, cv = (_normal(rng, FULL_B, FULL_LMAX, hkv, hd) for _ in range(2))
+    x = _normal(rng, FULL_B, 1, jc.d_model)
+    lens = np.asarray(FULL_LENS, np.int32)
+    jy, (jk, jv) = jattn.gqa_apply(
+        jl, jc, jnp.asarray(x), jnp.asarray(lens[:, None]),
+        cache_kv=(jnp.asarray(ck), jnp.asarray(cv)),
+        cache_len=jnp.asarray(lens))
+    tck, tcv = (torch.from_numpy(a.copy()).transpose(1, 2).contiguous()
+                for a in (ck, cv))
+    ty, (tk, tv) = tattn.gqa_apply(
+        tl, tc, torch.from_numpy(x), torch.from_numpy(lens[:, None]),
+        cache_kv=(tck, tcv), cache_len=torch.from_numpy(lens))
+    assert_allclose(ty.numpy(), np.asarray(jy), **ATTN_TOL)
+    for got, want, old in ((tk, jk, ck), (tv, jv, cv)):
+        _check_full_cache_write(got.transpose(1, 2).numpy(),
+                                np.asarray(want), old, ATTN_TOL)
+
+
+def test_mla_decode_at_a_full_cache_matches_reference():
+    jc, tc, jp, tp = _pair("deepseek-v2-lite-16b")
+    jl, tl = jp["prefix_0"]["mixer"], tp["prefix_0"]["mixer"]
+    m = jc.mla
+    rng = np.random.default_rng(9)
+    ckv = _normal(rng, FULL_B, FULL_LMAX, m.kv_lora_rank)
+    kpe = _normal(rng, FULL_B, FULL_LMAX, m.qk_rope_head_dim)
+    x = _normal(rng, FULL_B, 1, jc.d_model)
+    lens = np.asarray(FULL_LENS, np.int32)
+    jy, jcache = jattn.mla_apply(
+        jl, jc, jnp.asarray(x), jnp.asarray(lens[:, None]),
+        cache_ckv=(jnp.asarray(ckv), jnp.asarray(kpe)),
+        cache_len=jnp.asarray(lens))
+    ty, got = tattn.mla_apply(
+        tl, tc, torch.from_numpy(x), torch.from_numpy(lens[:, None]),
+        cache_ckv=(torch.from_numpy(ckv.copy()),
+                   torch.from_numpy(kpe.copy())),
+        cache_len=torch.from_numpy(lens))
+    assert_allclose(ty.numpy(), np.asarray(jy), **MLA_TOL)
+    for g, w, old in zip(got, jcache, (ckv, kpe)):
+        _check_full_cache_write(g.numpy(), np.asarray(w), old, MLA_TOL)
+
+
 def test_an_int_offset_is_every_rows_offset():
     """``cache_len`` as a non-zero int: every row at that offset, as a
     (B,) tensor of it."""
