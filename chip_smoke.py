@@ -148,6 +148,18 @@ Phases, each printing JSON lines:
              round trips' p50 / p99, ``stats`` and ``metrics`` checked);
              and ``launch.service.main`` at K = 4 with ``--verify
              --verify-metrics``, its summary printed on one line.
+   fleet_sharded - phase 4's content fleet sharded by the engine
+             over 4 streams of the card (its placements standing in for
+             4 cards, ``devices=4``): every per-run ledger equal to the
+             unsharded run's, 4 launches of each tick a step, the
+             padded-runs plan (4095 runs over 4) and the workloads-axis
+             plan (4097 over 3) equal to their unsharded runs, and, from
+             a profiler trace of the fleet cut to 4 steps, the shards'
+             ticks on 4 distinct streams, none the default; with two or
+             more cards also the public path asked for every card
+             (``devices=cards``) and a K = 4 authority plane's shards on
+             distinct cards.  Prints both runs' seconds and episodes/s
+             and the phase's seconds beside its 15 s budget.
 6. serve   - coherent serving on gemma-2b at its registered width (18
              layers, d 2048, MQA, head dim 256, vocab 256000, bf16) with
              random weights from ``SEED``: 4 agents, 3 artifacts of 2048
@@ -380,6 +392,17 @@ FLEET_RUNS = 4096
 #: runs per family of the eager / access_count fleets, per scenario of
 #: the A-D grid
 STRATEGY_FLEET_RUNS = 1024
+#: phase ``fleet_sharded``: the streams of the card its shards run on,
+#: and the fallback plans it checks, (runs, shards, the plan's axis)
+FLEET_SHARDS = 4
+#: steps of the fleet whose trace phase ``fleet_sharded`` reads (a
+#: profiled step of the grid is ~10 ms of host time a shard)
+FLEET_TRACE_STEPS = 4
+#: the seconds phase ``fleet_sharded`` is meant to take, reported beside
+#: its own
+FLEET_SHARDED_BUDGET_S = 15.0
+FLEET_FALLBACKS = ((FLEET_RUNS - 1, FLEET_SHARDS, "runs"),
+                   (FLEET_RUNS + 1, 3, "workloads"))
 SCENARIO_RUNS = 4096
 #: GPU clock cycles a spin kernel holds the stream for (about 5 ms at
 #: 1980 MHz): it must outlast the wrapper's host work, and on a busy host
@@ -2529,6 +2552,172 @@ def phase_fleet(card: str) -> float:
     return fleet_seconds
 
 
+def fleet_zoo(n_runs: int) -> list:
+    """The content fleet of phase ``fleet``: six families, n = m = 16,
+    64-token chunks, ``n_runs`` runs each."""
+    from repro_torch.sim import zoo
+    return zoo(n_agents=16, n_artifacts=16, n_runs=n_runs, chunk_tokens=64)
+
+
+def fleet_grid(workloads, shards=None, devices=1) -> dict:
+    """``compare_workloads(workloads, devices=devices)`` on the card, or
+    over ``shards`` new streams of ``cuda:0`` standing in for the host's
+    cards when given (``engine._placed``, ``devices=shards``); returns
+    its comparisons, every per-run array of its grid (recorded from the
+    engine's ``_run_grid``), its seconds and the tick launches it
+    made."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import chunk_diff, mesi_transition as mt
+    from repro_torch.sim import compare_workloads, engine
+    placed = contextlib.nullcontext()
+    if shards is not None:
+        placed = engine._placed([("cuda:0", torch.cuda.Stream())
+                                 for _ in range(shards)])
+        devices = shards
+    grids = []
+    run_grid = engine._run_grid
+
+    def recorded(*args):
+        grids.append(run_grid(*args))
+        return grids[-1]
+
+    before = (mt.mesi_tick_.launches, chunk_diff.chunk_tick_.launches)
+    engine._run_grid = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with placed:
+            results = compare_workloads(workloads, devices=devices)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        engine._run_grid = run_grid
+    return dict(results=results, grids=grids, seconds=seconds,
+                launches=(mt.mesi_tick_.launches - before[0],
+                          chunk_diff.chunk_tick_.launches - before[1]))
+
+
+def same_grid(a: dict, b: dict, what: str) -> None:
+    """Two ``fleet_grid`` runs alike: every per-run array of every
+    variant equal, and so every statistic."""
+    import numpy as np
+    check(len(a["grids"]) == len(b["grids"]) == 1
+          and all(va.keys() == vb.keys()
+                  and all(np.array_equal(va[k], vb[k]) for k in va)
+                  for va, vb in zip(a["grids"][0], b["grids"][0]))
+          and a["results"] == b["results"],
+          f"{what}: every per-run ledger equal")
+
+
+def fleet_streams(card: str) -> dict:
+    """The content fleet cut to ``FLEET_TRACE_STEPS`` steps, unsharded,
+    then over ``FLEET_SHARDS`` streams, under the torch profiler (device
+    activity only); in the exported trace the unsharded run's tick
+    kernels (the first 2 S by start time) must share one stream and the
+    sharded run's lie on ``FLEET_SHARDS`` others, S launches of each
+    tick on each.  Returns the launches by stream and the seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.sim import zoo
+    t0 = time.perf_counter()
+    workloads = zoo(n_agents=16, n_artifacts=16, n_runs=FLEET_RUNS,
+                    chunk_tokens=64, n_steps=FLEET_TRACE_STEPS)
+    steps = FLEET_TRACE_STEPS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fleet_grid(workloads)
+        fleet_grid(workloads, FLEET_SHARDS)
+    path = REPO / "build" / "fleet_sharded_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    tick = re.compile(r"(mesi|chunk)_(staged|direct)_kernel")
+    ticks = sorted((e["ts"], e["args"]["stream"],
+                    tick.search(e["name"]).group(1))
+                   for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("cat") == "kernel" and tick.search(e["name"]))
+    default = {stream for _, stream, _ in ticks[:2 * steps]}
+    shards = collections.Counter((stream, kind)
+                                 for _, stream, kind in ticks[2 * steps:])
+    streams = {stream for stream, _ in shards}
+    check(len(ticks) == 2 * steps * (1 + FLEET_SHARDS) and len(default) == 1,
+          f"the unsharded run's {2 * steps} ticks on one stream: "
+          f"{len(ticks)} ticks, default {default}")
+    check(len(streams) == FLEET_SHARDS and not streams & default
+          and set(shards.values()) == {steps},
+          f"{steps} ticks of each kind on each of {FLEET_SHARDS} streams, "
+          f"none the default: {dict(shards)}")
+    return {"default_stream": sorted(default),
+            "tick_launches_by_stream": {
+                f"{stream}:{kind}": n for (stream, kind), n
+                in sorted(shards.items())},
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_fleet_sharded(card: str) -> None:
+    """The content fleet of phase ``fleet`` sharded by the engine over
+    ``FLEET_SHARDS`` streams of the card: every per-run ledger equal to
+    the unsharded run's, ``FLEET_SHARDS`` launches of each tick a step,
+    the fallback plans of ``FLEET_FALLBACKS`` equal to their unsharded
+    runs, and the shards' streams in a profiler trace
+    (:func:`fleet_streams`).  With two or more cards, also the public
+    path asked for every card (``devices=cards``) and a K = 4 plane's
+    shards on distinct cards.  Runs after phase ``service``: no card
+    work of another process overlaps a timing, and no profiler session
+    opens before that phase's."""
+    import torch
+    from repro_torch.sim import engine
+    t0 = time.perf_counter()
+    workloads = fleet_zoo(FLEET_RUNS)
+    steps = workloads[0].acs.n_steps
+    plain = fleet_grid(workloads)
+    sharded = fleet_grid(workloads, FLEET_SHARDS)
+    check(sharded["launches"] == (FLEET_SHARDS * steps,) * 2,
+          f"{sharded['launches']} tick launches: {FLEET_SHARDS} of each a "
+          f"step")
+    same_grid(plain, sharded, f"the fleet over {FLEET_SHARDS} streams")
+    fallbacks = []
+    for runs, shards, axis in FLEET_FALLBACKS:
+        zoo = fleet_zoo(runs)
+        with engine._placed([("cuda:0", None)] * shards):
+            plan = engine.shard_plan(len(zoo), runs, shards)
+        check(plan.axis == axis and plan.devices == shards,
+              f"{runs} runs over {shards}: {plan}")
+        same_grid(fleet_grid(zoo), fleet_grid(zoo, shards),
+                  f"{runs} runs over {shards} streams ({axis})")
+        fallbacks.append({"runs": runs, "shards": shards,
+                          "plan": plan._asdict()})
+    checked_s = time.perf_counter() - t0
+    streams = fleet_streams(card)
+    cards = torch.cuda.device_count()
+    multi = "not run: one card"
+    if cards >= 2:
+        plan = engine.shard_plan(len(workloads), FLEET_RUNS, cards)
+        over = fleet_grid(workloads, devices=cards)
+        check(plan.devices == cards
+              and over["launches"] == (cards * steps,) * 2,
+              f"{over['launches']} tick launches over {cards} cards")
+        same_grid(plain, over, f"the fleet over {cards} cards")
+        plane = run_plane("uniform", SERVICE_SHARDS[-1])["plane"]
+        placed = {dev for dev, _ in plane.placements}
+        check(len(placed) == min(cards, SERVICE_SHARDS[-1]),
+              f"K = {SERVICE_SHARDS[-1]} plane's shards on {placed}")
+        multi = {"fleet_over_cards_s": over["seconds"],
+                 "plan": plan._asdict(),
+                 "plane_cards": sorted(str(d) for d in placed)}
+    episodes = 2 * len(workloads) * FLEET_RUNS
+    emit({"phase": "fleet_sharded", "shards": FLEET_SHARDS,
+          "placement": f"{FLEET_SHARDS} streams of cuda:0",
+          "episodes": episodes, "unsharded_s": plain["seconds"],
+          "sharded_s": sharded["seconds"],
+          "unsharded_episodes_per_s": episodes / plain["seconds"],
+          "sharded_episodes_per_s": episodes / sharded["seconds"],
+          "launches": sharded["launches"], "fallbacks": fallbacks,
+          "streams": streams, "cards": cards, "multi_card": multi,
+          "checks_s": checked_s, "phase_s": time.perf_counter() - t0,
+          "budget_s": FLEET_SHARDED_BUDGET_S, "card": card})
+
+
 def service_workload(family: str):
     """One family of the service cell, built by the port's service
     launcher (``uniform`` is ``zipf`` with skew 0 at V = 0.10, the
@@ -2881,9 +3070,10 @@ def plane_streams(card: str) -> dict:
     kernels = [e for e in json.loads(path.read_text())["traceEvents"]
                if e.get("cat") == "kernel"]
 
-    def streams(pattern):
-        return collections.Counter(e["args"]["stream"] for e in kernels
-                                   if re.search(pattern, e["name"]))
+    def streams(pattern):     # (device, stream): the shards take cards
+        return collections.Counter(
+            (e["args"].get("device"), e["args"]["stream"]) for e in kernels
+            if re.search(pattern, e["name"]))
     default = streams(r"chunk_(staged|direct)_kernel")
     ticks = streams(r"mesi_(staged|direct)_kernel")
     check(len(default) == 1 and run["launches"][1] == 0,
@@ -2895,9 +3085,10 @@ def plane_streams(card: str) -> dict:
           == run["plane"].n_batches,
           f"the trace holds every tick launch: {dict(ticks)} vs "
           f"{run['launches']}")
-    by_stream = {str(k): v for k, v in sorted(ticks.items())}
+    by_stream = {f"{d}:{k}": v for (d, k), v in sorted(ticks.items())}
     emit({"phase": "service", "what": "streams",
-          "default_stream": sorted(default), "tick_launches_by_stream":
+          "default_stream": [f"{d}:{k}" for d, k in sorted(default)],
+          "tick_launches_by_stream":
           by_stream, "card": card})
     return by_stream
 
@@ -5723,6 +5914,13 @@ def main() -> int:
     launches["mesi_tick"] += mt.mesi_tick_.launches
     launches["chunk_tick"] += chunk_diff.chunk_tick_.launches
     lap("service")
+
+    mt.mesi_tick_.launches = 0
+    chunk_diff.chunk_tick_.launches = 0
+    phase_fleet_sharded(card)
+    launches["mesi_tick"] += mt.mesi_tick_.launches
+    launches["chunk_tick"] += chunk_diff.chunk_tick_.launches
+    lap("fleet_sharded")
 
     for serve in (SERVE, SERVE_RWKV, SERVE_MOE, SERVE_WHISPER, SERVE_VLM,
                   SERVE_DEEPSEEK, SERVE_JAMBA):

@@ -27,6 +27,7 @@ import hashlib
 from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 #: wire width of one token in the byte ledgers (constant factor only -
 #: it cancels in every delta/full/broadcast savings ratio).
@@ -44,12 +45,17 @@ def n_chunks(artifact_tokens: int, chunk_tokens: int) -> int:
     return -(-artifact_tokens // chunk_tokens)
 
 
-def chunk_sizes(artifact_tokens: int, chunk_tokens: int) -> np.ndarray:
-    """(C,) int32 token size per chunk; sums to ``artifact_tokens``."""
+def chunk_sizes(artifact_tokens: int, chunk_tokens: int, device=None):
+    """(C,) int32 token size per chunk; sums to ``artifact_tokens``.  A
+    numpy array, or with ``device`` a tensor computed there (no copy
+    from the host, which would wait for the device)."""
     C = n_chunks(artifact_tokens, chunk_tokens)
-    sizes = np.full(C, chunk_tokens, np.int32)
-    sizes[-1] = artifact_tokens - (C - 1) * chunk_tokens
-    return sizes
+    if device is None:
+        starts = np.arange(C, dtype=np.int32) * chunk_tokens
+        return np.minimum(artifact_tokens - starts,
+                          chunk_tokens).astype(np.int32)
+    starts = torch.arange(C, dtype=torch.int32, device=device) * chunk_tokens
+    return torch.clamp(artifact_tokens - starts, max=chunk_tokens)
 
 
 def split_chunks(content: Sequence[int],

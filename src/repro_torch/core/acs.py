@@ -415,9 +415,8 @@ def _fill(cfg: ACSConfig, arrays: ACSArrays, met: ACSMetrics, a, d, bidx,
         n_fetches=met.n_fetches + f,
     )
     if content_enabled(cfg):
-        sizes = torch.as_tensor(
-            chunk_sizes(cfg.artifact_tokens, cfg.chunk_tokens),
-            device=fill.device)
+        sizes = chunk_sizes(cfg.artifact_tokens, cfg.chunk_tokens,
+                            fill.device)
         cv_d = arrays.chunk_version[bidx, d]               # (B, C)
         cs_ad = arrays.chunk_sync[cell]                    # (B, C)
         stale = cv_d > cs_ad
@@ -674,10 +673,11 @@ def tick_(cfg: ACSConfig, arrays: ACSArrays, met: ACSMetrics, step: int,
         else:
             p = cfg.p_act if p_act is None else p_act
             rate = (n * p.to(torch.float32) if isinstance(p, torch.Tensor)
-                    else torch.tensor(n * p, dtype=torch.float32))
+                    else torch.full((), n * p, dtype=torch.float32,
+                                    device=arrays.state.device))
         rate = rate.to(arrays.state.device)
-        step_f = torch.tensor(float(step), dtype=torch.float32,
-                              device=rate.device)
+        step_f = torch.full((), float(step), dtype=torch.float32,
+                            device=rate.device)
         epoch_now = torch.floor(rate * step_f / cfg.ttl_events).to(_I32)
         if step > 0:
             epoch_prev = torch.floor(

@@ -75,7 +75,7 @@ def _hash_halves(keys: torch.Tensor, size: int) -> torch.Tensor:
     half = (size + 1) // 2
     counts = torch.arange(2 * half, dtype=_I64, device=keys.device)
     if size % 2:
-        counts[-1] = 0
+        counts = torch.where(counts == size, 0, counts)
     k1, k2 = _words(keys, 1)
     o1, o2 = threefry2x32(k1, k2, counts[:half], counts[half:])
     return torch.cat([o1, o2], dim=-1)[..., :size]
@@ -108,6 +108,8 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for every key of ``keys``
     (..., 2); ``data`` is an int or an integer tensor that broadcasts
     against ``keys.shape[:-1]``.  The same in both modes."""
+    if isinstance(data, int):   # a fill, not a copy from the host
+        data = torch.full((), data, dtype=_I64, device=keys.device)
     data = torch.as_tensor(data, dtype=_I64, device=keys.device) & _MASK
     k1, k2 = keys[..., 0], keys[..., 1]
     o1, o2 = threefry2x32(k1, k2, torch.zeros_like(data), data)
@@ -143,7 +145,7 @@ def bernoulli(keys: torch.Tensor, p, shape: tuple,
     if isinstance(p, torch.Tensor):
         p = p.to(torch.float32)
     else:
-        p = torch.tensor(p, dtype=torch.float32, device=keys.device)
+        p = torch.full((), p, dtype=torch.float32, device=keys.device)
     return uniform(keys, shape, partitionable) < p
 
 
@@ -167,7 +169,7 @@ def gumbel(keys: torch.Tensor, shape: tuple,
     """``jax.random.gumbel`` (low mode) in float32: ``-log(-log(u))``
     with ``u`` uniform on [tiny, 1)."""
     u = uniform(keys, shape, partitionable)
-    tiny = torch.tensor(_TINY, dtype=torch.float32, device=keys.device)
+    tiny = torch.full((), _TINY, dtype=torch.float32, device=keys.device)
     # JAX's u * (maxval - minval) + minval: 1 - tiny rounds to 1 in f32
     u = torch.maximum(tiny, u + tiny)
     return -torch.log(-torch.log(u))

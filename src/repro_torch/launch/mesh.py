@@ -1,6 +1,6 @@
 """Device meshes: the JAX package's pod meshes over a
-``torch.distributed`` world, and the authority shards' streams on one
-card.
+``torch.distributed`` world, and the authority shards' placement over
+the host's cards.
 
 * :func:`make_production_mesh`, :func:`make_host_mesh` and
   :func:`make_sweep_mesh` give a ``torch.distributed.device_mesh.
@@ -13,12 +13,13 @@ card.
 * :func:`mesh_axes` is the reference's ``mesh.shape`` mapping ``{axis:
   size}``; the sharding rules and the dry-run read only that, so they
   also take a plain mapping.
-* :func:`shard_streams`: the JAX package pins each of the sharded
-  authority plane's K brokers to its own device
-  (``repro.launch.mesh.shard_devices``); the port runs on one H100 and
-  gives each shard its own CUDA stream on that card instead: every
-  shard's directory is allocated on its stream and every one of its
-  decisions (batch upload, ticks, read-back) is queued there.
+* :func:`shard_devices`: the sharded authority plane's K brokers over
+  the host's cards, round-robin over ``min(K, cards)`` as the
+  reference's ``repro.launch.mesh.shard_devices`` pins them to devices,
+  each shard with a CUDA stream of its own on its card: every shard's
+  directory is allocated on its stream and every one of its decisions
+  (batch upload, ticks, read-back) is queued there.  On one card the K
+  shards are K streams of it (:func:`shard_streams`).
 """
 
 from __future__ import annotations
@@ -94,3 +95,28 @@ def shard_streams(n_shards: int, device=None) -> tuple:
     if dev.type != "cuda":
         return (None,) * int(n_shards)
     return tuple(torch.cuda.Stream(device=dev) for _ in range(int(n_shards)))
+
+
+def shard_cards(n_shards: int, n_cards: int) -> tuple:
+    """The reference's round-robin: shard ``s`` of K on card ``s %
+    min(K, n_cards)``."""
+    n = max(1, min(int(n_shards), int(n_cards)))
+    return tuple(s % n for s in range(int(n_shards)))
+
+
+def shard_devices(n_shards: int, device=None) -> tuple:
+    """``(device, stream)`` for each of K authority shards on ``device``
+    (``None``: CUDA).  On CUDA shard ``s`` gets card ``shard_cards(K,
+    cards)[s]`` of the host's cards (every shard the named card when
+    ``device`` has an index) and a new ``torch.cuda.Stream`` on it; on
+    the CPU ``(cpu, None)`` each (nothing is queued)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return ((dev, None),) * int(n_shards)
+    if dev.index is not None:
+        cards = (dev.index,) * int(n_shards)
+    else:
+        cards = shard_cards(n_shards, torch.cuda.device_count())
+    return tuple((torch.device("cuda", c),
+                  torch.cuda.Stream(device=torch.device("cuda", c)))
+                 for c in cards)

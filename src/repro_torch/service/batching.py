@@ -34,8 +34,8 @@ covers, on either device (on the CPU the kernels' wrappers run their
 plain versions); ``REPRO_SERVICE_DECIDE=scan|kernel`` forces either.
 
 A decider given a CUDA ``stream`` (one shard of the sharded authority
-plane, ``launch.mesh.shard_streams``) allocates its directory on that
-stream and queues every decision there.  PyTorch's current stream is
+plane, on its card: ``launch.mesh.shard_devices``) allocates its
+directory on that stream and queues every decision there.  PyTorch's current stream is
 per thread, so the stream is entered around each synchronous call
 (``__init__``, ``decide``, ``metrics``, :meth:`on_stream`) and never
 held across an ``await``.

@@ -11,10 +11,11 @@ artifact** across K broker shards (``configs.shard_of_artifact``):
     serializes through exactly one shard, so no cross-shard interleaving
     can ever produce two M holders;
   * every shard is a full, unmodified ``CoherenceBroker`` whose
-    directory lives on the plane's one device, with its own CUDA stream
-    there (``launch.mesh.shard_streams``: the JAX package pins each
-    shard to its own device instead), so each shard's micro-batches
-    queue their tick launches (or ACS pass) on that shard's stream;
+    directory lives on the shard's card, round-robin over the host's
+    cards as the JAX package pins each shard to a device, with its own
+    CUDA stream there (``launch.mesh.shard_devices``; on one card the K
+    shards are K streams of it), so each shard's micro-batches queue
+    their tick launches (or ACS pass) on that shard's stream;
   * the shards' interleaved batch commits are recorded into ONE global
     ``ServiceTrace`` in event-loop commit order - a serializable order
     the four-way oracle replays, and ``sim.oracle.check_sharded_trace``
@@ -46,7 +47,7 @@ import numpy as np
 
 from repro_torch.content.chunks import BYTES_PER_TOKEN
 from repro_torch.core.protocol import TokenLedger
-from repro_torch.launch.mesh import shard_streams
+from repro_torch.launch.mesh import shard_devices
 from repro_torch.obs.stats import unified_stats
 from repro_torch.obs.telemetry import Telemetry
 from repro_torch.service.batching import resolve_decide_backend
@@ -118,8 +119,8 @@ class ShardedCoherenceBroker:
     ``topology`` layer fixes the shard count, host count and L1 bound.
     The blessed constructor is ``repro_torch.service.connect(...)``,
     which resolves the topology and picks this class or the plain
-    broker.  Every shard's directory lives on ``device`` (``None``:
-    CUDA), each on its own stream of it.
+    broker.  The shards' directories live on ``device`` (``None``: the
+    host's cards, round-robin), each on its own stream.
     """
 
     #: lets ``trace.verify_broker`` dispatch to the sharded verifier.
@@ -147,9 +148,10 @@ class ShardedCoherenceBroker:
         self._shard_cols = config.shard_artifact_indices()
         self._shard_of_name = {name: self.artifact_shards[d]
                                for d, name in enumerate(self.names)}
-        #: one CUDA stream per shard on the plane's device (``None``
-        #: each on the CPU)
-        self.streams = shard_streams(self.n_shards, device)
+        #: each shard's (device, stream): its card and a stream of its
+        #: own there (``(cpu, None)`` each on the CPU)
+        self.placements = shard_devices(self.n_shards, device)
+        self.streams = tuple(stream for _, stream in self.placements)
 
         #: the ONE global audit trace, in event-loop commit order
         self.trace = ServiceTrace.for_broker(config.broker_view())
@@ -186,7 +188,8 @@ class ShardedCoherenceBroker:
             self.brokers.append(CoherenceBroker(
                 view.broker_view(), sub_contents,
                 on_commit=functools.partial(self._commit, shard),
-                device=device, stream=self.streams[shard],
+                device=self.placements[shard][0],
+                stream=self.placements[shard][1],
                 telemetry=self.telemetry, shard=shard))
         self.brokers = tuple(self.brokers)
 

@@ -1,5 +1,6 @@
 """Tick-based discrete-event simulation of artifact coherence (paper SS8)
-on one CUDA device."""
+on CUDA, one batch a grid or sharded over the host's devices on
+request."""
 
 from repro_torch.sim.scenarios import (
     ScenarioConfig, SCENARIOS, CLIFF_VOLATILITIES, SCALING_AGENT_COUNTS,
@@ -10,7 +11,7 @@ from repro_torch.sim.scenarios import (
 from repro_torch.sim.engine import (
     RunStats, RunResult, Comparison, run_scenario, compare, compare_grid,
     compare_workloads, run_workload, sweep_volatility, sweep_cells,
-    resolve_tick_backend,
+    resolve_tick_backend, resolve_sweep_devices, shard_plan, ShardPlan,
 )
 from repro_torch.sim.workloads import (
     Workload, FAMILIES, FAMILY_SEEDS, make, zoo, random_workload,
@@ -26,6 +27,7 @@ __all__ = [
     "RunStats", "RunResult", "Comparison", "run_scenario", "compare",
     "compare_grid", "compare_workloads", "run_workload",
     "sweep_volatility", "sweep_cells", "resolve_tick_backend",
+    "resolve_sweep_devices", "shard_plan", "ShardPlan",
     "Workload", "FAMILIES", "FAMILY_SEEDS", "make", "zoo",
     "random_workload", "zipf_weights",
 ]

@@ -1,16 +1,30 @@
-"""Tick-based discrete-event simulation engine (paper SS8) on one device.
+"""Tick-based discrete-event simulation engine (paper SS8), sharded over
+the host's devices.
 
 Every public function runs a whole evaluation grid - variant x cell x
 run, where a cell is one scenario or one workload - as batches of
-independent episodes on one device, eagerly.  Cells that share a
-static configuration (everything but volatility, activity, rates,
-locality and seed) and a run count form one batch of ``cells x runs``
-simulations; the broadcast baseline and the coherent variant run one
-after the other over the same cells.
+independent episodes, eagerly.  Cells that share a static configuration
+(everything but volatility, activity, rates, locality and seed) and a
+run count form one group, and each group runs under its own
+``shard_plan``: over ``devices`` shards (``devices=``, else
+``REPRO_SWEEP_DEVICES``, else one), by contiguous
+blocks of global run indices when the shard count divides the runs,
+else by blocks of cells when it divides the cells, else over the runs
+padded to the next multiple (the padded runs are real episodes whose
+results are dropped).  Shard ``i`` runs on ``cuda:i``.  Every shard's
+inputs are built first, then every shard's episodes are queued, and
+only then is anything read back, so the devices run at once.  On one
+device the plan is one shard over the whole grid, and so it is by
+default: every shard repeats the whole grid's per-step host work from
+one host thread, and on every grid measured on H100s (``PERF.md``) one
+batch beat its shards, on one card and on four.  A ``device`` that
+names a card (``cuda:1``) runs unsharded on that card.  The broadcast
+baseline and the coherent variant run one after the other over the
+same draws.
 
 Per-tick work takes one of two routes (``resolve_tick_backend``):
 
-* ``kernel`` - the hand-written CUDA kernels: per step one
+* ``kernel`` - the hand-written CUDA kernels: per step and shard one
   ``mesi_tick_`` launch and, with the content plane, one
   ``chunk_tick_`` launch fed that step's ``miss`` output.  It covers
   lazy, eager and access_count without K-staleness enforcement, and is
@@ -26,19 +40,21 @@ Random numbers: the reference's threefry stream (``core/prng.py``).
 Run ``r`` of a cell is keyed by ``fold_in(PRNGKey(seed), r)`` on the
 global run index, split once per step, and each step draws as the
 reference's ``draw_actions`` / ``draw_write_chunks`` do, so every
-per-run ledger equals ``repro.sim``'s and a run's draws do not depend
-on the grid around it.  ``partitionable`` selects the
-``jax_threefry_partitionable`` mode the draws follow (the committed
-golden ledgers need ``False``).  All steps' draws of a batch are made
-before the step loop, in a few large batched calls, and both variants
-of a comparison consume the same draws.
+per-run ledger equals ``repro.sim``'s whatever the plan, and a run's
+draws do not depend on the grid or the shard around it.
+``partitionable`` selects the ``jax_threefry_partitionable`` mode the
+draws follow (the committed golden ledgers need ``False``).  All steps'
+draws of a shard are made before its step loop, in a few large batched
+calls, and both variants of a comparison consume the same draws.
 
 Population statistics (mean, population std) are reported exactly as
-the paper does.
+the paper does, from the per-run arrays joined over the shards.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import os
 from typing import NamedTuple, Optional, Sequence
@@ -81,6 +97,117 @@ def resolve_tick_backend(cfg: acs.ACSConfig,
     if requested == "scan" or not _kernel_tick_supported(cfg):
         return "scan"
     return "kernel"
+
+
+# ---------------------------------------------------------------------------
+# Device sharding.  Sweep grids are embarrassingly parallel along their
+# batch axes; ``shard_plan`` picks which axis a grid shards over.
+
+#: the ``(device, stream)`` placements standing in for the host's
+#: devices inside ``_placed`` (None: the host's own)
+_PLACED: contextvars.ContextVar = contextvars.ContextVar("_PLACED",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def _placed(placements):
+    """Within the block the engine takes ``placements``, ``(device,
+    stream or None)`` pairs, for the host's devices: the local count is
+    their number, and shard ``i`` of a sharded plan runs on the ``i``-th
+    (queued on its stream when it has one).  The counterpart of the
+    reference's forced host devices on a host with one device: N x
+    ``("cpu", None)`` on the CPU, N streams of ``cuda:0`` on one card."""
+    token = _PLACED.set(tuple((torch.device(d), s) for d, s in placements))
+    try:
+        yield
+    finally:
+        _PLACED.reset(token)
+
+
+def _local_device_count(device=None) -> int:
+    """Devices a sweep on ``device`` (None: CUDA) may shard over: every
+    CUDA device of the host, one on the CPU and one on a named card."""
+    placed = _PLACED.get()
+    if placed is not None:
+        return len(placed)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or dev.index is not None:
+        return 1
+    return max(1, torch.cuda.device_count())
+
+
+def resolve_sweep_devices(device=None) -> int:
+    """Device count the sweep engine shards over (1 = unsharded).
+
+    ``REPRO_SWEEP_DEVICES=n`` forces a count (capped at the local
+    device count; ``1`` disables sharding) and ``auto`` takes every
+    local device: ``torch.cuda.device_count()`` on CUDA, 1 on the CPU.
+    Unset, it is 1: the one batch has beaten its shards on every grid
+    measured (the module's docstring).
+    """
+    forced = os.environ.get("REPRO_SWEEP_DEVICES", "1")
+    n_local = _local_device_count(device)
+    if forced != "auto":
+        try:
+            n = int(forced)
+        except ValueError:
+            raise ValueError(
+                f"REPRO_SWEEP_DEVICES must be an integer or 'auto', "
+                f"got {forced!r}") from None
+        return max(1, min(n, n_local))
+    return n_local
+
+
+class ShardPlan(NamedTuple):
+    """How one grid call maps onto the devices.
+
+    ``axis`` is ``None`` (one unsharded batch), ``"runs"`` (blocks of
+    runs) or ``"workloads"`` (blocks of scenario / workload cells).
+    ``pad_runs`` is the padded run count the shards cover; padding runs
+    is the always-available fallback because run keys are derived from
+    **global** run indices, so extra trailing runs are real (discarded)
+    episodes, not perturbed ones.
+    """
+
+    devices: int
+    axis: Optional[str]
+    pad_runs: int
+
+
+def shard_plan(n_cells: int, n_runs: int, devices: Optional[int] = None,
+               device=None) -> ShardPlan:
+    """Pick the sharded axis of an ``(n_cells x n_runs)`` grid on
+    ``device`` (None: CUDA).
+
+    Preference order: shard ``runs`` when the device count divides it,
+    else the cell (``workloads``) axis when that divides, else pad
+    ``runs`` up to the next multiple and shard it (the padded tail is
+    cut on the host).  ``devices=None`` resolves via
+    ``resolve_sweep_devices``; the count is capped at the local count.
+    """
+    if devices is None:
+        devices = resolve_sweep_devices(device)
+    devices = max(1, min(devices, _local_device_count(device)))
+    if devices <= 1:
+        return ShardPlan(1, None, n_runs)
+    if n_runs % devices == 0:
+        return ShardPlan(devices, "runs", n_runs)
+    if n_cells % devices == 0:
+        return ShardPlan(devices, "workloads", n_runs)
+    pad = -n_runs % devices
+    return ShardPlan(devices, "runs", n_runs + pad)
+
+
+def _placements(plan: ShardPlan, device: torch.device) -> tuple:
+    """Each shard's ``(device, stream)``: ``device`` unsharded, else
+    ``cuda:i`` for shard ``i`` or the placements of ``_placed``."""
+    if plan.axis is None:
+        return ((device, None),)
+    placed = _PLACED.get()
+    if placed is not None:
+        return placed[:plan.devices]
+    return tuple((torch.device("cuda", i), None)
+                 for i in range(plan.devices))
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +290,7 @@ class Comparison:
 
 
 class _Cell(NamedTuple):
-    """One scenario or workload of a grid batch."""
+    """One scenario or workload of a grid."""
 
     seed: int
     volatility: float
@@ -172,7 +299,7 @@ class _Cell(NamedTuple):
     rates: Optional[acs.RateMatrices] = None  # one workload's (n,)/(n, m)
 
 
-def _scenario_cell(scn: ScenarioConfig) -> _Cell:
+def _scenario_cell(scn: ScenarioConfig, device) -> _Cell:
     return _Cell(scn.seed, scn.acs.volatility, scn.acs.p_act,
                  scn.acs.write_locality)
 
@@ -182,29 +309,66 @@ def _workload_cell(w, device) -> _Cell:
                  w.rates(device))
 
 
-#: element budget of one batched draw call: a batch's steps are drawn
+#: element budget of one batched draw call: a shard's steps are drawn
 #: in as few calls as keep each call's int64 temporaries near 256 MB
 _DRAW_ELEMENTS = 1 << 25
 
 
-def _batched_rates(cells: Sequence[_Cell], n_runs: int):
-    """The cells' rate matrices with one row per simulation, or None."""
-    if cells[0].rates is None:
-        return None
-    return acs.RateMatrices(*(
-        torch.cat([leaf.expand((n_runs,) + tuple(leaf.shape))
-                   for leaf in leaves])
-        for leaves in zip(*(c.rates for c in cells))))
+class _Shard(NamedTuple):
+    """One shard's inputs, a row per simulation (its cells x its runs),
+    on the shard's device."""
+
+    place: tuple                 # (device, stream or None)
+    n_cells: int
+    n_runs: int
+    keys: torch.Tensor           # (B, 2) episode keys
+    volatility: torch.Tensor     # (B,)
+    p_act: torch.Tensor
+    locality: torch.Tensor
+    rates: Optional[acs.RateMatrices]   # (B, n) / (B, n, m) leaves
 
 
-def _per_cell(cells: Sequence[_Cell], field: str, n_runs: int, device):
-    return torch.tensor([getattr(c, field) for c in cells],
-                        dtype=torch.float32,
-                        device=device).repeat_interleave(n_runs)
+def _on(place):
+    """Context in which a shard's work is queued: its stream, else its
+    CUDA device, else nothing (the CPU)."""
+    device, stream = place
+    if stream is not None:
+        return torch.cuda.stream(stream)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _shard_inputs(items: Sequence, cell_of, runs: range, place) -> _Shard:
+    """The cells of ``items`` (``cell_of(item, device)``), episode keys
+    of their global run indices ``runs`` and their per-simulation
+    inputs, allocated on ``place``.  The host-to-device copies happen
+    here, before any shard's episodes are queued."""
+    dev = place[0]
+    R = len(runs)
+    with _on(place):
+        cells = [cell_of(item, dev) for item in items]
+        ids = torch.arange(runs.start, runs.stop, device=dev)
+        keys = torch.cat([acs.run_keys(prng.prng_key(c.seed, dev), ids)
+                          for c in cells])
+
+        def per_cell(field):
+            return torch.tensor([getattr(c, field) for c in cells],
+                                dtype=torch.float32,
+                                device=dev).repeat_interleave(R)
+
+        rates = None
+        if cells[0].rates is not None:
+            rates = acs.RateMatrices(*(
+                torch.cat([leaf.expand((R,) + tuple(leaf.shape))
+                           for leaf in leaves])
+                for leaves in zip(*(c.rates for c in cells))))
+        return _Shard(place, len(cells), R, keys, per_cell("volatility"),
+                      per_cell("p_act"), per_cell("locality"), rates)
 
 
 class _Draws(NamedTuple):
-    """Every step's draws of a batch: (S, B, n) tensors."""
+    """Every step's draws of a shard: (S, B, n) tensors."""
 
     acts: torch.Tensor
     arts: torch.Tensor
@@ -213,34 +377,27 @@ class _Draws(NamedTuple):
     locality: torch.Tensor               # (B,)
 
 
-def _draw_grid(cfg: acs.ACSConfig, cells: Sequence[_Cell], n_runs: int,
-               device, partitionable: bool) -> _Draws:
-    """The reference's draws for the ``len(cells) * n_runs`` episodes
-    of a batch: episode keys by global run index, every step key in one
-    call, then the steps' draws in a few batched calls."""
+def _draw(cfg: acs.ACSConfig, shard: _Shard, partitionable: bool) -> _Draws:
+    """The reference's draws for a shard's episodes: every step key in
+    one call, then the steps' draws in a few batched calls."""
     S, n, m = cfg.n_steps, cfg.n_agents, cfg.n_artifacts
-    runs = torch.arange(n_runs, device=device)
-    keys = torch.cat([acs.run_keys(prng.prng_key(c.seed, device), runs)
-                      for c in cells])
-    step_keys = episode_step_keys(keys, S, partitionable)   # (S, B, 2)
-    rates = _batched_rates(cells, n_runs)
-    vols = _per_cell(cells, "volatility", n_runs, device)
-    p_acts = _per_cell(cells, "p_act", n_runs, device)
-    per_step = keys.shape[0] * n * (m if rates is not None else 1)
+    step_keys = episode_step_keys(shard.keys, S, partitionable)  # (S, B, 2)
+    per_step = shard.keys.shape[0] * n * (m if shard.rates is not None
+                                          else 1)
     chunk = max(1, _DRAW_ELEMENTS // per_step)
     parts, starts = [], []
     content = acs.content_enabled(cfg)
     for s0 in range(0, S, chunk):
         ks = step_keys[s0:s0 + chunk]
-        parts.append(acs.draw_actions(ks, n, m, vols, p_acts, rates,
+        parts.append(acs.draw_actions(ks, n, m, shard.volatility,
+                                      shard.p_act, shard.rates,
                                       partitionable=partitionable))
         if content:
             starts.append(acs.write_span_start(
                 ks, n, acs.content_chunks(cfg), partitionable))
     acts, arts, writes = (torch.cat(x) for x in zip(*parts))
-    return _Draws(acts, arts, writes,
-                  torch.cat(starts) if content else None,
-                  _per_cell(cells, "locality", n_runs, device))
+    return _Draws(acts, arts, writes, torch.cat(starts) if content else None,
+                  shard.locality)
 
 
 def _step_source(cfg: acs.ACSConfig, draws: _Draws):
@@ -259,17 +416,15 @@ def _step_source(cfg: acs.ACSConfig, draws: _Draws):
     return source
 
 
-def _episodes_scan(cfg: acs.ACSConfig, source, cells: Sequence[_Cell],
-                   n_runs: int, device) -> dict:
-    """The batch through the ACS state machine; metrics dict of (B,)."""
-    B = len(cells) * n_runs
-    p_acts = _per_cell(cells, "p_act", n_runs, device)
-    rates = _batched_rates(cells, n_runs)
+def _episodes_scan(cfg: acs.ACSConfig, source, shard: _Shard) -> dict:
+    """The shard through the ACS state machine; metrics dict of (B,)."""
+    B = shard.keys.shape[0]
+    device = shard.place[0]
     arrays = acs.init_arrays(cfg, B, device)
     met = acs.init_metrics(B, device)
     for step in range(cfg.n_steps):
         arrays, met = acs.tick_(cfg, arrays, met, step, source(step),
-                                p_act=p_acts, rates=rates)
+                                p_act=shard.p_act, rates=shard.rates)
     out = {
         "total_tokens": met.total_tokens,
         "sync_tokens": met.sync_tokens,
@@ -379,33 +534,71 @@ def _broadcast_content_fill(cfg: acs.ACSConfig, out: dict) -> dict:
     return out
 
 
-def _run_grid(cfg: acs.ACSConfig, cells: Sequence[_Cell], n_runs: int,
+def _queue(cfg: acs.ACSConfig, shard: _Shard, include_broadcast: bool,
+           route: str, partitionable: bool) -> list:
+    """Queue a shard's episodes on its placement; per variant
+    (``[broadcast, coherent]`` or ``[coherent]``) a metrics dict of (B,)
+    tensors.  Nothing here waits for the device."""
+    with _on(shard.place):
+        draws = _draw(cfg, shard, partitionable)
+        outs = []
+        if include_broadcast:
+            # Broadcast has no content plane (bulk injection ships
+            # everything) and no per-agent kernel: it always takes the
+            # scan route, and its byte columns are filled analytically.
+            bc_cfg = dataclasses.replace(cfg, strategy=acs.BROADCAST,
+                                         chunk_tokens=0)
+            bc = _episodes_scan(bc_cfg, _step_source(bc_cfg, draws), shard)
+            if acs.content_enabled(cfg):
+                bc = _broadcast_content_fill(cfg, bc)
+            outs.append(bc)
+        source = _step_source(cfg, draws)
+        if route == "kernel":
+            outs.append(_episodes_kernel(cfg, source, shard.keys.shape[0],
+                                         shard.place[0]))
+        else:
+            outs.append(_episodes_scan(cfg, source, shard))
+    return outs
+
+
+def _read_back(shard: _Shard, outs: list) -> list:
+    """A shard's outputs on the host: per variant, a dict of (its cells,
+    its runs) numpy arrays."""
+    with _on(shard.place):
+        return [{k: v.cpu().numpy().reshape(shard.n_cells, shard.n_runs)
+                 for k, v in out.items()} for out in outs]
+
+
+def _run_grid(cfg: acs.ACSConfig, items: Sequence, cell_of, n_runs: int,
               include_broadcast: bool, tick_backend: Optional[str], device,
-              partitionable: bool) -> list:
+              partitionable: bool, devices: Optional[int]) -> list:
     """Per variant (``[broadcast, coherent]`` or ``[coherent]``), a dict
-    of (len(cells), n_runs) numpy arrays.  Both variants consume the
-    same draws, as both of the reference's do."""
-    B = len(cells) * n_runs
-    draws = _draw_grid(cfg, cells, n_runs, device, partitionable)
-    outs = []
-    if include_broadcast:
-        # Broadcast has no content plane (bulk injection ships
-        # everything) and no per-agent kernel: it always takes the scan
-        # route, and its byte columns are filled analytically.
-        bc_cfg = dataclasses.replace(cfg, strategy=acs.BROADCAST,
-                                     chunk_tokens=0)
-        bc = _episodes_scan(bc_cfg, _step_source(bc_cfg, draws), cells,
-                            n_runs, device)
-        if acs.content_enabled(cfg):
-            bc = _broadcast_content_fill(cfg, bc)
-        outs.append(bc)
-    source = _step_source(cfg, draws)
-    if resolve_tick_backend(cfg, tick_backend) == "kernel":
-        outs.append(_episodes_kernel(cfg, source, B, device))
+    of (len(items), n_runs) numpy arrays: the grid of ``items`` (cells
+    made by ``cell_of(item, device)`` on each shard's device) under its
+    ``shard_plan``.  Every shard's inputs are built, then every shard's
+    episodes queued, then the outputs read back, joined on the sharded
+    axis, and the padded runs cut.  Both variants consume the same
+    draws, as both of the reference's do."""
+    plan = shard_plan(len(items), n_runs, devices, device)
+    route = resolve_tick_backend(cfg, tick_backend)
+    if plan.axis == "workloads":
+        per = len(items) // plan.devices
+        blocks = [(items[i * per:(i + 1) * per], range(n_runs))
+                  for i in range(plan.devices)]
     else:
-        outs.append(_episodes_scan(cfg, source, cells, n_runs, device))
-    return [{k: v.cpu().numpy().reshape(len(cells), n_runs)
-             for k, v in out.items()} for out in outs]
+        per = plan.pad_runs // plan.devices
+        blocks = [(items, range(i * per, (i + 1) * per))
+                  for i in range(plan.devices)]
+    shards = [_shard_inputs(block, cell_of, runs, place)
+              for (block, runs), place in zip(blocks,
+                                              _placements(plan, device))]
+    queued = [_queue(cfg, shard, include_broadcast, route, partitionable)
+              for shard in shards]
+    parts = [_read_back(shard, outs) for shard, outs in zip(shards, queued)]
+    axis = 0 if plan.axis == "workloads" else 1
+    return [{k: np.concatenate([part[v][k] for part in parts],
+                               axis=axis)[:, :n_runs]
+             for k in parts[0][v]} for v in range(len(parts[0]))]
 
 
 # ---------------------------------------------------------------------------
@@ -487,17 +680,20 @@ def _grouped(items, n_runs_of, cfg_of) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Public API.
+# Public API.  ``devices`` caps the shard count (default:
+# ``resolve_sweep_devices``, one unsharded batch on ``device`` unless
+# ``REPRO_SWEEP_DEVICES`` asks for more); per-run ledgers are equal at
+# any count.
 
 
 def run_scenario(scn: ScenarioConfig, tick_backend: Optional[str] = None,
                  device=None,
-                 partitionable: bool = prng.PARTITIONABLE_DEFAULT
-                 ) -> RunResult:
-    """Run ``scn.n_runs`` seeded episodes as one batch."""
+                 partitionable: bool = prng.PARTITIONABLE_DEFAULT,
+                 devices: Optional[int] = None) -> RunResult:
+    """Run ``scn.n_runs`` seeded episodes, sharded per ``shard_plan``."""
     dev = resolve_device(device)
-    out = _run_grid(scn.acs, [_scenario_cell(scn)], scn.n_runs, False,
-                    tick_backend, dev, partitionable)
+    out = _run_grid(scn.acs, [scn], _scenario_cell, scn.n_runs, False,
+                    tick_backend, dev, partitionable, devices)
     return _result_from(_cell(out[0], 0), scn.name,
                         acs.STRATEGY_NAMES[scn.acs.strategy], scn.n_runs)
 
@@ -505,20 +701,20 @@ def run_scenario(scn: ScenarioConfig, tick_backend: Optional[str] = None,
 def compare_grid(scns: Sequence[ScenarioConfig],
                  tick_backend: Optional[str] = None,
                  device=None,
-                 partitionable: bool = prng.PARTITIONABLE_DEFAULT
-                 ) -> list[Comparison]:
+                 partitionable: bool = prng.PARTITIONABLE_DEFAULT,
+                 devices: Optional[int] = None) -> list[Comparison]:
     """Broadcast-vs-coherent for many scenarios.  Scenarios sharing a
-    static configuration and a run count run as one batch per
-    variant."""
+    static configuration and a run count form one grid per variant,
+    sharded under its own ``shard_plan``."""
     dev = resolve_device(device)
     results: list = [None] * len(scns)
     groups = _grouped(scns, lambda s: s.n_runs, lambda s: s.acs)
     for (_, n_runs), idxs in groups.items():
         sub = [scns[i] for i in idxs]
         cfg = sub[0].acs
-        bc_out, co_out = _run_grid(cfg, [_scenario_cell(s) for s in sub],
-                                   n_runs, True, tick_backend, dev,
-                                   partitionable)
+        bc_out, co_out = _run_grid(cfg, sub, _scenario_cell, n_runs, True,
+                                   tick_backend, dev, partitionable,
+                                   devices)
         for j, i in enumerate(idxs):
             bc = _result_from(_cell(bc_out, j), sub[j].name,
                               acs.STRATEGY_NAMES[acs.BROADCAST], n_runs)
@@ -532,12 +728,14 @@ def compare_grid(scns: Sequence[ScenarioConfig],
 def compare(scn: ScenarioConfig, strategy_code: Optional[int] = None,
             tick_backend: Optional[str] = None,
             device=None,
-            partitionable: bool = prng.PARTITIONABLE_DEFAULT) -> Comparison:
+            partitionable: bool = prng.PARTITIONABLE_DEFAULT,
+            devices: Optional[int] = None) -> Comparison:
     """Run broadcast + coherent variants of one scenario."""
     coh_scn = scn if strategy_code is None else scn.with_strategy(
         strategy_code)
     return compare_grid([coh_scn], tick_backend=tick_backend,
-                        device=device, partitionable=partitionable)[0]
+                        device=device, partitionable=partitionable,
+                        devices=devices)[0]
 
 
 def sweep_cells(base_scn: ScenarioConfig, volatilities,
@@ -555,22 +753,22 @@ def sweep_cells(base_scn: ScenarioConfig, volatilities,
 
 def compare_workloads(workloads, tick_backend: Optional[str] = None,
                       device=None,
-                      partitionable: bool = prng.PARTITIONABLE_DEFAULT
-                      ) -> list[Comparison]:
+                      partitionable: bool = prng.PARTITIONABLE_DEFAULT,
+                      devices: Optional[int] = None) -> list[Comparison]:
     """Broadcast-vs-coherent for heterogeneous workloads
     (``repro_torch.sim.workloads.Workload`` instances).  Workloads
-    sharing a static configuration and a run count run as one batch per
-    variant - a whole zoo of families is one batch."""
+    sharing a static configuration and a run count form one grid per
+    variant - a whole zoo of families is one grid - sharded over runs,
+    else over workloads."""
     dev = resolve_device(device)
     results: list = [None] * len(workloads)
     groups = _grouped(workloads, lambda w: w.n_runs, lambda w: w.acs)
     for (_, n_runs), idxs in groups.items():
         sub = [workloads[i] for i in idxs]
         cfg = sub[0].acs
-        bc_out, co_out = _run_grid(cfg, [_workload_cell(w, dev)
-                                         for w in sub],
-                                   n_runs, True, tick_backend, dev,
-                                   partitionable)
+        bc_out, co_out = _run_grid(cfg, sub, _workload_cell, n_runs, True,
+                                   tick_backend, dev, partitionable,
+                                   devices)
         for j, i in enumerate(idxs):
             bc = _result_from(_cell(bc_out, j), sub[j].name,
                               acs.STRATEGY_NAMES[acs.BROADCAST], n_runs)
@@ -582,12 +780,12 @@ def compare_workloads(workloads, tick_backend: Optional[str] = None,
 
 
 def run_workload(w, tick_backend: Optional[str] = None, device=None,
-                 partitionable: bool = prng.PARTITIONABLE_DEFAULT
-                 ) -> RunResult:
+                 partitionable: bool = prng.PARTITIONABLE_DEFAULT,
+                 devices: Optional[int] = None) -> RunResult:
     """Run one heterogeneous workload (no baseline)."""
     dev = resolve_device(device)
-    out = _run_grid(w.acs, [_workload_cell(w, dev)], w.n_runs, False,
-                    tick_backend, dev, partitionable)
+    out = _run_grid(w.acs, [w], _workload_cell, w.n_runs, False,
+                    tick_backend, dev, partitionable, devices)
     return _result_from(_cell(out[0], 0), w.name,
                         acs.STRATEGY_NAMES[w.acs.strategy], w.n_runs)
 
@@ -596,9 +794,9 @@ def sweep_volatility(base_scn: ScenarioConfig, volatilities,
                      n_runs: Optional[int] = None,
                      tick_backend: Optional[str] = None,
                      device=None,
-                     partitionable: bool = prng.PARTITIONABLE_DEFAULT
-                     ) -> list[Comparison]:
-    """V-sweep: every volatility cell of the sweep in one batch."""
+                     partitionable: bool = prng.PARTITIONABLE_DEFAULT,
+                     devices: Optional[int] = None) -> list[Comparison]:
+    """V-sweep: every volatility cell of the sweep in one grid."""
     return compare_grid(sweep_cells(base_scn, volatilities, n_runs),
                         tick_backend=tick_backend, device=device,
-                        partitionable=partitionable)
+                        partitionable=partitionable, devices=devices)

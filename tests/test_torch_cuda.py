@@ -309,14 +309,17 @@ def _same_plane(a, b):
 
 @pytest.mark.parametrize("chunk_tokens", [0, 64])
 def test_sharded_plane_on_four_streams_equals_the_cpu(gen, chunk_tokens):
-    """K = 4 shards on four streams of the card: one tick launch (and
-    with content one chunk tick) per shard micro-batch; equal to the same
-    plane on the CPU, and to a second card run, to the integer."""
+    """K = 4 shards on four streams (of the one card, or round-robin over
+    the host's cards): one tick launch (and with content one chunk tick)
+    per shard micro-batch; equal to the same plane on the CPU, and to a
+    second card run, to the integer."""
     from repro_torch.service import verify_broker
     card, launches = _sharded_plane("cuda", chunk_tokens)
-    streams = {s.stream_id for s in card.streams}
+    streams = {(s.device, s.stream_id) for s in card.streams}
     assert len(streams) == 4
-    assert torch.cuda.default_stream().stream_id not in streams
+    assert all(s.stream_id != torch.cuda.default_stream(s.device).stream_id
+               for s in card.streams)
+    assert all(s.device == d for d, s in card.placements)
     batches = sum(b.n_batches for b in card.brokers)
     assert launches == (batches, batches if chunk_tokens else 0)
     again, _ = _sharded_plane("cuda", chunk_tokens)
@@ -338,6 +341,139 @@ def test_engine_routes_agree_on_the_card(gen):
     scan = run_workload(w, tick_backend="scan")
     assert kern.stats.delta_bytes_mean == scan.stats.delta_bytes_mean
     assert (kern.per_run_total_tokens == scan.per_run_total_tokens).all()
+
+
+# --- the sweep engine's shards (``engine._placed``): streams of one card
+# --- stand in for cards; per-run ledgers equal to the unsharded run's
+
+def _stream_shards(n):
+    from repro_torch.sim import engine
+    return engine._placed([("cuda:0", torch.cuda.Stream())
+                           for _ in range(n)])
+
+
+def _grid(items, cell_of, n_runs, devices, route=None):
+    """Every per-run array of both variants of the grid of ``items``."""
+    from repro_torch.sim import engine
+    return engine._run_grid(items[0].acs, items, cell_of, n_runs, True,
+                            route, torch.device("cuda"), True, devices)
+
+
+def _same_grid(a, b):
+    assert len(a) == len(b)
+    for va, vb in zip(a, b):
+        assert va.keys() == vb.keys()
+        for key in va:
+            assert (va[key] == vb[key]).all(), key
+
+
+def _ticks():
+    return (mesi_transition.mesi_tick_.launches,
+            chunk_diff.chunk_tick_.launches)
+
+
+@pytest.mark.parametrize("runs,shards,axis", [
+    (256, 4, "runs"), (255, 4, "runs"), (257, 3, "workloads")])
+def test_sweep_on_streams_equals_unsharded(gen, runs, shards, axis):
+    """The content fleet's grid over streams of the card: every per-run
+    ledger of both variants as unsharded, one launch of each tick per
+    shard a step, on the runs, padded and workloads-axis plans."""
+    from repro_torch.sim import engine
+    ws = zoo(n_agents=16, n_artifacts=16, n_runs=runs, chunk_tokens=64)
+    ref = _grid(ws, engine._workload_cell, runs, 1)
+    with _stream_shards(shards):
+        plan = engine.shard_plan(len(ws), runs, shards)
+        before = _ticks()
+        got = _grid(ws, engine._workload_cell, runs, shards)
+        launched = tuple(a - b for a, b in zip(_ticks(), before))
+    assert plan.axis == axis and plan.devices == shards
+    assert launched == (shards * ws[0].acs.n_steps,) * 2
+    _same_grid(got, ref)
+
+
+@pytest.mark.parametrize("route", ["kernel", "scan"])
+def test_scenarios_on_streams_equal_unsharded(gen, route):
+    from repro_torch.sim import engine
+    scns = [dataclasses.replace(SCENARIOS[k], n_runs=64) for k in "ABCD"]
+    ref = _grid(scns, engine._scenario_cell, 64, 1, route)
+    with _stream_shards(4):
+        got = _grid(scns, engine._scenario_cell, 64, 4, route)
+    _same_grid(got, ref)
+
+
+def test_sharded_sweep_queues_without_host_sync(gen, monkeypatch):
+    """Between building the shards' inputs and reading their outputs
+    back, nothing waits for the card: every shard's draws and episodes
+    are queued under ``set_sync_debug_mode("error")``, on both routes,
+    with and without content, TTL included.  A read-back under that
+    mode raises (the control)."""
+    from repro_torch.core import acs
+    from repro_torch.sim import compare_grid, compare_workloads, engine
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.ones(1, device="cuda").cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    queue, queued = engine._queue, []
+
+    def checked(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            queued.append(queue(*args))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return queued[-1]
+
+    monkeypatch.setattr(engine, "_queue", checked)
+    fleet = zoo(n_agents=16, n_artifacts=16, n_runs=64, chunk_tokens=64)
+    small = zoo(n_agents=4, n_artifacts=3, n_runs=16, artifact_tokens=64,
+                n_steps=5, chunk_tokens=16)
+    scns = [dataclasses.replace(SCENARIOS[k], n_runs=64) for k in "ABCD"]
+    ttl = dataclasses.replace(SCENARIOS["C"], n_runs=64).with_strategy(
+        acs.TTL)
+    with _stream_shards(4):
+        compare_workloads(fleet, devices=4)
+        compare_workloads(small, tick_backend="scan", devices=4)
+        compare_grid(scns, devices=4)
+        compare_grid(scns + [ttl], tick_backend="scan", devices=4)
+    assert len(queued) == 4 * 5
+
+
+def test_sweep_over_the_cards(gen, monkeypatch):
+    """With two or more cards, ``REPRO_SWEEP_DEVICES=auto`` shards the
+    public ``devices=None`` path over them (shard i on cuda:i) with every
+    per-run ledger as on one card; unset, and on a named card, the grid
+    is one batch (one launch of each tick a step); and a K = 4 plane's
+    shards take min(4, cards) cards."""
+    from repro_torch.launch.mesh import shard_devices
+    from repro_torch.sim import compare_workloads, engine
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    runs = 64 * cards
+    ws = zoo(n_agents=16, n_artifacts=16, n_runs=runs, chunk_tokens=64)
+    steps = ws[0].acs.n_steps
+    one = _grid(ws, engine._workload_cell, runs, None)
+    for device in ("cuda", "cuda:1"):
+        before = _ticks()
+        assert compare_workloads(ws, device=device) == compare_workloads(
+            ws, devices=1)
+        launched = tuple(a - b for a, b in zip(_ticks(), before))
+        assert launched == (2 * steps,) * 2
+    monkeypatch.setenv("REPRO_SWEEP_DEVICES", "auto")
+    plan = engine.shard_plan(len(ws), runs)
+    assert plan == engine.ShardPlan(cards, "runs", runs)
+    before = _ticks()
+    got = _grid(ws, engine._workload_cell, runs, None)
+    launched = tuple(a - b for a, b in zip(_ticks(), before))
+    assert launched == (cards * steps,) * 2
+    _same_grid(got, one)
+    assert compare_workloads(ws) == compare_workloads(ws, devices=1)
+    placed = shard_devices(4)
+    assert [d.index for d, _ in placed] == [s % min(4, cards)
+                                            for s in range(4)]
+    assert all(s.device == d for d, s in placed)
 
 
 # --- model kernels: fp32 within 1e-5 on unit-scale inputs, bf16 within

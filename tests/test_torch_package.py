@@ -135,6 +135,7 @@ def _trace(chunk_tokens: int = 0):
     lambda: oracle.check_trace(*_trace()),
     lambda: oracle.check_content_trace(*_trace(chunk_tokens=4)),
     lambda: mesh.shard_streams(2),
+    lambda: mesh.shard_devices(2),
     lambda: mesh.make_host_mesh(),
     lambda: connect(n_agents=2, artifacts=("a", "b"), shards=2),
     lambda: connect(n_agents=2, artifacts=("a",)),
@@ -155,7 +156,7 @@ def _trace(chunk_tokens: int = 0):
         "rwkv6_init_cache", "rwkv6_serve_cli", "batch_decider",
         "broker", "episode_key", "oracle_kernel_leg",
         "oracle_content_kernel_leg", "check_trace", "check_content_trace",
-        "shard_streams", "host_mesh", "connect_sharded", "connect_single",
+        "shard_streams", "shard_devices", "host_mesh", "connect_sharded", "connect_single",
         "sharded_broker", "sharded_portal", "service_cli",
         "run_training", "train_cli"])
 def test_entry_points_default_to_cuda(no_card, entry):
