@@ -219,9 +219,10 @@ Phases, each printing JSON lines:
              24 and the cross sublayers' 24 non-causal), 48
              decode_attention per step (24 over the cross caches) and no
              rmsnorm; ``serve_vlm``, llama-3.2-vision-90b at its published
-             width cut to 10 layers (cross layers 3 and 8, 10.66 B) with
-             1024 vision embeddings, 21 rmsnorm per forward, 10
-             flash_attention per prefill, 10 decode_attention per step;
+             width cut to its first superblock of 5 layers (cross layer
+             3, 6.38 B) with 1024 vision embeddings, 11 rmsnorm per
+             forward, 5 flash_attention per prefill, 5 decode_attention
+             per step;
              both within gemma-2b's gates, each layer's share (whisper's
              encoder walked layer by layer first) within 1e-2, and, as
              controls, no context and another seed's each moving every
@@ -325,6 +326,29 @@ Phases, each printing JSON lines:
              its stated scratch plus 1 MiB, each beside its bound and the
              plain version, the conv's beside autograd of ``F.conv1d`` +
              ``F.silu``, 50 more launches bit-equal.
+   serve_tp - tensor-parallel serving, after every timed phase: the
+             one-rank port's batched request on ``serve_vlm``'s model
+             (the reference, whose card memory is freed first), then two
+             ranks over a (data 1, model 2) mesh, each its own process
+             (``--serve-tp-rank``; two gloo processes on the one card,
+             or one card a rank over NCCL where there are two or more),
+             each holding half the heads, FFN channels and vocab rows
+             (``shard_params``) and serving the same request through
+             ``make_prefill_step`` / ``make_decode_step`` over the mesh,
+             the decode steps fed the reference's greedy tokens: each
+             rank's first attention output before ``wo`` within
+             ``TP_ATTENTION_REL_L2`` of its heads' slice of the
+             reference's, the logits within ``TP_LOGITS_REL_L2``, the
+             greedy tokens that differ counted, exactly 5 flash_attention
+             (4 causal, 1 non-causal), 5 decode_attention a step and 11
+             rmsnorm a forward a rank.  On a host with 4 cards also all
+             100 layers over (data 1, model 4), one card a rank, each
+             drawing only its shard (``draw_shard``): finite logits,
+             exact launches, prefill and decode tokens/s, each card's
+             peak memory, a profiled decode step and one all_reduce's
+             time at the prefill's and a decode step's shapes.  Every
+             rank is joined (killed at a deadline or at the first
+             failure); a failed rank fails the run.
 9. the ``kernels`` line (``selective_scan``'s row is its gated mode,
    which the serving paths launch, with its fp32 mode's under
    ``fp32_mode``), the card's name and power limit, and the final
@@ -346,7 +370,8 @@ element (the conv) or per exponential, i.e. per state element a step
 (the scan's fp32 mode) (:func:`sass_counts`).
 
 Phases 3-4 (the sweep engine), 5 (the service), 6 and 7 (serving, seven
-cells) and 8 (training, five cells) are the main paths; each path's kernels' launch counts are
+cells), 8 (training, five cells) and serve_tp are the main paths
+(serve_tp's launches are its ranks', summed); each path's kernels' launch counts are
 set to 0 just before it and read just after.  Any failed check raises,
 and the script then exits non-zero.  Without a CUDA device, or without the
 repository's ``src/`` beside it, it exits non-zero and prints no
@@ -501,11 +526,25 @@ SERVE_MOE = dict(SERVE, arch="olmoe-1b-7b")
 #: 4096, vocab 51968, layernorm with biases, bf16), its stub frames
 #: ``_ctx_len``'s 4096; llama-3.2-vision-90b at its published width (d
 #: 8192, 64 heads, 8 KV heads of 128, d_ff 28672, vocab 128256) cut to
-#: its first ``n_layers`` 10 (two superblocks of the published period 5,
-#: cross layers 3 and 8: 10.66 B of its 87.7 B, which do not fit 80 GB),
-#: 1024 image tokens of vision embeddings
+#: its first ``n_layers`` 5 (its first superblock of the published period
+#: 5, cross layer 3: 6.38 B of its 87.7 B, which do not fit 80 GB; cut
+#: from 10 layers to buy phase ``serve_tp`` its room), 1024 image tokens
+#: of vision embeddings
 SERVE_WHISPER = dict(SERVE, arch="whisper-medium")
-SERVE_VLM = dict(SERVE, arch="llama-3.2-vision-90b", n_layers=10)
+SERVE_VLM = dict(SERVE, arch="llama-3.2-vision-90b", n_layers=5)
+#: phase ``serve_tp``: tensor-parallel serving of ``SERVE_VLM``'s model
+#: and request (4 x 6144 prompt tokens, 1024 image tokens, 32 decode
+#: steps) over a mesh (data 1, model ``tp``), held to the one-rank port;
+#: on a host with 4 cards also llama-3.2-vision-90b's 100 layers over
+#: (data 1, model 4), one rank a card, each drawing only its shard
+SERVE_TP = dict(SERVE_VLM, tp=2)
+SERVE_TP_FULL = dict(SERVE_VLM, n_layers=100, tp=4)
+#: where serve_tp's ranks find the reference and leave their results
+TP_DIR = REPO / "build" / "serve_tp"
+#: seconds serve_tp's ranks may take together, by mode
+TP_DEADLINE_S = {"check": 600, "full": 1500}
+#: decode steps of the full-depth run profiled after the timed ones
+TP_PROFILED_STEPS = 2
 #: MLA's serving cell: deepseek-v2-lite-16b at its registered width (27
 #: layers, d 2048, 16 heads with a q / k head of 128 + 64 rope and a v
 #: head of 128 over a latent cache of rank 512, 64 routed experts top 6
@@ -582,9 +621,10 @@ CROSS_GATE = 1.0
 #: frames (1024 image tokens) of iid N(0, 1) draws has nearly flat
 #: softmax rows, so its output is mostly the keys' mean, which another
 #: seed hardly moves, and the vlm's mean of iid embeddings is near 0, so
-#: its two cross layers move its logits by ~6 % in all (readings, as
+#: its cross layers move its logits by ~4-6 % in all (readings, as
 #: multiples of the route distance: whisper no context 100x, another
-#: seed 4.5x; vlm 4.2x and 5.8x; PERF.md)
+#: seed 4.5x; the vlm's 10 layers 4.2x and 5.8x, its 5 layers 3.8x and
+#: 5.3x; PERF.md)
 CONTEXT_NOISE = 3.0
 #: the training cell of phase 8: gemma-2b at its registered width, a
 #: batch of 4 sequences of 2048 tokens from the port's synthetic stream,
@@ -759,6 +799,16 @@ LOGITS_REL_L2 = {"gemma-2b": (2e-2, 2.5e-2), "rwkv6-1.6b": (4.5e-2, 5e-2),
                  "llama-3.2-vision-90b": (2e-2, 2.5e-2),
                  "deepseek-v2-lite-16b": (2.5e-2, 3e-2),
                  "jamba-1.5-large-398b": (2e-2, 2.5e-2)}
+#: relative L2 error allowed between phase ``serve_tp``'s two ranks and
+#: the one-rank port, both on the kernel route: each rank's first
+#: attention output before ``wo`` (its 32 q heads; only its q / k / v
+#: products differ, narrower: bit-equal on the H100, reading 0), and the
+#: logits (the prefill's last position, every decode step's), where the
+#: bf16 sums over 'model' of the row-parallel products round otherwise
+#: than one product does (readings 0.0143 and at most 0.0149; the vlm's
+#: kernel-vs-plain gates, whose 5-layer readings are 0.0114 / 0.0123)
+TP_ATTENTION_REL_L2 = 1e-3
+TP_LOGITS_REL_L2 = (2e-2, 2.5e-2)
 #: relative L2 error allowed for one layer's own share of the routes'
 #: distance (``layer_divergence``'s ``local``; readings at most 0.0015 on
 #: gemma-2b and 0.0037 on rwkv6-1.6b)
@@ -5838,6 +5888,388 @@ def train_loop_on_card(card: str) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+class flash_recorder:
+    """Inside ``with flash_recorder() as rec:`` every call of the models'
+    ``ops.flash_attention`` is counted by its causal flag
+    (``rec.causal``) and the first call's output is kept
+    (``rec.first``)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved, self.first = ops.flash_attention, None
+        self.causal = collections.Counter()
+
+        def call(q, k, v, causal=True, *args, **kwargs):
+            out = self.saved(q, k, v, causal, *args, **kwargs)
+            if self.first is None:
+                self.first = out
+            self.causal["causal" if causal else "non_causal"] += 1
+            return out
+
+        ops.flash_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self.saved
+        return False
+
+
+def rel_l2(got, exp, dim=None):
+    """Relative L2 distance of ``got`` from ``exp`` in fp32 (over ``dim``,
+    or over the whole tensor)."""
+    import torch
+    got, exp = got.float(), exp.float()
+    return (torch.linalg.vector_norm(got - exp, dim=dim)
+            / torch.linalg.vector_norm(exp, dim=dim))
+
+
+def tp_reference(card: str) -> dict:
+    """The one-rank port's batched request on ``SERVE_TP``'s model (the
+    phase's reference): the prompt tokens, the vision embeddings, the
+    logits and greedy tokens (``batched_request``), and each rank's heads
+    of the first layer's attention output, written to ``TP_DIR`` for the
+    ranks; the card's memory is freed before they start."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs.registry import _ctx_len
+    from repro_torch.launch.serve import batched_request
+
+    torch.cuda.empty_cache()
+    system, _ = serving_system(SERVE_TP)
+    cfg, n = system.cfg, len(system.agents)
+    params = models.init_params(cfg, seed=SEED)
+    awake_params(params, cfg)
+    contexts = [system.context_tokens(i) for i in range(n)]
+    p = min(len(c) for c in contexts)
+    context = cell_context(cfg, n, _ctx_len(cfg, SERVE_TP["artifacts"]
+                                            * SERVE_TP["artifact_tokens"]),
+                           SEED)
+    with flash_recorder() as rec:
+        out = batched_request(system, params, SERVE_TP["decode_steps"],
+                              context=context)
+    check(out["prompt_len"] == p, "the reference's prompt length")
+    torch.save({"tokens": torch.tensor([c[:p] for c in contexts]),
+                "context": context.cpu(), "logits": out["logits"].cpu(),
+                "greedy": out["tokens"].cpu()}, TP_DIR / "reference.pt")
+    heads = cfg.n_heads // SERVE_TP["tp"]
+    for r in range(SERVE_TP["tp"]):
+        torch.save(rec.first[:, r * heads:(r + 1) * heads].cpu(),
+                   TP_DIR / f"attention{r}.pt")
+    del params, out, rec, context
+    torch.cuda.empty_cache()
+    return {"agents": n, "prompt_len": p}
+
+
+def draw_shard(cfg, mesh) -> dict:
+    """This rank's shard of ``cfg``'s params over the mesh's 'model' axis,
+    drawn leaf by leaf on its card from ``SEED``, so that no process
+    holds the whole model (llama-3.2-vision-90b's 87.7 B do not fit one
+    card): each leaf's block shape from ``shard_params`` of a meta tree,
+    each block from a generator seeded by the seed, the leaf's index and
+    the rank's index on 'model' (0 for a leaf every rank holds whole, so
+    those are equal on every rank; a K / V head is never held by two
+    ranks here, 8 heads over 4): norm scales 1, cross gates
+    ``CROSS_GATE`` (as ``awake_params`` sets them), the embedding and the
+    head N(0, 0.02^2) and every other weight N(0, 1 / d_in), d_in its
+    whole input width, as ``init_params`` draws them."""
+    import torch
+    from repro_torch import models
+    from repro_torch.launch.mesh import axis_group
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import tensor_parallel as tp
+
+    whole = dict(shd.flatten_with_paths(models.init_params(cfg,
+                                                           device="meta")))
+    local = tp.shard_params(cfg, models.init_params(cfg, device="meta"),
+                            mesh)
+    index = axis_group(mesh).index
+    dev = torch.device("cuda", torch.cuda.current_device())
+    drawn = {}
+    for i, (path, x) in enumerate(shd.flatten_with_paths(local)):
+        leaf = path.rsplit("/", 1)[-1]
+        block = index if x.shape != whole[path].shape else 0
+        if leaf == "scale":
+            drawn[path] = torch.ones(x.shape, dtype=x.dtype, device=dev)
+        elif leaf == "gate":
+            drawn[path] = torch.full(x.shape, CROSS_GATE, dtype=x.dtype,
+                                     device=dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(
+                SEED + 7919 * i + 104729 * block)
+            std = (0.02 if leaf in ("embed", "lm_head")
+                   else whole[path].shape[-2] ** -0.5)
+            drawn[path] = torch.randn(x.shape, generator=gen, device=dev
+                                      ).mul_(std).to(x.dtype)
+    return shd.unflatten_like(local, drawn)
+
+
+def serve_tp_rank(card: str, mode: str, rank: int, world: int, port: int,
+                  backend: str) -> None:
+    """One rank of phase ``serve_tp`` (its own process, ``chip_smoke.py
+    --serve-tp-rank MODE RANK WORLD PORT BACKEND``): a (data 1, model
+    ``world``) mesh over ``backend`` (gloo: every rank on card 0; nccl:
+    rank r on card r), the params of ``mode`` "check" (``SERVE_TP``'s
+    model drawn whole from ``SEED``, awake, then ``shard_params``) or
+    "full" (``SERVE_TP_FULL``'s, :func:`draw_shard`), the reference's
+    request through ``make_prefill_step`` and ``make_decode_step`` over
+    the mesh (check: the decode steps fed the reference's greedy tokens;
+    full: then ``TP_PROFILED_STEPS`` more under the profiler, and the time
+    of one ``all_reduce`` over 'model' of a prefill's and of a decode
+    step's residual stream); writes its result to ``TP_DIR``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import models
+    from repro_torch.launch.mesh import axis_group
+    from repro_torch.runtime import steps as step_factories
+    from repro_torch.runtime import tensor_parallel as tp
+
+    serve = SERVE_TP if mode == "check" else SERVE_TP_FULL
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=world, **({"device_id": dev} if backend == "nccl" else {}))
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        cfg = serve_config(serve)
+        ref = torch.load(TP_DIR / "reference.pt")
+        tokens, context = ref["tokens"].to(dev), ref["context"].to(dev)
+        b, p = tokens.shape
+        steps = serve["decode_steps"]
+        t0 = time.perf_counter()
+        if mode == "check":
+            params = models.init_params(cfg, seed=SEED)
+            awake_params(params, cfg)
+            local = tp.shard_params(cfg, params, mesh)
+            del params
+        else:
+            local = draw_shard(cfg, mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        extra = TP_PROFILED_STEPS if mode == "full" else 0
+        cache = tp.init_cache(cfg, b, p + steps + extra,
+                              ctx_len=context.shape[1], mesh=mesh)
+        prefill = step_factories.make_prefill_step(cfg, mesh)
+        decode = step_factories.make_decode_step(cfg, mesh)
+        for fn in model_kernels().values():
+            fn.launches = 0
+        with flash_recorder() as rec:
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            logits, cache = prefill(local, {"tokens": tokens,
+                                            "vision_embeds": context}, cache)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out, greedy = [logits], []
+            for t in range(steps):
+                nxt = torch.argmax(logits[:, -1], dim=-1)
+                greedy.append(nxt)
+                feed = ref["greedy"][:, t].to(dev) if mode == "check" else nxt
+                logits, cache = decode(local, feed[:, None], cache)
+                out.append(logits)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        logits, greedy = torch.cat(out, dim=1), torch.stack(greedy, dim=1)
+        result = {"rank": rank, "backend": backend, "card": card,
+                  "device": str(dev), "n_layers": cfg.n_layers,
+                  "batch": b, "prompt_len": p, "steps": steps,
+                  "params": models.params_count(local),
+                  "init_seconds": init_s, "prefill_seconds": t1 - t0,
+                  "decode_seconds": t2 - t1,
+                  "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                  "finite": bool(torch.isfinite(logits).all()),
+                  "launches": {name: fn.launches for name, fn in
+                               model_kernels().items() if fn.launches},
+                  "flash_calls": dict(rec.causal),
+                  "greedy_first": greedy[:, :8].tolist()}
+        if mode == "full":
+            def more_steps():
+                nonlocal logits, cache
+                for _ in range(extra):
+                    logits, cache = decode(
+                        local, torch.argmax(logits[:, -1], dim=-1)[:, None],
+                        cache)
+
+            logits = out[-1]
+            wall, busy, top = device_profile(more_steps)
+            result["decode_profile"] = {
+                "steps": extra, "wall_s": wall, "device_busy_s": busy,
+                "device_idle_share": 1.0 - busy / wall, "top": top[:8]}
+            group = axis_group(mesh).group
+            result["all_reduce_ms"] = {
+                what: all_reduce_ms(torch.zeros(
+                    shape, dtype=context.dtype, device=dev), group)
+                for what, shape in (("prefill", (b, p, cfg.d_model)),
+                                    ("decode", (b, 1, cfg.d_model)))}
+        if mode == "check":
+            want = torch.load(TP_DIR / f"attention{rank}.pt").to(dev)
+            by_step = rel_l2(logits, ref["logits"].to(dev), dim=-1
+                             ).max(dim=0).values
+            result.update(
+                attention_rel_l2=float(rel_l2(rec.first, want)),
+                logits_rel_l2=float(by_step[0]),
+                logits_rel_l2_max_decode_step=float(by_step[1:].max()),
+                logits_rel_l2_by_step=by_step.tolist(),
+                greedy_differing=int((greedy.cpu() != ref["greedy"]).sum()),
+                greedy_tokens=greedy.numel())
+        (TP_DIR / f"{mode}{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def all_reduce_ms(x, group, reps: int = 10) -> float:
+    """Host-clock ms of one ``all_reduce`` of ``x`` over ``group`` (every
+    rank calls it), the mean of ``reps`` after one warm call."""
+    import torch
+    import torch.distributed as dist
+    dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def run_tp_ranks(mode: str, world: int, backend: str) -> list:
+    """Starts ``world`` ranks of phase ``serve_tp`` (:func:`serve_tp_rank`),
+    each its own process logging to ``TP_DIR``, and joins them all: every
+    rank is killed at ``TP_DEADLINE_S[mode]`` or once one rank has failed.
+    A rank that fails fails the run (the end of its log on stderr).
+    Returns each rank's result."""
+    import os
+    import socket
+    with socket.socket() as sock:          # a free port for the store
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    sys.stdout.flush()
+    procs = []
+    try:
+        for r in range(world):
+            with open(TP_DIR / f"{mode}{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(REPO / "chip_smoke.py"),
+                     "--serve-tp-rank", mode, str(r), str(world), str(port),
+                     backend], cwd=REPO, env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TP_DEADLINE_S[mode]
+        while (time.monotonic() < deadline
+               and any(proc.poll() is None for proc in procs)
+               and all(proc.poll() in (None, 0) for proc in procs)):
+            time.sleep(1.0)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    failed = [r for r, proc in enumerate(procs) if proc.returncode != 0]
+    for r in failed:
+        tail = (TP_DIR / f"{mode}{r}.log").read_text()[-4000:]
+        print(f"serve_tp {mode} rank {r} exited {procs[r].returncode}:\n"
+              f"{tail}", file=sys.stderr)
+    check(not failed, f"serve_tp {mode}: every rank ran to its end")
+    return [json.loads((TP_DIR / f"{mode}{r}.json").read_text())
+            for r in range(world)]
+
+
+def phase_serve_tp(card: str) -> dict:
+    """Tensor-parallel serving (module docstring, phase ``serve_tp``):
+    the one-rank reference, then ``SERVE_TP``'s ranks (two gloo ranks on
+    card 0 on one card, else one rank a card over NCCL) held to it; on a
+    host with 4 cards also ``SERVE_TP_FULL`` over NCCL.  Returns the
+    model kernels' launches summed over the ranks."""
+    import torch
+    from repro_torch.models import layer_specs
+    cards = torch.cuda.device_count()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    ref = tp_reference(card)
+    cfg = serve_config(SERVE_TP)
+    steps = SERVE_TP["decode_steps"]
+    ranks = run_tp_ranks("check", SERVE_TP["tp"],
+                         "nccl" if cards >= 2 else "gloo")
+    expected = expected_launches(cfg, 1, steps)
+    expected = {k: v for k, v in expected.items() if v}
+    cross = sum(spec.mixer == "cross" for spec in layer_specs(cfg))
+    calls = {"causal": cfg.n_layers - cross, "non_causal": cross}
+    emit({"phase": "serve_tp", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "tp": SERVE_TP["tp"], "backend": ranks[0]["backend"],
+          "agents": ref["agents"], "prompt_len": ref["prompt_len"],
+          "ranks": ranks, "expected_launches": expected,
+          "expected_flash_calls": calls,
+          "attention_gate": TP_ATTENTION_REL_L2,
+          "logits_gates": TP_LOGITS_REL_L2,
+          "note": "ranks sharing one card time-slice it: their seconds "
+                  "say nothing of tensor-parallel speed", "card": card})
+    for r in ranks:
+        check(r["finite"], f"serve_tp rank {r['rank']}: finite logits")
+        check(r["launches"] == expected,
+              f"serve_tp rank {r['rank']}: launches {r['launches']} == "
+              f"{expected}")
+        check(r["flash_calls"] == calls,
+              f"serve_tp rank {r['rank']}: flash calls {r['flash_calls']} "
+              f"== {calls}")
+        check(r["attention_rel_l2"] <= TP_ATTENTION_REL_L2,
+              f"serve_tp rank {r['rank']}: first attention output vs the "
+              f"one-rank slice {r['attention_rel_l2']} <= "
+              f"{TP_ATTENTION_REL_L2}")
+        check(r["logits_rel_l2"] <= TP_LOGITS_REL_L2[0],
+              f"serve_tp rank {r['rank']}: prefill logits vs one rank "
+              f"{r['logits_rel_l2']} <= {TP_LOGITS_REL_L2[0]}")
+        check(r["logits_rel_l2_max_decode_step"] <= TP_LOGITS_REL_L2[1],
+              f"serve_tp rank {r['rank']}: decode logits vs one rank "
+              f"{r['logits_rel_l2_max_decode_step']} <= "
+              f"{TP_LOGITS_REL_L2[1]}")
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    if cards >= 4:
+        topo, nvlink = (subprocess.run(["nvidia-smi", *args],
+                                       capture_output=True, text=True,
+                                       timeout=60)
+                        for args in (("topo", "-m"), ("nvlink", "-s")))
+        full_cfg = serve_config(SERVE_TP_FULL)
+        full = run_tp_ranks("full", SERVE_TP_FULL["tp"], "nccl")
+        expected = {k: v for k, v in
+                    expected_launches(full_cfg, 1, steps).items() if v}
+        for r in full:
+            check(r["finite"], f"serve_tp full rank {r['rank']}: finite "
+                  f"logits")
+            check(r["launches"] == expected,
+                  f"serve_tp full rank {r['rank']}: launches "
+                  f"{r['launches']} == {expected}")
+        slowest = {k: max(r[k] for r in full)
+                   for k in ("prefill_seconds", "decode_seconds")}
+        b, p = full[0]["batch"], full[0]["prompt_len"]
+        emit({"phase": "serve_tp", "what": "full depth",
+              "arch": full_cfg.name, "n_layers": full_cfg.n_layers,
+              "tp": SERVE_TP_FULL["tp"], "backend": "nccl",
+              "params_per_rank": [r["params"] for r in full],
+              "prefill_tokens_per_s": b * p / slowest["prefill_seconds"],
+              "decode_tokens_per_s": b * steps / slowest["decode_seconds"],
+              "decode_ms_per_step": slowest["decode_seconds"] / steps * 1e3,
+              **slowest, "peak_gib": [r["peak_gib"] for r in full],
+              "init_seconds": [r["init_seconds"] for r in full],
+              "launches_per_rank": full[0]["launches"],
+              "flash_calls": full[0]["flash_calls"],
+              "greedy_first": full[0]["greedy_first"],
+              "decode_profile": full[0]["decode_profile"],
+              "all_reduce_ms": full[0]["all_reduce_ms"],
+              "topology": topo.stdout or topo.stderr,
+              "nvlink": nvlink.stdout or nvlink.stderr, "card": card})
+        for r in full:
+            launches.update(r["launches"])
+    return dict(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5849,6 +6281,10 @@ def main() -> int:
     card = card_line()
     if sys.argv[1:] == ["--bwd-passes"]:   # phase_bwd_passes' own process
         bwd_passes(card)
+        return 0
+    if sys.argv[1:2] == ["--serve-tp-rank"]:  # a rank of phase serve_tp
+        mode, rank, world, port, backend = sys.argv[2:7]
+        serve_tp_rank(card, mode, int(rank), int(world), int(port), backend)
         return 0
     if sys.argv[1:] == ["--train-route-split"]:
         train_route_split(card)
@@ -5943,6 +6379,10 @@ def main() -> int:
 
     phase_profile(card, fleet_seconds)
     lap("train loop, passes, profile")
+    torch.cuda.empty_cache()
+    for name, count in phase_serve_tp(card).items():
+        launches[name] += count
+    lap("serve_tp")
     emit({"phase": "timing", "seconds": seconds,
           "total_s": sum(seconds.values()), "card": card})
     emit({"kernels": [{

@@ -22,8 +22,14 @@ program, so for each cell it builds:
      or RWKV prompt (the plain scans step through time on the host).
 
 There is no collective term: no program, so the collective bytes stay an
-empty ``CollectiveStats``, and the note says so.  Results go to
-``build/dryrun_torch.json``.
+empty ``CollectiveStats``, and the note says so.  The specs' 'model'
+entries are what the port's tensor-parallel serving steps hold
+(``runtime.tensor_parallel``: head projections, the FFN's hidden dim,
+vocab rows, K / V caches by head), except where a model has fewer K / V
+heads than 'model' ranks: the port holds each rank's one whole head
+where the specs split a head's channels (and the cache's time axis).
+Training over 'model' > 1 is not ported; the dry-run counts its bytes
+from the specs all the same.  Results go to ``build/dryrun_torch.json``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun                # all
@@ -63,7 +69,9 @@ CARD_BYTES = 80e9
 MESHES = {"pod16x16": dict(zip(POD_AXES, POD_SHAPE)),
           "pod2x16x16": dict(zip(MULTI_POD_AXES, MULTI_POD_SHAPE))}
 NOTE = ("no compiled program: collective bytes not measured "
-        "(empty CollectiveStats)")
+        "(empty CollectiveStats); 'model' entries as the port's "
+        "tensor-parallel serving holds them, but K/V heads fewer than "
+        "'model' held whole; training over 'model' > 1 not ported")
 
 
 def _moment_dtype(cfg) -> str:

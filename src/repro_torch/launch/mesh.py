@@ -13,6 +13,10 @@ the host's cards.
 * :func:`mesh_axes` is the reference's ``mesh.shape`` mapping ``{axis:
   size}``; the sharding rules and the dry-run read only that, so they
   also take a plain mapping.
+* :func:`axis_group` gives one axis of a ``DeviceMesh`` as this rank's
+  process group over it, its index on it and its size: the 'model'
+  axis's is what the tensor-parallel serving steps
+  (``runtime.tensor_parallel``) sum and gather over.
 * :func:`shard_devices`: the sharded authority plane's K brokers over
   the host's cards, round-robin over ``min(K, cards)`` as the
   reference's ``repro.launch.mesh.shard_devices`` pins them to devices,
@@ -24,6 +28,7 @@ the host's cards.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections.abc import Mapping
 from typing import Optional
@@ -85,6 +90,22 @@ def mesh_axes(mesh) -> dict:
     if isinstance(mesh, Mapping):
         return dict(mesh)
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """One mesh axis as this rank sees it: the process group of the ranks
+    that differ from it only on the axis, its index on the axis, and the
+    axis's size."""
+    group: object
+    index: int
+    size: int
+
+
+def axis_group(mesh, axis: str = "model") -> AxisGroup:
+    """This rank's :class:`AxisGroup` of ``axis`` of a ``DeviceMesh``."""
+    return AxisGroup(mesh.get_group(axis), mesh.get_local_rank(axis),
+                     mesh_axes(mesh)[axis])
 
 
 def shard_streams(n_shards: int, device=None) -> tuple:

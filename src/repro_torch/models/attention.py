@@ -38,6 +38,11 @@ Attention runs through the hand-written kernels (``kernels.ops``):
   causal ``flash_attention`` over the whole expanded cache at per-row
   offsets for a cached prefill at an offset.
 
+Under tensor parallelism (``runtime.tensor_parallel.using``) the
+weights hold a rank's heads, whose count is read from them, and the
+output projection's partial products are summed over 'model' before
+the bias is added and before the cross gate multiplies.
+
 The GQA and cross caches are head-major, ``(B, Hkv, Lmax, D)`` per layer
 (the JAX package keeps ``(B, Lmax, Hkv, D)``), so the decode kernel reads
 them without a copy; MLA's latent caches have no head axis and keep the
@@ -53,6 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import (dense_init, norm_apply, norm_init,
                                        rope_angles, rope_apply)
+from repro_torch.runtime import tensor_parallel as tp
 
 
 # --------------------------- GQA attention ---------------------------
@@ -76,18 +82,26 @@ def gqa_init(gen, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
+def _heads(p, cfg: ModelConfig) -> tuple:
+    """The q and K / V heads the weights hold: the config's, or a
+    tensor-parallel rank's share of them."""
+    hd = cfg.kv_head_dim()
+    return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+
+
 def _project_qkv(p, cfg: ModelConfig, x):
     """(B, s, H, D) q, k, v, qk-normed where the config says so."""
     b, s, _ = x.shape
     hd = cfg.kv_head_dim()
+    hq, hkv = _heads(p, cfg)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
     if cfg.use_qk_norm:
         q = norm_apply(p["q_norm"], q)
         k = norm_apply(p["k_norm"], k)
@@ -174,7 +188,7 @@ def gqa_apply(p, cfg: ModelConfig, x, positions, cache_kv=None,
         out = ops.decode_attention(q[:, 0].contiguous(), ck, cv,
                                    kv_len=cache_len + 1)[:, None]
         new_cache = (ck, cv)
-    y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    y = tp.reduce(out.reshape(b, s, q.shape[2] * hd) @ p["wo"])
     if "bo" in p:
         y = y + p["bo"]
     return y, new_cache
@@ -229,13 +243,12 @@ def cross_attn_apply(p, cfg: ModelConfig, x, context, cached_kv=None):
     einsum over no key does."""
     b, s, _ = x.shape
     hd = cfg.kv_head_dim()
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    hq, hkv = _heads(p, cfg)
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
     if cached_kv is None:
         t = context.shape[1]
-        k = _head_major((context @ p["wk"]).reshape(b, t, cfg.n_kv_heads,
-                                                    hd))
-        v = _head_major((context @ p["wv"]).reshape(b, t, cfg.n_kv_heads,
-                                                    hd))
+        k = _head_major((context @ p["wk"]).reshape(b, t, hkv, hd))
+        v = _head_major((context @ p["wv"]).reshape(b, t, hkv, hd))
     else:
         k, v = cached_kv
         t = k.shape[2]
@@ -252,7 +265,7 @@ def cross_attn_apply(p, cfg: ModelConfig, x, context, cached_kv=None):
     else:
         out = ops.flash_attention(_head_major(q), k, v,
                                   causal=False).transpose(1, 2)
-    y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    y = tp.reduce(out.reshape(b, s, hq * hd) @ p["wo"])
     gate = torch.tanh(p["gate"]).to(y.dtype)
     return y * gate, (k, v)
 

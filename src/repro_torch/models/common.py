@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.runtime import tensor_parallel as tp
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -137,13 +138,16 @@ def glu_mlp_init(gen, d_model: int, d_ff: int, dtype, device,
 
 
 def glu_mlp_apply(p, x, act: str = "silu"):
+    """The GLU feed-forward; under tensor parallelism ``w_gate`` and
+    ``w_up`` hold a rank's columns and ``w_down`` its rows, whose partial
+    products are summed over 'model' before ``b_down`` is added."""
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     if "b_gate" in p:
         g = g + p["b_gate"]
         u = u + p["b_up"]
     y = act_fn(act)(g) * u
-    y = y @ p["w_down"]
+    y = tp.reduce(y @ p["w_down"])
     if "b_down" in p:
         y = y + p["b_down"]
     return y

@@ -62,6 +62,7 @@ from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
                                        mlp_apply, mlp_init, norm_apply,
                                        norm_init, stack_layers, tree_leaves,
                                        tree_map)
+from repro_torch.runtime import tensor_parallel as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +198,10 @@ def _cross(p, cfg: ModelConfig, h, context, cache, names):
 def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
                 context=None, cache=None, cache_len=None):
     """Returns (x, new_cache, aux_loss); the cache is updated in
-    place."""
+    place.  Under tensor parallelism a model with a part that does not
+    split over 'model' raises ``NotImplementedError``."""
+    if tp.active() is not None:
+        tp.refuse(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict[str, Any] = {}
     build = cache is not None
@@ -322,7 +326,10 @@ def encode(params, cfg: ModelConfig, frames):
     layers, the final norm.  Under autograd with a parameter that
     requires a gradient, each layer runs under ``torch.utils.checkpoint``
     (the JAX package remats it), so only the layer boundaries are kept
-    for the backward."""
+    for the backward.  Under tensor parallelism it raises
+    ``NotImplementedError`` (the encoder does not split)."""
+    if tp.active() is not None:
+        tp.refuse(cfg)
     dtype = dtype_of(cfg.dtype)
     enc = params["encoder"]
     t = frames.shape[1]
@@ -353,7 +360,9 @@ def _context(params, cfg: ModelConfig, context):
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
-    x = params["embed"][tokens]
+    """The tokens' embeddings (vocab-parallel under tensor parallelism),
+    scaled where the config says so."""
+    x = tp.embed(params["embed"], tokens)
     if cfg.embed_scale:
         # sqrt(d_model) cast to the model type first, as in the JAX
         # package (45.25 in bf16 for d = 2048)
@@ -363,8 +372,10 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def _logits(params, cfg: ModelConfig, x):
+    """Logits over the whole vocab; under tensor parallelism each rank's
+    vocab slice of them, gathered."""
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.T
+    return tp.gather_vocab(x @ head.T)
 
 
 def _run_layers(params, cfg: ModelConfig, x, *, positions, context=None,
@@ -470,7 +481,12 @@ def forward_train(params, cfg: ModelConfig, batch):
     device, with ``frames`` (B, T, d) for an encoder-decoder model or,
     optionally, ``vision_embeds`` (B, T, d) -> mean loss (+ the layers'
     aux losses), differentiable.  A model without cross layers ignores
-    the embeddings, as the JAX package does."""
+    the embeddings, as the JAX package does.  Tensor-parallel training is
+    not ported (ROADMAP §1 item 9c): under an active group it raises
+    ``NotImplementedError``."""
+    if tp.active() is not None:
+        raise NotImplementedError(
+            "tensor-parallel training is not ported (ROADMAP §1 item 9c)")
     context = _context(params, cfg, batch["frames"] if cfg.encoder_layers
                        else batch.get("vision_embeds"))
     tokens = batch["tokens"].long()

@@ -10,8 +10,8 @@ params and moments in place (``optim.apply_updates``), so a step
 returns the trees it was given; that is what ``donate`` means here.
 
 ``make_train_step(..., mesh=)`` runs the step data-parallel over a
-``DeviceMesh`` whose 'model' axis is 1 (tensor parallelism is not
-ported: no port layer splits its heads or channels).  Each rank takes
+``DeviceMesh`` whose 'model' axis is 1 (tensor-parallel training is not
+ported: it raises for 'model' > 1).  Each rank takes
 its ``batch_specs`` slice of the global batch, and the gradients are
 averaged over 'pod' and 'data'.  ``zero`` keeps each AdamW moment only
 as the rank's ``zero_spec`` shard and updates only that shard of the
@@ -21,6 +21,15 @@ and reduce-scatters its gradient.  :func:`shard_train_state` cuts a
 rank's pieces out of whole trees, :func:`gather_train_state` puts them
 back together.  Without a mesh, or over one rank, the step is the
 one-device step whatever the options.
+
+``make_prefill_step(cfg, mesh)`` and ``make_decode_step(cfg, mesh)``
+serve tensor-parallel over a mesh whose 'model' axis is above 1
+(``runtime.tensor_parallel``): each rank calls the step with its
+``shard_params`` tree, its cache (``tensor_parallel.init_cache``) and the
+global batch or token, runs its ``batch_specs`` rows over its heads,
+channels and vocab range, and gets the whole logits of the global batch
+back (its rows gathered over the DP axes) with its own cache.  Without
+a mesh, or over 'model' 1, each returns the one-device step.
 """
 
 from __future__ import annotations
@@ -31,11 +40,12 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import mesh_axes
+from repro_torch.launch.mesh import axis_group, mesh_axes
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import adamw
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime import tensor_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,17 +179,53 @@ def _flat(tree) -> dict:
     return dict(shd.flatten_with_paths(tree))
 
 
-class _Layout:
+class _Place:
+    """This rank's place on a mesh: the axes' sizes, its coordinate, and
+    its rows of a batch as ``batch_specs`` splits them."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.axes = mesh_axes(mesh)
+        self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+    def local_batch(self, batch, batch_dim: int):
+        """This rank's slice of every batch tensor, as ``batch_specs``
+        splits it (a tensor whose batch does not divide stays whole)."""
+        specs = _flat(shd.batch_specs(batch, self.axes, batch_dim))
+
+        def one(path, x):
+            spec = specs[path]
+            index, n = 0, 1
+            for a in shd.axes_of(spec[batch_dim] if spec else None):
+                index, n = index * self.axes[a] + self.coord[a], \
+                    n * self.axes[a]
+            return _shard(x, batch_dim if n > 1 else None, index, n)
+
+        return shd.unflatten_like(batch, {p: one(p, x) for p, x in
+                                          _flat(batch).items()})
+
+    def gather_rows(self, x, batch: int):
+        """``x``, this rank's rows of a ``batch``-row output split as
+        :meth:`local_batch` splits a ``batch``-row input, whole again:
+        gathered over the DP axes that split it, the innermost first."""
+        for a in reversed(tensor_parallel.row_axes(batch, self.axes)):
+            x = tensor_parallel.gather(x, 0, axis_group(self.mesh, a))
+        return x
+
+
+class _Layout(_Place):
     """Where a data-parallel step's pieces live: per param path the dim
     its param (``fsdp``) and its moments (``zero``) are split over
     'data' (None: whole), and this rank's place on the mesh."""
 
     def __init__(self, cfg: ModelConfig, options: StepOptions, mesh):
-        axes = mesh_axes(mesh)
+        super().__init__(mesh)
+        axes = self.axes
         if axes.get("model", 1) > 1:
             raise NotImplementedError(
-                "tensor parallelism ('model' > 1) is not ported: no port "
-                "layer splits its heads or channels")
+                "tensor parallelism ('model' > 1) is not ported to "
+                "training (ROADMAP §1 item 9c); the serving steps split "
+                "over 'model'")
         shape = tf.init_params(cfg, device="meta")
         param = (shd.fsdp_param_specs(shape, axes) if options.fsdp
                  else shd.param_specs(shape))
@@ -187,8 +233,6 @@ class _Layout:
         self.param_dim = {p: _data_dim(s) for p, s in _flat(param).items()}
         self.moment_dim = {p: _data_dim(s)
                            for p, s in _flat(moment).items()}
-        self.axes = axes
-        self.coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         self.n_data, self.rank = axes["data"], self.coord["data"]
         self.n_dp = math.prod(axes[a] for a in shd.dp_axes(axes))
         self.data_group = mesh.get_group("data")
@@ -207,22 +251,6 @@ class _Layout:
         split on one dim (``fsdp`` under ``zero``)."""
         dim = self.param_dim[path]
         return dim is not None and self.moment_dim[path] == dim
-
-    def local_batch(self, batch, batch_dim: int):
-        """This rank's slice of every batch tensor, as ``batch_specs``
-        splits it (a tensor whose batch does not divide stays whole)."""
-        specs = _flat(shd.batch_specs(batch, self.axes, batch_dim))
-
-        def one(path, x):
-            spec = specs[path]
-            index, n = 0, 1
-            for a in shd.axes_of(spec[batch_dim] if spec else None):
-                index, n = index * self.axes[a] + self.coord[a], \
-                    n * self.axes[a]
-            return _shard(x, batch_dim if n > 1 else None, index, n)
-
-        return shd.unflatten_like(batch, {p: one(p, x) for p, x in
-                                          _flat(batch).items()})
 
 
 def _pieces(cfg, params, opt_state, mesh, options, fn):
@@ -359,23 +387,56 @@ def value_and_grad_step(cfg: ModelConfig):
     return step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def _serving_place(cfg: ModelConfig, mesh):
+    """None where the serving steps run the one-device code (no mesh, or
+    'model' 1), else this rank's place on the mesh and its 'model' group;
+    a model this slice does not split raises ``NotImplementedError``."""
+    if mesh is None or mesh_axes(mesh).get("model", 1) == 1:
+        return None
+    tensor_parallel.refuse(cfg)
+    return _Place(mesh), axis_group(mesh)
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None):
     """fn(params, batch, cache) -> (last-token logits, cache); the
     batch's ``vision_embeds`` or ``frames``, where it has them, are the
-    prefill's context."""
+    prefill's context.  Over a mesh with 'model' > 1 it is tensor-parallel
+    (module docstring)."""
+    split = _serving_place(cfg, mesh)
 
     def step(params, batch, cache):
         ctx = batch.get("vision_embeds", batch.get("frames"))
         return tf.prefill(params, cfg, batch["tokens"], cache, context=ctx)
 
-    return step
+    if split is None:
+        return step
+    place, group = split
+
+    def tp_step(params, batch, cache):
+        with tensor_parallel.using(group):
+            logits, cache = step(params, place.local_batch(batch, 0), cache)
+        return place.gather_rows(logits, batch["tokens"].shape[0]), cache
+
+    return tp_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
     """fn(params, token, cache) -> (logits, cache): one new token per row
-    against the cache."""
+    against the cache.  Over a mesh with 'model' > 1 it is
+    tensor-parallel (module docstring)."""
+    split = _serving_place(cfg, mesh)
 
     def step(params, token, cache):
         return tf.decode_step(params, cfg, token, cache)
 
-    return step
+    if split is None:
+        return step
+    place, group = split
+
+    def tp_step(params, token, cache):
+        local = place.local_batch({"token": token}, 0)["token"]
+        with tensor_parallel.using(group):
+            logits, cache = step(params, local, cache)
+        return place.gather_rows(logits, token.shape[0]), cache
+
+    return tp_step

@@ -1618,6 +1618,20 @@ def test_decode_attention_over_a_whole_cross_cache(gen, b, hq, hkv, L, d,
     assert torch.equal(got, decode_attention(q, kc, vc, None))
 
 
+def _wake(tree, g):
+    """Every gate to 1, every norm scale to 1 + 0.3 N(0, 1) and every bias
+    to 0.1 N(0, 1), drawn from ``g``, in place."""
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _wake(leaf, g)
+        elif key == "gate":
+            leaf.fill_(1.0)
+        elif key == "scale":
+            leaf.copy_(1.0 + 0.3 * torch.randn(leaf.shape, generator=g))
+        elif key in ("bias", "bq", "bk", "bv", "bo", "b_in", "b_out"):
+            leaf.copy_(0.1 * torch.randn(leaf.shape, generator=g))
+
+
 @pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-90b"])
 def test_context_model_on_the_card_equals_the_cpu(gen, arch):
     """A smoke model with cross layers (fp32; every gate 1, the layernorm
@@ -1631,19 +1645,7 @@ def test_context_model_on_the_card_equals_the_cpu(gen, arch):
     cfg = smoke_config(arch)
     cpu = models.init_params(cfg, 0, "cpu")
     g = torch.Generator().manual_seed(1)
-
-    def wake(tree):
-        for key, leaf in tree.items():
-            if isinstance(leaf, dict):
-                wake(leaf)
-            elif key == "gate":
-                leaf.fill_(1.0)
-            elif key == "scale":
-                leaf.copy_(1.0 + 0.3 * torch.randn(leaf.shape, generator=g))
-            elif key in ("bias", "bq", "bk", "bv", "bo", "b_in", "b_out"):
-                leaf.copy_(0.1 * torch.randn(leaf.shape, generator=g))
-
-    wake(cpu)
+    _wake(cpu, g)
     t = 16 if cfg.family == "vlm" else 300
     ctx = torch.randn((2, t, cfg.d_model), generator=g)
     toks = torch.randint(0, cfg.vocab_size, (2, 77), generator=g)
@@ -1672,6 +1674,109 @@ def test_context_model_on_the_card_equals_the_cpu(gen, arch):
     got, exp = out["cuda"][0], out["cpu"][0]
     assert float((got - exp).abs().max()) <= 1e-4 * float(exp.abs().max())
     assert torch.equal(got.argmax(-1), exp.argmax(-1))
+
+
+def _tp_inputs():
+    """The vlm's smoke model (fp32, awake) on the CPU, 2 x 16 vision
+    embeddings and 2 x 77 prompt tokens."""
+    from repro_torch import models
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config("llama-3.2-vision-90b")
+    params = models.init_params(cfg, 0, "cpu")
+    g = torch.Generator().manual_seed(1)
+    _wake(params, g)
+    ctx = torch.randn((2, cfg.vision.n_image_tokens, cfg.d_model),
+                      generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (2, 77), generator=g)
+    return cfg, params, ctx, toks
+
+
+TP_STEPS = 4
+
+
+def _tp_rank(rank, store, out):
+    """One of two gloo ranks on card 0 serving the vlm's smoke model over
+    (data 1, model 2): a prefill and ``TP_STEPS`` greedy steps through
+    the tensor-parallel steps; its logits and launches to ``out``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime import steps
+    from repro_torch.runtime import tensor_parallel as tp
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        cfg, params, ctx, toks = _tp_inputs()
+        local = tp.shard_params(cfg, tree_map(lambda a: a.cuda(), params),
+                                mesh)
+        cache = tp.init_cache(cfg, 2, 77 + TP_STEPS, ctx_len=ctx.shape[1],
+                              mesh=mesh, device="cuda")
+        before = (flash_attention.launches, decode_attention.launches,
+                  rmsnorm.launches)
+        logits, cache = steps.make_prefill_step(cfg, mesh)(
+            local, {"tokens": toks.cuda(), "vision_embeds": ctx.cuda()},
+            cache)
+        decode = steps.make_decode_step(cfg, mesh)
+        out_steps = [logits.cpu()]
+        for _ in range(TP_STEPS):
+            logits, cache = decode(
+                local, torch.argmax(logits[:, -1], -1)[:, None], cache)
+            out_steps.append(logits.cpu())
+        torch.cuda.synchronize()
+        after = (flash_attention.launches, decode_attention.launches,
+                 rmsnorm.launches)
+        torch.save({"logits": torch.cat(out_steps, 1),
+                    "launches": [a - b for a, b in zip(after, before)]},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tensor_parallel_vlm_on_one_card_equals_the_cpu(gen, tmp_path):
+    """Two gloo ranks on card 0, each half the vlm smoke model's heads,
+    FFN channels and vocab, through the kernels, against the one-rank
+    model on the CPU's plain route: every logit within 1e-4 of the
+    largest, the greedy tokens equal, each rank's launches exact (5
+    flash, 5 decode a step, 11 rmsnorm a forward)."""
+    import multiprocessing
+    import time
+    from repro_torch import models
+    from repro_torch.kernels import build
+    build.build(["flash_attention", "decode_attention", "rmsnorm"])
+    cfg, params, ctx, toks = _tp_inputs()
+    cache = models.init_cache(cfg, 2, 77 + TP_STEPS, ctx_len=ctx.shape[1],
+                              device="cpu")
+    logits, cache = models.prefill(params, cfg, toks, cache, context=ctx)
+    want = [logits]
+    for _ in range(TP_STEPS):
+        logits, cache = models.decode_step(
+            params, cfg, torch.argmax(logits[:, -1], -1)[:, None], cache)
+        want.append(logits)
+    want = torch.cat(want, 1)
+    ctx_mp = multiprocessing.get_context("spawn")
+    procs = [ctx_mp.Process(target=_tp_rank,
+                            args=(r, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert not any(alive) and all(p.exitcode == 0 for p in procs)
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert got["launches"] == [5, 5 * TP_STEPS, 11 * (1 + TP_STEPS)]
+        err = float((got["logits"] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (r, err)
+        assert torch.equal(got["logits"].argmax(-1), want.argmax(-1))
 
 
 # --- MLA's head-dim pair: a q / k head of 192 (128 + 64 rope) and a v head
