@@ -326,29 +326,34 @@ Phases, each printing JSON lines:
              its stated scratch plus 1 MiB, each beside its bound and the
              plain version, the conv's beside autograd of ``F.conv1d`` +
              ``F.silu``, 50 more launches bit-equal.
-   serve_tp - tensor-parallel serving, after every timed phase: the
-             one-rank port's batched request on ``serve_vlm``'s model
-             (the reference, whose card memory is freed first), then two
-             ranks over a (data 1, model 2) mesh, each its own process
-             (``--serve-tp-rank``; two gloo processes on the one card,
-             or one card a rank over NCCL where there are two or more),
-             each holding half the heads, FFN channels and vocab rows
-             (``shard_params``) and serving the same request through
-             ``make_prefill_step`` / ``make_decode_step`` over the mesh,
-             the decode steps fed the reference's greedy tokens: each
-             rank's first attention output before ``wo`` within
-             ``TP_ATTENTION_REL_L2`` of its heads' slice of the
-             reference's, the logits within ``TP_LOGITS_REL_L2``, the
-             greedy tokens that differ counted, exactly 5 flash_attention
-             (4 causal, 1 non-causal), 5 decode_attention a step and 11
-             rmsnorm a forward a rank.  On a host with 4 cards also all
-             100 layers over (data 1, model 4), one card a rank, each
-             drawing only its shard (``draw_shard``): finite logits,
-             exact launches, prefill and decode tokens/s, each card's
-             peak memory, a profiled decode step and one all_reduce's
-             time at the prefill's and a decode step's shapes.  Every
-             rank is joined (killed at a deadline or at the first
-             failure); a failed rank fails the run.
+   serve_tp - tensor-parallel serving, after every timed phase: for
+             each ``SERVE_TP_CELLS`` cell (the vlm's 5 layers,
+             olmoe-1b-7b, deepseek-v2-lite-16b, rwkv6-1.6b,
+             whisper-medium, jamba-1.5-large-398b's first 2 layers) the
+             one-rank port's batched request (the reference, whose card
+             memory is freed first), then two ranks over a (data 1,
+             model 2) mesh, each its own process started once for every
+             cell (``--serve-tp-rank``; two gloo processes on the one
+             card, or one card a rank over NCCL where there are two or
+             more), each holding half the heads, FFN channels, experts,
+             Mamba channels and vocab rows (``shard_params``) and
+             serving the same request through ``make_prefill_step`` /
+             ``make_decode_step`` over the mesh, the decode steps fed
+             the reference's greedy tokens and an MoE's routings its
+             expert choices: each rank's first mixer output before its
+             row-parallel product within ``TP_MIXER``'s gate of its
+             slice of the reference's, the logits within the family's
+             ``LOGITS_REL_L2``, the greedy tokens that differ and the
+             MoE's free-routing flips counted, the launches and flash
+             calls a rank exact.  On a host with 4 cards also the
+             full-depth cells over (data 1, model 4), one card a rank,
+             each drawing only its shard (``draw_shard``): the vlm's
+             100 layers and jamba's first 16; finite logits, exact
+             launches, prefill and decode tokens/s, each card's peak
+             memory, a profiled decode step and one all_reduce's time
+             at the prefill's and a decode step's shapes.  Every rank
+             is joined (killed at a deadline or at the first failure);
+             a failed rank fails the run.
 9. the ``kernels`` line (``selective_scan``'s row is its gated mode,
    which the serving paths launch, with its fp32 mode's under
    ``fp32_mode``), the card's name and power limit, and the final
@@ -532,19 +537,6 @@ SERVE_MOE = dict(SERVE, arch="olmoe-1b-7b")
 #: of vision embeddings
 SERVE_WHISPER = dict(SERVE, arch="whisper-medium")
 SERVE_VLM = dict(SERVE, arch="llama-3.2-vision-90b", n_layers=5)
-#: phase ``serve_tp``: tensor-parallel serving of ``SERVE_VLM``'s model
-#: and request (4 x 6144 prompt tokens, 1024 image tokens, 32 decode
-#: steps) over a mesh (data 1, model ``tp``), held to the one-rank port;
-#: on a host with 4 cards also llama-3.2-vision-90b's 100 layers over
-#: (data 1, model 4), one rank a card, each drawing only its shard
-SERVE_TP = dict(SERVE_VLM, tp=2)
-SERVE_TP_FULL = dict(SERVE_VLM, n_layers=100, tp=4)
-#: where serve_tp's ranks find the reference and leave their results
-TP_DIR = REPO / "build" / "serve_tp"
-#: seconds serve_tp's ranks may take together, by mode
-TP_DEADLINE_S = {"check": 600, "full": 1500}
-#: decode steps of the full-depth run profiled after the timed ones
-TP_PROFILED_STEPS = 2
 #: MLA's serving cell: deepseek-v2-lite-16b at its registered width (27
 #: layers, d 2048, 16 heads with a q / k head of 128 + 64 rope and a v
 #: head of 128 over a latent cache of rank 512, 64 routed experts top 6
@@ -558,6 +550,39 @@ SERVE_DEEPSEEK = dict(SERVE, arch="deepseek-v2-lite-16b")
 #: cut to its first ``n_layers`` 5 (Mamba at 0-3, attention at 4, MoE at
 #: 1 and 3: 24.05 B of its 398.6 B, which do not fit 80 GB)
 SERVE_JAMBA = dict(SERVE, arch="jamba-1.5-large-398b", n_layers=5)
+#: phase ``serve_tp``: tensor-parallel serving of each family's serving
+#: cell (its model and request: 4 x 6144 prompt tokens, the context
+#: family's frames or image tokens, 32 decode steps) over a mesh (data 1,
+#: model ``tp``), held to the one-rank port: the vlm's 5 layers,
+#: olmoe-1b-7b (expert-parallel), deepseek-v2-lite-16b (MLA and the
+#: experts), rwkv6-1.6b and whisper-medium whole, and
+#: jamba-1.5-large-398b's first 2 layers (Mamba with the dense FFN, then
+#: Mamba with the MoE: 12.2 B; its attention layer is the vlm's GQA); on
+#: a host with 4 cards also the full-depth cells over (data 1, model 4),
+#: one rank a card, each drawing only its shard: llama-3.2-vision-90b's
+#: 100 layers (87.7 B) and jamba-1.5-large-398b's first 16, its first two
+#: superblocks (14 Mamba layers, attention at 4 and 12, 8 MoE layers:
+#: 90.5 B, 45 GB a card; its 72 layers' 797 GB fit no 4 cards)
+SERVE_TP = dict(SERVE_VLM, tp=2)
+SERVE_TP_CELLS = (SERVE_TP, dict(SERVE_MOE, tp=2),
+                  dict(SERVE_DEEPSEEK, tp=2),
+                  dict(SERVE, arch="rwkv6-1.6b", tp=2),
+                  dict(SERVE_WHISPER, tp=2),
+                  dict(SERVE_JAMBA, n_layers=2, tp=2))
+#: the full-depth cells, by the rank processes' mode
+SERVE_TP_FULL = {"full": dict(SERVE_VLM, n_layers=100, tp=4),
+                 "full_jamba": dict(SERVE_JAMBA, n_layers=16, tp=4)}
+#: where serve_tp's ranks find the references (a directory an arch) and
+#: leave their results
+TP_DIR = REPO / "build" / "serve_tp"
+#: seconds serve_tp's ranks may take together, by mode
+TP_DEADLINE_S = {"check": 600, "full": 1500, "full_jamba": 900}
+#: decode steps of the full-depth run profiled after the timed ones
+TP_PROFILED_STEPS = 2
+#: seconds phase serve_tp took with the vlm's cell alone (one H100 80GB
+#: HBM3 at 700 W, a whole run's), and what the other families' cells may
+#: add to it
+TP_VLM_ONLY_S, TP_FAMILIES_BUDGET_S = 21.3, 120.0
 #: the continued prefill of phases ``serve``, ``serve_deepseek`` and
 #: ``serve_jamba``: row b's cache filled by a one-row prefill of its
 #: request's first o_b tokens, then one batched cached prefill of the next
@@ -801,14 +826,27 @@ LOGITS_REL_L2 = {"gemma-2b": (2e-2, 2.5e-2), "rwkv6-1.6b": (4.5e-2, 5e-2),
                  "jamba-1.5-large-398b": (2e-2, 2.5e-2)}
 #: relative L2 error allowed between phase ``serve_tp``'s two ranks and
 #: the one-rank port, both on the kernel route: each rank's first
-#: attention output before ``wo`` (its 32 q heads; only its q / k / v
-#: products differ, narrower: bit-equal on the H100, reading 0), and the
-#: logits (the prefill's last position, every decode step's), where the
-#: bf16 sums over 'model' of the row-parallel products round otherwise
-#: than one product does (readings 0.0143 and at most 0.0149; the vlm's
-#: kernel-vs-plain gates, whose 5-layer readings are 0.0114 / 0.0123)
-TP_ATTENTION_REL_L2 = 1e-3
-TP_LOGITS_REL_L2 = (2e-2, 2.5e-2)
+#: layer's mixer output before its row-parallel product, against its
+#: heads' or channels' slice of the one-rank output, by the first
+#: mixer: (the ``kernels.ops`` wrapper whose first output is read, the
+#: dim of a rank's block, the gate).  Attention (and MLA, and whisper's
+#: encoder: the first flash call) and the WKV scan take only narrower
+#: products of the same input (the vlm read 0, bit-equal); the gated
+#: Mamba scan reads dt, b and c from ``w_x_dbc``'s partial products
+#: summed in bf16 over 'model', and splits a channel's states over 1, 2
+#: or 4 lanes by shape, so it may round otherwise.  The logits (the
+#: prefill's last position, every decode step's) are held to each
+#: family's kernel-vs-plain gates ``LOGITS_REL_L2``, where the bf16 sums
+#: over 'model' of the row-parallel products round otherwise than one
+#: product does (the vlm read 0.0143 and at most 0.0149 against its
+#: kernel-vs-plain 0.0114 / 0.0123); an MoE family's ranks run the
+#: one-rank run's expert choices (``moe_routes``), their own choices'
+#: flips counted
+TP_MIXER = {"attn": ("flash_attention", 1, 1e-3),
+            "mla": ("flash_attention", 1, 1e-3),
+            "cross": ("flash_attention", 1, 1e-3),
+            "rwkv": ("rwkv6_scan", 2, 1e-3),
+            "mamba": ("selective_scan_gated", 2, 1e-2)}
 #: relative L2 error allowed for one layer's own share of the routes'
 #: distance (``layer_divergence``'s ``local``; readings at most 0.0015 on
 #: gemma-2b and 0.0037 on rwkv6-1.6b)
@@ -5891,20 +5929,16 @@ def train_loop_on_card(card: str) -> None:
 class flash_recorder:
     """Inside ``with flash_recorder() as rec:`` every call of the models'
     ``ops.flash_attention`` is counted by its causal flag
-    (``rec.causal``) and the first call's output is kept
-    (``rec.first``)."""
+    (``rec.causal``)."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self.saved, self.first = ops.flash_attention, None
+        self.saved = ops.flash_attention
         self.causal = collections.Counter()
 
         def call(q, k, v, causal=True, *args, **kwargs):
-            out = self.saved(q, k, v, causal, *args, **kwargs)
-            if self.first is None:
-                self.first = out
             self.causal["causal" if causal else "non_causal"] += 1
-            return out
+            return self.saved(q, k, v, causal, *args, **kwargs)
 
         ops.flash_attention = call
         return self
@@ -5924,55 +5958,101 @@ def rel_l2(got, exp, dim=None):
             / torch.linalg.vector_norm(exp, dim=dim))
 
 
-def tp_reference(card: str) -> dict:
-    """The one-rank port's batched request on ``SERVE_TP``'s model (the
-    phase's reference): the prompt tokens, the vision embeddings, the
-    logits and greedy tokens (``batched_request``), and each rank's heads
-    of the first layer's attention output, written to ``TP_DIR`` for the
-    ranks; the card's memory is freed before they start."""
+class first_output:
+    """Inside ``with first_output(name) as rec:`` the first output of
+    the models' ``kernels.ops.<name>`` (its first element where it
+    returns a tuple) is kept (``rec.first``)."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved, self.first = getattr(ops, self.name), None
+
+        def call(*args, **kwargs):
+            out = self.saved(*args, **kwargs)
+            if self.first is None:
+                self.first = out[0] if isinstance(out, tuple) else out
+            return out
+
+        setattr(ops, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        setattr(ops, self.name, self.saved)
+        return False
+
+
+def tp_cell_dir(cfg) -> pathlib.Path:
+    return TP_DIR / cfg.name
+
+
+def tp_reference(card: str, serve) -> dict:
+    """The one-rank port's batched request on a ``SERVE_TP_CELLS`` cell
+    (the phase's reference): the prompt tokens, the context, the logits
+    and greedy tokens (``batched_request``), the MoE's expert choices,
+    and each rank's slice of the first layer's mixer output
+    (``TP_MIXER``), written to the cell's directory for the ranks; the
+    card's memory is freed before they start."""
     import torch
     from repro_torch import models
     from repro_torch.configs.registry import _ctx_len
     from repro_torch.launch.serve import batched_request
 
     torch.cuda.empty_cache()
-    system, _ = serving_system(SERVE_TP)
+    t0 = time.perf_counter()
+    system, _ = serving_system(serve)
     cfg, n = system.cfg, len(system.agents)
     params = models.init_params(cfg, seed=SEED)
     awake_params(params, cfg)
     contexts = [system.context_tokens(i) for i in range(n)]
     p = min(len(c) for c in contexts)
-    context = cell_context(cfg, n, _ctx_len(cfg, SERVE_TP["artifacts"]
-                                            * SERVE_TP["artifact_tokens"]),
+    tokens = torch.tensor([c[:p] for c in contexts])
+    context = cell_context(cfg, n, _ctx_len(cfg, serve["artifacts"]
+                                            * serve["artifact_tokens"]),
                            SEED)
-    with flash_recorder() as rec:
-        out = batched_request(system, params, SERVE_TP["decode_steps"],
+    kernel, dim, _ = TP_MIXER[models.layer_specs(cfg)[0].mixer]
+    with first_output(kernel) as rec, moe_routes() as routes:
+        out = batched_request(system, params, serve["decode_steps"],
                               context=context)
-    check(out["prompt_len"] == p, "the reference's prompt length")
-    torch.save({"tokens": torch.tensor([c[:p] for c in contexts]),
-                "context": context.cpu(), "logits": out["logits"].cpu(),
-                "greedy": out["tokens"].cpu()}, TP_DIR / "reference.pt")
-    heads = cfg.n_heads // SERVE_TP["tp"]
-    for r in range(SERVE_TP["tp"]):
-        torch.save(rec.first[:, r * heads:(r + 1) * heads].cpu(),
-                   TP_DIR / f"attention{r}.pt")
-    del params, out, rec, context
+    check(out["prompt_len"] == tokens.shape[1],
+          f"{cfg.name}: the reference's prompt length")
+    where = tp_cell_dir(cfg)
+    where.mkdir(parents=True)
+    torch.save({"tokens": tokens,
+                "context": None if context is None else context.cpu(),
+                "logits": out["logits"].cpu(),
+                "greedy": out["tokens"].cpu(),
+                "routes": [r.cpu() for r in routes.routes]},
+               where / "reference.pt")
+    n = rec.first.shape[dim] // serve["tp"]
+    for r in range(serve["tp"]):
+        torch.save(rec.first.narrow(dim, r * n, n).cpu(),
+                   where / f"mixer{r}.pt")
+    del params, out, rec, context, routes
     torch.cuda.empty_cache()
-    return {"agents": n, "prompt_len": p}
+    return {"agents": tokens.shape[0], "prompt_len": tokens.shape[1],
+            "seconds": time.perf_counter() - t0}
 
 
 def draw_shard(cfg, mesh) -> dict:
     """This rank's shard of ``cfg``'s params over the mesh's 'model' axis,
     drawn leaf by leaf on its card from ``SEED``, so that no process
-    holds the whole model (llama-3.2-vision-90b's 87.7 B do not fit one
-    card): each leaf's block shape from ``shard_params`` of a meta tree,
-    each block from a generator seeded by the seed, the leaf's index and
-    the rank's index on 'model' (0 for a leaf every rank holds whole, so
-    those are equal on every rank; a K / V head is never held by two
-    ranks here, 8 heads over 4): norm scales 1, cross gates
-    ``CROSS_GATE`` (as ``awake_params`` sets them), the embedding and the
-    head N(0, 0.02^2) and every other weight N(0, 1 / d_in), d_in its
-    whole input width, as ``init_params`` draws them."""
+    holds the whole model (llama-3.2-vision-90b's 87.7 B and
+    jamba-1.5-large-398b's 16 layers' 90.5 B do not fit one card): each
+    leaf's block shape from ``shard_params`` of a meta tree, each block
+    from a generator seeded by the seed, the leaf's index and the rank's
+    index on 'model' (0 for a leaf every rank holds whole, so those are
+    equal on every rank; a K / V head is never held by two ranks here, 8
+    heads over 4), as ``init_params`` draws them and ``awake_params``
+    moves them: norm scales 1, cross gates ``CROSS_GATE``, the embedding
+    and the head N(0, 0.02^2), Mamba's ``a_log`` log(1 .. d_state) a
+    channel, ``dt_bias`` the inverse softplus of U(1e-3, 1e-1),
+    ``d_skip`` 1 + 0.3 N(0, 1), ``conv_b`` 0.1 N(0, 1) and ``conv_w``
+    N(0, 0.01), the router N(0, 0.01 / d_in), and every other weight
+    N(0, 1 / d_in), d_in its whole input width."""
     import torch
     from repro_torch import models
     from repro_torch.launch.mesh import axis_group
@@ -5989,19 +6069,192 @@ def draw_shard(cfg, mesh) -> dict:
     for i, (path, x) in enumerate(shd.flatten_with_paths(local)):
         leaf = path.rsplit("/", 1)[-1]
         block = index if x.shape != whole[path].shape else 0
+        gen = torch.Generator(device=dev).manual_seed(
+            SEED + 7919 * i + 104729 * block)
+
+        def normal(std, mean=0.0):
+            return torch.randn(x.shape, generator=gen, device=dev,
+                               dtype=torch.float32).mul_(std).add_(mean)
+
         if leaf == "scale":
-            drawn[path] = torch.ones(x.shape, dtype=x.dtype, device=dev)
+            value = torch.ones(x.shape, device=dev)
         elif leaf == "gate":
-            drawn[path] = torch.full(x.shape, CROSS_GATE, dtype=x.dtype,
-                                     device=dev)
+            value = torch.full(x.shape, CROSS_GATE, device=dev)
+        elif leaf == "a_log":
+            value = torch.log(torch.arange(
+                1, x.shape[-1] + 1, dtype=torch.float32,
+                device=dev)).expand(x.shape)
+        elif leaf == "dt_bias":
+            dt0 = torch.rand(x.shape, generator=gen, device=dev).mul_(
+                1e-1 - 1e-3).add_(1e-3).clamp_(min=1e-4)
+            value = torch.log(torch.expm1(dt0))
+        elif leaf == "d_skip":
+            value = normal(0.3, 1.0)
+        elif leaf == "conv_b":
+            value = normal(0.1)
+        elif leaf == "conv_w":
+            value = normal(0.1)
         else:
-            gen = torch.Generator(device=dev).manual_seed(
-                SEED + 7919 * i + 104729 * block)
             std = (0.02 if leaf in ("embed", "lm_head")
                    else whole[path].shape[-2] ** -0.5)
-            drawn[path] = torch.randn(x.shape, generator=gen, device=dev
-                                      ).mul_(std).to(x.dtype)
+            value = normal(0.1 * std if leaf == "router" else std)
+        drawn[path] = value.to(x.dtype).contiguous()
     return shd.unflatten_like(local, drawn)
+
+
+def expected_flash_calls(cfg) -> dict:
+    """Flash launches of one prefill by causal flag: the decoder's self
+    and MLA layers causal; cross mixers, cross sublayers and the
+    encoder's layers not."""
+    from repro_torch.models import layer_specs
+    specs = layer_specs(cfg)
+    calls = {"causal": sum(s.mixer in ("attn", "mla") for s in specs),
+             "non_causal": sum(s.mixer == "cross" for s in specs)
+             + sum(s.cross for s in specs) + cfg.encoder_layers}
+    return {k: v for k, v in calls.items() if v}
+
+
+def tp_serve_cell(card: str, mode: str, serve, mesh, rank: int,
+                  backend: str, dev) -> dict:
+    """One cell on this rank: its params (check: drawn whole from
+    ``SEED``, awake, then ``shard_params``, the ranks sharing a card in
+    turn; full: :func:`draw_shard`), the reference's request through
+    ``make_prefill_step`` and ``make_decode_step`` over the mesh (check:
+    the decode steps fed the reference's greedy tokens and an MoE's
+    routings the reference's expert choices; full: then
+    ``TP_PROFILED_STEPS`` more under the profiler, and the time of one
+    ``all_reduce`` over 'model' of a prefill's and of a decode step's
+    residual stream).  Returns its result; the card's memory is freed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import models
+    from repro_torch.launch.mesh import axis_group
+    from repro_torch.models.common import dtype_of, tree_map
+    from repro_torch.runtime import steps as step_factories
+    from repro_torch.runtime import tensor_parallel as tp
+
+    t_cell = time.perf_counter()
+    cfg = serve_config(serve)
+    ref = torch.load(tp_cell_dir(cfg) / "reference.pt")
+    tokens = ref["tokens"].to(dev)
+    context = None if ref["context"] is None else ref["context"].to(dev)
+    b, p = tokens.shape
+    steps = serve["decode_steps"]
+    world = axis_group(mesh).size
+    t0 = time.perf_counter()
+    if mode == "check":
+        # ranks sharing a card draw the whole model in turn (its stacking
+        # takes twice its bytes: 58 GiB at deepseek-v2-lite-16b), each
+        # keeping its shard in host memory meanwhile
+        shared = backend == "gloo"
+        for turn in range(world if shared else 1):
+            if not shared or turn == rank:
+                params = models.init_params(cfg, seed=SEED)
+                awake_params(params, cfg)
+                local = tp.shard_params(cfg, params, mesh)
+                del params
+                if shared:
+                    local = tree_map(lambda a: a.cpu(), local)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        if shared:
+            local = tree_map(lambda a: a.to(dev), local)
+    else:
+        local = draw_shard(cfg, mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    extra = TP_PROFILED_STEPS if mode != "check" else 0
+    cache = tp.init_cache(cfg, b, p + steps + extra,
+                          ctx_len=0 if context is None else context.shape[1],
+                          mesh=mesh)
+    prefill = step_factories.make_prefill_step(cfg, mesh)
+    decode = step_factories.make_decode_step(cfg, mesh)
+    batch = {"tokens": tokens}
+    if context is not None:
+        batch["frames" if cfg.encoder_layers else "vision_embeds"] = context
+    kernel, dim, gate = TP_MIXER[models.layer_specs(cfg)[0].mixer]
+    forced = ([r.to(dev) for r in ref["routes"]]
+              if mode == "check" and cfg.moe is not None else [])
+    for fn in model_kernels().values():
+        fn.launches = 0
+    with flash_recorder() as rec, first_output(kernel) as mixer, \
+            moe_routes(forced) as routes:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        logits, cache = prefill(local, batch, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, greedy = [logits], []
+        for t in range(steps):
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+            greedy.append(nxt)
+            feed = ref["greedy"][:, t].to(dev) if mode == "check" else nxt
+            logits, cache = decode(local, feed[:, None], cache)
+            out.append(logits)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    logits, greedy = torch.cat(out, dim=1), torch.stack(greedy, dim=1)
+    result = {"arch": cfg.name, "n_layers": cfg.n_layers, "rank": rank,
+              "backend": backend, "card": card, "device": str(dev),
+              "batch": b, "prompt_len": p, "steps": steps,
+              "params": models.params_count(local),
+              "init_seconds": init_s, "prefill_seconds": t1 - t0,
+              "decode_seconds": t2 - t1,
+              "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+              "finite": bool(torch.isfinite(logits).all()),
+              "launches": {name: fn.launches for name, fn in
+                           model_kernels().items() if fn.launches},
+              "flash_calls": dict(rec.causal),
+              "greedy_first": greedy[:, :8].tolist()}
+    if mode != "check":
+        def more_steps():
+            nonlocal logits, cache
+            for _ in range(extra):
+                logits, cache = decode(
+                    local, torch.argmax(logits[:, -1], dim=-1)[:, None],
+                    cache)
+
+        logits = out[-1]
+        wall, busy, top = device_profile(more_steps)
+        result["decode_profile"] = {
+            "steps": extra, "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall, "top": top[:8]}
+        group = axis_group(mesh).group
+        result["all_reduce_ms"] = {
+            what: all_reduce_ms(torch.zeros(
+                shape, dtype=dtype_of(cfg.dtype), device=dev), group)
+            for what, shape in (("prefill", (b, p, cfg.d_model)),
+                                ("decode", (b, 1, cfg.d_model)))}
+    else:
+        want = torch.load(tp_cell_dir(cfg) / f"mixer{rank}.pt")
+        by_step = rel_l2(logits, ref["logits"].to(dev), dim=-1
+                         ).max(dim=0).values
+        result.update(
+            mixer_kernel=kernel, mixer_gate=gate,
+            mixer_rel_l2=float(rel_l2(mixer.first.cpu(), want)),
+            logits_rel_l2=float(by_step[0]),
+            logits_rel_l2_max_decode_step=float(by_step[1:].max()),
+            logits_rel_l2_by_step=by_step.tolist(),
+            greedy_differing=int((greedy.cpu() != ref["greedy"]).sum()),
+            greedy_tokens=greedy.numel())
+        if cfg.moe is not None:
+            want_routes = [r.to(dev) for r in ref["routes"]]
+            check(len(routes.routes) == len(want_routes)
+                  and not routes.forced,
+                  f"{cfg.name} rank {rank}: every routing forced")
+            result.update(
+                routings=sum(r.shape[0] for r in want_routes),
+                free_routing_flips=sum(
+                    flipped_tokens(a, w) for a, w in
+                    zip(routes.routes, want_routes)))
+    del local, cache, logits, out, mixer, rec, routes
+    torch.cuda.empty_cache()
+    dist.barrier()
+    result["seconds"] = time.perf_counter() - t_cell
+    return result
 
 
 def serve_tp_rank(card: str, mode: str, rank: int, world: int, port: int,
@@ -6009,23 +6262,13 @@ def serve_tp_rank(card: str, mode: str, rank: int, world: int, port: int,
     """One rank of phase ``serve_tp`` (its own process, ``chip_smoke.py
     --serve-tp-rank MODE RANK WORLD PORT BACKEND``): a (data 1, model
     ``world``) mesh over ``backend`` (gloo: every rank on card 0; nccl:
-    rank r on card r), the params of ``mode`` "check" (``SERVE_TP``'s
-    model drawn whole from ``SEED``, awake, then ``shard_params``) or
-    "full" (``SERVE_TP_FULL``'s, :func:`draw_shard`), the reference's
-    request through ``make_prefill_step`` and ``make_decode_step`` over
-    the mesh (check: the decode steps fed the reference's greedy tokens;
-    full: then ``TP_PROFILED_STEPS`` more under the profiler, and the time
-    of one ``all_reduce`` over 'model' of a prefill's and of a decode
-    step's residual stream); writes its result to ``TP_DIR``."""
+    rank r on card r), then mode "check"'s every ``SERVE_TP_CELLS`` cell
+    in turn, or a full-depth cell (``SERVE_TP_FULL[mode]``), through
+    :func:`tp_serve_cell`; writes its results to ``TP_DIR``."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch import models
-    from repro_torch.launch.mesh import axis_group
-    from repro_torch.runtime import steps as step_factories
-    from repro_torch.runtime import tensor_parallel as tp
 
-    serve = SERVE_TP if mode == "check" else SERVE_TP_FULL
     dev = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(dev)
     dist.init_process_group(
@@ -6034,91 +6277,11 @@ def serve_tp_rank(card: str, mode: str, rank: int, world: int, port: int,
     try:
         mesh = init_device_mesh("cuda", (1, world),
                                 mesh_dim_names=("data", "model"))
-        cfg = serve_config(serve)
-        ref = torch.load(TP_DIR / "reference.pt")
-        tokens, context = ref["tokens"].to(dev), ref["context"].to(dev)
-        b, p = tokens.shape
-        steps = serve["decode_steps"]
-        t0 = time.perf_counter()
-        if mode == "check":
-            params = models.init_params(cfg, seed=SEED)
-            awake_params(params, cfg)
-            local = tp.shard_params(cfg, params, mesh)
-            del params
-        else:
-            local = draw_shard(cfg, mesh)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        extra = TP_PROFILED_STEPS if mode == "full" else 0
-        cache = tp.init_cache(cfg, b, p + steps + extra,
-                              ctx_len=context.shape[1], mesh=mesh)
-        prefill = step_factories.make_prefill_step(cfg, mesh)
-        decode = step_factories.make_decode_step(cfg, mesh)
-        for fn in model_kernels().values():
-            fn.launches = 0
-        with flash_recorder() as rec:
-            torch.cuda.synchronize()
-            dist.barrier()
-            t0 = time.perf_counter()
-            logits, cache = prefill(local, {"tokens": tokens,
-                                            "vision_embeds": context}, cache)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            out, greedy = [logits], []
-            for t in range(steps):
-                nxt = torch.argmax(logits[:, -1], dim=-1)
-                greedy.append(nxt)
-                feed = ref["greedy"][:, t].to(dev) if mode == "check" else nxt
-                logits, cache = decode(local, feed[:, None], cache)
-                out.append(logits)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-        logits, greedy = torch.cat(out, dim=1), torch.stack(greedy, dim=1)
-        result = {"rank": rank, "backend": backend, "card": card,
-                  "device": str(dev), "n_layers": cfg.n_layers,
-                  "batch": b, "prompt_len": p, "steps": steps,
-                  "params": models.params_count(local),
-                  "init_seconds": init_s, "prefill_seconds": t1 - t0,
-                  "decode_seconds": t2 - t1,
-                  "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                  "finite": bool(torch.isfinite(logits).all()),
-                  "launches": {name: fn.launches for name, fn in
-                               model_kernels().items() if fn.launches},
-                  "flash_calls": dict(rec.causal),
-                  "greedy_first": greedy[:, :8].tolist()}
-        if mode == "full":
-            def more_steps():
-                nonlocal logits, cache
-                for _ in range(extra):
-                    logits, cache = decode(
-                        local, torch.argmax(logits[:, -1], dim=-1)[:, None],
-                        cache)
-
-            logits = out[-1]
-            wall, busy, top = device_profile(more_steps)
-            result["decode_profile"] = {
-                "steps": extra, "wall_s": wall, "device_busy_s": busy,
-                "device_idle_share": 1.0 - busy / wall, "top": top[:8]}
-            group = axis_group(mesh).group
-            result["all_reduce_ms"] = {
-                what: all_reduce_ms(torch.zeros(
-                    shape, dtype=context.dtype, device=dev), group)
-                for what, shape in (("prefill", (b, p, cfg.d_model)),
-                                    ("decode", (b, 1, cfg.d_model)))}
-        if mode == "check":
-            want = torch.load(TP_DIR / f"attention{rank}.pt").to(dev)
-            by_step = rel_l2(logits, ref["logits"].to(dev), dim=-1
-                             ).max(dim=0).values
-            result.update(
-                attention_rel_l2=float(rel_l2(rec.first, want)),
-                logits_rel_l2=float(by_step[0]),
-                logits_rel_l2_max_decode_step=float(by_step[1:].max()),
-                logits_rel_l2_by_step=by_step.tolist(),
-                greedy_differing=int((greedy.cpu() != ref["greedy"]).sum()),
-                greedy_tokens=greedy.numel())
-        (TP_DIR / f"{mode}{rank}.json").write_text(json.dumps(result))
+        cells = (SERVE_TP_CELLS if mode == "check"
+                 else (SERVE_TP_FULL[mode],))
+        results = [tp_serve_cell(card, mode, serve, mesh, rank, backend,
+                                 dev) for serve in cells]
+        (TP_DIR / f"{mode}{rank}.json").write_text(json.dumps(results))
     finally:
         dist.destroy_process_group()
 
@@ -6143,7 +6306,7 @@ def run_tp_ranks(mode: str, world: int, backend: str) -> list:
     each its own process logging to ``TP_DIR``, and joins them all: every
     rank is killed at ``TP_DEADLINE_S[mode]`` or once one rank has failed.
     A rank that fails fails the run (the end of its log on stderr).
-    Returns each rank's result."""
+    Returns each rank's results, a list of cells each."""
     import os
     import socket
     with socket.socket() as sock:          # a free port for the store
@@ -6180,93 +6343,130 @@ def run_tp_ranks(mode: str, world: int, backend: str) -> list:
             for r in range(world)]
 
 
+def tp_checks(card: str) -> collections.Counter:
+    """The checked cells (``SERVE_TP_CELLS``): every cell's one-rank
+    reference, then two ranks (two gloo processes on one card, else one
+    card a rank over NCCL) serving every cell in turn, each rank held to
+    the reference: the first mixer's slice within ``TP_MIXER``'s gate,
+    the logits within the family's ``LOGITS_REL_L2``, finite, launches
+    and flash calls exact.  Returns the model kernels' launches summed
+    over the ranks."""
+    import torch
+    t0 = time.perf_counter()
+    refs = {serve["arch"]: tp_reference(card, serve)
+            for serve in SERVE_TP_CELLS}
+    t1 = time.perf_counter()
+    tp = SERVE_TP["tp"]
+    check(all(serve["tp"] == tp for serve in SERVE_TP_CELLS),
+          "serve_tp: one mesh for every cell")
+    ranks = run_tp_ranks("check", tp,
+                         "nccl" if torch.cuda.device_count() >= 2
+                         else "gloo")
+    t2 = time.perf_counter()
+    launches = collections.Counter()
+    for i, serve in enumerate(SERVE_TP_CELLS):
+        cfg = serve_config(serve)
+        cell = [r[i] for r in ranks]
+        expected = {k: v for k, v in
+                    expected_launches(cfg, 1, serve["decode_steps"]).items()
+                    if v}
+        calls = expected_flash_calls(cfg)
+        gates = LOGITS_REL_L2[serve["arch"]]
+        emit({"phase": "serve_tp", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "tp": tp,
+              "backend": cell[0]["backend"], **refs[serve["arch"]],
+              "ranks": cell, "expected_launches": expected,
+              "expected_flash_calls": calls, "logits_gates": gates,
+              "note": "ranks sharing one card time-slice it: their "
+                      "seconds say nothing of tensor-parallel speed",
+              "card": card})
+        for r in cell:
+            what = f"serve_tp {cfg.name} rank {r['rank']}"
+            check(r["arch"] == cfg.name, f"{what}: the cell's arch")
+            check(r["finite"], f"{what}: finite logits")
+            check(r["launches"] == expected,
+                  f"{what}: launches {r['launches']} == {expected}")
+            check(r["flash_calls"] == calls,
+                  f"{what}: flash calls {r['flash_calls']} == {calls}")
+            check(r["mixer_rel_l2"] <= r["mixer_gate"],
+                  f"{what}: first {r['mixer_kernel']} output vs the "
+                  f"one-rank slice {r['mixer_rel_l2']} <= "
+                  f"{r['mixer_gate']}")
+            check(r["logits_rel_l2"] <= gates[0],
+                  f"{what}: prefill logits vs one rank "
+                  f"{r['logits_rel_l2']} <= {gates[0]}")
+            check(r["logits_rel_l2_max_decode_step"] <= gates[1],
+                  f"{what}: decode logits vs one rank "
+                  f"{r['logits_rel_l2_max_decode_step']} <= {gates[1]}")
+            launches.update(r["launches"])
+    emit({"phase": "serve_tp", "what": "seconds",
+          "references_s": t1 - t0, "ranks_s": t2 - t1,
+          "cells_s": {s["arch"]: max(r[i]["seconds"] for r in ranks)
+                      for i, s in enumerate(SERVE_TP_CELLS)},
+          "vlm_only_phase_s": TP_VLM_ONLY_S,
+          "new_families_budget_s": TP_FAMILIES_BUDGET_S, "card": card})
+    return launches
+
+
+def tp_full(card: str, mode: str) -> collections.Counter:
+    """A full-depth cell (``SERVE_TP_FULL[mode]``) over 4 cards, one
+    rank a card over NCCL, each drawing only its shard: finite logits
+    and exact launches a rank; its rates, memory, a profiled decode step
+    and one all_reduce's time printed.  Returns the model kernels'
+    launches summed over the ranks."""
+    serve = SERVE_TP_FULL[mode]
+    cfg = serve_config(serve)
+    steps = serve["decode_steps"]
+    topo, nvlink = (subprocess.run(["nvidia-smi", *args],
+                                   capture_output=True, text=True,
+                                   timeout=60)
+                    for args in (("topo", "-m"), ("nvlink", "-s")))
+    full = [r[0] for r in run_tp_ranks(mode, serve["tp"], "nccl")]
+    expected = {k: v for k, v in expected_launches(cfg, 1, steps).items()
+                if v}
+    for r in full:
+        check(r["finite"], f"serve_tp {mode} rank {r['rank']}: finite "
+              f"logits")
+        check(r["launches"] == expected,
+              f"serve_tp {mode} rank {r['rank']}: launches "
+              f"{r['launches']} == {expected}")
+    slowest = {k: max(r[k] for r in full)
+               for k in ("prefill_seconds", "decode_seconds")}
+    b, p = full[0]["batch"], full[0]["prompt_len"]
+    emit({"phase": "serve_tp", "what": "full depth",
+          "arch": cfg.name, "n_layers": cfg.n_layers,
+          "tp": serve["tp"], "backend": "nccl",
+          "params_per_rank": [r["params"] for r in full],
+          "prefill_tokens_per_s": b * p / slowest["prefill_seconds"],
+          "decode_tokens_per_s": b * steps / slowest["decode_seconds"],
+          "decode_ms_per_step": slowest["decode_seconds"] / steps * 1e3,
+          **slowest, "peak_gib": [r["peak_gib"] for r in full],
+          "init_seconds": [r["init_seconds"] for r in full],
+          "launches_per_rank": full[0]["launches"],
+          "flash_calls": full[0]["flash_calls"],
+          "greedy_first": full[0]["greedy_first"],
+          "decode_profile": full[0]["decode_profile"],
+          "all_reduce_ms": full[0]["all_reduce_ms"],
+          "topology": topo.stdout or topo.stderr,
+          "nvlink": nvlink.stdout or nvlink.stderr, "card": card})
+    launches = collections.Counter()
+    for r in full:
+        launches.update(r["launches"])
+    return launches
+
+
 def phase_serve_tp(card: str) -> dict:
     """Tensor-parallel serving (module docstring, phase ``serve_tp``):
-    the one-rank reference, then ``SERVE_TP``'s ranks (two gloo ranks on
-    card 0 on one card, else one rank a card over NCCL) held to it; on a
-    host with 4 cards also ``SERVE_TP_FULL`` over NCCL.  Returns the
-    model kernels' launches summed over the ranks."""
+    :func:`tp_checks`, and on a host with 4 cards every full-depth cell
+    (:func:`tp_full`).  Returns the model kernels' launches summed over
+    the ranks."""
     import torch
-    from repro_torch.models import layer_specs
-    cards = torch.cuda.device_count()
     shutil.rmtree(TP_DIR, ignore_errors=True)
     TP_DIR.mkdir(parents=True)
-    ref = tp_reference(card)
-    cfg = serve_config(SERVE_TP)
-    steps = SERVE_TP["decode_steps"]
-    ranks = run_tp_ranks("check", SERVE_TP["tp"],
-                         "nccl" if cards >= 2 else "gloo")
-    expected = expected_launches(cfg, 1, steps)
-    expected = {k: v for k, v in expected.items() if v}
-    cross = sum(spec.mixer == "cross" for spec in layer_specs(cfg))
-    calls = {"causal": cfg.n_layers - cross, "non_causal": cross}
-    emit({"phase": "serve_tp", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "tp": SERVE_TP["tp"], "backend": ranks[0]["backend"],
-          "agents": ref["agents"], "prompt_len": ref["prompt_len"],
-          "ranks": ranks, "expected_launches": expected,
-          "expected_flash_calls": calls,
-          "attention_gate": TP_ATTENTION_REL_L2,
-          "logits_gates": TP_LOGITS_REL_L2,
-          "note": "ranks sharing one card time-slice it: their seconds "
-                  "say nothing of tensor-parallel speed", "card": card})
-    for r in ranks:
-        check(r["finite"], f"serve_tp rank {r['rank']}: finite logits")
-        check(r["launches"] == expected,
-              f"serve_tp rank {r['rank']}: launches {r['launches']} == "
-              f"{expected}")
-        check(r["flash_calls"] == calls,
-              f"serve_tp rank {r['rank']}: flash calls {r['flash_calls']} "
-              f"== {calls}")
-        check(r["attention_rel_l2"] <= TP_ATTENTION_REL_L2,
-              f"serve_tp rank {r['rank']}: first attention output vs the "
-              f"one-rank slice {r['attention_rel_l2']} <= "
-              f"{TP_ATTENTION_REL_L2}")
-        check(r["logits_rel_l2"] <= TP_LOGITS_REL_L2[0],
-              f"serve_tp rank {r['rank']}: prefill logits vs one rank "
-              f"{r['logits_rel_l2']} <= {TP_LOGITS_REL_L2[0]}")
-        check(r["logits_rel_l2_max_decode_step"] <= TP_LOGITS_REL_L2[1],
-              f"serve_tp rank {r['rank']}: decode logits vs one rank "
-              f"{r['logits_rel_l2_max_decode_step']} <= "
-              f"{TP_LOGITS_REL_L2[1]}")
-    launches = collections.Counter()
-    for r in ranks:
-        launches.update(r["launches"])
-    if cards >= 4:
-        topo, nvlink = (subprocess.run(["nvidia-smi", *args],
-                                       capture_output=True, text=True,
-                                       timeout=60)
-                        for args in (("topo", "-m"), ("nvlink", "-s")))
-        full_cfg = serve_config(SERVE_TP_FULL)
-        full = run_tp_ranks("full", SERVE_TP_FULL["tp"], "nccl")
-        expected = {k: v for k, v in
-                    expected_launches(full_cfg, 1, steps).items() if v}
-        for r in full:
-            check(r["finite"], f"serve_tp full rank {r['rank']}: finite "
-                  f"logits")
-            check(r["launches"] == expected,
-                  f"serve_tp full rank {r['rank']}: launches "
-                  f"{r['launches']} == {expected}")
-        slowest = {k: max(r[k] for r in full)
-                   for k in ("prefill_seconds", "decode_seconds")}
-        b, p = full[0]["batch"], full[0]["prompt_len"]
-        emit({"phase": "serve_tp", "what": "full depth",
-              "arch": full_cfg.name, "n_layers": full_cfg.n_layers,
-              "tp": SERVE_TP_FULL["tp"], "backend": "nccl",
-              "params_per_rank": [r["params"] for r in full],
-              "prefill_tokens_per_s": b * p / slowest["prefill_seconds"],
-              "decode_tokens_per_s": b * steps / slowest["decode_seconds"],
-              "decode_ms_per_step": slowest["decode_seconds"] / steps * 1e3,
-              **slowest, "peak_gib": [r["peak_gib"] for r in full],
-              "init_seconds": [r["init_seconds"] for r in full],
-              "launches_per_rank": full[0]["launches"],
-              "flash_calls": full[0]["flash_calls"],
-              "greedy_first": full[0]["greedy_first"],
-              "decode_profile": full[0]["decode_profile"],
-              "all_reduce_ms": full[0]["all_reduce_ms"],
-              "topology": topo.stdout or topo.stderr,
-              "nvlink": nvlink.stdout or nvlink.stderr, "card": card})
-        for r in full:
-            launches.update(r["launches"])
+    launches = tp_checks(card)
+    if torch.cuda.device_count() >= 4:
+        for mode in SERVE_TP_FULL:
+            launches.update(tp_full(card, mode))
     return dict(launches)
 
 

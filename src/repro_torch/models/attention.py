@@ -39,9 +39,11 @@ Attention runs through the hand-written kernels (``kernels.ops``):
   offsets for a cached prefill at an offset.
 
 Under tensor parallelism (``runtime.tensor_parallel.using``) the
-weights hold a rank's heads, whose count is read from them, and the
-output projection's partial products are summed over 'model' before
-the bias is added and before the cross gate multiplies.
+weights hold a rank's heads (GQA, cross, the encoder's, MLA's), whose
+count is read from them, and the output projection's partial products
+are summed over 'model' before the bias is added and before the cross
+gate multiplies; MLA's latent and its cache stay whole on every rank,
+and each rank expands only its heads.
 
 The GQA and cross caches are head-major, ``(B, Hkv, Lmax, D)`` per layer
 (the JAX package keeps ``(B, Lmax, Hkv, D)``), so the decode kernel reads
@@ -202,7 +204,7 @@ def encoder_attn_apply(p, cfg: ModelConfig, x):
     q, k, v = _project_qkv(p, cfg, x)
     out = ops.flash_attention(_head_major(q), _head_major(k), _head_major(v),
                               causal=False).transpose(1, 2)
-    y = out.reshape(b, t, -1) @ p["wo"]
+    y = tp.reduce(out.reshape(b, t, -1) @ p["wo"])
     if "bo" in p:
         y = y + p["bo"]
     return y
@@ -297,7 +299,7 @@ def _mla_expand(p, cfg: ModelConfig, c_kv, k_pe):
     heads after each head's nope part, and v (B, H, T, v_head)."""
     m = cfg.mla
     b, t, _ = c_kv.shape
-    h = cfg.n_heads
+    h = p["w_uv"].shape[-1] // m.v_head_dim
     k_nope = (c_kv @ p["w_uk"]).reshape(b, t, h, m.qk_nope_head_dim)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
         b, t, h, m.qk_rope_head_dim)], dim=-1)
@@ -324,7 +326,7 @@ def mla_apply(p, cfg: ModelConfig, x, positions, cache_ckv=None,
     """
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = p["w_uv"].shape[-1] // m.v_head_dim      # a rank's share under TP
     nope, rope, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
     q = (x @ p["w_dq"]).reshape(b, s, h, nope + rope)
     dkv = x @ p["w_dkv"]
@@ -369,5 +371,5 @@ def mla_apply(p, cfg: ModelConfig, x, positions, cache_ckv=None,
                                    kv_len=cache_len + 1,
                                    scale=scale)[:, None]
         new_cache = (ckv, kpe)
-    y = out.reshape(b, s, h * m.v_head_dim) @ p["wo"]
+    y = tp.reduce(out.reshape(b, s, h * m.v_head_dim) @ p["wo"])
     return y, new_cache

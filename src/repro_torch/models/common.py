@@ -165,11 +165,14 @@ def mlp_init(gen, d_model: int, d_ff: int, dtype, device,
 
 
 def mlp_apply(p, x, act: str = "gelu"):
+    """The plain feed-forward; under tensor parallelism ``w_in`` and
+    ``b_in`` hold a rank's columns and ``w_out`` its rows, whose partial
+    products are summed over 'model' before ``b_out`` is added."""
     y = x @ p["w_in"]
     if "b_in" in p:
         y = y + p["b_in"]
     y = act_fn(act)(y)
-    y = y @ p["w_out"]
+    y = tp.reduce(y @ p["w_out"])
     if "b_out" in p:
         y = y + p["b_out"]
     return y

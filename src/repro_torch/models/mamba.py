@@ -23,6 +23,13 @@ y cast back before the gate.  A prompt longer
 than the config's ``chunk`` must be a multiple of it, as the JAX model's
 chunked scan requires; decode carries the conv state (the last d_conv -
 1 inputs, model type) and the fp32 scan state, O(1) a token.
+
+Under tensor parallelism (``runtime.tensor_parallel``) a rank holds
+inner channels of x and the same channels of z (its ``w_in`` block
+[x_r | z_r], whose width gives the rank's d_inner), the conv, dt and
+scan leaves of those channels and ``w_x_dbc``'s and ``w_out``'s rows;
+the partial products of both are summed over 'model', ``w_x_dbc``'s
+before dt, b and c are taken from it.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MambaConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import _normal, _uniform, dense_init
+from repro_torch.runtime import tensor_parallel as tp
 
 
 class MambaState(NamedTuple):
@@ -85,7 +93,7 @@ def _projections(p, cfg: ModelConfig, xc):
     in xc's type, b_t, c_t fp32)."""
     m, _, dt_rank = _dims(cfg)
     f32 = torch.float32
-    dbc = xc @ p["w_x_dbc"]
+    dbc = tp.reduce(xc @ p["w_x_dbc"])     # a rank's channels' partial
     b_t = dbc[..., dt_rank:dt_rank + m.d_state].to(f32).contiguous()
     c_t = dbc[..., dt_rank + m.d_state:].to(f32).contiguous()
     return dbc[..., :dt_rank] @ p["w_dt"], b_t, c_t
@@ -111,7 +119,8 @@ def mamba_apply(p, cfg: ModelConfig, x, state: MambaState | None = None):
     """x: (B, T, d_model) -> (y, new state).  A prompt longer than the
     config's ``chunk`` must be a multiple of it; otherwise
     ``ValueError``."""
-    m, d_inner, _ = _dims(cfg)
+    m = cfg.mamba
+    d_inner = p["d_skip"].shape[0]          # a rank's channels under TP
     t = x.shape[1]
     chunk = min(m.chunk, t)
     if t % chunk:
@@ -133,7 +142,7 @@ def mamba_apply(p, cfg: ModelConfig, x, state: MambaState | None = None):
         dt_raw, b_t, c_t = _projections(p, cfg, xc)
         y, h = ops.selective_scan_gated(dt_raw, p["dt_bias"], a, b_t, c_t,
                                         xc, z, p["d_skip"], *ssm)
-    return y @ p["w_out"], MambaState(conv=new_conv, ssm=h)
+    return tp.reduce(y @ p["w_out"]), MambaState(conv=new_conv, ssm=h)
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, dtype,

@@ -26,6 +26,13 @@ either, so this is batched PyTorch throughout.
   does not divide).  ``dispatch_axes`` names mesh axes
   for the slice axis in the reference; one card has no mesh, so it is
   accepted and not read.
+* Under tensor parallelism (``runtime.tensor_parallel``, expert
+  parallelism over 'model') the router is whole and each rank routes
+  its rows as one device does, capacity and slot positions those of the
+  global batch (with rows split over 'data', the ranks' expert choices
+  gathered); a rank builds and runs only its experts' buffers and its
+  block of the shared experts, and the routed and shared partial sums
+  are added over 'model' once.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.common import _normal, act_fn, dense_init
+from repro_torch.runtime import tensor_parallel as tp
 
 
 def moe_init(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -88,50 +96,73 @@ def _positions(expert_of, e: int):
     return torch.empty_like(expert_of).scatter_(1, order, rank)
 
 
-def _dispatch(p, m: MoEConfig, xs, act: str, capacity: int):
-    """Route S slices of tokens xs (S, T, d), each with its own capacity
-    -> (y (S, T, d), probs (S, T, E), indices (S, T, k))."""
-    s, t, d = xs.shape
-    e, k = m.n_experts, m.top_k
-    probs, gate, idx = _route(p, m, xs)
-    expert_of = idx.reshape(s, t * k)
-    pos_in_e = _positions(expert_of, e)
-    keep = pos_in_e < capacity
+def _dispatch_rows(p, m: MoEConfig, xt, act: str, capacity: int,
+                   n_slices: int, span: tuple):
+    """Route tokens xt (T, d), this rank's rows of a global batch
+    (``span``: the global token count and this rank's first; all of it
+    on one device), in ``n_slices`` slices of the global token stream,
+    each with its own capacity, as the reference routes the whole batch:
+    each pair's slot position counted over the earlier pairs of its
+    slice on every rank, whose expert choices are gathered over the DP
+    axes -> (y (T, d), probs (1, T, E), indices (1, T, k))."""
+    t, k = xt.shape[0], m.top_k
+    t_all, first = span
+    per_slice = t_all // n_slices
+    probs, gate, idx = _route(p, m, xt[None])
+    every = tp.gather_rows(idx[0])                        # (T_all, k)
+    pos_in_e = _positions(every.reshape(n_slices, per_slice * k),
+                          m.n_experts).reshape(t_all, k)[first:first + t]
+    slice_of = (first + torch.arange(t, device=xt.device)) // per_slice
+    y = _run_experts(p, m, xt, gate[0], idx[0], pos_in_e, slice_of,
+                     n_slices, capacity, act)
+    return y, probs, idx
+
+
+def _run_experts(p, m: MoEConfig, xt, gate, idx, pos_in_e, slice_of,
+                 n_slices: int, capacity: int, act: str):
+    """The routed output of tokens xt (T, d): their (T, k) gate values,
+    experts and slot positions in their slice (``slice_of``, (T,)) of
+    ``n_slices``; pairs past ``capacity`` dropped.  The experts held are
+    the leaves' (all of them on one device, a rank's block under tensor
+    parallelism, where the output is its partial sum)."""
+    t, d = xt.shape
+    k = idx.shape[1]
+    e = p["expert_gate"].shape[0]
+    e0 = tp.block_start(e)
+    keep = (pos_in_e < capacity) & (idx >= e0) & (idx < e0 + e)
     # the kept pairs' tokens written into their slots of (E, S*C, d): an
     # expert's buffer holds every slice's slots, slice by slice
-    slot = (expert_of * (s * capacity)
-            + torch.arange(s, device=xs.device)[:, None] * capacity
-            + torch.clamp(pos_in_e, max=capacity - 1))
-    token = torch.arange(s * t, device=xs.device).reshape(s, t)
-    token = token.repeat_interleave(k, dim=1)             # (S, T*k)
-    buf = xs.new_zeros((e * s * capacity, d))
-    buf = buf.index_put((slot[keep],), xs.reshape(s * t, d)[token[keep]])
-    buf = buf.reshape(e, s * capacity, d)
+    slot = (((idx - e0).clamp(0, e - 1) * n_slices + slice_of[:, None])
+            * capacity + torch.clamp(pos_in_e, max=capacity - 1))
+    token = torch.arange(t, device=xt.device)[:, None].expand(t, k)
+    buf = xt.new_zeros((e * n_slices * capacity, d))
+    buf = buf.index_put((slot[keep],), xt[token[keep]])
+    buf = buf.reshape(e, n_slices * capacity, d)
 
     # the experts' GLU, batched over the expert axis
     g = torch.bmm(buf, p["expert_gate"])
     u = torch.bmm(buf, p["expert_up"])
     out = torch.bmm(act_fn(act)(g) * u, p["expert_down"])
-    out = out.reshape(e * s * capacity, d)
+    out = out.reshape(e * n_slices * capacity, d)
 
     # each token's k gated outputs, added in choice order
-    gates = torch.where(keep, gate.reshape(s, t * k),
-                        torch.zeros((), dtype=gate.dtype, device=xs.device))
-    contrib = (out[slot] * gates[..., None].to(out.dtype)).reshape(s, t, k,
-                                                                  d)
-    y = contrib[:, :, 0]
+    gates = torch.where(keep, gate,
+                        torch.zeros((), dtype=gate.dtype, device=xt.device))
+    contrib = out[slot] * gates[..., None].to(out.dtype)    # (T, k, d)
+    y = contrib[:, 0]
     for j in range(1, k):
-        y = y + contrib[:, :, j]
-    return y, probs, idx
+        y = y + contrib[:, j]
+    return y
 
 
 def _dispatch_one_slice(p, m: MoEConfig, xt, act: str, capacity: int):
     """Route one dispatch slice of tokens (T_loc, d) -> (y, probs (T, E),
     selection one-hot (T, k, E)), as the reference's function of that
     name returns."""
-    y, probs, idx = _dispatch(p, m, xt[None], act, capacity)
+    y, probs, idx = _dispatch_rows(p, m, xt, act, capacity, 1,
+                                   (xt.shape[0], 0))
     sel = torch.nn.functional.one_hot(idx[0], m.n_experts).to(torch.int32)
-    return y[0], probs[0], sel
+    return y, probs[0], sel
 
 
 def moe_apply(p, cfg: ModelConfig, x, act: str = "silu"):
@@ -142,18 +173,19 @@ def moe_apply(p, cfg: ModelConfig, x, act: str = "silu"):
     t = b * s
     xt = x.reshape(t, d)
     n_slices = max(1, m.dispatch_slices)
-    if t % n_slices:
+    span = tp.row_span(t)
+    t_all = span[0]
+    if t_all % n_slices:
         n_slices = 1
-    t_loc = t // n_slices
+    t_loc = t_all // n_slices
     capacity = max(int(m.capacity_factor * m.top_k * t_loc / m.n_experts),
                    m.top_k)
-    y, probs, idx = _dispatch(p, m, xt.reshape(n_slices, t_loc, d), act,
-                              capacity)
-    y = y.reshape(t, d)
+    y, probs, idx = _dispatch_rows(p, m, xt, act, capacity, n_slices, span)
     if m.n_shared:
         sg = xt @ p["shared_gate"]
         su = xt @ p["shared_up"]
         y = y + (act_fn(act)(sg) * su) @ p["shared_down"]
+    y = tp.reduce(y)            # the experts' and shared partials
 
     # Switch-style load-balance aux loss: the mean router probability of
     # each expert times the share of tokens that chose it

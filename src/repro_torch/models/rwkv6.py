@@ -15,6 +15,14 @@ per-step recurrence the tests hold it to.  The casts follow the JAX
 package: the fp32 leaves (``mix_base``, ``decay_base``, ``bonus``,
 ``mix_k``, ``mix_r``) stay fp32 in a bf16 model; r/k/v are cast to fp32
 after the projections and the decay is computed in fp32.
+
+Under tensor parallelism (``runtime.tensor_parallel``) a rank holds the
+time mix's heads (``w_r``, ``w_k``, ``w_v``, ``w_g`` columns, ``bonus``,
+``w_o`` rows) and takes its heads' channels of the whole decay;
+``ln_x`` norms all d channels, so it runs on every rank's heads gathered
+and each rank keeps its own; the channel mix holds ``w_k``'s d_ff
+columns and ``w_v``'s d_ff rows, ``w_r`` whole, and its value's partial
+products are summed over 'model'.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from repro_torch.configs.base import ModelConfig, RWKVConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import (_normal, _uniform, dense_init,
                                        norm_apply, norm_init)
+from repro_torch.runtime import tensor_parallel as tp
 
 
 class RWKVState(NamedTuple):
@@ -98,7 +107,8 @@ def rwkv_time_mix_apply(p, cfg: ModelConfig, x, tm_shift=None,
     """x (B, T, d) -> (y, new tm_shift, new WKV state).  A prompt longer
     than the config's ``chunk`` must be a multiple of it, as the JAX
     model's chunked scan requires; otherwise ``ValueError``."""
-    r, n_h, dh = _dims(cfg)
+    r, _, dh = _dims(cfg)
+    n_h = p["bonus"].shape[0]               # a rank's heads under TP
     b, t, d = x.shape
     chunk = min(r.chunk, t)
     if t % chunk:
@@ -122,16 +132,17 @@ def rwkv_time_mix_apply(p, cfg: ModelConfig, x, tm_shift=None,
     v_s = (xv @ p["w_v"]).reshape(b, t, n_h, dh).to(f32)
     g_s = F.silu(xg @ p["w_g"])
 
-    decay = (p["decay_base"].to(f32)
+    decay = (tp.own(p["decay_base"], 0).to(f32)
              + (torch.tanh(xw @ p["decay_lora_a"])
-                @ p["decay_lora_b"]).to(f32))
+                @ tp.own(p["decay_lora_b"], 1)).to(f32))
     w_s = torch.exp(-torch.exp(decay)).reshape(b, t, n_h, dh)  # (0, 1)
 
     ys, h = ops.rwkv6_scan(r_s, k_s, v_s, w_s, p["bonus"].to(f32),
                            wkv_state)
-    y = ys.reshape(b, t, d).to(x.dtype)
-    y = norm_apply(p["ln_x"], y) * g_s
-    return y @ p["w_o"], new_shift, h
+    y = ys.reshape(b, t, n_h * dh).to(x.dtype)
+    # ln_x norms all d channels: under TP over every rank's heads
+    y = tp.own(norm_apply(p["ln_x"], tp.gather_heads(y)), -1) * g_s
+    return tp.reduce(y @ p["w_o"]), new_shift, h
 
 
 def rwkv_channel_mix_apply(p, cfg: ModelConfig, x, cm_shift=None):
@@ -142,7 +153,7 @@ def rwkv_channel_mix_apply(p, cfg: ModelConfig, x, cm_shift=None):
     xk = x + (prev - x) * p["mix_k"].to(x.dtype)
     xr = x + (prev - x) * p["mix_r"].to(x.dtype)
     k = torch.square(F.relu(xk @ p["w_k"]))
-    return torch.sigmoid(xr @ p["w_r"]) * (k @ p["w_v"]), new_shift
+    return torch.sigmoid(xr @ p["w_r"]) * tp.reduce(k @ p["w_v"]), new_shift
 
 
 def rwkv_state_init(cfg: ModelConfig, batch: int, dtype,

@@ -198,10 +198,7 @@ def _cross(p, cfg: ModelConfig, h, context, cache, names):
 def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, x, *, positions,
                 context=None, cache=None, cache_len=None):
     """Returns (x, new_cache, aux_loss); the cache is updated in
-    place.  Under tensor parallelism a model with a part that does not
-    split over 'model' raises ``NotImplementedError``."""
-    if tp.active() is not None:
-        tp.refuse(cfg)
+    place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict[str, Any] = {}
     build = cache is not None
@@ -326,10 +323,8 @@ def encode(params, cfg: ModelConfig, frames):
     layers, the final norm.  Under autograd with a parameter that
     requires a gradient, each layer runs under ``torch.utils.checkpoint``
     (the JAX package remats it), so only the layer boundaries are kept
-    for the backward.  Under tensor parallelism it raises
-    ``NotImplementedError`` (the encoder does not split)."""
-    if tp.active() is not None:
-        tp.refuse(cfg)
+    for the backward.  Under tensor parallelism each rank runs its
+    heads and MLP channels over every frame."""
     dtype = dtype_of(cfg.dtype)
     enc = params["encoder"]
     t = frames.shape[1]
@@ -483,10 +478,9 @@ def forward_train(params, cfg: ModelConfig, batch):
     aux losses), differentiable.  A model without cross layers ignores
     the embeddings, as the JAX package does.  Tensor-parallel training is
     not ported (ROADMAP §1 item 9c): under an active group it raises
-    ``NotImplementedError``."""
+    ``NotImplementedError`` (``tensor_parallel.refuse``)."""
     if tp.active() is not None:
-        raise NotImplementedError(
-            "tensor-parallel training is not ported (ROADMAP §1 item 9c)")
+        tp.refuse()
     context = _context(params, cfg, batch["frames"] if cfg.encoder_layers
                        else batch.get("vision_embeds"))
     tokens = batch["tokens"].long()

@@ -11,7 +11,7 @@ returns the trees it was given; that is what ``donate`` means here.
 
 ``make_train_step(..., mesh=)`` runs the step data-parallel over a
 ``DeviceMesh`` whose 'model' axis is 1 (tensor-parallel training is not
-ported: it raises for 'model' > 1).  Each rank takes
+ported, ROADMAP §1 item 9c: it raises for 'model' > 1).  Each rank takes
 its ``batch_specs`` slice of the global batch, and the gradients are
 averaged over 'pod' and 'data'.  ``zero`` keeps each AdamW moment only
 as the rank's ``zero_spec`` shard and updates only that shard of the
@@ -27,8 +27,9 @@ serve tensor-parallel over a mesh whose 'model' axis is above 1
 (``runtime.tensor_parallel``): each rank calls the step with its
 ``shard_params`` tree, its cache (``tensor_parallel.init_cache``) and the
 global batch or token, runs its ``batch_specs`` rows over its heads,
-channels and vocab range, and gets the whole logits of the global batch
-back (its rows gathered over the DP axes) with its own cache.  Without
+channels, experts and vocab range (every family), and gets the whole
+logits of the global batch back (its rows gathered over the DP axes)
+with its own cache.  Without
 a mesh, or over 'model' 1, each returns the one-device step.
 """
 
@@ -204,13 +205,17 @@ class _Place:
         return shd.unflatten_like(batch, {p: one(p, x) for p, x in
                                           _flat(batch).items()})
 
+    def row_groups(self, batch: int) -> tuple:
+        """The groups of the DP axes that split a ``batch``-row input,
+        outermost first."""
+        return tuple(axis_group(self.mesh, a) for a in
+                     tensor_parallel.row_axes(batch, self.axes))
+
     def gather_rows(self, x, batch: int):
         """``x``, this rank's rows of a ``batch``-row output split as
         :meth:`local_batch` splits a ``batch``-row input, whole again:
         gathered over the DP axes that split it, the innermost first."""
-        for a in reversed(tensor_parallel.row_axes(batch, self.axes)):
-            x = tensor_parallel.gather(x, 0, axis_group(self.mesh, a))
-        return x
+        return tensor_parallel.gather_rows(x, self.row_groups(batch))
 
 
 class _Layout(_Place):
@@ -222,10 +227,7 @@ class _Layout(_Place):
         super().__init__(mesh)
         axes = self.axes
         if axes.get("model", 1) > 1:
-            raise NotImplementedError(
-                "tensor parallelism ('model' > 1) is not ported to "
-                "training (ROADMAP §1 item 9c); the serving steps split "
-                "over 'model'")
+            tensor_parallel.refuse()
         shape = tf.init_params(cfg, device="meta")
         param = (shd.fsdp_param_specs(shape, axes) if options.fsdp
                  else shd.param_specs(shape))
@@ -389,11 +391,10 @@ def value_and_grad_step(cfg: ModelConfig):
 
 def _serving_place(cfg: ModelConfig, mesh):
     """None where the serving steps run the one-device code (no mesh, or
-    'model' 1), else this rank's place on the mesh and its 'model' group;
-    a model this slice does not split raises ``NotImplementedError``."""
+    'model' 1), else this rank's place on the mesh and its 'model'
+    group."""
     if mesh is None or mesh_axes(mesh).get("model", 1) == 1:
         return None
-    tensor_parallel.refuse(cfg)
     return _Place(mesh), axis_group(mesh)
 
 
@@ -413,9 +414,10 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     place, group = split
 
     def tp_step(params, batch, cache):
-        with tensor_parallel.using(group):
+        rows = batch["tokens"].shape[0]
+        with tensor_parallel.using(group, place.row_groups(rows)):
             logits, cache = step(params, place.local_batch(batch, 0), cache)
-        return place.gather_rows(logits, batch["tokens"].shape[0]), cache
+        return place.gather_rows(logits, rows), cache
 
     return tp_step
 
@@ -435,7 +437,7 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
 
     def tp_step(params, token, cache):
         local = place.local_batch({"token": token}, 0)["token"]
-        with tensor_parallel.using(group):
+        with tensor_parallel.using(group, place.row_groups(token.shape[0])):
             logits, cache = step(params, local, cache)
         return place.gather_rows(logits, token.shape[0]), cache
 

@@ -150,9 +150,10 @@ def test_capacity_drops_pass_through_residual(slices):
     assert np.linalg.norm(ty) < float(torch.linalg.vector_norm(y_full))
     # a dropped token's routed output is exactly zero
     # (both slice counts give the capacity its floor, top_k = 4)
-    xs = torch.from_numpy(x).reshape(slices, -1, tc.d_model)
-    routed, _, _ = tmoe._dispatch(tp, tc.moe, xs, "silu", tc.moe.top_k)
-    assert (routed.reshape(-1, tc.d_model).abs().sum(-1) == 0).any()
+    xt = torch.from_numpy(x).reshape(-1, tc.d_model)
+    routed, _, _ = tmoe._dispatch_rows(tp, tc.moe, xt, "silu", tc.moe.top_k,
+                                       slices, (xt.shape[0], 0))
+    assert (routed.abs().sum(-1) == 0).any()
 
 
 def test_dispatch_one_slice_matches_reference():

@@ -20,9 +20,10 @@ and the port's one rank.
 * ``shard_params`` then ``gather_params`` bit-exact, each leaf's block
   of the shape its spec gives (K / V heads fewer than ranks: one head).
 * On one rank (no mesh, or 'model' 1) the steps are the one-device
-  steps, bit for bit; the families this slice does not split raise
-  ``NotImplementedError`` naming ROADMAP item 9b, head counts that do
-  not split ``ValueError``.
+  steps, bit for bit; training under a 'model' group raises
+  ``NotImplementedError`` naming ROADMAP item 9c, head counts that do
+  not split ``ValueError``.  The other families' tensor-parallel
+  serving is in ``tests/test_torch_tensor_parallel_families.py``.
 
 The reference values are computed in this process (``repro`` jitted)
 and handed to the workers in files, so the workers import no JAX.  Each
@@ -63,9 +64,6 @@ ARCHS = ("gemma-2b", "qwen3-1.7b", "command-r-35b", "llama-3.2-vision-90b")
 #: the worlds: mesh shape (data, model)
 MESHES = {"model2": (1, 2), "model4": (1, 4), "data2_model2": (2, 2)}
 CHECKS = ("serve", "cache", "roundtrip")
-#: the families this slice does not split
-REFUSED = ("olmoe-1b-7b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b",
-           "rwkv6-1.6b", "whisper-medium")
 B, S, STEPS = 4, 12, 8
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: seconds the workers of one world may take together (a guard against
@@ -352,25 +350,6 @@ def test_one_rank_steps_are_the_one_device_steps(arch, mesh):
                                   steps.make_decode_step(cfg, m),
                                   cache_of(m))
     assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_unsplit_families_raise(arch):
-    cfg = smoke_config(arch)
-    params = ttf.init_params(cfg, 0, "meta")
-    with _fake_mesh((1, 2)) as m:
-        for call in (lambda: steps.make_prefill_step(cfg, m),
-                     lambda: steps.make_decode_step(cfg, m),
-                     lambda: tpar.shard_params(cfg, params, m),
-                     lambda: tpar.init_cache(cfg, 2, 8, mesh=m,
-                                             device="cpu")):
-            with pytest.raises(NotImplementedError, match="item 9b"):
-                call()
-        with tpar.using(axis_group(m)), \
-                pytest.raises(NotImplementedError, match="item 9b"):
-            ttf.layer_apply({}, cfg, ttf.layer_specs(cfg)[0],
-                            torch.zeros((1, 2, cfg.d_model), device="meta"),
-                            positions=torch.arange(2, device="meta")[None])
 
 
 def test_training_under_a_model_group_raises():
